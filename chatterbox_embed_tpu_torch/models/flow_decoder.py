@@ -1,0 +1,149 @@
+"""CFM estimator: a causal 1-D U-Net predicting the flow velocity field, the
+PyTorch counterpart of `chatterbox_embed_tpu/models/flow_decoder.py`.
+
+1 down-stage + N mid-stages + 1 up-stage, each a causal resnet followed by
+transformer blocks, all at full mel rate, channel-last. Attention in the
+transformer blocks is written out (layers.mha) with a key mask, the JAX
+package's path below 4 rows.
+"""
+from __future__ import annotations
+
+import math
+
+import torch
+import torch.nn.functional as F
+
+from ..config import FlowDecoderConfig
+from . import layers as L
+
+
+def init(init: L.Init, cfg: FlowDecoderConfig = FlowDecoderConfig()):
+    c = cfg.channels
+    inner = cfg.num_heads * cfg.attention_head_dim
+
+    def causal_block(d_in, d_out):
+        return {"conv": L.conv1d_init(init, 3, d_in, d_out),
+                "ln": L.layer_norm_init(init, d_out)}
+
+    def resnet(d_in, d_out):
+        return {
+            "mlp": L.linear_init(init, cfg.time_embed_dim, d_out),
+            "block1": causal_block(d_in, d_out),
+            "block2": causal_block(d_out, d_out),
+            "res_conv": L.conv1d_init(init, 1, d_in, d_out),
+        }
+
+    def tblock():
+        return {
+            "ln1": L.layer_norm_init(init, c),
+            "q": L.linear_init(init, c, inner, bias=False),
+            "k": L.linear_init(init, c, inner, bias=False),
+            "v": L.linear_init(init, c, inner, bias=False),
+            "o": L.linear_init(init, inner, c),
+            "ln3": L.layer_norm_init(init, c),
+            "ff1": L.linear_init(init, c, 4 * c),
+            "ff2": L.linear_init(init, 4 * c, c),
+        }
+
+    def stage(d_in, d_out):
+        return {"resnet": resnet(d_in, d_out),
+                "tblocks": [tblock() for _ in range(cfg.n_blocks)]}
+
+    return {
+        "time_mlp": {"lin1": L.linear_init(init, cfg.in_channels, cfg.time_embed_dim),
+                     "lin2": L.linear_init(init, cfg.time_embed_dim, cfg.time_embed_dim)},
+        "down": {**stage(cfg.in_channels, c), "downsample": L.conv1d_init(init, 3, c, c)},
+        "mid": [stage(c, c) for _ in range(cfg.num_mid_blocks)],
+        "up": {**stage(2 * c, c), "upsample": L.conv1d_init(init, 3, c, c)},
+        "final_block": causal_block(c, c),
+        "final_proj": L.conv1d_init(init, 1, c, cfg.out_channels),
+    }
+
+
+def _sinusoidal_t(t, dim, scale=1000.0):
+    """(B,) diffusion timestep -> (B, dim) embedding."""
+    half = dim // 2
+    freqs = torch.exp(-math.log(10_000)
+                      * torch.arange(half, dtype=torch.float32, device=t.device) / (half - 1))
+    ang = scale * t[:, None].float() * freqs[None, :]
+    return torch.cat([torch.sin(ang), torch.cos(ang)], dim=-1)
+
+
+def _causal_conv3(p, xm, dtype):
+    """k=3 causal conv on a pre-masked input: left-pad 2 zeros."""
+    return L.conv1d(p, xm, padding=(2, 0), dtype=dtype)
+
+
+def _causal_block(p, x, mask, dtype):
+    """causal conv(k3) -> LayerNorm -> Mish, masked."""
+    h = _causal_conv3(p["conv"], x * mask, dtype)
+    h = L.layer_norm(p["ln"], h)
+    return L.mish(h) * mask
+
+
+def _resnet(p, x, mask, t_emb, dtype):
+    h = _causal_block(p["block1"], x, mask, dtype)
+    h = h + L.linear(p["mlp"], L.mish(t_emb), dtype)[:, None, :]
+    h = _causal_block(p["block2"], h, mask, dtype)
+    return h + L.conv1d(p["res_conv"], x * mask, dtype=dtype)
+
+
+def _tblock(p, x, n_heads, dtype, key_mask=None):
+    h = L.layer_norm(p["ln1"], x)
+    q = L.split_heads(L.linear(p["q"], h, dtype), n_heads)
+    k = L.split_heads(L.linear(p["k"], h, dtype), n_heads)
+    v = L.split_heads(L.linear(p["v"], h, dtype), n_heads)
+    attn = L.mha(q, k, v, mask=key_mask)
+    x = x + L.linear(p["o"], L.merge_heads(attn), dtype)
+    h = L.layer_norm(p["ln3"], x)
+    h = L.linear(p["ff2"], F.gelu(L.linear(p["ff1"], h, dtype)), dtype)
+    return x + h
+
+
+def _stage(p, x, mask, t_emb, n_heads, dtype, key_mask=None):
+    x = _resnet(p["resnet"], x, mask, t_emb, dtype)
+    for tb in p["tblocks"]:
+        x = _tblock(tb, x, n_heads, dtype, key_mask)
+    return x
+
+
+def forward(params, x, mu, t, spks, cond, mask=None,
+            cfg: FlowDecoderConfig = FlowDecoderConfig(), dtype=torch.float32):
+    """Velocity estimate (channel-last).
+
+      x:    (B, T, 80) noisy mel
+      mu:   (B, T, 80) encoder output
+      t:    (B,) diffusion time
+      spks: (B, 80) speaker embedding
+      cond: (B, T, 80) prompt-mel conditioning
+      mask: (B, T, 1) or None
+    Returns (B, T, 80) fp32.
+    """
+    b, tlen, _ = x.shape
+    key_mask = None
+    if mask is None:
+        mask = torch.ones((b, tlen, 1), dtype=x.dtype, device=x.device)
+    else:
+        # bucket-padding exactness: pad positions must not be attended to
+        key_mask = (mask[..., 0] > 0)[:, None, None, :]      # (B, 1, 1, T)
+    t_emb = _sinusoidal_t(t, cfg.in_channels)
+    t_emb = L.linear(params["time_mlp"]["lin2"],
+                     F.silu(L.linear(params["time_mlp"]["lin1"], t_emb)))
+
+    h = torch.cat([x, mu, spks[:, None, :].expand(b, tlen, spks.shape[-1]), cond],
+                  dim=-1).to(dtype)
+
+    h = _stage(params["down"], h, mask, t_emb, cfg.num_heads, dtype, key_mask)
+    skip = h
+    h = _causal_conv3(params["down"]["downsample"], h * mask, dtype)
+
+    for st in params["mid"]:
+        h = _stage(st, h, mask, t_emb, cfg.num_heads, dtype, key_mask)
+
+    h = torch.cat([h, skip], dim=-1)
+    h = _stage(params["up"], h, mask, t_emb, cfg.num_heads, dtype, key_mask)
+    h = _causal_conv3(params["up"]["upsample"], h * mask, dtype)
+
+    h = _causal_block(params["final_block"], h, mask, dtype)
+    out = L.conv1d(params["final_proj"], h * mask, dtype=dtype)
+    return (out * mask).float()

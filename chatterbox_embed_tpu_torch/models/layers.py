@@ -1,0 +1,193 @@
+"""Minimal functional NN toolkit, the PyTorch counterpart of
+`chatterbox_embed_tpu/models/layers.py`.
+
+Models in the port are plain functions over nested dicts of tensors, with the
+JAX package's tree layout, so each function reads like its JAX counterpart
+and the tests compare like with like. Public layouts stay channel-last.
+
+Parameter layouts (what `weights.from_jax_params` produces):
+- Linear:    {"w": (in, out), "b": (out,)?}       y = x @ w + b (as in JAX)
+- Conv1d:    {"w": (out, in, width), "b"}         torch's layout for F.conv1d
+- ConvT1d:   {"w": (in, out, width), "b"}         torch's layout for F.conv_transpose1d
+- Norms:     {"scale": (c,), "bias": (c,)}
+- Embedding: {"w": (vocab, dim)}
+Matmul-bearing ops take a compute `dtype` and cast the weight to it (a no-op
+when the weights are stored in that dtype already).
+"""
+from __future__ import annotations
+
+import math
+
+import torch
+import torch.nn.functional as F
+
+
+def _cast(p, dtype):
+    return p.to(dtype) if dtype is not None and p.dtype != dtype else p
+
+
+# ---------------------------------------------------------------------------
+# initialisers (random weights for from_random and shape-only trees)
+# ---------------------------------------------------------------------------
+
+class Init:
+    """Random-tensor source for model init: a torch.Generator seeded from
+    `seed` on `device`. On the "meta" device it makes shape-only tensors,
+    which is how `weights.from_jax_params` learns the expected tree.
+    Distributions follow the JAX package's initialisers (torch defaults)."""
+
+    def __init__(self, seed: int = 0, device="cpu"):
+        self.device = torch.device(device)
+        self.gen = None
+        if self.device.type != "meta":
+            self.gen = torch.Generator(device=self.device).manual_seed(seed)
+
+    def uniform(self, shape, bound):
+        if self.gen is None:
+            return torch.empty(shape, device=self.device)
+        r = torch.rand(shape, generator=self.gen, device=self.device)
+        return r * (2 * bound) - bound
+
+    def normal(self, shape, std=1.0):
+        if self.gen is None:
+            return torch.empty(shape, device=self.device)
+        return torch.randn(shape, generator=self.gen, device=self.device) * std
+
+    def ones(self, shape):
+        return torch.ones(shape, device=self.device)
+
+    def zeros(self, shape):
+        return torch.zeros(shape, device=self.device)
+
+
+def linear_init(init: Init, d_in, d_out, bias=True):
+    """torch.nn.Linear default init (kaiming uniform fan_in, bias 1/sqrt(fan))."""
+    bound = 1.0 / math.sqrt(d_in)
+    p = {"w": init.uniform((d_in, d_out), math.sqrt(3.0) * bound)}
+    if bias:
+        p["b"] = init.uniform((d_out,), bound)
+    return p
+
+
+def embedding_init(init: Init, vocab, dim, std=1.0):
+    return {"w": init.normal((vocab, dim), std)}
+
+
+def layer_norm_init(init: Init, dim):
+    return {"scale": init.ones((dim,)), "bias": init.zeros((dim,))}
+
+
+def conv1d_init(init: Init, width, d_in, d_out, bias=True):
+    bound = 1.0 / math.sqrt(d_in * width)
+    p = {"w": init.uniform((d_out, d_in, width), math.sqrt(3.0) * bound)}
+    if bias:
+        p["b"] = init.uniform((d_out,), bound)
+    return p
+
+
+# ---------------------------------------------------------------------------
+# layers
+# ---------------------------------------------------------------------------
+
+def linear(p, x, dtype=None):
+    d = dtype or x.dtype
+    y = torch.matmul(x.to(d), _cast(p["w"], d))
+    if "b" in p:
+        y = y + _cast(p["b"], y.dtype)
+    return y
+
+
+def embedding(p, ids):
+    return p["w"][ids]
+
+
+def layer_norm(p, x, eps=1e-5):
+    xf = x.float()
+    mu = xf.mean(dim=-1, keepdim=True)
+    var = (xf - mu).square().mean(dim=-1, keepdim=True)
+    y = (xf - mu) * torch.rsqrt(var + eps)
+    return (y * p["scale"] + p["bias"]).to(x.dtype)
+
+
+def rms_norm(p, x, eps=1e-5):
+    xf = x.float()
+    var = xf.square().mean(dim=-1, keepdim=True)
+    return (xf * torch.rsqrt(var + eps) * p["scale"]).to(x.dtype)
+
+
+def _same_padding(t: int, width: int, stride: int, dilation: int):
+    """XLA's SAME padding (lo, hi) for a 1-D window."""
+    out = -(-t // stride)
+    total = max((out - 1) * stride + (width - 1) * dilation + 1 - t, 0)
+    return total // 2, total - total // 2
+
+
+def conv1d(p, x, stride=1, padding="SAME", dilation=1, dtype=None):
+    """x: (B, T, C_in) -> (B, T', C_out). padding: 'SAME'|'VALID'|int|(lo,hi)."""
+    d = dtype or x.dtype
+    w = _cast(p["w"], d)
+    if padding == "SAME":
+        padding = _same_padding(x.shape[1], w.shape[-1], stride, dilation)
+    elif padding == "VALID":
+        padding = 0
+    xc = x.to(d).transpose(1, 2)
+    if isinstance(padding, tuple):
+        xc = F.pad(xc, padding)
+        padding = 0
+    b = _cast(p["b"], d) if "b" in p else None
+    y = F.conv1d(xc, w, b, stride=stride, padding=padding, dilation=dilation)
+    return y.transpose(1, 2)
+
+
+def conv_transpose1d(p, x, stride, padding, dtype=None):
+    """torch ConvTranspose1d semantics; p["w"]: (in, out, width).
+
+    x: (B, T, C_in) -> (B, (T-1)*stride - 2*padding + width, C_out)
+    """
+    d = dtype or x.dtype
+    b = _cast(p["b"], d) if "b" in p else None
+    y = F.conv_transpose1d(x.to(d).transpose(1, 2), _cast(p["w"], d), b,
+                           stride=stride, padding=padding)
+    return y.transpose(1, 2)
+
+
+# ---------------------------------------------------------------------------
+# attention: written out (einsum, masked fp32 softmax, einsum); the decode
+# step's attention is the flash-decode kernel (kernels/flash_decode.py)
+# ---------------------------------------------------------------------------
+
+def mha(q, k, v, mask=None):
+    """q: (B, Tq, H, D); k, v: (B, Tk, H, D); mask: bool (..., Tq, Tk).
+
+    Logits and softmax in fp32 regardless of input dtype (the inputs are
+    cast to fp32, which keeps bf16 products exact, as JAX's
+    preferred_element_type=float32 does).
+    """
+    scale = 1.0 / math.sqrt(q.shape[-1])
+    logits = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) * scale
+    if mask is not None:
+        logits = torch.where(mask, logits, torch.tensor(-1e10, dtype=logits.dtype,
+                                                        device=logits.device))
+    w = torch.softmax(logits, dim=-1)
+    return torch.einsum("bhqk,bkhd->bqhd", w.to(v.dtype), v)
+
+
+def split_heads(x, n_heads):
+    b, t, d = x.shape
+    return x.reshape(b, t, n_heads, d // n_heads)
+
+
+def merge_heads(x):
+    b, t, h, d = x.shape
+    return x.reshape(b, t, h * d)
+
+
+# activations
+def mish(x):
+    return x * torch.tanh(F.softplus(x))
+
+
+def snake(x, alpha):
+    """Snake activation x + sin^2(alpha x)/alpha."""
+    a = alpha.to(x.dtype)
+    return x + torch.sin(x * a).square() / (a + 1e-9)

@@ -1,0 +1,160 @@
+"""Llama-520M backbone for T3, the PyTorch counterpart of
+`chatterbox_embed_tpu/models/llama.py`.
+
+- static KV cache, sequence-major (layers, L, B, H, D): prefill writes a
+  block, each decode step writes one slot in place before it attends
+  (insert-first);
+- llama3-scaled RoPE from integer position ids (fp32);
+- attention logits and softmax in fp32, everything else in the compute dtype;
+- single-token decode attends through the flash-decode kernel
+  (`kernels.flash_decode.decode_attention`) on `cache.k[i]`, a view of the
+  stacked cache, so no per-layer copy is made.
+"""
+from __future__ import annotations
+
+from typing import NamedTuple, Optional
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+from ..config import LlamaConfig
+from ..kernels.flash_decode import decode_attention
+from . import layers as L
+
+
+class KVCache(NamedTuple):
+    """(layers, L, B, H, D) k and v, updated in place by `forward`."""
+    k: torch.Tensor
+    v: torch.Tensor
+
+
+def init(init: L.Init, cfg: LlamaConfig = LlamaConfig()):
+    d = cfg.hidden_size
+    kv_out = cfg.num_kv_heads * cfg.head_dim
+    q_out = cfg.num_heads * cfg.head_dim
+    layers = []
+    for _ in range(cfg.num_layers):
+        layers.append({
+            "ln1": {"scale": init.ones((d,))},
+            "q": L.linear_init(init, d, q_out, bias=False),
+            "k": L.linear_init(init, d, kv_out, bias=False),
+            "v": L.linear_init(init, d, kv_out, bias=False),
+            "o": L.linear_init(init, q_out, d, bias=False),
+            "ln2": {"scale": init.ones((d,))},
+            "gate": L.linear_init(init, d, cfg.intermediate_size, bias=False),
+            "up": L.linear_init(init, d, cfg.intermediate_size, bias=False),
+            "down": L.linear_init(init, cfg.intermediate_size, d, bias=False),
+        })
+    return {"layers": layers, "norm": {"scale": init.ones((d,))}}
+
+
+# ---------------------------------------------------------------------------
+# RoPE (llama3 scaling)
+# ---------------------------------------------------------------------------
+
+def _scaled_inv_freq(cfg: LlamaConfig) -> np.ndarray:
+    """Computed in float64, then cast to float32 (as the JAX package does)."""
+    inv = 1.0 / (cfg.rope_theta ** (np.arange(0, cfg.head_dim, 2, np.float64) / cfg.head_dim))
+    wavelen = 2.0 * np.pi / inv
+    low_wl = cfg.rope_original_max_position / cfg.rope_low_freq_factor
+    high_wl = cfg.rope_original_max_position / cfg.rope_high_freq_factor
+    smooth = (cfg.rope_original_max_position / wavelen - cfg.rope_low_freq_factor) / (
+        cfg.rope_high_freq_factor - cfg.rope_low_freq_factor)
+    scaled = np.where(wavelen > low_wl, inv / cfg.rope_scaling_factor,
+                      np.where(wavelen < high_wl, inv,
+                               (1 - smooth) * inv / cfg.rope_scaling_factor + smooth * inv))
+    return scaled.astype(np.float32)
+
+
+def rope_cos_sin(pos_ids: torch.Tensor, cfg: LlamaConfig):
+    """pos_ids (B, T) int -> cos, sin (B, T, head_dim) fp32."""
+    inv = torch.from_numpy(_scaled_inv_freq(cfg)).to(pos_ids.device)
+    ang = pos_ids[..., None].float() * inv                      # (B, T, D/2)
+    ang = torch.cat([ang, ang], dim=-1)                          # HF half-split layout
+    return torch.cos(ang), torch.sin(ang)
+
+
+def apply_rope(x, cos, sin):
+    """x: (B, T, H, D); HF rotate-half convention."""
+    half = x.shape[-1] // 2
+    rotated = torch.cat([-x[..., half:], x[..., :half]], dim=-1)
+    return (x.float() * cos[:, :, None, :]
+            + rotated.float() * sin[:, :, None, :]).to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# forward
+# ---------------------------------------------------------------------------
+
+def init_cache(cfg: LlamaConfig, batch: int, max_len: int, dtype=torch.float32,
+               device="cpu") -> KVCache:
+    shape = (cfg.num_layers, max_len, batch, cfg.num_kv_heads, cfg.head_dim)
+    return KVCache(torch.zeros(shape, dtype=dtype, device=device),
+                   torch.zeros(shape, dtype=dtype, device=device))
+
+
+def forward(params, x: torch.Tensor, pos_ids: torch.Tensor,
+            attn_mask: Optional[torch.Tensor] = None,
+            cache: Optional[KVCache] = None, cache_pos: int = 0,
+            cfg: LlamaConfig = LlamaConfig(), dtype=torch.float32,
+            flash_start: int = 0):
+    """Run the transformer over a block of embeddings.
+
+    Args:
+      x: (B, T, D) input embeddings.
+      pos_ids: (B, T) RoPE positions.
+      attn_mask: bool (B|1, T, L) where L is the cache length (or T when no
+        cache): True = attend. Defaults to causal. Unused at T == 1 with a
+        cache: the decode step attends slots [flash_start, cache_pos]
+        through the flash-decode kernel.
+      cache: optional static KVCache; the block's K/V are written in place
+        at [cache_pos, cache_pos + T) before attention.
+    Returns (hidden (B, T, D) after the final norm, cache).
+    """
+    b, t, _ = x.shape
+    h = x.to(dtype)
+    cos, sin = rope_cos_sin(pos_ids, cfg)
+    decode = t == 1 and cache is not None
+
+    if attn_mask is None and not decode:
+        if cache is None:
+            attn_mask = torch.ones((t, t), dtype=torch.bool, device=x.device).tril()[None]
+        else:
+            idx = torch.arange(cache.k.shape[1], device=x.device)[None, :]
+            q_idx = cache_pos + torch.arange(t, device=x.device)[:, None]
+            attn_mask = (idx <= q_idx)[None]                     # (1, T, L)
+    mask4 = None if decode else attn_mask[:, None]
+
+    for i, lp in enumerate(params["layers"]):
+        hin = L.rms_norm(lp["ln1"], h, cfg.rms_norm_eps)
+        q = L.split_heads(L.linear(lp["q"], hin, dtype), cfg.num_heads)
+        k = L.split_heads(L.linear(lp["k"], hin, dtype), cfg.num_kv_heads)
+        v = L.split_heads(L.linear(lp["v"], hin, dtype), cfg.num_kv_heads)
+        q = apply_rope(q, cos, sin)
+        k = apply_rope(k, cos, sin)
+
+        if cache is not None:
+            # insert-first, in place: slots [cache_pos, cache_pos + T) of
+            # layer i take this block's rows
+            cache.k[i, cache_pos:cache_pos + t] = k.transpose(0, 1).to(cache.k.dtype)
+            cache.v[i, cache_pos:cache_pos + t] = v.transpose(0, 1).to(cache.v.dtype)
+        if decode:
+            att = decode_attention(q[:, 0], cache.k[i], cache.v[i], cache_pos,
+                                   start=flash_start)[:, None]
+        else:
+            if cache is not None:
+                k_att = cache.k[i].transpose(0, 1).to(dtype)     # (B, L, H, D)
+                v_att = cache.v[i].transpose(0, 1).to(dtype)
+            else:
+                k_att, v_att = k, v
+            att = L.mha(q, k_att, v_att, mask=mask4)
+        h = h + L.linear(lp["o"], L.merge_heads(att), dtype)
+
+        hin = L.rms_norm(lp["ln2"], h, cfg.rms_norm_eps)
+        mlp = L.linear(lp["down"],
+                       F.silu(L.linear(lp["gate"], hin, dtype)) * L.linear(lp["up"], hin, dtype),
+                       dtype)
+        h = h + mlp
+
+    return L.rms_norm(params["norm"], h, cfg.rms_norm_eps), cache

@@ -1,0 +1,94 @@
+"""STFT / iSTFT as matmuls against a DFT basis, the PyTorch counterpart of
+`chatterbox_embed_tpu/ops/stft.py` (the vocoder's n_fft=16 pair).
+
+Framing is a strided view, the transform one fp32 matmul against a cos/sin
+basis, and the inverse an overlap-add written as a transposed convolution
+with an identity kernel, normalised by the summed squared window (torch.istft
+semantics: center, reflect padding).
+"""
+from __future__ import annotations
+
+import functools
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+
+def hann_window(n: int) -> np.ndarray:
+    """Periodic Hann window, identical to torch.hann_window."""
+    if n == 1:
+        return np.ones(1, np.float32)
+    k = np.arange(n)
+    return (0.5 - 0.5 * np.cos(2.0 * np.pi * k / n)).astype(np.float32)
+
+
+@functools.lru_cache(maxsize=32)
+def _dft_basis(n_fft: int) -> tuple[np.ndarray, np.ndarray]:
+    """Forward rDFT basis: (n_fft, n_freq) cos and -sin matrices."""
+    n_freq = n_fft // 2 + 1
+    n = np.arange(n_fft)[:, None]
+    k = np.arange(n_freq)[None, :]
+    ang = 2.0 * np.pi * n * k / n_fft
+    return np.cos(ang).astype(np.float32), (-np.sin(ang)).astype(np.float32)
+
+
+@functools.lru_cache(maxsize=8)
+def _idft_basis(n_fft: int) -> tuple[np.ndarray, np.ndarray]:
+    """Inverse rDFT basis (n_freq, n_fft): x = real @ C + imag @ S, with the
+    Hermitian symmetry folded in (interior bins count double)."""
+    n_freq = n_fft // 2 + 1
+    k = np.arange(n_freq)[:, None]
+    n = np.arange(n_fft)[None, :]
+    ang = 2.0 * np.pi * k * n / n_fft
+    w = np.full((n_freq, 1), 2.0 / n_fft)
+    w[0] = 1.0 / n_fft
+    if n_fft % 2 == 0:
+        w[-1] = 1.0 / n_fft
+    return (np.cos(ang) * w).astype(np.float32), (-np.sin(ang) * w).astype(np.float32)
+
+
+@functools.lru_cache(maxsize=32)
+def _nola_denominator(win_bytes: bytes, n_fft: int, hop: int, n_frames: int) -> np.ndarray:
+    """Sum of squared windows over the overlapped frames, (out_len,)."""
+    win2 = np.frombuffer(win_bytes, np.float32).astype(np.float64) ** 2
+    out_len = n_fft + hop * (n_frames - 1)
+    imp = np.zeros(out_len - n_fft + 1, np.float64)
+    imp[::hop] = 1.0
+    return np.convolve(imp, win2, mode="full")[:out_len].astype(np.float32)
+
+
+def _t(a: np.ndarray, like: torch.Tensor) -> torch.Tensor:
+    return torch.from_numpy(a).to(like.device)
+
+
+def stft(x: torch.Tensor, n_fft: int, hop_length: int, window: np.ndarray):
+    """x: (B, T) waveform -> (real, imag), each (B, n_freq, n_frames) fp32;
+    centred frames, reflect padding. `window` has length n_fft."""
+    pad = n_fft // 2
+    x = F.pad(x.float()[:, None, :], (pad, pad), mode="reflect")[:, 0]
+    frames = x.unfold(-1, n_fft, hop_length) * _t(np.asarray(window, np.float32), x)
+    cos_b, msin_b = _dft_basis(n_fft)
+    real = frames @ _t(cos_b, x)
+    imag = frames @ _t(msin_b, x)
+    return real.transpose(-1, -2), imag.transpose(-1, -2)
+
+
+def istft(real: torch.Tensor, imag: torch.Tensor, n_fft: int, hop_length: int,
+          window: np.ndarray) -> torch.Tensor:
+    """Inverse STFT with overlap-add, NOLA-normalised, centred frames.
+    real, imag: (B, n_freq, n_frames) -> (B, T)."""
+    window = np.asarray(window, np.float32)
+    cos_b, msin_b = _idft_basis(n_fft)
+    frames = (real.transpose(-1, -2) @ _t(cos_b, real)
+              + imag.transpose(-1, -2) @ _t(msin_b, real))     # (B, n_frames, n_fft)
+    frames = frames * _t(window, real)
+    n_frames = frames.shape[-2]
+    out_len = n_fft + hop_length * (n_frames - 1)
+    # overlap-add: out[f * hop + k] += frames[f, k], a transposed conv with
+    # the n_fft frame bins as input channels and an identity kernel
+    eye = torch.eye(n_fft, dtype=frames.dtype, device=frames.device)[:, None, :]
+    sig = F.conv_transpose1d(frames.transpose(1, 2), eye, stride=hop_length)[:, 0]
+    wsq = _nola_denominator(window.tobytes(), n_fft, hop_length, n_frames)
+    sig = sig / _t(wsq, sig).clamp_min(1e-11)
+    return sig[..., n_fft // 2: out_len - n_fft // 2]
