@@ -1,0 +1,86 @@
+"""Key-masked self-attention of the batched CFM estimator: the Hopper port
+of the stock Pallas TPU flash attention behind the JAX package's
+`models/layers.py:mha_flash`.
+
+`flash_attention(q, k, v, key_valid)` takes q, k, v (B, T, H, 64) and a
+(B, T) key-validity mask and returns softmax(q.k^T / 8) . v over each row's
+valid keys, non-causal, without an `ab` bias (its one caller never passes
+one). It takes `layers.mha`'s key-mask semantics at every query row, where
+the TPU kernel differs at invalid query rows only (see
+`csrc/flash_attention.cu`); a row with no valid key gives 0. On a CUDA
+tensor it launches the hand-written kernel of `csrc/flash_attention.cu`
+(design notes in `csrc/masked_attention.cuh`); on a CPU tensor it runs
+`flash_attention_reference`, which is `layers.mha` with a key mask. A CUDA
+call the kernel cannot take raises.
+"""
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from . import _build
+
+SOURCE = _build.CSRC / "flash_attention.cu"
+HEAD_DIM = 64           # the kernel's compiled head width
+_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+_ARGTYPES = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+
+
+def flash_attention_reference(q, k, v, key_valid):
+    """Plain PyTorch version: `layers.mha` with the key mask (fp32 logits,
+    masked keys at -1e10, fp32 softmax). Returns (B, T, H, D) in v's dtype."""
+    from ..models.layers import mha      # layers imports this module
+    return mha(q, k, v, mask=key_valid[:, None, None, :])
+
+
+def _check(q, k, v, key_valid):
+    if q.device.type != "cuda":
+        raise ValueError(f"flash_attention: unsupported device {q.device}")
+    for name, x in (("k", k), ("v", v), ("key_valid", key_valid)):
+        if x.device != q.device:
+            raise ValueError(f"flash_attention: {name} on {x.device}, q on {q.device}")
+    if q.dtype not in _DTYPE_CODE:
+        raise ValueError(f"flash_attention: dtype {q.dtype} not supported (float32, bfloat16)")
+    if k.dtype != q.dtype or v.dtype != q.dtype:
+        raise ValueError(f"flash_attention: dtypes differ: q {q.dtype}, k {k.dtype}, "
+                         f"v {v.dtype}")
+    if key_valid.dtype != torch.bool:
+        raise ValueError(f"flash_attention: key_valid must be bool, got {key_valid.dtype}")
+    if (q.dim() != 4 or k.shape != q.shape or v.shape != q.shape
+            or key_valid.shape != q.shape[:2]):
+        raise ValueError(f"flash_attention: want q, k, v (B, T, H, D) and key_valid (B, T); "
+                         f"got {tuple(q.shape)}, {tuple(k.shape)}, {tuple(v.shape)}, "
+                         f"{tuple(key_valid.shape)}")
+    if q.shape[-1] != HEAD_DIM:
+        raise ValueError(f"flash_attention: head dim {q.shape[-1]} != {HEAD_DIM}")
+    if q.shape[1] < 1:
+        raise ValueError("flash_attention: empty sequence")
+    for name, x in (("q", q), ("k", k), ("v", v), ("key_valid", key_valid)):
+        if not x.is_contiguous():
+            raise ValueError(f"flash_attention: {name} must be contiguous")
+
+
+def flash_attention(q, k, v, key_valid):
+    """softmax(q.k^T / sqrt(D)) . v over each row's valid keys. q, k, v
+    (B, T, H, D); key_valid (B, T) bool. Returns (B, T, H, D) in v's dtype.
+
+    CPU tensors take the plain version; CUDA tensors launch the kernel (and
+    count the launch in `flash_attention.launches`) or raise."""
+    if q.device.type == "cpu":
+        return flash_attention_reference(q, k, v, key_valid)
+    _check(q, k, v, key_valid)
+    b, t, h, d = q.shape
+    lib = _build.load(SOURCE, "cbx_flash_attention", _ARGTYPES)
+    out = torch.empty_like(v)
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    rc = lib.cbx_flash_attention(q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                                 key_valid.data_ptr(), out.data_ptr(), b, t, h, d,
+                                 _DTYPE_CODE[q.dtype], stream)
+    if rc != 0:
+        raise RuntimeError(f"flash_attention kernel launch failed: cudaError {rc}")
+    flash_attention.launches += 1
+    return out
+
+
+flash_attention.launches = 0

@@ -10,36 +10,25 @@ version. There is no other path: a CUDA call that the kernel cannot take
 raises.
 
 The kernel is compiled with `nvcc` for sm_90a into a shared library with a
-plain C entry, loaded with ctypes, the first time a CUDA tensor arrives. The
-library lands in `chatterbox_embed_tpu_torch/_build/<source hash>/`, so a
-changed source rebuilds and an unchanged one loads the earlier build.
+plain C entry, loaded with ctypes, the first time a CUDA tensor arrives
+(`kernels/_build.py`, the build route of every kernel of the port).
 """
 from __future__ import annotations
 
 import ctypes
-import hashlib
 import math
-import os
-import shutil
-import subprocess
-import tempfile
-from pathlib import Path
 
 import torch
 
-_PKG = Path(__file__).resolve().parent.parent
-SOURCE = _PKG / "csrc" / "flash_decode.cu"
-BUILD_ROOT = _PKG / "_build"
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC")
-DEFAULT_CUDA_HOME = "/usr/local/cuda"
+from . import _build
+
+SOURCE = _build.CSRC / "flash_decode.cu"
 HEAD_DIM = 64          # the kernel's compiled head width
 # cache slots per pass-1 block: 32 measured best of {8, 16, 32, 64, 128}
 # at the decode shapes on an H100 (PERF.md, Findings)
 SPLIT_LEN = 32
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
-
-_lib = None
+_ARGTYPES = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
 
 
 def decode_attention_reference(q, k, v, cache_pos, start=0, hole=None):
@@ -59,55 +48,8 @@ def decode_attention_reference(q, k, v, cache_pos, start=0, hole=None):
     return torch.einsum("bhk,kbhd->bhd", w, v.float()).to(q.dtype)
 
 
-def _find_nvcc() -> str:
-    for cand in (os.environ.get("CUDA_HOME"), os.environ.get("CUDA_PATH"),
-                 DEFAULT_CUDA_HOME):
-        if cand and (Path(cand) / "bin" / "nvcc").is_file():
-            return str(Path(cand) / "bin" / "nvcc")
-    found = shutil.which("nvcc")
-    if found is None:
-        raise RuntimeError("nvcc not found (CUDA_HOME, /usr/local/cuda, PATH): "
-                           "the flash-decode kernel cannot be built")
-    return found
-
-
-def library_path() -> Path:
-    """Where the build of the current source lives (keyed by source hash
-    and compiler flags)."""
-    h = hashlib.sha256(SOURCE.read_bytes() + " ".join(NVCC_FLAGS).encode())
-    return BUILD_ROOT / h.hexdigest()[:16] / "libflash_decode.so"
-
-
-def build() -> Path:
-    """Compile csrc/flash_decode.cu unless this source is already built.
-    Raises if nvcc is missing or fails. Returns the library path."""
-    out = library_path()
-    if out.is_file():
-        return out
-    nvcc = _find_nvcc()
-    out.parent.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=out.parent)
-    os.close(fd)
-    cmd = [nvcc, *NVCC_FLAGS, "-o", tmp, str(SOURCE)]
-    res = subprocess.run(cmd, capture_output=True, text=True)
-    if res.returncode != 0:
-        os.unlink(tmp)
-        raise RuntimeError(f"nvcc failed ({res.returncode}):\n{' '.join(cmd)}\n"
-                           f"{res.stdout}{res.stderr}")
-    os.replace(tmp, out)         # atomic: a concurrent build never sees half a file
-    return out
-
-
 def _library():
-    global _lib
-    if _lib is None:
-        lib = ctypes.CDLL(str(build()))
-        fn = lib.cbx_flash_decode
-        fn.restype = ctypes.c_int
-        fn.argtypes = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 8
-                       + [ctypes.c_void_p])
-        _lib = lib
-    return _lib
+    return _build.load(SOURCE, "cbx_flash_decode", _ARGTYPES)
 
 
 def _check(q, k, v, hole):

@@ -1,10 +1,12 @@
 """Conditional flow matching: Euler ODE solver with classifier-free guidance,
-the PyTorch counterpart of `chatterbox_embed_tpu/models/cfm.py` (the plain
-solver: CFG on every step, no mid-stack reuse).
+the PyTorch counterpart of `chatterbox_embed_tpu/models/cfm.py`, with the
+batched path's two options: the DeepCache stride (`cache_every`) and the
+CFG interval (`cfg_steps`).
 
-The Euler steps are a Python loop whose body is one estimator call on a CFG
-batch of 2 (cond / uncond). The ODE state stays fp32; the estimator runs in
-the compute dtype. The noise is the JAX package's fixed numpy Philox buffer,
+The Euler steps are a Python loop (the JAX package's lax.scan, and its
+lax.cond over the reuse flags) whose body is one estimator call on a CFG
+batch of 2 rows (cond / uncond) per utterance. The ODE state stays fp32;
+the estimator runs in the compute dtype. The noise is the JAX package's fixed numpy Philox buffer,
 made by the same numpy code, so both packages start from the same bits.
 """
 from __future__ import annotations
@@ -31,23 +33,42 @@ def t_span_cosine(n_timesteps: int) -> np.ndarray:
     return (1.0 - np.cos(ts * 0.5 * np.pi)).astype(np.float32)
 
 
+def reuse_flags(n_steps: int, cache_every: int) -> list:
+    """DeepCache schedule: step i reuses the cached mid stack unless it is
+    a multiple of the stride or the last step."""
+    return [i % cache_every != 0 and i != n_steps - 1 for i in range(n_steps)]
+
+
 def solve_euler(params, z, mu, spks, cond, mask=None,
                 cfm: CFMConfig = CFMConfig(),
                 dec_cfg: FlowDecoderConfig = FlowDecoderConfig(),
-                dtype=torch.float32):
+                dtype=torch.float32, cache_every=None, cfg_steps=None):
     """Integrate dx/dt = v(x, t) from noise to mel (channel-last).
 
       z:    (B, T, 80) initial noise
       mu:   (B, T, 80) encoder features
       spks: (B, 80) projected speaker embedding
       cond: (B, T, 80) prompt conditioning
+      cache_every: DeepCache stride K. With K >= 2 (and more than 2 steps)
+        the estimator's mid stack is recomputed only on steps that are a
+        multiple of K and on the last step; the steps between reuse the
+        cached mid output and run only the down and up stages. None or
+        0/1: every step runs the whole estimator.
+      cfg_steps: CFG interval k: the cond/uncond pair runs on the first k
+        steps only, and the later steps integrate the cond-only velocity
+        on B rows. None, <= 0 or >= the step count: CFG on every step.
     Returns (B, T, 80) fp32 mel. The uncond branch zeroes mu, spks and cond
-    but keeps x and t.
+    but keeps x and t. With both options off this is the plain solver.
     """
     b = z.shape[0]
     t_span = t_span_cosine(cfm.n_timesteps)
     dts = t_span[1:] - t_span[:-1]                 # fp32, as the JAX scan's xs
     w = cfm.inference_cfg_rate
+    n_steps = len(dts)
+    k_cfg = n_steps if cfg_steps is None or int(cfg_steps) <= 0 else min(int(cfg_steps),
+                                                                         n_steps)
+    use_cache = cache_every is not None and int(cache_every) >= 2 and n_steps > 2
+    flags = reuse_flags(n_steps, int(cache_every)) if use_cache else [False] * n_steps
 
     mu2 = torch.cat([mu, torch.zeros_like(mu)], dim=0)
     spks2 = torch.cat([spks, torch.zeros_like(spks)], dim=0)
@@ -55,22 +76,35 @@ def solve_euler(params, z, mu, spks, cond, mask=None,
     mask2 = None if mask is None else torch.cat([mask, mask], dim=0)
 
     x = z.float()
-    for t, dt in zip(t_span[:-1], dts):
-        x2 = torch.cat([x, x], dim=0)
-        t2 = torch.full((2 * b,), float(t), dtype=torch.float32, device=x.device)
-        v = flow_decoder.forward(params, x2, mu2, t2, spks2, cond2, mask2,
-                                 dec_cfg, dtype)
-        v_cond, v_uncond = v[:b], v[b:]
-        v_cfg = (1.0 + w) * v_cond - w * v_uncond
-        x = x + float(dt) * v_cfg
+    mid = None
+    for i, (t, dt) in enumerate(zip(t_span[:-1], dts)):
+        pair = i < k_cfg
+        if i == k_cfg and mid is not None:
+            # the cond rows' cached mid output is the pair batch's first B
+            # rows: a reuse step right after the interval sees its own rows
+            mid = mid[:b]
+        rows = 2 * b if pair else b
+        xr = torch.cat([x, x], dim=0) if pair else x
+        tr = torch.full((rows,), float(t), dtype=torch.float32, device=x.device)
+        args = (xr, mu2, tr, spks2, cond2, mask2) if pair else (xr, mu, tr, spks, cond, mask)
+        if use_cache:
+            v, mid = flow_decoder.forward_mid_cached(params, *args, dec_cfg, dtype,
+                                                     mid_feats=mid, reuse_mid=flags[i])
+        else:
+            v = flow_decoder.forward(params, *args, dec_cfg, dtype)
+        if pair:
+            v = (1.0 + w) * v[:b] - w * v[b:]
+        x = x + float(dt) * v
     return x
 
 
 def generate_mel(params, mu, spks, cond, mask=None, cfm: CFMConfig = CFMConfig(),
                  dec_cfg: FlowDecoderConfig = FlowDecoderConfig(),
-                 dtype=torch.float32):
-    """mu (B, T, 80) -> mel (B, T, 80) from the fixed noise buffer."""
+                 dtype=torch.float32, cache_every=None, cfg_steps=None):
+    """mu (B, T, 80) -> mel (B, T, 80) from the fixed noise buffer; the
+    solver options are solve_euler's."""
     b, tlen, nf = mu.shape
     z = torch.from_numpy(fixed_noise(nf)[:, :tlen, :]).to(mu.device)
     z = z.expand(b, tlen, nf)
-    return solve_euler(params, z, mu, spks, cond, mask, cfm, dec_cfg, dtype)
+    return solve_euler(params, z, mu, spks, cond, mask, cfm, dec_cfg, dtype,
+                       cache_every=cache_every, cfg_steps=cfg_steps)

@@ -5,9 +5,10 @@
 Linear embed + relative PE, a 3-frame pre-lookahead conv, N conformer blocks
 (rel-pos MHA + FFN, pre-norm), nearest x2 upsample with a causal conv, M more
 blocks, final LayerNorm. The Transformer-XL bd term is factored by the sine
-angle-addition identity (`_rel_factors`), so both score terms are plain
-matmuls. This is the JAX package's non-kernel branch (below 4 rows), the one
-a single utterance takes.
+angle-addition identity (`_rel_factors`). Below 4 rows (a single utterance)
+both score terms are plain matmuls; from 4 rows the whole masked attention
+runs in the rel-attention kernel over the augmented features, as the JAX
+package gates it (`kernels/rel_attention.py`; on the CPU its plain version).
 """
 from __future__ import annotations
 
@@ -18,6 +19,7 @@ import torch
 import torch.nn.functional as F
 
 from ..config import ConformerConfig
+from ..kernels.rel_attention import rel_attention
 from . import layers as L
 
 
@@ -92,6 +94,19 @@ def _rel_attention(p, x, trig, pad_mask, n_heads, dtype):
     qu = q + p["pos_bias_u"].to(q.dtype)
     qv = q + p["pos_bias_v"].to(q.dtype)
     a, bb = _rel_factors(p, qv, n_heads, sin_t, cos_t)       # (B, T, H, d/2)
+
+    if b >= 4:
+        # one augmented product [qu|A|B] . [k|C|S]^T with the masked softmax
+        # and p.v in the rel-attention kernel: the (B, H, T, T) scores never
+        # reach device memory
+        cs = torch.cat([cos_t, sin_t], dim=-1).to(k.dtype)
+        cs = cs[None, :, None, :].expand(b, t, n_heads, d)
+        q_aug = torch.cat([qu, a.to(q.dtype), bb.to(q.dtype)], dim=-1)
+        k_aug = torch.cat([k, cs], dim=-1)
+        kv_mask = (pad_mask if pad_mask is not None
+                   else torch.ones((b, t), dtype=torch.bool, device=x.device))
+        out = rel_attention(q_aug, k_aug, v, kv_mask.contiguous(), 1.0 / math.sqrt(dk))
+        return L.linear(p["o"], L.merge_heads(out), dtype)
 
     ac = torch.einsum("bqhd,bkhd->bhqk", qu.float(), k.float())
     bd = (torch.einsum("bihm,jm->bhij", a.float(), cos_t.to(a.dtype).float())

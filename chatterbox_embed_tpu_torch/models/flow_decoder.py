@@ -3,8 +3,9 @@ PyTorch counterpart of `chatterbox_embed_tpu/models/flow_decoder.py`.
 
 1 down-stage + N mid-stages + 1 up-stage, each a causal resnet followed by
 transformer blocks, all at full mel rate, channel-last. Attention in the
-transformer blocks is written out (layers.mha) with a key mask, the JAX
-package's path below 4 rows.
+transformer blocks has a key mask; it is written out (layers.mha) below 4
+rows and runs in the flash-attention kernel (layers.mha_flash) from 4 rows,
+as the JAX package gates it.
 """
 from __future__ import annotations
 
@@ -93,7 +94,10 @@ def _tblock(p, x, n_heads, dtype, key_mask=None):
     q = L.split_heads(L.linear(p["q"], h, dtype), n_heads)
     k = L.split_heads(L.linear(p["k"], h, dtype), n_heads)
     v = L.split_heads(L.linear(p["v"], h, dtype), n_heads)
-    attn = L.mha(q, k, v, mask=key_mask)
+    if L.use_flash_attention(x.shape[0]):
+        attn = L.mha_flash(q, k, v, None if key_mask is None else key_mask[:, 0, 0, :])
+    else:
+        attn = L.mha(q, k, v, mask=key_mask)
     x = x + L.linear(p["o"], L.merge_heads(attn), dtype)
     h = L.layer_norm(p["ln3"], x)
     h = L.linear(p["ff2"], F.gelu(L.linear(p["ff1"], h, dtype)), dtype)
@@ -119,6 +123,20 @@ def forward(params, x, mu, t, spks, cond, mask=None,
       mask: (B, T, 1) or None
     Returns (B, T, 80) fp32.
     """
+    return forward_mid_cached(params, x, mu, t, spks, cond, mask, cfg, dtype)[0]
+
+
+def forward_mid_cached(params, x, mu, t, spks, cond, mask=None,
+                       cfg: FlowDecoderConfig = FlowDecoderConfig(),
+                       dtype=torch.float32, mid_feats=None, reuse_mid=False):
+    """`forward` that also returns the mid stack's output, for DeepCache
+    solver steps (cfm.solve_euler with cache_every): with `reuse_mid` the
+    downsample conv and the mid stages are skipped and `mid_feats` (the
+    output of an earlier step) takes their place; the down stage still
+    runs, since its output is the up stage's skip input.
+
+    Returns (velocity (B, T, 80) fp32, mid_feats): on a fresh call the new
+    mid output in `dtype`, on a reuse call the one passed in."""
     b, tlen, _ = x.shape
     key_mask = None
     if mask is None:
@@ -135,10 +153,15 @@ def forward(params, x, mu, t, spks, cond, mask=None,
 
     h = _stage(params["down"], h, mask, t_emb, cfg.num_heads, dtype, key_mask)
     skip = h
-    h = _causal_conv3(params["down"]["downsample"], h * mask, dtype)
-
-    for st in params["mid"]:
-        h = _stage(st, h, mask, t_emb, cfg.num_heads, dtype, key_mask)
+    if reuse_mid:
+        h = mid_feats
+    else:
+        h = _causal_conv3(params["down"]["downsample"], h * mask, dtype)
+        for st in params["mid"]:
+            h = _stage(st, h, mask, t_emb, cfg.num_heads, dtype, key_mask)
+        # the carried cache stays in `dtype` whatever the stage math
+        # promoted to (a float32 mask upcasts h under bf16 compute)
+        mid_feats = h.to(dtype)
 
     h = torch.cat([h, skip], dim=-1)
     h = _stage(params["up"], h, mask, t_emb, cfg.num_heads, dtype, key_mask)
@@ -146,4 +169,4 @@ def forward(params, x, mu, t, spks, cond, mask=None,
 
     h = _causal_block(params["final_block"], h, mask, dtype)
     out = L.conv1d(params["final_proj"], h * mask, dtype=dtype)
-    return (out * mask).float()
+    return (out * mask).float(), mid_feats

@@ -21,6 +21,8 @@ import math
 import torch
 import torch.nn.functional as F
 
+from ..kernels.flash_attention import flash_attention
+
 
 def _cast(p, dtype):
     return p.to(dtype) if dtype is not None and p.dtype != dtype else p
@@ -153,7 +155,8 @@ def conv_transpose1d(p, x, stride, padding, dtype=None):
 
 # ---------------------------------------------------------------------------
 # attention: written out (einsum, masked fp32 softmax, einsum); the decode
-# step's attention is the flash-decode kernel (kernels/flash_decode.py)
+# step's attention is the flash-decode kernel (kernels/flash_decode.py) and
+# batched self-attention the flash-attention kernel (mha_flash)
 # ---------------------------------------------------------------------------
 
 def mha(q, k, v, mask=None):
@@ -170,6 +173,23 @@ def mha(q, k, v, mask=None):
                                                         device=logits.device))
     w = torch.softmax(logits, dim=-1)
     return torch.einsum("bhqk,bkhd->bqhd", w.to(v.dtype), v)
+
+
+def use_flash_attention(rows: int) -> bool:
+    """The batched self-attention gate of the JAX package (>= 4 rows). The
+    port takes it on every device: on the CPU the kernel's wrapper runs its
+    plain version."""
+    return rows >= 4
+
+
+def mha_flash(q, k, v, key_valid=None):
+    """Self-attention through the flash-attention kernel
+    (kernels/flash_attention.py), with `mha`'s key-mask semantics.
+
+    q, k, v: (B, T, H, D); key_valid: (B, T) bool or None (all valid)."""
+    if key_valid is None:
+        key_valid = torch.ones(q.shape[:2], dtype=torch.bool, device=q.device)
+    return flash_attention(q, k, v, key_valid.contiguous())
 
 
 def split_heads(x, n_heads):

@@ -98,7 +98,7 @@ def forward(params, x: torch.Tensor, pos_ids: torch.Tensor,
             attn_mask: Optional[torch.Tensor] = None,
             cache: Optional[KVCache] = None, cache_pos: int = 0,
             cfg: LlamaConfig = LlamaConfig(), dtype=torch.float32,
-            flash_start: int = 0):
+            flash_start: int = 0, flash_hole: Optional[torch.Tensor] = None):
     """Run the transformer over a block of embeddings.
 
     Args:
@@ -107,7 +107,8 @@ def forward(params, x: torch.Tensor, pos_ids: torch.Tensor,
       attn_mask: bool (B|1, T, L) where L is the cache length (or T when no
         cache): True = attend. Defaults to causal. Unused at T == 1 with a
         cache: the decode step attends slots [flash_start, cache_pos]
-        through the flash-decode kernel.
+        through the flash-decode kernel, minus each row's dead range
+        [lo, hi) of `flash_hole` ((B, 2) int32, or None).
       cache: optional static KVCache; the block's K/V are written in place
         at [cache_pos, cache_pos + T) before attention.
     Returns (hidden (B, T, D) after the final norm, cache).
@@ -141,7 +142,7 @@ def forward(params, x: torch.Tensor, pos_ids: torch.Tensor,
             cache.v[i, cache_pos:cache_pos + t] = v.transpose(0, 1).to(cache.v.dtype)
         if decode:
             att = decode_attention(q[:, 0], cache.k[i], cache.v[i], cache_pos,
-                                   start=flash_start)[:, None]
+                                   start=flash_start, hole=flash_hole)[:, None]
         else:
             if cache is not None:
                 k_att = cache.k[i].transpose(0, 1).to(dtype)     # (B, L, H, D)

@@ -1,7 +1,7 @@
 """S3Gen: speech tokens -> mel (conformer + CFM) -> waveform (HiFT), the
-PyTorch counterpart of `chatterbox_embed_tpu/models/s3gen.py` for one voice
-(the shared-prompt layout; conditioning from reference audio is not part of
-this port yet).
+PyTorch counterpart of `chatterbox_embed_tpu/models/s3gen.py`: one shared
+voice prompt, or ragged per-row prompts for multi-voice batches
+(conditioning from reference audio is not part of this port yet).
 """
 from __future__ import annotations
 
@@ -31,21 +31,39 @@ def init(init: L.Init, cfg: S3GenConfig = S3GenConfig()):
 def flow_to_mel(params, tokens: torch.Tensor, token_len: torch.Tensor,
                 prompt_tokens: torch.Tensor, prompt_feat: torch.Tensor,
                 embedding: torch.Tensor, cfg: S3GenConfig = S3GenConfig(),
-                dtype=torch.float32):
-    """CausalMaskedDiffWithXvec inference for one shared voice prompt.
+                dtype=torch.float32, prompt_len: torch.Tensor | None = None,
+                cache_every=None, cfg_steps=None):
+    """CausalMaskedDiffWithXvec inference.
 
       tokens:        (B, T_tok) target speech tokens
       token_len:     (B,) valid lengths of [prompt; target]
       prompt_tokens: (B, T_p) reference speech tokens
       prompt_feat:   (B, T_mel_p, 80) reference mel (2 frames per token)
       embedding:     (B, 192) x-vector
+      prompt_len:    (B,) valid prompt lengths for multi-voice rows, whose
+                     prompts are padded to a common T_p; None keeps the
+                     shared-prompt layout (every row's prompt is T_p long)
+      cache_every, cfg_steps: the CFM solver's options (cfm.solve_euler)
     Returns (B, 2*T_tok, 80) fp32 mel of the generated part.
     """
     fl = params["flow"]
     emb = embedding / torch.linalg.norm(embedding, dim=-1, keepdim=True)
     spks = L.linear(fl["spk_embed_affine"], emb.float())
+    r = cfg.flow.token_mel_ratio
 
-    full = torch.cat([prompt_tokens, tokens], dim=1).long()
+    if prompt_len is None:
+        full = torch.cat([prompt_tokens, tokens], dim=1).long()
+    else:
+        # ragged prompts: row b is [prompt_b(:p_b); generated_b; pad], a
+        # gather that keeps each row contiguous, so the conformer positions
+        # equal a solo run of that row
+        p_max, t_gen = prompt_tokens.shape[1], tokens.shape[1]
+        j = torch.arange(p_max + t_gen, device=tokens.device)[None]
+        pl = prompt_len.long()[:, None]
+        pidx = j.clamp(0, p_max - 1).expand(prompt_tokens.shape[0], -1)
+        gidx = (j - pl).clamp(0, t_gen - 1)
+        full = torch.where(j < pl, prompt_tokens.long().gather(1, pidx),
+                           tokens.long().gather(1, gidx))
     t = full.shape[1]
     mask = torch.arange(t, device=full.device)[None] < token_len[:, None]
     x = L.embedding(fl["input_embedding"], full.clamp_min(0))
@@ -57,16 +75,28 @@ def flow_to_mel(params, tokens: torch.Tensor, token_len: torch.Tensor,
 
     conds = torch.zeros((h.shape[0], h.shape[1], cfg.flow.output_size),
                         dtype=h.dtype, device=h.device)
-    conds[:, :mel_len1] = prompt_feat.to(h.dtype)
+    if prompt_len is None:
+        conds[:, :mel_len1] = prompt_feat.to(h.dtype)
+    else:
+        # per-row prompt frames: positions m < 2 * p_b carry the reference mel
+        m = torch.arange(mel_len1, device=h.device)[None, :, None]
+        conds[:, :mel_len1] = torch.where(m < r * prompt_len.long()[:, None, None],
+                                          prompt_feat.to(h.dtype), 0.0)
 
     # mel-rate validity mask: bucket padding must not leak into valid frames
-    mel_valid = cfg.flow.token_mel_ratio * token_len
+    mel_valid = r * token_len
     mel_mask = (torch.arange(h.shape[1], device=h.device)[None, :]
                 < mel_valid[:, None])[..., None].to(h.dtype)
 
     mel = cfm.generate_mel(fl["decoder"], h, spks, conds, mask=mel_mask,
-                           cfm=cfg.flow.cfm, dec_cfg=cfg.flow.decoder, dtype=dtype)
-    return mel[:, mel_len1:]
+                           cfm=cfg.flow.cfm, dec_cfg=cfg.flow.decoder, dtype=dtype,
+                           cache_every=cache_every, cfg_steps=cfg_steps)
+    if prompt_len is None:
+        return mel[:, mel_len1:]
+    # realign: row b's generated frames start at frame 2 * p_b
+    m2 = (torch.arange(r * tokens.shape[1], device=mel.device)[None]
+          + r * prompt_len.long()[:, None]).clamp(0, mel.shape[1] - 1)
+    return mel.gather(1, m2[..., None].expand(-1, -1, mel.shape[2]))
 
 
 def trim_fade(sr: int = S3GEN_SR) -> np.ndarray:
@@ -80,11 +110,13 @@ def trim_fade(sr: int = S3GEN_SR) -> np.ndarray:
 @torch.no_grad()
 def token_to_wav(params, tokens, token_len, prompt_tokens, prompt_feat,
                  embedding, draws, cfg: S3GenConfig = S3GenConfig(),
-                 dtype=torch.float32):
+                 dtype=torch.float32, prompt_len=None, cache_every=None,
+                 cfg_steps=None):
     """tokens -> (B, T_wav) fp32 wav with the trim fade applied; `draws`
-    feeds the HiFT source."""
+    feeds the HiFT source. prompt_len, cache_every and cfg_steps are
+    flow_to_mel's."""
     mel = flow_to_mel(params, tokens, token_len, prompt_tokens, prompt_feat,
-                      embedding, cfg, dtype)
+                      embedding, cfg, dtype, prompt_len, cache_every, cfg_steps)
     wav, _src = hifigan.inference(params["hift"], mel, draws, cfg.hift, dtype)
     fade = torch.from_numpy(trim_fade()).to(wav.device)
     wav[:, : fade.shape[0]] *= fade

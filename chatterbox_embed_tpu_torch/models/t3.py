@@ -1,22 +1,30 @@
 """T3: token-to-token speech LM, [cond; text] -> speech tokens; the PyTorch
-counterpart of `chatterbox_embed_tpu/models/t3.py` for one utterance.
+counterpart of `chatterbox_embed_tpu/models/t3.py`: one utterance
+(`generate`) or many decoded in lock-step (`generate_batch`).
 
-- CFG (cond/uncond) is a batch of 2 rows through prefill and decode, one
-  model pass per token.
+- CFG (cond/uncond) doubles the rows through prefill and decode: U
+  utterances decode as 2U rows, one model pass per token.
 - Text is LEFT-padded to its bucket with masked attention, so a bucketed
-  result equals the exact-length one.
+  result equals the exact-length one. In a batch, each row's text is also
+  RIGHT-padded to the longest; its pad keys are masked in prefill and cut
+  from every decode step as a per-row hole [lo, hi) of the flash-decode
+  kernel.
 - The decode loop is a Python loop (the JAX package's lax.while_loop). It
   syncs with the host once per `EOS_CHECK_EVERY` steps to look for EOS;
   finished rows keep emitting EOS, and the output is cut after the first
   one, so the tokens are those of a per-step check.
 - Every decode step's attention runs in the flash-decode kernel
-  (llama.forward), so the cache capacity is rounded up to a multiple of
-  256 as the JAX package does when its kernel is on (t3.py:756).
+  (llama.forward) at every row count, so the cache capacity is rounded up
+  to a multiple of 256 as the JAX package does when its kernel is on
+  (t3.py:756).
+- Sampling parameters are one value for every row or one per utterance
+  (ops/sampling.py:SamplingParams); each sub-batch of `generate_batch`
+  draws from its own source.
 """
 from __future__ import annotations
 
 import math
-from typing import NamedTuple, Optional
+from typing import Callable, NamedTuple, Optional, Union
 
 import numpy as np
 import torch
@@ -28,10 +36,11 @@ from . import llama
 
 
 class T3Cond(NamedTuple):
-    """Conditioning bundle of tensors."""
-    speaker_emb: torch.Tensor                              # (B, 256)
-    cond_prompt_speech_tokens: Optional[torch.Tensor] = None  # (B, 150)
-    emotion_adv: float = 0.5
+    """Conditioning bundle of tensors: one voice (1 row) or one per
+    utterance (U rows); emotion_adv is a float or a (U,) tensor."""
+    speaker_emb: torch.Tensor                              # (1|U, 256)
+    cond_prompt_speech_tokens: Optional[torch.Tensor] = None  # (1|U, 150)
+    emotion_adv: Union[float, torch.Tensor] = 0.5
 
 
 # ---------------------------------------------------------------------------
@@ -89,7 +98,9 @@ def perceiver_resample(p, h, n_heads=4):
 
 
 def cond_embeds(params, cond: T3Cond, cfg: T3Config = T3Config()) -> torch.Tensor:
-    """Speaker, perceiver-resampled prompt and emotion embeddings: (B, 34, D)."""
+    """Speaker, perceiver-resampled prompt and emotion embeddings:
+    (rows, 34, D). The emotion may carry one value per utterance while the
+    voice is shared: every part broadcasts to the wider row count."""
     ce = params["cond_enc"]
     spk = L.linear(ce["spkr_enc"], cond.speaker_emb.reshape(-1, cfg.speaker_embed_size).float())
     parts = [spk[:, None, :]]
@@ -99,10 +110,11 @@ def cond_embeds(params, cond: T3Cond, cfg: T3Config = T3Config()) -> torch.Tenso
                + params["speech_pos_emb"]["w"][: toks.shape[1]][None])
         parts.append(perceiver_resample(ce["perceiver"], emb.float(),
                                         cfg.perceiver_num_heads))
-    emo = torch.full((spk.shape[0], 1, 1), float(cond.emotion_adv),
-                     device=spk.device)
-    parts.append(L.linear(ce["emotion_adv_fc"], emo))
-    return torch.cat([p.to(spk.dtype) for p in parts], dim=1)
+    emo = torch.as_tensor(cond.emotion_adv, dtype=torch.float32,
+                          device=spk.device).reshape(-1, 1, 1)
+    rows = max(spk.shape[0], emo.shape[0])
+    parts.append(L.linear(ce["emotion_adv_fc"], emo.expand(rows, 1, 1)))
+    return torch.cat([p.expand((rows,) + p.shape[1:]).to(spk.dtype) for p in parts], dim=1)
 
 
 def cond_width(cond: T3Cond, cfg: T3Config) -> int:
@@ -118,18 +130,23 @@ def _build_context(params, cond: T3Cond, text_tokens: torch.Tensor,
                    cfg: T3Config, cfg_on: bool, pad: int):
     """Context embeddings [junk(pad); cond; text; BOS(; BOS)] for text_tokens
     (U, T) LEFT-padded by `pad` dummy ids to the bucket width T. Rows are
-    [cond; uncond] when CFG is on: the uncond rows get zero text embeddings
-    but keep the text position embeddings, and the BOS is duplicated.
-    Columns below `pad` are junk that every mask excludes."""
-    ce = cond_embeds(params, cond, cfg)                     # (1, W, D)
-    lt = text_tokens.shape[1]
+    [cond rows; uncond rows] when CFG is on: the uncond rows get zero text
+    embeddings but keep the text position embeddings, and the BOS is
+    duplicated. With per-utterance conditioning (U cond rows) the uncond
+    rows keep the full conditioning too. Columns below `pad` are junk that
+    every mask excludes."""
+    ce = cond_embeds(params, cond, cfg)                     # (1 or U, W, D)
+    u, lt = text_tokens.shape
     te = L.embedding(params["text_emb"], text_tokens.long()).float()
     if cfg_on:
         te = torch.cat([te, torch.zeros_like(te)], dim=0)
     rows = (torch.arange(lt, device=te.device) - pad).clamp_min(0)
     te = te + params["text_pos_emb"]["w"][rows][None].float()
     b = te.shape[0]
-    ce = ce.expand((b,) + ce.shape[1:])
+    if ce.shape[0] == u and cfg_on:
+        ce = torch.cat([ce, ce], dim=0)
+    else:
+        ce = ce.expand((b,) + ce.shape[1:])
     bos = (params["speech_emb"]["w"][cfg.start_speech_token]
            + params["speech_pos_emb"]["w"][0]).float()
     bos = bos[None, None, :].expand(b, 1, bos.shape[-1])
@@ -153,15 +170,20 @@ class DecodeState(NamedTuple):
 
 
 def prefill(params, context, cfg: T3Config, total: int, pad_len: int,
-            cfg_on: bool = True, dtype=torch.float32) -> DecodeState:
+            cfg_on: bool = True, dtype=torch.float32,
+            key_valid: Optional[torch.Tensor] = None) -> DecodeState:
     """Full-context forward filling a static cache of capacity `total`;
-    context (B, P, D) has `pad_len` masked junk slots on the LEFT."""
+    context (B, P, D) has `pad_len` masked junk slots on the LEFT.
+    key_valid: optional (B, total) bool that also masks each row's
+    right-padded text keys."""
     b, p_len, _ = context.shape
     dev = context.device
     cache = llama.init_cache(cfg.llama, b, total, dtype, dev)
     idx = torch.arange(p_len, device=dev)
     kidx = torch.arange(total, device=dev)
     causal = ((kidx[None, :] <= idx[:, None]) & (kidx[None, :] >= pad_len))[None]
+    if key_valid is not None:
+        causal = causal & key_valid[:, None, :]
     pos = (idx - pad_len).clamp_min(0)[None].expand(b, p_len)
     h, cache = llama.forward(params["llama"], context, pos, causal, cache=cache,
                              cache_pos=0, cfg=cfg.llama, dtype=dtype)
@@ -177,6 +199,11 @@ _TEXT_BUCKETS = (48, 96, 192, 384, 768)
 DECODE_BLOCK = 256          # the JAX package's block: sets the cache capacity
 EOS_CHECK_EVERY = 32        # decode steps between host checks for EOS
 CACHE_ALIGN = 256           # capacity rounding of the JAX package's kernel path
+MAX_DECODE_UTTERANCES = 16  # utterances per lock-step decode (the JAX package's cap)
+# share of the device's free memory that one decode's KV cache may take;
+# the rest stays for prefill activations and S3Gen. At 80 GB the cap of 16
+# utterances binds first (ROADMAP, slice 2).
+KV_FENCE_FRACTION = 0.5
 
 
 def _bucket(n: int) -> int:
@@ -186,16 +213,61 @@ def _bucket(n: int) -> int:
     return n
 
 
+def free_device_bytes(device) -> Optional[int]:
+    """Free memory of a CUDA device (torch.cuda.mem_get_info); None for
+    the CPU, which has no fence."""
+    device = torch.device(device)
+    if device.type != "cuda":
+        return None
+    return int(torch.cuda.mem_get_info(device)[0])
+
+
+def max_decode_utterances(cache_capacity: Optional[int] = None, *,
+                          rows_per_utt: int = 2, cfg: Optional[T3Config] = None,
+                          dtype=torch.bfloat16,
+                          free_bytes: Optional[int] = None) -> int:
+    """Utterances one lock-step decode may hold: MAX_DECODE_UTTERANCES,
+    and with a cache capacity and the device's free bytes, no more than
+    KV_FENCE_FRACTION of those bytes of KV cache (rows x capacity x bytes
+    per token-row in `dtype`), snapped down to a power of two. rows_per_utt
+    is 2 under CFG, 1 otherwise."""
+    if not cache_capacity or free_bytes is None:
+        return MAX_DECODE_UTTERANCES
+    lcfg = (cfg or T3Config()).llama
+    itemsize = torch.empty((), dtype=dtype).element_size()
+    per_token_row = lcfg.num_layers * 2 * lcfg.num_kv_heads * lcfg.head_dim * itemsize
+    rows = int(free_bytes * KV_FENCE_FRACTION) // max(int(cache_capacity) * per_token_row, 1)
+    utts = max(rows // max(rows_per_utt, 1), 1)
+    return min(MAX_DECODE_UTTERANCES, 1 << (utts.bit_length() - 1))
+
+
+def _cfg_on(cfg_weight) -> bool:
+    """CFG layout for every row if any row's weight is positive."""
+    return bool(np.any(np.asarray(cfg_weight, np.float32) > 0.0))
+
+
+def _capacity(lt: int, cond: T3Cond, cfg: T3Config, cfg_on: bool,
+              max_new_tokens: int):
+    """(pad, p_len, cap): left pad to the text bucket, context width and
+    the slots the decode needs."""
+    pad = min(_bucket(lt), cfg.max_text_seq_len) - lt
+    p_len = pad + cond_width(cond, cfg) + lt + 1 + (1 if cfg_on else 0)
+    return pad, p_len, p_len + max(max_new_tokens, DECODE_BLOCK)
+
+
 def start_generation(params, cond: T3Cond, text_tokens: np.ndarray, *,
-                     cfg_weight: float, max_new_tokens: int,
+                     cfg_weight, max_new_tokens: int,
+                     text_lens: Optional[np.ndarray] = None,
                      cfg: T3Config = T3Config(), dtype=torch.float32,
-                     device="cpu"):
-    """Left-pad the text to its bucket, build the context and prefill.
-    One utterance only. Returns (state, info)."""
+                     device="cpu", free_bytes: Optional[int] = None):
+    """Left-pad the text (U, T) to its bucket, build the context and
+    prefill. text_lens: per-row valid lengths of right-padded rows. Raises
+    above max_decode_utterances, whose fence reads `free_bytes` (default:
+    the device's free memory now); generate_batch sub-batches below it.
+    Returns (state, info) with the decode's p_len, pad, cfg_on,
+    cache_total and the K1 hole (or None)."""
     tt_np = np.atleast_2d(np.asarray(text_tokens, np.int32))
     u, lt = tt_np.shape
-    if u != 1:
-        raise ValueError(f"this port decodes one utterance; got {u} text rows")
     if lt > cfg.max_text_seq_len:
         raise ValueError(f"text too long: {lt} tokens > max {cfg.max_text_seq_len}")
     if max_new_tokens >= cfg.max_speech_seq_len:
@@ -203,16 +275,102 @@ def start_generation(params, cond: T3Cond, text_tokens: np.ndarray, *,
         # max_speech_seq_len rows (an index past it is a device fault on CUDA)
         raise ValueError(f"max_new_tokens={max_new_tokens} needs more than the "
                          f"{cfg.max_speech_seq_len} speech positions")
-    cfg_on = float(cfg_weight) > 0.0
-    pad = min(_bucket(lt), cfg.max_text_seq_len) - lt
-    p_len = pad + cond_width(cond, cfg) + lt + 1 + (1 if cfg_on else 0)
-    cap = p_len + max(max_new_tokens, DECODE_BLOCK)
+    cfg_on = _cfg_on(cfg_weight)
+    pad, p_len, cap = _capacity(lt, cond, cfg, cfg_on, max_new_tokens)
+    if free_bytes is None:
+        free_bytes = free_device_bytes(device)
+    cap_utt = max_decode_utterances(cap, rows_per_utt=2 if cfg_on else 1, cfg=cfg,
+                                    dtype=dtype, free_bytes=free_bytes)
+    if u > cap_utt:
+        raise ValueError(f"{u} utterances > max_decode_utterances({cap})={cap_utt} for "
+                         f"one lock-step decode; generate_batch sub-batches")
     total = -(-cap // CACHE_ALIGN) * CACHE_ALIGN
+    key_valid = hole = None
+    if text_lens is not None:
+        lens = np.asarray(text_lens, np.int32).reshape(-1)
+        if lens.shape != (u,) or lens.min() < 1 or lens.max() > lt:
+            raise ValueError(f"text_lens {lens.tolist()} must give 1..{lt} for each of {u} rows")
+        if (lens < lt).any():
+            # the pad keys [ts_col + len, ts_col + lt) of each row: masked in
+            # prefill, and the flash-decode kernel's per-row hole after it
+            lens = torch.from_numpy(np.concatenate([lens, lens]) if cfg_on else lens).to(device)
+            ts_col = pad + cond_width(cond, cfg)
+            kidx = torch.arange(total, device=device)
+            key_valid = ~((kidx[None] >= ts_col + lens[:, None]) & (kidx[None] < ts_col + lt))
+            hole = torch.stack([ts_col + lens, torch.full_like(lens, ts_col + lt)],
+                               dim=1).to(torch.int32).contiguous()
     tb = torch.from_numpy(np.pad(tt_np, ((0, 0), (pad, 0)))).to(device)
     context = _build_context(params, cond, tb, cfg, cfg_on, pad)
-    state = prefill(params, context, cfg, total, pad, cfg_on, dtype)
-    info = dict(p_len=p_len, pad=pad, cfg_on=cfg_on, cache_total=total)
+    state = prefill(params, context, cfg, total, pad, cfg_on, dtype, key_valid)
+    info = dict(p_len=p_len, pad=pad, cfg_on=cfg_on, cache_total=total, hole=hole)
     return state, info
+
+
+def _decode(params, state: DecodeState, ginfo: dict, sp: sampling.SamplingParams,
+            draws, *, use_top_p: bool, max_new_tokens: int, stop_on_eos: bool,
+            cfg: T3Config, dtype):
+    """The lock-step decode loop after prefill. Returns (tokens (steps, U)
+    int32 numpy, steps): row u's tokens are column u, EOS repeated after
+    its first EOS."""
+    p_len, pad_len, cfg_on = ginfo["p_len"], ginfo["pad"], ginfo["cfg_on"]
+    cache, logits, counts = state
+    n_utt = counts.shape[0]
+    b = logits.shape[0]
+    eos = cfg.stop_speech_token
+    dev = logits.device
+    rows = torch.arange(n_utt, device=dev)
+    done = torch.zeros((n_utt,), dtype=torch.bool, device=dev)
+    tokens = torch.zeros((max_new_tokens, n_utt), dtype=torch.int64, device=dev)
+    pos_emb = params["speech_pos_emb"]["w"]
+    steps = 0
+    for i in range(max_new_tokens):
+        if cfg_on:
+            lc, lu = logits[:n_utt], logits[n_utt:]
+            lg = lc + sp.cfg_weight * (lc - lu)
+        else:
+            lg = logits
+        lg = sampling.process_logits(
+            lg, counts, valid_size=cfg.start_speech_token, eos_id=eos,
+            temperature=sp.temperature, repetition_penalty_val=sp.repetition_penalty,
+            min_p=sp.min_p, top_p=sp.top_p, use_top_p=use_top_p)
+        tok = sampling.sample_token(lg, draws.gumbel(i, tuple(lg.shape)).to(dev))
+        tok = torch.where(done, torch.full_like(tok, eos), tok)  # finished rows emit EOS
+        tokens[i] = tok
+        counts[rows, tok] += 1
+        if stop_on_eos:
+            done = done | (tok == eos)
+        emb = L.embedding(params["speech_emb"], tok) + pos_emb[i + 1][None]
+        if cfg_on:
+            emb = torch.cat([emb, emb], dim=0)
+        pos_id = torch.full((b, 1), p_len - pad_len + i, dtype=torch.int64, device=dev)
+        hh, cache = llama.forward(params["llama"], emb[:, None, :].to(dtype), pos_id,
+                                  cache=cache, cache_pos=p_len + i, cfg=cfg.llama,
+                                  dtype=dtype, flash_start=pad_len,
+                                  flash_hole=ginfo["hole"])
+        logits = L.linear(params["speech_head"], hh[:, -1], torch.float32)
+        steps += 1
+        if stop_on_eos and (i + 1) % EOS_CHECK_EVERY == 0 and bool(done.all()):
+            break
+    return tokens[:steps].cpu().numpy().astype(np.int32), steps
+
+
+def _generate_rows(params, cond: T3Cond, text_tokens, text_lens, draws, temperature,
+                   cfg_weight, repetition_penalty, min_p, top_p, *, max_new_tokens: int,
+                   stop_on_eos: bool, cfg: T3Config, dtype, device, free_bytes):
+    """Prefill and decode one lock-step batch of U rows. Returns (tokens
+    (steps, U) int32 numpy, info of start_generation plus decode_steps)."""
+    n_utt = np.atleast_2d(text_tokens).shape[0]
+    state, ginfo = start_generation(params, cond, text_tokens, cfg_weight=cfg_weight,
+                                    max_new_tokens=max_new_tokens, text_lens=text_lens,
+                                    cfg=cfg, dtype=dtype, device=device,
+                                    free_bytes=free_bytes)
+    sp = sampling.SamplingParams(*(sampling.sampling_param(v, n_utt, device) for v in (
+        temperature, cfg_weight, repetition_penalty, min_p, top_p)))
+    use_top_p = bool(np.any(np.asarray(top_p, np.float32) < 1.0))
+    tokens, steps = _decode(params, state, ginfo, sp, draws, use_top_p=use_top_p,
+                            max_new_tokens=max_new_tokens, stop_on_eos=stop_on_eos,
+                            cfg=cfg, dtype=dtype)
+    return tokens, dict(ginfo, decode_steps=steps)
 
 
 @torch.no_grad()
@@ -230,53 +388,92 @@ def generate(params, cond: T3Cond, text_tokens: np.ndarray, *,
     draws: the Gumbel source (`sampling.Draws(seed, device)` by default).
     info: optional dict that receives p_len, pad, cache_total and
     decode_steps (the number of decode forwards run)."""
+    if np.atleast_2d(text_tokens).shape[0] != 1:
+        raise ValueError("generate decodes one utterance; generate_batch takes more")
     draws = draws if draws is not None else sampling.Draws(seed, device)
-    state, ginfo = start_generation(params, cond, text_tokens, cfg_weight=cfg_weight,
-                                    max_new_tokens=max_new_tokens, cfg=cfg,
-                                    dtype=dtype, device=device)
-    p_len, pad_len, cfg_on = ginfo["p_len"], ginfo["pad"], ginfo["cfg_on"]
-    cache, logits, counts = state
-    n_utt = counts.shape[0]
-    b = logits.shape[0]
-    eos = cfg.stop_speech_token
-    use_top_p = float(top_p) < 1.0
-    dev = logits.device
-    rows = torch.arange(n_utt, device=dev)
-    done = torch.zeros((n_utt,), dtype=torch.bool, device=dev)
-    tokens = torch.zeros((max_new_tokens, n_utt), dtype=torch.int64, device=dev)
-    pos_emb = params["speech_pos_emb"]["w"]
-    steps = 0
-    for i in range(max_new_tokens):
-        if cfg_on:
-            lc, lu = logits[:n_utt], logits[n_utt:]
-            lg = lc + cfg_weight * (lc - lu)
-        else:
-            lg = logits
-        lg = sampling.process_logits(
-            lg, counts, valid_size=cfg.start_speech_token, eos_id=eos,
-            temperature=temperature, repetition_penalty_val=repetition_penalty,
-            min_p=min_p, top_p=top_p, use_top_p=use_top_p)
-        tok = sampling.sample_token(lg, draws.gumbel(i, tuple(lg.shape)).to(dev))
-        tok = torch.where(done, torch.full_like(tok, eos), tok)  # finished rows emit EOS
-        tokens[i] = tok
-        counts[rows, tok] += 1
-        if stop_on_eos:
-            done = done | (tok == eos)
-        emb = L.embedding(params["speech_emb"], tok) + pos_emb[i + 1][None]
-        if cfg_on:
-            emb = torch.cat([emb, emb], dim=0)
-        pos_id = torch.full((b, 1), p_len - pad_len + i, dtype=torch.int64, device=dev)
-        hh, cache = llama.forward(params["llama"], emb[:, None, :].to(dtype), pos_id,
-                                  cache=cache, cache_pos=p_len + i, cfg=cfg.llama,
-                                  dtype=dtype, flash_start=pad_len)
-        logits = L.linear(params["speech_head"], hh[:, -1], torch.float32)
-        steps += 1
-        if stop_on_eos and (i + 1) % EOS_CHECK_EVERY == 0 and bool(done.all()):
-            break
-    out = tokens[:steps, 0].cpu().numpy().astype(np.int32)
-    eos_at = np.nonzero(out == eos)[0]
+    tokens, ginfo = _generate_rows(
+        params, cond, text_tokens, None, draws, temperature, cfg_weight,
+        repetition_penalty, min_p, top_p, max_new_tokens=max_new_tokens,
+        stop_on_eos=stop_on_eos, cfg=cfg, dtype=dtype, device=device, free_bytes=None)
+    out = tokens[:, 0]
+    eos_at = np.nonzero(out == cfg.stop_speech_token)[0]
     if stop_on_eos and eos_at.size:
         out = out[: int(eos_at[0]) + 1]
     if info is not None:
-        info.update(ginfo, decode_steps=steps)
+        info.update(ginfo)
     return out
+
+
+def _slice_cond(cond: T3Cond, s0: int, s1: int, n_utt: int) -> T3Cond:
+    """The conditioning of utterances [s0, s1): per-row fields (U rows)
+    are sliced, shared ones (1 row, scalar emotion) kept."""
+    emo = cond.emotion_adv
+    if torch.is_tensor(emo) and emo.numel() == n_utt:
+        emo = emo.reshape(-1)[s0:s1]
+    spk = cond.speaker_emb
+    if spk.dim() >= 2 and spk.shape[0] == n_utt:
+        spk = spk[s0:s1]
+    cps = cond.cond_prompt_speech_tokens
+    if cps is not None and cps.shape[0] == n_utt:
+        cps = cps[s0:s1]
+    return T3Cond(spk, cps, emo)
+
+
+def _slice_param(value, s0: int, s1: int):
+    a = np.asarray(value, np.float32)
+    return value if a.ndim == 0 else a[s0:s1]
+
+
+@torch.no_grad()
+def generate_batch(params, cond: T3Cond, text_tokens: np.ndarray, *,
+                   max_new_tokens: int = 1000, temperature=0.8, cfg_weight=0.0,
+                   repetition_penalty=1.2, min_p=0.05, top_p=1.0,
+                   stop_on_eos: bool = True, seed: int = 0,
+                   text_lens: Optional[np.ndarray] = None,
+                   make_draws: Optional[Callable[[int], object]] = None,
+                   cfg: T3Config = T3Config(), dtype=torch.float32, device="cpu",
+                   free_bytes: Optional[int] = None, info: Optional[dict] = None) -> list:
+    """Speech tokens for U utterances decoded in lock-step, with per-row
+    sampling and EOS. text_tokens (U, T) are right-padded to a common width
+    with valid lengths `text_lens`. Returns a list of U 1-D id arrays, each
+    cut after its first EOS (EOS included).
+
+    temperature, cfg_weight, repetition_penalty, min_p and top_p are each
+    one scalar for every row or a length-U sequence. `cond` is one voice
+    (1 row) or one per utterance (U rows), with a scalar or (U,) emotion.
+
+    Above max_decode_utterances the rows decode in sequential sub-batches;
+    sub-batch [s0, s1) samples with seed + s0 from `make_draws(seed + s0)`
+    (default `sampling.Draws(seed + s0, device)`). The fence reads
+    `free_bytes` (default: the device's free memory, read once). info:
+    optional dict that receives decode_steps (summed over sub-batches),
+    sub_batches and sub_batch_utts."""
+    tt = np.atleast_2d(np.asarray(text_tokens, np.int32))
+    n_utt, lt = tt.shape
+    make_draws = make_draws or (lambda s: sampling.Draws(s, device))
+    cfg_on = _cfg_on(cfg_weight)
+    if free_bytes is None:
+        free_bytes = free_device_bytes(device)
+    cap = _capacity(lt, cond, cfg, cfg_on, max_new_tokens)[2]
+    cap_utt = max_decode_utterances(cap, rows_per_utt=2 if cfg_on else 1, cfg=cfg,
+                                    dtype=dtype, free_bytes=free_bytes)
+    outs, steps = [], 0
+    for s0 in range(0, n_utt, cap_utt):
+        s1 = min(n_utt, s0 + cap_utt)
+        tokens, ginfo = _generate_rows(
+            params, _slice_cond(cond, s0, s1, n_utt), tt[s0:s1],
+            None if text_lens is None else np.asarray(text_lens)[s0:s1],
+            make_draws(seed + s0),
+            *(_slice_param(v, s0, s1) for v in (temperature, cfg_weight,
+                                                repetition_penalty, min_p, top_p)),
+            max_new_tokens=max_new_tokens, stop_on_eos=stop_on_eos, cfg=cfg,
+            dtype=dtype, device=device, free_bytes=free_bytes)
+        steps += ginfo["decode_steps"]
+        for col in range(s1 - s0):
+            seq = tokens[:, col]
+            eos_at = np.nonzero(seq == cfg.stop_speech_token)[0]
+            outs.append(seq[: int(eos_at[0]) + 1] if eos_at.size else seq)
+    if info is not None:
+        info.update(decode_steps=steps, sub_batches=-(-n_utt // cap_utt),
+                    sub_batch_utts=cap_utt)
+    return outs

@@ -9,7 +9,9 @@ The draw is argmax(logits + Gumbel noise), which is what
 from __future__ import annotations
 
 import math
+from typing import NamedTuple, Union
 
+import numpy as np
 import torch
 
 NEG_INF = float("-inf")
@@ -81,14 +83,36 @@ def sample_token(logits, gumbel):
     return torch.argmax(logits + gumbel, dim=-1)
 
 
+class SamplingParams(NamedTuple):
+    """Each field is a float for every row, or a (U, 1) fp32 tensor with
+    one value per utterance row; the sampling ops broadcast either way."""
+    temperature: Union[float, torch.Tensor]
+    cfg_weight: Union[float, torch.Tensor]
+    repetition_penalty: Union[float, torch.Tensor]
+    min_p: Union[float, torch.Tensor]
+    top_p: Union[float, torch.Tensor]
+
+
+def sampling_param(value, n_utt: int, device="cpu"):
+    """A scalar -> float; a length-U sequence -> (U, 1) fp32 tensor on
+    `device`. Any other length raises."""
+    a = np.asarray(value, np.float32)
+    if a.ndim == 0:
+        return float(a)
+    if a.shape != (n_utt,):
+        raise ValueError(f"per-row sampling param must have shape ({n_utt},), got {a.shape}")
+    return torch.from_numpy(a.reshape(n_utt, 1)).to(device)
+
+
 def process_logits(logits, counts, *, valid_size: int, eos_id: int,
-                   temperature: float, repetition_penalty_val: float,
-                   min_p: float, top_p: float, use_top_p: bool = True):
+                   temperature, repetition_penalty_val, min_p, top_p,
+                   use_top_p: bool = True):
     """The reference order: vocab mask -> temperature -> repetition penalty
-    -> min-p -> top-p. `use_top_p` keeps the vocab sort out of the loop when
-    top-p is off (the reference's TopPLogitsWarper no-ops at 1.0)."""
+    -> min-p -> top-p. The four parameters are floats or per-row (U, 1)
+    tensors. `use_top_p` keeps the vocab sort out of the loop when top-p is
+    off (the reference's TopPLogitsWarper no-ops at 1.0)."""
     x = vocab_mask_logits(logits, valid_size, eos_id)
-    if float(temperature) != 1.0:
+    if torch.is_tensor(temperature) or float(temperature) != 1.0:
         x = x / temperature
     x = repetition_penalty(x, counts, repetition_penalty_val)
     x = min_p_filter(x, min_p)

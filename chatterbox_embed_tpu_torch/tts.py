@@ -1,15 +1,18 @@
 """ChatterboxTTS, the public text-to-speech pipeline: the PyTorch counterpart
-of `chatterbox_embed_tpu/tts.py` for one utterance with prepared
-conditionals (the main path: tokenize, T3, S3Gen).
+of `chatterbox_embed_tpu/tts.py` with prepared conditionals: one utterance
+(`generate`: tokenize, T3, S3Gen) or a batch of them (`generate_batch`:
+one lock-step T3 decode, then S3Gen in sub-batches), with one voice or one
+voice per utterance.
 
 Host code tokenizes, pads to buckets and moves numpy at the edges; T3 and
 S3Gen run on `device` with the compute `dtype`.
 """
 from __future__ import annotations
 
+import os
 import time
 from pathlib import Path
-from typing import Dict, Optional
+from typing import Dict, List, Optional
 
 import numpy as np
 import torch
@@ -35,6 +38,56 @@ def _bucket_tokens(n: int) -> int:
     return n
 
 
+# S3Gen sub-batch model. These are the JAX package's values (its v5e
+# calibration: a linear per-frame cost of the flash estimator, the share of
+# free memory to fill, and the measured best live batch there), kept as
+# they are; they are not measurements on an H100. Re-measuring them is
+# later performance work (ROADMAP).
+_S3GEN_FLASH_BYTES_PER_FRAME = 256 * 1024
+_S3GEN_HBM_FRACTION = 0.7
+_S3GEN_MAX_SUB = 16
+
+
+def _derive_s3gen_sub_batch(u: int, n_tokens: int, *,
+                            free_bytes: Optional[int] = None) -> int:
+    """Utterances per S3Gen dispatch of a batch. CHATTERBOX_S3GEN_SUB_BATCH
+    always wins. Otherwise the free device memory (`free_bytes`; None on
+    the CPU, which has no limit) over the flash estimator's linear cost of
+    the mel length T_mel = 2 * n_tokens (prompt + token bucket), capped at
+    _S3GEN_MAX_SUB and u, snapped down to a power of two."""
+    env = os.getenv("CHATTERBOX_S3GEN_SUB_BATCH")
+    if env:
+        return max(1, int(env))
+    sub = _S3GEN_MAX_SUB
+    if free_bytes is not None:
+        per_utt = _S3GEN_FLASH_BYTES_PER_FRAME * 2 * max(1, int(n_tokens))
+        sub = int(max(1, (free_bytes * _S3GEN_HBM_FRACTION) // per_utt))
+    sub = min(sub, max(1, int(u)), _S3GEN_MAX_SUB)
+    return 1 << (sub.bit_length() - 1)
+
+
+def _derive_cfm_cache(rows: int) -> int:
+    """DeepCache stride of the batched S3Gen pass (cfm.solve_euler
+    cache_every). CHATTERBOX_CFM_CACHE always wins (0/1: the plain solver);
+    otherwise K=2 from 8 live rows per dispatch, and the exact solver
+    below (the JAX package's rule)."""
+    env = os.getenv("CHATTERBOX_CFM_CACHE")
+    if env is not None and env != "":
+        return int(env)
+    return 2 if rows >= 8 else 0
+
+
+def _derive_cfm_cfg_steps():
+    """CFG interval of the batched S3Gen pass (cfm.solve_euler cfg_steps):
+    opt-in through CHATTERBOX_CFM_CFG_STEPS (<= 0 or unset: CFG on every
+    step, None), as in the JAX package."""
+    env = os.getenv("CHATTERBOX_CFM_CFG_STEPS")
+    if env is not None and env != "":
+        k = int(env)
+        return None if k <= 0 else k
+    return None
+
+
 class ChatterboxTTS:
     def __init__(self, t3_params, s3gen_params, tokenizer,
                  conds: Optional[Conditionals] = None,
@@ -52,6 +105,8 @@ class ChatterboxTTS:
         self.conds = conds.to(self.device) if conds is not None else None
         # the last request's stage timings and counts (_record_perf)
         self.perf: Dict[str, float] = {}
+        # per-voice S3Gen prompt rows on the device (_gen_device_voice_row)
+        self._gen_dev_rows: Dict = {}
 
     @classmethod
     def from_random(cls, seed: int = 0, config: ChatterboxConfig = ChatterboxConfig(),
@@ -86,9 +141,10 @@ class ChatterboxTTS:
     # ------------------------------------------------------------------
 
     def _record_perf(self, t3_s: float, s3gen_s: float, tokens: int,
-                     samples: int, decode_steps: int) -> Dict[str, float]:
+                     samples: int, decode_steps: int, batch: int = 1) -> Dict[str, float]:
         """The last request's stage timings (host clock around work that
-        ends in a device->host copy) and counts."""
+        ends in a device->host copy) and counts; for a batch, rtf is the
+        stage seconds over the summed audio seconds."""
         total = t3_s + s3gen_s
         audio_s = samples / float(self.sr)
         self.perf = {
@@ -97,7 +153,7 @@ class ChatterboxTTS:
             "tokens_per_s": tokens / t3_s if t3_s > 0 else 0.0,
             "audio_s": audio_s,
             "rtf": total / audio_s if audio_s > 0 else 0.0,
-            "batch": 1,
+            "batch": int(batch),
         }
         return self.perf
 
@@ -170,3 +226,176 @@ class ChatterboxTTS:
                           info["decode_steps"])
         return wav[None, :]
 
+    # ------------------------------------------------------------------
+    # batched generation
+    # ------------------------------------------------------------------
+
+    def generate_batch(self, texts, repetition_penalty=1.2, min_p=0.05, top_p=1.0,
+                       exaggeration=None, cfg_weight=0.3, temperature=0.6,
+                       max_new_tokens=1000, seed=0, conds=None,
+                       make_draws=None) -> List[np.ndarray]:
+        """Batched TTS: many sentences in one lock-step T3 decode, then
+        S3Gen over the padded batch in sub-batches. Returns a list of (T_i,)
+        float32 waveforms.
+
+        Every sampling parameter (and `exaggeration`) is one scalar for all
+        rows or a length-U sequence. `exaggeration=None` keeps the
+        conditionals' emotion. `conds` is None (the prepared voice), one
+        Conditionals, or a sequence of them, one per text (multi-voice: T3
+        takes per-row conditioning rows, S3Gen ragged per-row prompts).
+
+        make_draws: draw-source factory, called with seed + s0 for the T3
+        sub-batch from row s0 and with `seed` for every S3Gen dispatch
+        (default `Draws(s, device)`)."""
+        multi = isinstance(conds, (list, tuple))
+        dev = self.device
+        if multi:
+            conds_list = [c.to(dev) for c in conds]
+            if len(conds_list) != len(texts):
+                raise ValueError(f"multi-voice: {len(conds_list)} Conditionals for "
+                                 f"{len(texts)} texts")
+            pts = [c.t3.cond_prompt_speech_tokens for c in conds_list]
+            if len({None if p is None else p.shape[-1] for p in pts}) != 1:
+                raise ValueError("multi-voice: T3 cond prompt lengths must match")
+            t3_cond = t3_mod.T3Cond(
+                speaker_emb=torch.cat([c.t3.speaker_emb.reshape(1, -1) for c in conds_list]),
+                cond_prompt_speech_tokens=(None if pts[0] is None else torch.cat(
+                    [p.reshape(1, p.shape[-1]) for p in pts])),
+                emotion_adv=torch.tensor(
+                    [float(torch.as_tensor(c.t3.emotion_adv).reshape(-1)[0])
+                     for c in conds_list], dtype=torch.float32, device=dev))
+        else:
+            conds = conds.to(dev) if conds is not None else self.conds
+            if conds is None:
+                raise RuntimeError("Conditionals are not prepared: pass conds= (or a "
+                                   "conds.pt through from_local)")
+            t3_cond = conds.t3
+        if exaggeration is not None:
+            emo = np.asarray(exaggeration, np.float32).reshape(-1)
+            t3_cond = t3_cond._replace(
+                emotion_adv=torch.from_numpy(emo).to(dev) if emo.size > 1 else float(emo[0]))
+        sot, eot = self.cfg.t3.start_text_token, self.cfg.t3.stop_text_token
+        rows = [np.concatenate([[sot], self.tokenizer.text_to_tokens(t)[0], [eot]])
+                for t in texts]
+        text_tokens = np.full((len(rows), max(len(r) for r in rows)), eot, np.int32)
+        for i, r in enumerate(rows):
+            text_tokens[i, :len(r)] = r
+        text_lens = np.asarray([len(r) for r in rows], np.int32)
+
+        info: dict = {}
+        t0 = time.time()
+        token_lists = t3_mod.generate_batch(
+            self.t3_params, t3_cond, text_tokens, max_new_tokens=max_new_tokens,
+            temperature=temperature, cfg_weight=cfg_weight,
+            repetition_penalty=repetition_penalty, min_p=min_p, top_p=top_p,
+            seed=seed, text_lens=text_lens, make_draws=make_draws, cfg=self.cfg.t3,
+            dtype=self.dtype, device=dev, info=info)
+        t3_s = time.time() - t0
+        t0 = time.time()
+        outs, lens, vinfo = self._vocode_batch(
+            token_lists, conds=None if multi else conds,
+            conds_list=conds_list if multi else None, seed=seed, make_draws=make_draws)
+        self._record_perf(t3_s, time.time() - t0, int(np.sum(lens)),
+                          int(sum(w.size for w in outs)), info["decode_steps"],
+                          batch=len(texts))
+        self.perf.update(decode_sub_batches=info["sub_batches"],
+                         row_tokens=[int(n) for n in lens], **vinfo)
+        return outs
+
+    def _vocode_batch(self, token_lists, *, conds=None, conds_list=None, seed: int = 0,
+                      make_draws=None):
+        """Tokens -> wavs for a batch: the S3Gen tail of `generate_batch`.
+        One voice (`conds`) is one prompt row expanded on the device; many
+        (`conds_list`, one per row) run ragged per-row prompts. Every
+        dispatch is enqueued before the first wav is fetched. Returns (list
+        of (T_i,) float32 wavs, cleaned token counts, dispatch info)."""
+        dev = self.device
+        u = len(token_lists)
+        token_lists = [s3gen_mod.drop_invalid_tokens(t) for t in token_lists]
+        lens = [len(t) for t in token_lists]
+        bkt = _bucket_tokens(max([1] + lens))
+        toks = np.zeros((u, bkt), np.int64)
+        for i, t in enumerate(token_lists):
+            toks[i, :len(t)] = t
+        if conds_list is not None:
+            bundle = self._gen_device_multi(conds_list)
+            prompt_token, prompt_feat = bundle["prompt_token"], bundle["prompt_feat"]
+            embedding, p_lens = bundle["embedding"], bundle["prompt_len"]
+            prompt_len = torch.from_numpy(p_lens).to(dev)
+            n_prompt_w = bundle["p_bkt"]
+        else:
+            gen = conds.gen
+            n_prompt = int(np.asarray(gen["prompt_token_len"]).reshape(-1)[0])
+            prompt_token = torch.as_tensor(np.asarray(gen["prompt_token"]), dtype=torch.int64,
+                                           device=dev).expand(u, -1)
+            prompt_feat = torch.as_tensor(np.asarray(gen["prompt_feat"]), dtype=torch.float32,
+                                          device=dev).expand(u, -1, -1)
+            embedding = torch.as_tensor(np.asarray(gen["embedding"]), dtype=torch.float32,
+                                        device=dev).expand(u, -1)
+            p_lens = np.full((u,), n_prompt, np.int64)
+            prompt_len = None
+            n_prompt_w = n_prompt
+        token_len = torch.from_numpy(p_lens + np.asarray(lens, np.int64)).to(dev)
+        toks = torch.from_numpy(toks).to(dev)
+        sub = _derive_s3gen_sub_batch(u, n_prompt_w + bkt,
+                                      free_bytes=t3_mod.free_device_bytes(dev))
+        # one solver setting for every dispatch of the request: the last,
+        # partial sub-batch must not change the numerics
+        cache_every = _derive_cfm_cache(min(sub, u))
+        cfg_steps = _derive_cfm_cfg_steps()
+        make_draws = make_draws or (lambda s: Draws(s, dev))
+        wavs = []
+        for s0 in range(0, u, sub):
+            s1 = min(u, s0 + sub)
+            wavs.append((s0, s1, s3gen_mod.token_to_wav(
+                self.s3gen_params, toks[s0:s1], token_len[s0:s1], prompt_token[s0:s1],
+                prompt_feat[s0:s1], embedding[s0:s1], make_draws(seed),
+                cfg=self.cfg.s3gen, dtype=self.dtype,
+                prompt_len=None if prompt_len is None else prompt_len[s0:s1],
+                cache_every=cache_every, cfg_steps=cfg_steps)))
+        outs = []
+        for s0, s1, wav in wavs:
+            wav = wav.float().cpu().numpy()
+            outs.extend(wav[i, : 2 * lens[s0 + i] * 480] for i in range(s1 - s0))
+        vinfo = dict(s3gen_sub_batch=sub, s3gen_dispatches=len(wavs),
+                     cfm_cache_every=cache_every, cfm_cfg_steps=cfg_steps)
+        return outs, lens, vinfo
+
+    def _gen_device_voice_row(self, gen: Dict, p_bkt: int, n_mel: int) -> Dict:
+        """One voice's S3Gen prompt as (1, ...) device rows padded to the
+        prompt bucket `p_bkt`, kept per (voice, bucket) so a voice moves to
+        the device once."""
+        key = (id(gen), p_bkt)
+        row = self._gen_dev_rows.get(key)
+        if row is not None:
+            return row
+        p = int(np.asarray(gen["prompt_token_len"]).reshape(-1)[0])
+        pt = np.zeros((1, p_bkt), np.int64)
+        pt[0, :p] = np.asarray(gen["prompt_token"]).reshape(1, -1)[0, :p]
+        feat = np.asarray(gen["prompt_feat"])
+        feat = feat.reshape(feat.shape[-2], feat.shape[-1])[: 2 * p]
+        pf = np.zeros((1, 2 * p_bkt, n_mel), np.float32)
+        pf[0, : feat.shape[0]] = feat
+        em = np.asarray(gen["embedding"], np.float32).reshape(1, -1)
+        dev = self.device
+        row = dict(pt=torch.from_numpy(pt).to(dev), pf=torch.from_numpy(pf).to(dev),
+                   em=torch.from_numpy(em).to(dev), p=p,
+                   _pin=gen)   # pin the dict so its id is not reused
+        if len(self._gen_dev_rows) >= 64:
+            self._gen_dev_rows.pop(next(iter(self._gen_dev_rows)))
+        self._gen_dev_rows[key] = row
+        return row
+
+    def _gen_device_multi(self, conds_list) -> Dict:
+        """The stacked S3Gen prompts of a multi-voice batch: per-voice rows
+        padded to a shared 64-multiple prompt bucket, with each row's valid
+        prompt length."""
+        p_lens = [int(np.asarray(c.gen["prompt_token_len"]).reshape(-1)[0])
+                  for c in conds_list]
+        p_bkt = max(64, -(-max(p_lens) // 64) * 64)
+        n_mel = int(np.asarray(conds_list[0].gen["prompt_feat"]).shape[-1])
+        rows = [self._gen_device_voice_row(c.gen, p_bkt, n_mel) for c in conds_list]
+        return dict(prompt_token=torch.cat([r["pt"] for r in rows]),
+                    prompt_feat=torch.cat([r["pf"] for r in rows]),
+                    embedding=torch.cat([r["em"] for r in rows]),
+                    prompt_len=np.asarray(p_lens, np.int64), p_bkt=p_bkt)

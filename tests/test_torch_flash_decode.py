@@ -10,6 +10,7 @@ import torch
 import jax.numpy as jnp
 
 from chatterbox_embed_tpu.kernels import flash_decode as jfd
+from chatterbox_embed_tpu_torch.kernels import _build
 from chatterbox_embed_tpu_torch.kernels import flash_decode as tfd
 
 torch.set_num_threads(2)
@@ -83,19 +84,20 @@ def test_no_plain_fallback_off_cpu(rng):
 
 
 def test_build_without_nvcc_raises(monkeypatch, tmp_path):
-    """The kernel is built only by nvcc from csrc/; without one the build
-    raises rather than falling back."""
+    """The kernel is built only by nvcc from csrc/ (kernels/_build.py, the
+    route of every kernel); without one the build raises rather than
+    falling back."""
     monkeypatch.setenv("CUDA_HOME", str(tmp_path))
     monkeypatch.setenv("CUDA_PATH", str(tmp_path))
     monkeypatch.setenv("PATH", str(tmp_path))
-    monkeypatch.setattr(tfd, "DEFAULT_CUDA_HOME", str(tmp_path))
-    monkeypatch.setattr(tfd, "BUILD_ROOT", tmp_path / "build")
+    monkeypatch.setattr(_build, "DEFAULT_CUDA_HOME", str(tmp_path))
+    monkeypatch.setattr(_build, "BUILD_ROOT", tmp_path / "build")
     with pytest.raises(RuntimeError, match="nvcc not found"):
-        tfd.build()
+        _build.build(tfd.SOURCE)
     assert not (tmp_path / "build").exists()
 
 
 def test_library_path_keyed_by_source():
-    p = tfd.library_path()
-    assert p.parent.parent == tfd.BUILD_ROOT and p.name == "libflash_decode.so"
+    p = _build.library_path(tfd.SOURCE)
+    assert p.parent.parent == _build.BUILD_ROOT and p.name == "libflash_decode.so"
     assert tfd.SOURCE.is_file() and tfd.SOURCE.suffix == ".cu"

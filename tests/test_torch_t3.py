@@ -107,11 +107,16 @@ def test_generate_tokens_equal_jax(models, monkeypatch, top_p, cfg_weight, palla
 
 
 def test_start_generation_rejects_out_of_range_requests(models):
+    """Too many new tokens, more rows than the utterance fence, and more
+    than one row through the single-utterance `generate` all raise."""
     _, tp = models
     _, tc, text = _conds()
     with pytest.raises(ValueError, match="speech positions"):
         tt3.start_generation(tp, tc, text, cfg_weight=0.5,
                              max_new_tokens=TINY.max_speech_seq_len, cfg=TINY)
+    two = np.concatenate([text, text])
+    with pytest.raises(ValueError, match="max_decode_utterances"):
+        tt3.start_generation(tp, tc, two, cfg_weight=0.5, max_new_tokens=10, cfg=TINY,
+                             free_bytes=1)
     with pytest.raises(ValueError, match="one utterance"):
-        tt3.start_generation(tp, tc, np.concatenate([text, text]), cfg_weight=0.5,
-                             max_new_tokens=10, cfg=TINY)
+        tt3.generate(tp, tc, two, cfg_weight=0.5, max_new_tokens=10, cfg=TINY)
