@@ -1,0 +1,468 @@
+// The whole T3 token step -- every Llama layer and the final RMSNorm -- in
+// one launch, written for Hopper (sm_90a). It replaces the Pallas TPU kernel
+// chatterbox_embed_tpu/kernels/fused_decode.py:_kernel (entry
+// fused_decode_step, K4).
+//
+// What it computes (the same as the TPU kernel, with the same roundings to
+// the compute dtype T): for B rows at one position, per layer i,
+//   xn   = T(rmsnorm(h) * ln1[i])                        (fp32 norm)
+//   q,k  = T(rope(T(xn . Wq^T))), T(rope(T(xn . Wk^T))); v = T(xn . Wv^T)
+//   att  = T(softmax over cache slots [start, pos-1] plus the current row)
+//   h    = T(h + T(att . Wo^T))
+//   mm   = T(silu(xn2 . Wg^T) * (xn2 . Wu^T))            (xn2 = rmsnorm of h)
+//   h    = T(h + T(mm . Wd))
+// then h_out = T(rmsnorm(h) * fnorm). Every product accumulates in fp32.
+// RoPE takes the position pos - start for every row (unragged rows; the
+// caller gates). Each layer's new k/v row is written into the cache at slot
+// pos; the attention never reads that slot, so the write is safe while the
+// walk runs (the JAX package inserts it outside its kernel instead).
+//
+//   wall   (L, S, d) T   rows per layer [q^T k^T v^T | o^T | gate^T up^T |
+//                        down^T laid flat over its I rows], one contiguous
+//                        input row per output column (kernels/fused_decode.py:
+//                        stack_for_fused)
+//   ln1, ln2 (L, d), fnorm (d,) fp32;  inv_freq (hd/2,) fp32 (llama3 RoPE)
+//   x (B, d) T;  cache_k, cache_v (L, Lc, B, H, 64) T, written at pos
+//   h_out (B, d) T;  scratch h (B, d), qkv (B, 3*qo), att (B, qo),
+//   mm (B, I) fp32, all holding values that T represents exactly
+//
+// What bounds it on an H100: the weight bytes. At T3's width (30 layers,
+// d = 1024, I = 4096) the wall is 30 * 16384 * 1024 * 2 B = 1.0 GB in bf16,
+// read once a step: ~0.3 ms at 3.35 TB/s, whatever B is up to ~16 rows.
+// Then the latency of ~5 grid-wide barriers a layer, and the cache walk.
+//
+// Design. One persistent cooperative launch: the grid is exactly the blocks
+// that fit on the card at once (occupancy x SMs; a larger cooperative grid
+// is refused with cudaErrorCooperativeLaunchTooLarge, which the entry
+// returns), and cooperative_groups' grid.sync() separates the phases of a
+// layer:
+//   P1 qkv + RoPE   every block stages xn = T(rmsnorm(h)) for all rows in
+//                   shared memory (each block recomputes the norm, so no
+//                   barrier is spent on it); a warp owns a pair of output
+//                   columns (j, j + hd/2) of one head, so it can rotate them
+//                   itself; k and v rows go to the cache at pos.
+//   P2 attention    one block per (row, head): its 8 warps walk the cache
+//                   slots [start, pos-1] (decode_walk.cuh, shared with the
+//                   flash-decode kernel), merge, and fold the current k/v.
+//   P3 o-proj       att staged in shared memory; a warp owns an output
+//                   column, adds it into the residual h.
+//   P4 gate/up      rmsnorm(h) staged; a warp owns column j of gate and of
+//                   up and writes T(silu(g) * u).
+//   P5 down         mm staged; a warp owns an output column of down (one
+//                   contiguous I-long wall read) and adds it into h.
+// A warp reads each wall row once, 16 bytes a lane, coalesced, and
+// multiplies it with every row (B rows share each weight read); the sums
+// are fp32 shuffle reductions. The kernel is templated on a row count R in
+// {2, 4, 8, 16}; rows b >= B are staged as zeros and never written.
+// Not carried over from the TPU kernel: its DMA ring and block geometry
+// (VMEM), the +-1 permutation matmul for RoPE, the one-hot row shuffles, and
+// its rounding of q*k to the cache dtype before the sum.
+
+#include <cooperative_groups.h>
+
+#include "decode_walk.cuh"
+
+namespace cg = cooperative_groups;
+
+namespace {
+
+constexpr int kThreads = 256;
+constexpr int kWarps = kThreads / 32;
+
+template <typename T>
+struct Vec;
+
+template <>
+struct Vec<float> {
+  static constexpr int N = 4;
+  __device__ static void unpack(float4 u, float* o) {
+    o[0] = u.x; o[1] = u.y; o[2] = u.z; o[3] = u.w;
+  }
+  // weights stream once per step: the evict-first load keeps them from
+  // pushing the caches and the scratch out of L2
+  __device__ static void load_stream(const float* p, float* o) {
+    unpack(__ldcs(reinterpret_cast<const float4*>(p)), o);
+  }
+  __device__ static void load(const float* p, float* o) {
+    unpack(*reinterpret_cast<const float4*>(p), o);
+  }
+};
+
+template <>
+struct Vec<__nv_bfloat16> {
+  static constexpr int N = 8;
+  __device__ static void unpack(uint4 u, float* o) {
+    const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&u);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const float2 f = __bfloat1622float2(h[i]);
+      o[2 * i] = f.x;
+      o[2 * i + 1] = f.y;
+    }
+  }
+  __device__ static void load_stream(const __nv_bfloat16* p, float* o) {
+    unpack(__ldcs(reinterpret_cast<const uint4*>(p)), o);
+  }
+  __device__ static void load(const __nv_bfloat16* p, float* o) {
+    unpack(*reinterpret_cast<const uint4*>(p), o);
+  }
+};
+
+template <typename T>
+__device__ __forceinline__ float round_to(float x);
+template <>
+__device__ __forceinline__ float round_to<float>(float x) { return x; }
+template <>
+__device__ __forceinline__ float round_to<__nv_bfloat16>(float x) {
+  return __bfloat162float(__float2bfloat16_rn(x));
+}
+
+template <typename T>
+__device__ __forceinline__ T to_t(float x);
+template <>
+__device__ __forceinline__ float to_t<float>(float x) { return x; }
+template <>
+__device__ __forceinline__ __nv_bfloat16 to_t<__nv_bfloat16>(float x) {
+  return __float2bfloat16_rn(x);
+}
+
+struct Params {
+  const void* wall;
+  const float* ln1;
+  const float* ln2;
+  const float* fnorm;
+  const float* inv_freq;
+  const void* x;
+  void* cache_k;
+  void* cache_v;
+  void* h_out;
+  float* h;
+  float* qkv;
+  float* att;
+  float* mm;
+  int layers, rows, d, heads, hd, inter, lcache, pos, start;
+  float eps;
+};
+
+// One warp: y[b] = sum_k act[b][k] * w0[k] (and z[b] with w1), k < len, for
+// the R staged rows; the result is in every lane.
+template <typename T, int R, bool kTwo>
+__device__ __forceinline__ void warp_dots(const T* act, int act_stride,
+                                          const T* __restrict__ w0,
+                                          const T* __restrict__ w1, int len,
+                                          int lane, float (&y)[R],
+                                          float (&z)[R]) {
+  constexpr int N = Vec<T>::N;
+#pragma unroll
+  for (int b = 0; b < R; ++b) {
+    y[b] = 0.f;
+    z[b] = 0.f;
+  }
+#pragma unroll 2
+  for (int k = lane * N; k < len; k += 32 * N) {
+    float wa[N], wb[N];
+    Vec<T>::load_stream(w0 + k, wa);
+    if constexpr (kTwo) Vec<T>::load_stream(w1 + k, wb);
+#pragma unroll
+    for (int b = 0; b < R; ++b) {
+      float a[N];
+      Vec<T>::load(act + (size_t)b * act_stride + k, a);
+#pragma unroll
+      for (int e = 0; e < N; ++e) {
+        y[b] = fmaf(a[e], wa[e], y[b]);
+        if constexpr (kTwo) z[b] = fmaf(a[e], wb[e], z[b]);
+      }
+    }
+  }
+#pragma unroll
+  for (int b = 0; b < R; ++b) {
+    y[b] = warp_sum(y[b]);
+    if constexpr (kTwo) z[b] = warp_sum(z[b]);
+  }
+}
+
+// Every block: act[b][k] = T(rmsnorm(h[b]) * scale[k]) for b < rows, zeros
+// for rows <= b < R. fp32 sum of squares over the block, then 1/sqrt.
+template <typename T, int R>
+__device__ void stage_rmsnorm(const float* h, const float* scale, int d,
+                              int rows, float eps, T* act, int act_stride,
+                              float* red, float* inv_rms) {
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  for (int b = 0; b < R; ++b) {
+    float ss = 0.f;
+    if (b < rows)
+      for (int k = threadIdx.x; k < d; k += kThreads) {
+        const float x = h[(size_t)b * d + k];
+        ss += x * x;
+      }
+    ss = warp_sum(ss);
+    if (lane == 0) red[b * kWarps + warp] = ss;
+  }
+  __syncthreads();
+  if (threadIdx.x < R) {
+    float t = 0.f;
+#pragma unroll
+    for (int w = 0; w < kWarps; ++w) t += red[threadIdx.x * kWarps + w];
+    inv_rms[threadIdx.x] = 1.0f / sqrtf(t / (float)d + eps);
+  }
+  __syncthreads();
+  for (int e = threadIdx.x; e < R * d; e += kThreads) {
+    const int b = e / d, k = e % d;
+    const float x = b < rows ? h[(size_t)b * d + k] * inv_rms[b] * scale[k] : 0.f;
+    act[(size_t)b * act_stride + k] = to_t<T>(x);
+  }
+  __syncthreads();
+}
+
+// Every block: act[b][k] = src[b][k] (values T holds exactly), zeros for
+// rows <= b < R.
+template <typename T, int R>
+__device__ void stage_copy(const float* src, int len, int rows, T* act,
+                           int act_stride) {
+  for (int e = threadIdx.x; e < R * len; e += kThreads) {
+    const int b = e / len, k = e % len;
+    act[(size_t)b * act_stride + k] = to_t<T>(b < rows ? src[(size_t)b * len + k] : 0.f);
+  }
+  __syncthreads();
+}
+
+template <typename T, int R>
+__global__ void __launch_bounds__(kThreads)
+fused_step_kernel(Params p) {
+  cg::grid_group grid = cg::this_grid();
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  T* act = reinterpret_cast<T*>(smem_raw);          // R x act_stride, T
+  __shared__ float red[R * kWarps];
+  __shared__ float inv_rms[R];
+  __shared__ float sm_m[kWarps], sm_l[kWarps];
+  __shared__ float sm_acc[kWarps * kHeadDim];
+
+  const T* wall = static_cast<const T*>(p.wall);
+  const T* x = static_cast<const T*>(p.x);
+  T* cache_k = static_cast<T*>(p.cache_k);
+  T* cache_v = static_cast<T*>(p.cache_v);
+  const int d = p.d, hd = p.hd, inter = p.inter, rows = p.rows;
+  const int qo = p.heads * hd;
+  const int half = hd / 2;
+  const size_t s_total = (size_t)3 * qo + d + 3 * (size_t)inter;
+  const int act_stride = d > inter ? d : inter;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int gwarp = blockIdx.x * kWarps + warp;
+  const int nwarps = gridDim.x * kWarps;
+  const size_t slot = (size_t)rows * qo;            // one cache slot, B*H*hd
+  const float scale = 1.0f / sqrtf((float)kHeadDim);
+  const float rope_pos = (float)(p.pos - p.start);
+  float dummy[R];
+
+  for (int e = blockIdx.x * kThreads + threadIdx.x; e < rows * d;
+       e += gridDim.x * kThreads)
+    p.h[e] = load1(x + e);
+  grid.sync();
+
+  for (int layer = 0; layer < p.layers; ++layer) {
+    const T* w = wall + (size_t)layer * s_total * d;
+    T* ck = cache_k + (size_t)layer * p.lcache * slot;
+    T* cv = cache_v + (size_t)layer * p.lcache * slot;
+
+    // P1: q, k, v and RoPE; k, v rows into the cache at pos
+    stage_rmsnorm<T, R>(p.h, p.ln1 + (size_t)layer * d, d, rows, p.eps, act,
+                        act_stride, red, inv_rms);
+    for (int task = gwarp; task < 3 * qo / 2; task += nwarps) {
+      const int seg = task / (qo / 2);              // 0 q, 1 k, 2 v
+      const int t = task % (qo / 2);
+      const int head = t / half, jj = t % half;
+      const int c0 = seg * qo + head * hd + jj;
+      float y0[R], y1[R];
+      warp_dots<T, R, true>(act, act_stride, w + (size_t)c0 * d,
+                            w + (size_t)(c0 + half) * d, d, lane, y0, y1);
+      float cs = 1.f, sn = 0.f;
+      if (seg < 2) {
+        const float ang = rope_pos * p.inv_freq[jj];
+        cs = cosf(ang);
+        sn = sinf(ang);
+      }
+      if (lane == 0) {
+#pragma unroll
+        for (int b = 0; b < R; ++b) {
+          if (b >= rows) break;
+          const float a = round_to<T>(y0[b]), c = round_to<T>(y1[b]);
+          float o0 = a, o1 = c;
+          if (seg < 2) {
+            o0 = round_to<T>(a * cs + (-c) * sn);
+            o1 = round_to<T>(c * cs + a * sn);
+          }
+          float* dst = p.qkv + (size_t)b * 3 * qo + c0;
+          dst[0] = o0;
+          dst[half] = o1;
+          if (seg > 0) {
+            T* row = (seg == 1 ? ck : cv) + (size_t)p.pos * slot + (size_t)b * qo +
+                     head * hd + jj;
+            row[0] = to_t<T>(o0);
+            row[half] = to_t<T>(o1);
+          }
+        }
+      }
+    }
+    grid.sync();
+
+    // P2: attention, one block per (row, head)
+    for (int bh = blockIdx.x; bh < rows * p.heads; bh += gridDim.x) {
+      const int b = bh / p.heads, head = bh % p.heads;
+      const float* qrow = p.qkv + (size_t)b * 3 * qo + head * hd;
+      const float* krow = qrow + qo;
+      const float* vrow = qrow + 2 * qo;
+      const float2 qv = make_float2(qrow[2 * lane], qrow[2 * lane + 1]);
+      const float s_cur =
+          warp_sum(qv.x * krow[2 * lane] + qv.y * krow[2 * lane + 1]) * scale;
+      float m = -INFINITY, l = 0.f;
+      float2 acc = make_float2(0.f, 0.f);
+      walk_keys(ck, cv, qv, slot, (size_t)bh * hd, p.start + warp, p.pos - 1,
+                kWarps, 0, 0, scale, lane, m, l, acc);
+      float mb, lb, ab;
+      merge_warps<kWarps>(m, l, acc, sm_m, sm_l, sm_acc, mb, lb, ab);
+      if (threadIdx.x < kHeadDim) {
+        fold_key(s_cur, vrow[threadIdx.x], mb, lb, ab);
+        p.att[(size_t)b * qo + head * hd + threadIdx.x] = round_to<T>(ab / lb);
+      }
+      __syncthreads();                              // sm_* reused next round
+    }
+    grid.sync();
+
+    // P3: o-proj, residual
+    stage_copy<T, R>(p.att, qo, rows, act, act_stride);
+    for (int n = gwarp; n < d; n += nwarps) {
+      float y[R];
+      warp_dots<T, R, false>(act, act_stride, w + (size_t)(3 * qo + n) * d,
+                             nullptr, qo, lane, y, dummy);
+      if (lane == 0) {
+#pragma unroll
+        for (int b = 0; b < R; ++b) {
+          if (b >= rows) break;
+          float* hp = p.h + (size_t)b * d + n;
+          *hp = round_to<T>(*hp + round_to<T>(y[b]));
+        }
+      }
+    }
+    grid.sync();
+
+    // P4: gate, up, SiLU
+    stage_rmsnorm<T, R>(p.h, p.ln2 + (size_t)layer * d, d, rows, p.eps, act,
+                        act_stride, red, inv_rms);
+    const T* wg = w + (size_t)(3 * qo + d) * d;
+    for (int j = gwarp; j < inter; j += nwarps) {
+      float g[R], u[R];
+      warp_dots<T, R, true>(act, act_stride, wg + (size_t)j * d,
+                            wg + (size_t)(inter + j) * d, d, lane, g, u);
+      if (lane == 0) {
+#pragma unroll
+        for (int b = 0; b < R; ++b) {
+          if (b >= rows) break;
+          const float silu = g[b] / (1.f + expf(-g[b]));
+          p.mm[(size_t)b * inter + j] = round_to<T>(silu * u[b]);
+        }
+      }
+    }
+    grid.sync();
+
+    // P5: down, residual
+    stage_copy<T, R>(p.mm, inter, rows, act, act_stride);
+    const T* wd = w + (size_t)(3 * qo + d + 2 * inter) * d;
+    for (int n = gwarp; n < d; n += nwarps) {
+      float y[R];
+      warp_dots<T, R, false>(act, act_stride, wd + (size_t)n * inter, nullptr,
+                             inter, lane, y, dummy);
+      if (lane == 0) {
+#pragma unroll
+        for (int b = 0; b < R; ++b) {
+          if (b >= rows) break;
+          float* hp = p.h + (size_t)b * d + n;
+          *hp = round_to<T>(*hp + round_to<T>(y[b]));
+        }
+      }
+    }
+    grid.sync();
+  }
+
+  // final RMSNorm, one block per row
+  for (int b = blockIdx.x; b < rows; b += gridDim.x) {
+    float ss = 0.f;
+    for (int k = threadIdx.x; k < d; k += kThreads) {
+      const float v = p.h[(size_t)b * d + k];
+      ss += v * v;
+    }
+    ss = warp_sum(ss);
+    if (lane == 0) red[warp] = ss;
+    __syncthreads();
+    float t = 0.f;
+#pragma unroll
+    for (int wi = 0; wi < kWarps; ++wi) t += red[wi];
+    const float r = 1.0f / sqrtf(t / (float)d + p.eps);
+    T* out = static_cast<T*>(p.h_out) + (size_t)b * d;
+    for (int k = threadIdx.x; k < d; k += kThreads)
+      out[k] = to_t<T>(p.h[(size_t)b * d + k] * r * p.fnorm[k]);
+    __syncthreads();
+  }
+}
+
+template <typename T, int R>
+int launch(const Params& p, cudaStream_t stream) {
+  void (*kern)(Params) = fused_step_kernel<T, R>;
+  const int act_stride = p.d > p.inter ? p.d : p.inter;
+  const size_t smem = (size_t)R * act_stride * sizeof(T);
+  cudaError_t err = cudaFuncSetAttribute(
+      (const void*)kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  int dev = 0, sms = 0, per_sm = 0, coop = 0;
+  if ((err = cudaGetDevice(&dev)) != cudaSuccess) return (int)err;
+  if ((err = cudaDeviceGetAttribute(&coop, cudaDevAttrCooperativeLaunch, dev)) != cudaSuccess)
+    return (int)err;
+  if (!coop) return (int)cudaErrorNotSupported;
+  if ((err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev)) != cudaSuccess)
+    return (int)err;
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kern, kThreads, smem);
+  if (err != cudaSuccess) return (int)err;
+  if (per_sm < 1) return (int)cudaErrorCooperativeLaunchTooLarge;
+  Params arg = p;
+  void* args[] = {&arg};
+  err = cudaLaunchCooperativeKernel((const void*)kern, dim3(per_sm * sms),
+                                    dim3(kThreads), args, smem, stream);
+  return (int)err;
+}
+
+template <typename T>
+int launch_rows(const Params& p, int rows_t, cudaStream_t stream) {
+  switch (rows_t) {
+    case 2: return launch<T, 2>(p, stream);
+    case 4: return launch<T, 4>(p, stream);
+    case 8: return launch<T, 8>(p, stream);
+    case 16: return launch<T, 16>(p, stream);
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
+
+}  // namespace
+
+// Plain C entry for ctypes. dtype: 0 = float32, 1 = bfloat16; rows_t is the
+// compiled row count (2, 4, 8 or 16, >= rows). Returns the cudaError_t of
+// the launch (0 on success; cudaErrorCooperativeLaunchTooLarge when no block
+// fits on an SM); it never synchronises and allocates nothing.
+extern "C" int cbx_fused_decode(const void* wall, const float* ln1,
+                                const float* ln2, const float* fnorm,
+                                const float* inv_freq, const void* x,
+                                void* cache_k, void* cache_v, void* h_out,
+                                float* h, float* qkv, float* att, float* mm,
+                                int layers, int rows, int rows_t, int d,
+                                int heads, int head_dim, int inter, int lcache,
+                                int pos, int start, int dtype, float eps,
+                                void* stream) {
+  if (head_dim != kHeadDim || heads * head_dim != d || rows < 1 || rows > rows_t ||
+      pos < start || start < 0 || pos >= lcache)
+    return (int)cudaErrorInvalidValue;
+  const Params p{wall, ln1, ln2, fnorm, inv_freq, x, cache_k, cache_v, h_out, h,
+                 qkv, att, mm, layers, rows, d, heads, head_dim, inter, lcache,
+                 pos, start, eps};
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == 0) return launch_rows<float>(p, rows_t, s);
+  if (dtype == 1) return launch_rows<__nv_bfloat16>(p, rows_t, s);
+  return (int)cudaErrorInvalidValue;
+}

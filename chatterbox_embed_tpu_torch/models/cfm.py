@@ -1,7 +1,8 @@
 """Conditional flow matching: Euler ODE solver with classifier-free guidance,
 the PyTorch counterpart of `chatterbox_embed_tpu/models/cfm.py`, with the
 batched path's two options: the DeepCache stride (`cache_every`) and the
-CFG interval (`cfg_steps`).
+CFG interval (`cfg_steps`), and the streaming window's noise at absolute
+frame positions (`generate_mel_stream`).
 
 The Euler steps are a Python loop (the JAX package's lax.scan, and its
 lax.cond over the reuse flags) whose body is one estimator call on a CFG
@@ -108,3 +109,22 @@ def generate_mel(params, mu, spks, cond, mask=None, cfm: CFMConfig = CFMConfig()
     z = z.expand(b, tlen, nf)
     return solve_euler(params, z, mu, spks, cond, mask, cfm, dec_cfg, dtype,
                        cache_every=cache_every, cfg_steps=cfg_steps)
+
+
+def generate_mel_stream(params, mu, spks, cond, mask, prompt_frames: int, noise_off: int,
+                        cfm: CFMConfig = CFMConfig(),
+                        dec_cfg: FlowDecoderConfig = FlowDecoderConfig(),
+                        dtype=torch.float32):
+    """The windowed streaming variant of generate_mel: the prompt frames
+    take the fixed buffer's first `prompt_frames` rows and the generated
+    frames the rows at ABSOLUTE positions prompt_frames + noise_off + j, so
+    overlapping regions of successive windows integrate the same noise.
+    The start is clamped into the buffer, as JAX's dynamic_slice clamps it.
+    The plain solver (no DeepCache stride, CFG on every step)."""
+    b, tlen, nf = mu.shape
+    buf = fixed_noise(nf)
+    n_gen = tlen - prompt_frames
+    start = min(max(prompt_frames + int(noise_off), 0), buf.shape[1] - n_gen)
+    z = np.concatenate([buf[:, :prompt_frames], buf[:, start:start + n_gen]], axis=1)
+    z = torch.from_numpy(z).to(mu.device).expand(b, tlen, nf)
+    return solve_euler(params, z, mu, spks, cond, mask, cfm, dec_cfg, dtype)

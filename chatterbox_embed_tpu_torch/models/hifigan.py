@@ -5,6 +5,8 @@ Weight norm is folded into plain convs at conversion; the n_fft=16
 STFT/iSTFT pair is the matmul DFT of ops.stft; all public layouts are
 channel-last. The harmonic phases and the source noise come from a draw
 source (`ops.sampling.Draws` by default), so a test can feed JAX's draws.
+`stream_synthesize` is the streaming window, with the phase carried from
+window to window.
 """
 from __future__ import annotations
 
@@ -171,3 +173,40 @@ def inference(params, mel: torch.Tensor, draws, cfg: HiFTConfig = HiFTConfig(),
     f0_up = torch.repeat_interleave(f0, cfg.total_upsample, dim=-1)
     s = source_module(params, draws, f0_up, cfg)           # (B, T*480)
     return decode(params, mel, s, cfg, dtype), s
+
+
+@torch.no_grad()
+def stream_synthesize(params, mel_win: torch.Tensor, draws, window: int,
+                      phase_carry: torch.Tensor, carry_idx: int,
+                      cfg: HiFTConfig = HiFTConfig(), dtype=torch.float32):
+    """One streaming vocoder window with a phase-continuous harmonic source
+    (the JAX package's stream_synthesize).
+
+      mel_win      (B, M + new, 80): M emitted context frames, then new ones
+      window       the window's index in the utterance: its source noise is
+                   draws.window_noise(window, ...); the harmonic phases are
+                   draws.stream_phase(...), the same in every window
+      phase_carry  (B, nb_harmonics + 1) cumulative cycles at the window's
+                   start (zeros for the first window)
+      carry_idx    the sample at which the next window's carry is read,
+                   clamped into the window as JAX's dynamic_index clamps it
+    Returns (wav (B, (M + new) * 480), the next phase_carry)."""
+    b = mel_win.shape[0]
+    nh = cfg.nb_harmonics + 1
+    f0 = f0_predict(params["f0_predictor"], mel_win, dtype)
+    f0_up = torch.repeat_interleave(f0, cfg.total_upsample, dim=-1)
+    harmonics = torch.arange(1, nh + 1, dtype=torch.float32, device=mel_win.device)[None, :, None]
+    f_mat = f0_up[:, None, :].float() * harmonics / cfg.sampling_rate
+    rad = phase_carry.float()[:, :, None] + torch.cumsum(f_mat, dim=-1)
+    ci = min(max(int(carry_idx), 0), rad.shape[-1] - 1)
+    carry_next = torch.remainder(rad[:, :, ci], 1.0)
+    theta = 2.0 * math.pi * torch.remainder(rad, 1.0)
+    phase = draws.stream_phase((b, nh, 1)).to(mel_win.device).float().clone()
+    phase[:, 0, :] = 0.0
+    sines = cfg.nsf_alpha * torch.sin(theta + phase)
+    uv = (f0_up > cfg.nsf_voiced_threshold).float()[:, None, :]
+    noise_amp = uv * cfg.nsf_sigma + (1.0 - uv) * cfg.nsf_alpha / 3.0
+    noise = draws.window_noise(window, tuple(sines.shape)).to(mel_win.device).float()
+    sines = sines * uv + noise_amp * noise
+    merged = torch.tanh(L.linear(params["m_source_linear"], sines.transpose(1, 2)))[..., 0]
+    return decode(params, mel_win, merged, cfg, dtype), carry_next

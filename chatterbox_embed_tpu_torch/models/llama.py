@@ -8,10 +8,17 @@
 - attention logits and softmax in fp32, everything else in the compute dtype;
 - single-token decode attends through the flash-decode kernel
   (`kernels.flash_decode.decode_attention`) on `cache.k[i]`, a view of the
-  stacked cache, so no per-layer copy is made.
+  stacked cache, so no per-layer copy is made;
+- under CHATTERBOX_DEFER_KV=1 (read at call time, as the JAX package does)
+  a decode step defers its cache writes: each layer attends through the
+  kernel's deferred-insert entry (the stacked cache with `layer`, the
+  current k/v row folded in) and all layers' rows land in one stacked write
+  after the loop. Only the JAX package's flash branch of that path applies:
+  the port has no int8 cache, phased reads or alignment spy.
 """
 from __future__ import annotations
 
+import os
 from typing import NamedTuple, Optional
 
 import numpy as np
@@ -94,6 +101,12 @@ def init_cache(cfg: LlamaConfig, batch: int, max_len: int, dtype=torch.float32,
                    torch.zeros(shape, dtype=dtype, device=device))
 
 
+def _defer_kv_enabled() -> bool:
+    """CHATTERBOX_DEFER_KV=1: the deferred stacked KV insert of the decode
+    step (the JAX package's llama._defer_kv_enabled)."""
+    return os.getenv("CHATTERBOX_DEFER_KV", "") == "1"
+
+
 def forward(params, x: torch.Tensor, pos_ids: torch.Tensor,
             attn_mask: Optional[torch.Tensor] = None,
             cache: Optional[KVCache] = None, cache_pos: int = 0,
@@ -110,13 +123,16 @@ def forward(params, x: torch.Tensor, pos_ids: torch.Tensor,
         through the flash-decode kernel, minus each row's dead range
         [lo, hi) of `flash_hole` ((B, 2) int32, or None).
       cache: optional static KVCache; the block's K/V are written in place
-        at [cache_pos, cache_pos + T) before attention.
+        at [cache_pos, cache_pos + T) before attention, or, for a decode step
+        under CHATTERBOX_DEFER_KV=1, for every layer at once after the loop.
     Returns (hidden (B, T, D) after the final norm, cache).
     """
     b, t, _ = x.shape
     h = x.to(dtype)
     cos, sin = rope_cos_sin(pos_ids, cfg)
     decode = t == 1 and cache is not None
+    defer = decode and _defer_kv_enabled()
+    new_ks, new_vs = [], []
 
     if attn_mask is None and not decode:
         if cache is None:
@@ -135,12 +151,22 @@ def forward(params, x: torch.Tensor, pos_ids: torch.Tensor,
         q = apply_rope(q, cos, sin)
         k = apply_rope(k, cos, sin)
 
-        if cache is not None:
+        if cache is not None and not defer:
             # insert-first, in place: slots [cache_pos, cache_pos + T) of
             # layer i take this block's rows
             cache.k[i, cache_pos:cache_pos + t] = k.transpose(0, 1).to(cache.k.dtype)
             cache.v[i, cache_pos:cache_pos + t] = v.transpose(0, 1).to(cache.v.dtype)
-        if decode:
+        if defer:
+            # the current row joins the softmax as one more key; slot
+            # cache_pos is written for every layer after the loop
+            k_cur = k[:, 0].to(cache.k.dtype).contiguous()
+            v_cur = v[:, 0].to(cache.v.dtype).contiguous()
+            new_ks.append(k_cur)
+            new_vs.append(v_cur)
+            att = decode_attention(q[:, 0].contiguous(), cache.k, cache.v, cache_pos,
+                                   start=flash_start, hole=flash_hole, layer=i,
+                                   k_cur=k_cur, v_cur=v_cur)[:, None]
+        elif decode:
             att = decode_attention(q[:, 0], cache.k[i], cache.v[i], cache_pos,
                                    start=flash_start, hole=flash_hole)[:, None]
         else:
@@ -158,4 +184,8 @@ def forward(params, x: torch.Tensor, pos_ids: torch.Tensor,
                        dtype)
         h = h + mlp
 
+    if defer:
+        # one stacked write of all layers' rows at slot cache_pos
+        cache.k[:, cache_pos] = torch.stack(new_ks)
+        cache.v[:, cache_pos] = torch.stack(new_vs)
     return L.rms_norm(params["norm"], h, cfg.rms_norm_eps), cache

@@ -1,6 +1,7 @@
 """S3Gen: speech tokens -> mel (conformer + CFM) -> waveform (HiFT), the
 PyTorch counterpart of `chatterbox_embed_tpu/models/s3gen.py`: one shared
-voice prompt, or ragged per-row prompts for multi-voice batches
+voice prompt, or ragged per-row prompts for multi-voice batches, and the
+windowed flow of streaming (`flow_to_mel_window`)
 (conditioning from reference audio is not part of this port yet).
 """
 from __future__ import annotations
@@ -97,6 +98,63 @@ def flow_to_mel(params, tokens: torch.Tensor, token_len: torch.Tensor,
     m2 = (torch.arange(r * tokens.shape[1], device=mel.device)[None]
           + r * prompt_len.long()[:, None]).clamp(0, mel.shape[1] - 1)
     return mel.gather(1, m2[..., None].expand(-1, -1, mel.shape[2]))
+
+
+@torch.no_grad()
+def flow_to_mel_window(params, tokens: torch.Tensor, vlen: torch.Tensor,
+                       prompt_tokens: torch.Tensor, prompt_feat: torch.Tensor,
+                       embedding: torch.Tensor, mu_pin: torch.Tensor, pin_frames: int,
+                       noise_off: int, finalize: bool = False,
+                       cfg: S3GenConfig = S3GenConfig(), dtype=torch.float32):
+    """The streaming flow over one window (the JAX package's
+    flow_to_mel_window): the window holds the last `vlen` tokens
+    left-aligned in tokens (B, W), [C context tokens; new tokens], after the
+    prompt. Continuity across windows:
+      - the prompt rides along in every window;
+      - `mu_pin` (B, PIN, 80) overwrites the first `pin_frames` generated mu
+        frames with the previous window's values;
+      - the CFM noise is taken at absolute frame positions (noise_off is the
+        window's first generated frame in the utterance).
+    Without `finalize` the last pre_lookahead tokens' frames stay masked.
+    Returns (mel (B, 2*W, 80) of the generated region, mu_tail (B, PIN, 80)
+    to pin the next window)."""
+    fl = params["flow"]
+    r = cfg.flow.token_mel_ratio
+    look = cfg.flow.pre_lookahead_len
+    emb = embedding / torch.linalg.norm(embedding, dim=-1, keepdim=True)
+    spks = L.linear(fl["spk_embed_affine"], emb.float())
+    full = torch.cat([prompt_tokens, tokens], dim=1).long()
+    t = full.shape[1]
+    token_len = prompt_tokens.shape[1] + vlen
+    mask = torch.arange(t, device=full.device)[None] < token_len[:, None]
+    x = L.embedding(fl["input_embedding"], full.clamp_min(0))
+    x = x * mask[..., None].to(x.dtype)
+    h = conformer.forward(fl["encoder"], x, token_len, cfg.flow.encoder, dtype)
+    mel_len1 = prompt_feat.shape[1]
+    mu = L.linear(fl["encoder_proj"], h.float())
+
+    # previously emitted conditioning pinned over the context region
+    pin_max = mu_pin.shape[1]
+    gen_idx = torch.arange(mu.shape[1], device=mu.device) - mel_len1
+    pin_mask = (gen_idx >= 0) & (gen_idx < pin_frames)
+    pick = gen_idx.clamp(0, pin_max - 1)
+    mu = torch.where(pin_mask[None, :, None], mu_pin[:, pick].to(mu.dtype), mu)
+
+    conds = torch.zeros_like(mu)
+    conds[:, :mel_len1] = prompt_feat.to(mu.dtype)
+    mel_valid = r * token_len
+    if not finalize:
+        mel_valid = mel_valid - r * look
+    mel_mask = (torch.arange(mu.shape[1], device=mu.device)[None, :]
+                < mel_valid[:, None])[..., None].to(mu.dtype)
+    mel = cfm.generate_mel_stream(fl["decoder"], mu, spks, conds, mel_mask,
+                                  prompt_frames=mel_len1, noise_off=noise_off,
+                                  cfm=cfg.flow.cfm, dec_cfg=cfg.flow.decoder, dtype=dtype)
+    # mu frames of tokens [vlen - C, vlen - C + PIN / r), C = PIN / r + look;
+    # the start clamped into mu, as JAX's dynamic_slice clamps it
+    tail = mel_len1 + r * int(vlen.reshape(-1)[0]) - pin_max - r * look
+    tail = min(max(tail, 0), mu.shape[1] - pin_max)
+    return mel[:, mel_len1:], mu[:, tail:tail + pin_max]
 
 
 def trim_fade(sr: int = S3GEN_SR) -> np.ndarray:

@@ -9,14 +9,18 @@ counterpart of `chatterbox_embed_tpu/models/t3.py`: one utterance
   RIGHT-padded to the longest; its pad keys are masked in prefill and cut
   from every decode step as a per-row hole [lo, hi) of the flash-decode
   kernel.
-- The decode loop is a Python loop (the JAX package's lax.while_loop). It
-  syncs with the host once per `EOS_CHECK_EVERY` steps to look for EOS;
-  finished rows keep emitting EOS, and the output is cut after the first
-  one, so the tokens are those of a per-step check.
-- Every decode step's attention runs in the flash-decode kernel
-  (llama.forward) at every row count, so the cache capacity is rounded up
-  to a multiple of 256 as the JAX package does when its kernel is on
-  (t3.py:756).
+- The decode is resumable: `decode_block` runs up to `block` steps from a
+  `DecodeState` (the JAX package's lax.while_loop) as a Python loop, and
+  `generate_stream` yields each block's tokens. The host looks for EOS
+  once per `EOS_CHECK_EVERY` steps; finished rows keep emitting EOS, and
+  the output is cut after the first one, so the tokens are those of a
+  per-step check. Step i draws its Gumbel noise by its global index.
+- Under CHATTERBOX_FUSED_STEP=1 a decode step of unragged rows runs the
+  whole backbone in one fused kernel (K4, `kernels/fused_decode.py`).
+- Every decode step's attention runs in a kernel that walks only the live
+  cache slots (the flash-decode kernel in llama.forward at every row count,
+  or the fused step), so the cache capacity is rounded up to a multiple of
+  256 as the JAX package does when its kernels are on (t3.py:756).
 - Sampling parameters are one value for every row or one per utterance
   (ops/sampling.py:SamplingParams); each sub-batch of `generate_batch`
   draws from its own source.
@@ -24,12 +28,14 @@ counterpart of `chatterbox_embed_tpu/models/t3.py`: one utterance
 from __future__ import annotations
 
 import math
+import os
 from typing import Callable, NamedTuple, Optional, Union
 
 import numpy as np
 import torch
 
 from ..config import T3Config
+from ..kernels import fused_decode
 from ..ops import sampling
 from . import layers as L
 from . import llama
@@ -164,9 +170,15 @@ def _build_context(params, cond: T3Cond, text_tokens: torch.Tensor,
 # ---------------------------------------------------------------------------
 
 class DecodeState(NamedTuple):
+    """A resumable decode. `cache`, `logits` and `counts` are updated in
+    place by decode_block."""
     cache: llama.KVCache
     logits: torch.Tensor        # (B, V) fp32 logits at the current position
     counts: torch.Tensor        # (U, V) int32 repetition-penalty counts
+    i: int                      # global step: tokens decoded so far (draw index)
+    done: torch.Tensor          # (U,) bool: the row has emitted EOS
+    forwards: int = 0           # decode forwards run; may pass i by the steps
+                                # run between the host's EOS checks
 
 
 def prefill(params, context, cfg: T3Config, total: int, pad_len: int,
@@ -192,7 +204,8 @@ def prefill(params, context, cfg: T3Config, total: int, pad_len: int,
     counts0 = torch.zeros((n_utt, cfg.speech_tokens_dict_size), dtype=torch.int32,
                           device=dev)
     counts0[:, cfg.start_speech_token] = 1
-    return DecodeState(cache, logits0, counts0)
+    return DecodeState(cache, logits0, counts0, 0,
+                       torch.zeros((n_utt,), dtype=torch.bool, device=dev))
 
 
 _TEXT_BUCKETS = (48, 96, 192, 384, 768)
@@ -255,6 +268,34 @@ def _capacity(lt: int, cond: T3Cond, cfg: T3Config, cfg_on: bool,
     return pad, p_len, p_len + max(max_new_tokens, DECODE_BLOCK)
 
 
+def _use_fused_step() -> bool:
+    """CHATTERBOX_FUSED_STEP=1 (read at call time): the decode step runs the
+    whole backbone as one fused kernel (kernels/fused_decode.py, K4)."""
+    return os.getenv("CHATTERBOX_FUSED_STEP", "0") == "1"
+
+
+# utterances (lock-step rows / 2 under CFG) up to which the fused step
+# serves, the JAX package's CHATTERBOX_FUSED_MAX_UTT (read at import)
+FUSED_STEP_MAX_UTTERANCES = int(os.getenv("CHATTERBOX_FUSED_MAX_UTT", "1"))
+
+# the fused step's weight wall per backbone identity, built once per model:
+# ~1.0 GB in bf16 at T3's width. An entry keeps a strong reference to its
+# source params so the id cannot be reused while it lives.
+_FUSED_STACK_CACHE: dict = {}
+
+
+def _fused_params(params, cfg: T3Config, dtype):
+    key = (id(params["llama"]), dtype)
+    ent = _FUSED_STACK_CACHE.get(key)
+    if ent is None:
+        if len(_FUSED_STACK_CACHE) >= 4:
+            _FUSED_STACK_CACHE.pop(next(iter(_FUSED_STACK_CACHE)))
+        ent = (fused_decode.stack_for_fused(params["llama"], cfg.llama, dtype),
+               params["llama"])
+        _FUSED_STACK_CACHE[key] = ent
+    return ent[0]
+
+
 def start_generation(params, cond: T3Cond, text_tokens: np.ndarray, *,
                      cfg_weight, max_new_tokens: int,
                      text_lens: Optional[np.ndarray] = None,
@@ -265,7 +306,14 @@ def start_generation(params, cond: T3Cond, text_tokens: np.ndarray, *,
     above max_decode_utterances, whose fence reads `free_bytes` (default:
     the device's free memory now); generate_batch sub-batches below it.
     Returns (state, info) with the decode's p_len, pad, cfg_on,
-    cache_total and the K1 hole (or None)."""
+    cache_total, the K1 hole (or None), use_fused and the fused step's
+    weights (or None).
+
+    The fused step (K4) serves when CHATTERBOX_FUSED_STEP=1, at most
+    FUSED_STEP_MAX_UTTERANCES utterances, a config `fused_decode.plan`
+    takes, and unragged rows: its RoPE position is one for every row, and
+    it attends [pad, pos] with no hole. These gates decide before any
+    launch."""
     tt_np = np.atleast_2d(np.asarray(text_tokens, np.int32))
     u, lt = tt_np.shape
     if lt > cfg.max_text_seq_len:
@@ -284,6 +332,8 @@ def start_generation(params, cond: T3Cond, text_tokens: np.ndarray, *,
     if u > cap_utt:
         raise ValueError(f"{u} utterances > max_decode_utterances({cap})={cap_utt} for "
                          f"one lock-step decode; generate_batch sub-batches")
+    use_fused = (_use_fused_step() and u <= FUSED_STEP_MAX_UTTERANCES
+                 and fused_decode.plan(cfg.llama, (2 if cfg_on else 1) * u) is not None)
     total = -(-cap // CACHE_ALIGN) * CACHE_ALIGN
     key_valid = hole = None
     if text_lens is not None:
@@ -291,6 +341,7 @@ def start_generation(params, cond: T3Cond, text_tokens: np.ndarray, *,
         if lens.shape != (u,) or lens.min() < 1 or lens.max() > lt:
             raise ValueError(f"text_lens {lens.tolist()} must give 1..{lt} for each of {u} rows")
         if (lens < lt).any():
+            use_fused = False       # ragged rows need per-row key masks
             # the pad keys [ts_col + len, ts_col + lt) of each row: masked in
             # prefill, and the flash-decode kernel's per-row hole after it
             lens = torch.from_numpy(np.concatenate([lens, lens]) if cfg_on else lens).to(device)
@@ -302,28 +353,46 @@ def start_generation(params, cond: T3Cond, text_tokens: np.ndarray, *,
     tb = torch.from_numpy(np.pad(tt_np, ((0, 0), (pad, 0)))).to(device)
     context = _build_context(params, cond, tb, cfg, cfg_on, pad)
     state = prefill(params, context, cfg, total, pad, cfg_on, dtype, key_valid)
-    info = dict(p_len=p_len, pad=pad, cfg_on=cfg_on, cache_total=total, hole=hole)
+    info = dict(p_len=p_len, pad=pad, cfg_on=cfg_on, cache_total=total, hole=hole,
+                use_fused=use_fused,
+                fused=_fused_params(params, cfg, dtype) if use_fused else None)
     return state, info
 
 
-def _decode(params, state: DecodeState, ginfo: dict, sp: sampling.SamplingParams,
-            draws, *, use_top_p: bool, max_new_tokens: int, stop_on_eos: bool,
-            cfg: T3Config, dtype):
-    """The lock-step decode loop after prefill. Returns (tokens (steps, U)
-    int32 numpy, steps): row u's tokens are column u, EOS repeated after
-    its first EOS."""
+@torch.no_grad()
+def decode_block(params, state: DecodeState, ginfo: dict, sp: sampling.SamplingParams,
+                 draws, *, block: int, limit: int, use_top_p: bool, stop_on_eos: bool,
+                 cfg: T3Config, dtype):
+    """Decode up to `block` tokens after `state` (the JAX package's
+    decode_block): a step runs while some row is not done, fewer than
+    `block` steps ran and the global step state.i is below `limit`. Step i
+    samples with draws.gumbel(i, ...), whatever the block size.
+
+    The host looks for EOS at the block's start and every EOS_CHECK_EVERY
+    global steps, so it may run a few steps after the last row finished;
+    finished rows emit EOS there, and n_new counts as the JAX while-loop
+    does (up to the step that finished the last row). The decode step is
+    the fused kernel when ginfo["use_fused"], else llama.forward (K1, or
+    K1s under CHATTERBOX_DEFER_KV=1).
+
+    Returns (state, tokens (block, U) int32 numpy, zero past n_new, n_new).
+    The state's cache, logits and counts are updated in place."""
     p_len, pad_len, cfg_on = ginfo["p_len"], ginfo["pad"], ginfo["cfg_on"]
-    cache, logits, counts = state
+    cache, logits, counts, i0, done0 = state.cache, state.logits, state.counts, state.i, state.done
     n_utt = counts.shape[0]
     b = logits.shape[0]
     eos = cfg.stop_speech_token
     dev = logits.device
     rows = torch.arange(n_utt, device=dev)
-    done = torch.zeros((n_utt,), dtype=torch.bool, device=dev)
-    tokens = torch.zeros((max_new_tokens, n_utt), dtype=torch.int64, device=dev)
     pos_emb = params["speech_pos_emb"]["w"]
-    steps = 0
-    for i in range(max_new_tokens):
+    done = done0
+    toks = []
+    for j in range(block):
+        i = i0 + j
+        if i >= limit:
+            break
+        if stop_on_eos and (j == 0 or i % EOS_CHECK_EVERY == 0) and bool(done.all()):
+            break
         if cfg_on:
             lc, lu = logits[:n_utt], logits[n_utt:]
             lg = lc + sp.cfg_weight * (lc - lu)
@@ -335,30 +404,47 @@ def _decode(params, state: DecodeState, ginfo: dict, sp: sampling.SamplingParams
             min_p=sp.min_p, top_p=sp.top_p, use_top_p=use_top_p)
         tok = sampling.sample_token(lg, draws.gumbel(i, tuple(lg.shape)).to(dev))
         tok = torch.where(done, torch.full_like(tok, eos), tok)  # finished rows emit EOS
-        tokens[i] = tok
+        toks.append(tok)
         counts[rows, tok] += 1
         if stop_on_eos:
             done = done | (tok == eos)
         emb = L.embedding(params["speech_emb"], tok) + pos_emb[i + 1][None]
         if cfg_on:
             emb = torch.cat([emb, emb], dim=0)
-        pos_id = torch.full((b, 1), p_len - pad_len + i, dtype=torch.int64, device=dev)
-        hh, cache = llama.forward(params["llama"], emb[:, None, :].to(dtype), pos_id,
-                                  cache=cache, cache_pos=p_len + i, cfg=cfg.llama,
-                                  dtype=dtype, flash_start=pad_len,
-                                  flash_hole=ginfo["hole"])
-        logits = L.linear(params["speech_head"], hh[:, -1], torch.float32)
-        steps += 1
-        if stop_on_eos and (i + 1) % EOS_CHECK_EVERY == 0 and bool(done.all()):
-            break
-    return tokens[:steps].cpu().numpy().astype(np.int32), steps
+        if ginfo["use_fused"]:
+            hh, _, _ = fused_decode.fused_decode_step(
+                ginfo["fused"], emb.to(dtype), cache.k, cache.v, p_len + i, pad_len,
+                cfg.llama, dtype)
+        else:
+            pos_id = torch.full((b, 1), p_len - pad_len + i, dtype=torch.int64, device=dev)
+            hh, cache = llama.forward(params["llama"], emb[:, None, :].to(dtype), pos_id,
+                                      cache=cache, cache_pos=p_len + i, cfg=cfg.llama,
+                                      dtype=dtype, flash_start=pad_len,
+                                      flash_hole=ginfo["hole"])
+            hh = hh[:, -1]
+        logits = L.linear(params["speech_head"], hh, torch.float32)
+    steps = len(toks)
+    tok_np = (torch.stack(toks).cpu().numpy().astype(np.int32) if steps
+              else np.zeros((0, n_utt), np.int32))
+    n_new = steps
+    if stop_on_eos and steps:
+        fin = done0.cpu().numpy()[None] | np.logical_or.accumulate(tok_np == eos, axis=0)
+        hit = np.nonzero(fin.all(axis=1))[0]
+        if hit.size:
+            n_new = int(hit[0]) + 1
+    out = np.zeros((block, n_utt), np.int32)
+    out[:n_new] = tok_np[:n_new]
+    return DecodeState(cache, logits, counts, i0 + n_new, done, state.forwards + steps), out, n_new
 
 
-def _generate_rows(params, cond: T3Cond, text_tokens, text_lens, draws, temperature,
-                   cfg_weight, repetition_penalty, min_p, top_p, *, max_new_tokens: int,
-                   stop_on_eos: bool, cfg: T3Config, dtype, device, free_bytes):
-    """Prefill and decode one lock-step batch of U rows. Returns (tokens
-    (steps, U) int32 numpy, info of start_generation plus decode_steps)."""
+def _stream_rows(params, cond: T3Cond, text_tokens, text_lens, draws, temperature,
+                 cfg_weight, repetition_penalty, min_p, top_p, *, max_new_tokens: int,
+                 stop_on_eos: bool, block: int, cfg: T3Config, dtype, device,
+                 free_bytes, info: Optional[dict]):
+    """Prefill one lock-step batch of U rows and yield (n, U) int32 token
+    blocks as they decode (the JAX package's generate_stream loop). `info`,
+    if given, receives start_generation's info (without the weights) and
+    decode_steps, the decode forwards run so far, before each yield."""
     n_utt = np.atleast_2d(text_tokens).shape[0]
     state, ginfo = start_generation(params, cond, text_tokens, cfg_weight=cfg_weight,
                                     max_new_tokens=max_new_tokens, text_lens=text_lens,
@@ -367,10 +453,61 @@ def _generate_rows(params, cond: T3Cond, text_tokens, text_lens, draws, temperat
     sp = sampling.SamplingParams(*(sampling.sampling_param(v, n_utt, device) for v in (
         temperature, cfg_weight, repetition_penalty, min_p, top_p)))
     use_top_p = bool(np.any(np.asarray(top_p, np.float32) < 1.0))
-    tokens, steps = _decode(params, state, ginfo, sp, draws, use_top_p=use_top_p,
+    if info is not None:
+        info.update({k: v for k, v in ginfo.items() if k != "fused"}, decode_steps=0)
+    produced = 0
+    while produced < max_new_tokens:
+        state, tokens, n = decode_block(params, state, ginfo, sp, draws, block=block,
+                                        limit=max_new_tokens, use_top_p=use_top_p,
+                                        stop_on_eos=stop_on_eos, cfg=cfg, dtype=dtype)
+        if info is not None:
+            info["decode_steps"] = state.forwards
+        if n > 0:
+            yield tokens[:n]
+        produced += n
+        if n == 0 or bool(state.done.all()):
+            break
+
+
+def _generate_rows(params, cond: T3Cond, text_tokens, text_lens, draws, temperature,
+                   cfg_weight, repetition_penalty, min_p, top_p, *, max_new_tokens: int,
+                   stop_on_eos: bool, cfg: T3Config, dtype, device, free_bytes):
+    """Prefill and decode one lock-step batch of U rows. Returns (tokens
+    (steps, U) int32 numpy, info of start_generation plus decode_steps)."""
+    info: dict = {}
+    blocks = list(_stream_rows(
+        params, cond, text_tokens, text_lens, draws, temperature, cfg_weight,
+        repetition_penalty, min_p, top_p, max_new_tokens=max_new_tokens,
+        stop_on_eos=stop_on_eos, block=DECODE_BLOCK, cfg=cfg, dtype=dtype, device=device,
+        free_bytes=free_bytes, info=info))
+    n_utt = np.atleast_2d(text_tokens).shape[0]
+    tokens = np.concatenate(blocks) if blocks else np.zeros((0, n_utt), np.int32)
+    return tokens, info
+
+
+@torch.no_grad()
+def generate_stream(params, cond: T3Cond, text_tokens: np.ndarray, *,
+                    max_new_tokens: int = 1000, temperature=0.8, cfg_weight=0.0,
+                    repetition_penalty=1.2, min_p=0.05, top_p=1.0,
+                    stop_on_eos: bool = True, seed: int = 0, block: int = DECODE_BLOCK,
+                    text_lens: Optional[np.ndarray] = None, draws=None,
+                    cfg: T3Config = T3Config(), dtype=torch.float32, device="cpu",
+                    info: Optional[dict] = None):
+    """Yield numpy blocks of generated speech-token ids as they decode,
+    `block` steps at a time: (n,) for one utterance, (n, U) for more. The
+    final block includes the terminating EOS when one is produced.
+
+    draws: the Gumbel source (`sampling.Draws(seed, device)` by default).
+    info: optional dict that receives p_len, pad, cache_total, use_fused and
+    decode_steps (the decode forwards run so far)."""
+    single = np.atleast_2d(text_tokens).shape[0] == 1
+    draws = draws if draws is not None else sampling.Draws(seed, device)
+    for blk in _stream_rows(params, cond, text_tokens, text_lens, draws, temperature,
+                            cfg_weight, repetition_penalty, min_p, top_p,
                             max_new_tokens=max_new_tokens, stop_on_eos=stop_on_eos,
-                            cfg=cfg, dtype=dtype)
-    return tokens, dict(ginfo, decode_steps=steps)
+                            block=block, cfg=cfg, dtype=dtype, device=device,
+                            free_bytes=None, info=info):
+        yield blk[:, 0] if single else blk
 
 
 @torch.no_grad()
@@ -386,7 +523,7 @@ def generate(params, cond: T3Cond, text_tokens: np.ndarray, *,
     was produced.
 
     draws: the Gumbel source (`sampling.Draws(seed, device)` by default).
-    info: optional dict that receives p_len, pad, cache_total and
+    info: optional dict that receives p_len, pad, cache_total, use_fused and
     decode_steps (the number of decode forwards run)."""
     if np.atleast_2d(text_tokens).shape[0] != 1:
         raise ValueError("generate decodes one utterance; generate_batch takes more")

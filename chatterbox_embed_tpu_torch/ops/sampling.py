@@ -21,13 +21,23 @@ class Draws:
     """Default source of every random draw on the main path: one
     torch.Generator seeded from `seed` on `device`.
 
-    gumbel(step, shape)  the decode step's Gumbel noise (T3 sampling)
-    phase(shape)         HiFT harmonic phases, uniform in [-pi, pi)
-    noise(shape)         HiFT source noise, standard normal
+    gumbel(step, shape)         the decode step's Gumbel noise (T3 sampling)
+    phase(shape)                HiFT harmonic phases, uniform in [-pi, pi)
+    noise(shape)                HiFT source noise, standard normal
+    stream_phase(shape)         the streamed utterance's harmonic phases,
+                                the same in every window
+    window_noise(window, shape) the source noise of streamed window
+                                `window`, standard normal
+
+    The first three draw in call order from the one generator. The two
+    streaming draws come from generators seeded from (seed, stream), so
+    they neither consume nor depend on the others, and a window's noise
+    depends on its index alone.
     """
 
     def __init__(self, seed: int = 0, device="cpu"):
-        self.gen = torch.Generator(device=device).manual_seed(int(seed))
+        self.seed = int(seed)
+        self.gen = torch.Generator(device=device).manual_seed(self.seed)
         self.device = torch.device(device)
 
     def gumbel(self, step: int, shape) -> torch.Tensor:
@@ -41,6 +51,17 @@ class Draws:
 
     def noise(self, shape) -> torch.Tensor:
         return torch.randn(shape, generator=self.gen, device=self.device)
+
+    def _derived(self, stream: int) -> torch.Generator:
+        state = np.random.SeedSequence([self.seed, stream]).generate_state(1, np.uint64)[0]
+        return torch.Generator(device=self.device).manual_seed(int(state) >> 1)
+
+    def stream_phase(self, shape) -> torch.Tensor:
+        u = torch.rand(shape, generator=self._derived(0), device=self.device)
+        return u * (2 * math.pi) - math.pi
+
+    def window_noise(self, window: int, shape) -> torch.Tensor:
+        return torch.randn(shape, generator=self._derived(1 + int(window)), device=self.device)
 
 
 def vocab_mask_logits(logits, valid_size: int, eos_id: int):

@@ -1,7 +1,8 @@
 """ChatterboxTTS, the public text-to-speech pipeline: the PyTorch counterpart
 of `chatterbox_embed_tpu/tts.py` with prepared conditionals: one utterance
-(`generate`: tokenize, T3, S3Gen) or a batch of them (`generate_batch`:
-one lock-step T3 decode, then S3Gen in sub-batches), with one voice or one
+(`generate`: tokenize, T3, S3Gen), streamed (`stream_generate`: audio
+chunks as the tokens decode) or a batch of them (`generate_batch`: one
+lock-step T3 decode, then S3Gen in sub-batches), with one voice or one
 voice per utterance.
 
 Host code tokenizes, pads to buckets and moves numpy at the edges; T3 and
@@ -19,6 +20,7 @@ import torch
 
 from chatterbox_embed_tpu.utils import weights as jax_weights
 
+from . import streaming
 from .conditionals import Conditionals
 from .config import S3GEN_SR, ChatterboxConfig
 from .models import layers as L
@@ -224,7 +226,79 @@ class ChatterboxTTS:
         wav = self._run_s3gen(speech_tokens, self.conds.gen, seed=seed, draws=draws)
         self._record_perf(t3_s, time.time() - t0, speech_tokens.size, wav.size,
                           info["decode_steps"])
+        self.perf["use_fused"] = bool(info["use_fused"])
         return wav[None, :]
+
+    # ------------------------------------------------------------------
+    # streaming
+    # ------------------------------------------------------------------
+
+    def stream_generate(self, text, *, block_tokens: int = 25,
+                        throughput_block_tokens: int = 300, repetition_penalty=1.2,
+                        min_p=0.05, top_p=1.0, cfg_weight=0.3, temperature=0.6,
+                        max_new_tokens=1000, seed=0, draws=None):
+        """Yield waveform chunks (float32 numpy, 24 kHz) as tokens decode,
+        with the prepared conditionals.
+
+        t3.generate_stream decodes `block_tokens` steps at a time, and
+        streaming.WindowedSynth synthesises the token groups as they fill,
+        from `block_tokens` growing to `throughput_block_tokens`. The JAX
+        package compiles the first block and its windows into one program;
+        here they are the same calls as every later block, so the stream
+        has one route.
+
+        draws: one source for the T3 Gumbel noise and the vocoder windows'
+        draws (`Draws(seed, device)` by default). After the last chunk,
+        self.perf holds first_chunk_s (host clock from the first request for
+        a chunk to the first chunk in host memory), total_s, speech_tokens,
+        decode_steps, chunks, audio_s and use_fused."""
+        if self.conds is None:
+            raise RuntimeError("Conditionals are not prepared: pass conds= (or a "
+                               "conds.pt through from_local)")
+        t0 = time.time()
+        dev = self.device
+        gen = self.conds.gen
+        prompt_token = torch.as_tensor(np.asarray(gen["prompt_token"]), dtype=torch.int64,
+                                       device=dev)
+        prompt_feat = torch.as_tensor(np.asarray(gen["prompt_feat"]), dtype=torch.float32,
+                                      device=dev)
+        embedding = torch.as_tensor(np.asarray(gen["embedding"]), dtype=torch.float32,
+                                    device=dev)
+        tok = self.tokenizer.text_to_tokens(text)[0]
+        sot, eot = self.cfg.t3.start_text_token, self.cfg.t3.stop_text_token
+        text_tokens = np.concatenate([[sot], tok, [eot]]).astype(np.int32)[None]
+        draws = draws if draws is not None else Draws(seed, dev)
+        synth = streaming.WindowedSynth(
+            self.s3gen_params, prompt_token, prompt_feat, embedding, draws=draws,
+            cfg=self.cfg, dtype=self.dtype, block_tokens=block_tokens,
+            throughput_block_tokens=throughput_block_tokens)
+        stats = dict(first_chunk_s=None, chunks=0, samples=0)
+
+        def emit(chunks):
+            for c in chunks:
+                if stats["first_chunk_s"] is None:
+                    stats["first_chunk_s"] = time.time() - t0
+                stats["chunks"] += 1
+                stats["samples"] += c.size
+                yield c
+
+        info: dict = {}
+        tokens = []
+        for block in t3_mod.generate_stream(
+                self.t3_params, self.conds.t3, text_tokens, max_new_tokens=max_new_tokens,
+                temperature=temperature, cfg_weight=cfg_weight,
+                repetition_penalty=repetition_penalty, min_p=min_p, top_p=top_p, seed=seed,
+                block=block_tokens, draws=draws, cfg=self.cfg.t3, dtype=self.dtype, device=dev,
+                info=info):
+            tokens.append(block)
+            yield from emit(synth.feed(block))
+        yield from emit(synth.finish())
+        speech = s3gen_mod.drop_invalid_tokens(np.concatenate(tokens) if tokens else
+                                               np.zeros((0,), np.int32))
+        self.perf = {"first_chunk_s": stats["first_chunk_s"], "total_s": time.time() - t0,
+                     "speech_tokens": int(speech.size), "decode_steps": int(info["decode_steps"]),
+                     "chunks": stats["chunks"], "audio_s": stats["samples"] / float(self.sr),
+                     "use_fused": bool(info["use_fused"])}
 
     # ------------------------------------------------------------------
     # batched generation

@@ -15,24 +15,39 @@ Phases, one or more lines each, then the result line:
      at the main paths' shapes.
        K1 flash_decode     T3 decode attention: B=2 (one utterance) and B=16
                            (8 utterances, a different hole per row)
+       K1s flash_decode_deferred
+                           its deferred-insert entry (the stacked cache with a
+                           layer index, the current row folded in): B=2 and
+                           16, with and without holes, Lc 512 and 1280
        K2 rel_attention    conformer rel-pos attention: B 4/8/16, T 406/812
                            and 2348, ragged masks with an all-valid row, a
                            single-valid-key row and a row with none
        K3 flash_attention  CFM estimator self-attention: B 8/16/32, T 812 and
                            2348, ragged masks with an all-valid row and a
                            single-valid-key row
-  4. full-width fp32 consistency: decode through K1 against one plain causal
-     forward; the conformer on 8 ragged rows (through K2) against each row
-     alone (1 row, factored branch); the CFM estimator on 16 CFG rows
-     (through K3) against each cond/uncond pair alone (2 rows, written-out
-     attention).
+       K4 fused_decode     the whole T3 token step at full width (30 layers,
+                           d=1024, B=2 CFG rows), a 16-step teacher-forced
+                           chain near the top of Lc 512 and 1280, start > 0;
+                           planted faults that the 30-layer bf16 check must
+                           catch; the 4-, 8- and 16-row templates
+  4. full-width fp32 consistency: decode through K1, and through K1s with
+     the deferred insert, against one plain causal forward; the conformer
+     on 8 ragged rows (through K2) against each row alone (1 row, factored
+     branch); the CFM estimator on 16 CFG rows (through K3) against each
+     cond/uncond pair alone (2 rows, written-out attention).
   5. generate: ChatterboxTTS.generate at the full ChatterboxConfig() width
-     with random bf16 weights, twice (warm-up, then timed); checks the wav
-     and that every decode step went through K1.
+     with random bf16 weights, twice (warm-up, then timed), through K1, then
+     under CHATTERBOX_FUSED_STEP=1 (K4, one launch a step) and under
+     CHATTERBOX_DEFER_KV=1 (K1s, 30 a step); checks each wav and that the
+     launch counts are those of the path.
   6. generate_batch: 8 texts in one lock-step batch, one voice, then two
      voices, each twice (warm-up, then timed); checks every wav and that
      the launch counts of K1, K2 and K3 are those of the path.
-  7. a JSON line describing each kernel, then the last line
+  7. stream_generate: one utterance streamed in 25-token blocks, with the
+     fused step and without it, twice each; checks the chunks (finite,
+     joining to the whole wav), the launch counts, and records the time to
+     the first chunk.
+  8. a JSON line describing each kernel, then the last line
      {"ok": true, "device": {...}}.
 
 Any failure raises and the script exits non-zero with no result line. It
@@ -40,7 +55,9 @@ needs CUDA: without a card it fails at once.
 """
 from __future__ import annotations
 
+import contextlib
 import json
+import os
 import subprocess
 import time
 
@@ -97,6 +114,38 @@ TEMPERATURES = [0.6, 0.63, 0.66, 0.69, 0.71, 0.74, 0.77, 0.8]
 BATCH_KW = dict(max_new_tokens=250, cfg_weight=0.5, seed=0, temperature=TEMPERATURES)
 BATCH_SUB = 8          # expected utterances per S3Gen dispatch
 BATCH_STRIDE = 2       # expected CFM DeepCache stride at 8 live rows
+# K1s: a stacked cache of this many layers (the layer offset is what the
+# entry adds to K1; the walk does not depend on the layer count)
+DEFER_LAYERS = 4
+# K4: a teacher-forced chain of this many steps from `FUSED_START`, ending
+# near the top of each cache capacity. fp32: kernel and plain version differ
+# in summation order only, through 30 layers, and the outputs are unit-scale
+# (after the final RMSNorm; the k/v rows are projections of RMS-normed
+# states): 1e-3 leaves ~10^4 fp32 epsilons. bf16: both round to bf16 at the
+# same places, so a sum that lands on the other side of a rounding step
+# moves one output by one bf16 step (2^-7 relative) and the layers after
+# carry it; through the first layer 2e-2 after dividing by max(1, |ref|)
+# covers a step or two. Deeper, the steps compound (4 layers measured
+# 0.0254 on an NVIDIA H100 80GB HBM3 at 700 W), so the 30-layer bf16 chain
+# is held to the fp32 plain version instead (phase_fused_check).
+FUSED_STEPS, FUSED_START = 16, 4
+FUSED_TOL = {torch.float32: 1e-3, torch.bfloat16: 2e-2}
+FUSED_BF16_LAYERS = 1
+# the 30-layer bf16 chain against the fp32 plain version, divided by
+# max(1, |ref|). On an NVIDIA H100 80GB HBM3 at 700 W, over three input
+# seeds, sound runs read 0.090-0.121 (kernel) and 0.089-0.120 (the bf16
+# plain version); the same seed reads the same in every run. Planted faults
+# read: every layer's ln2 one bf16 step up 0.185-0.191, the start one slot
+# early 3.4-3.7; one step on every weight of layer 15 reads 0.110-0.117, a
+# fault this check cannot see. The limit lies between the sound runs and
+# the smaller planted fault, and each of FUSED_CONTROLS must read above it.
+FUSED_BF16_DEEP_LIMIT = 0.15
+FUSED_CONTROLS = ("ln2-step", "start-1")     # _fused_fault kinds
+FUSED_ROW_STEPS = 4    # steps of the 4-, 8- and 16-row checks
+# generate, by decode path: the environment that selects it
+GEN_PATHS = {"default": {}, "fused": {"CHATTERBOX_FUSED_STEP": "1"},
+             "defer": {"CHATTERBOX_DEFER_KV": "1"}}
+STREAM_KW = dict(block_tokens=25, max_new_tokens=250, cfg_weight=0.5, temperature=0.7, seed=0)
 
 
 def log(phase: str, **kw) -> None:
@@ -125,20 +174,26 @@ def phase_device() -> str:
 
 
 def _kernels() -> dict:
-    """name -> (kernel module, its counted wrapper, its C entry)."""
+    """name -> (kernel module, the wrapper that counts its launches, the
+    counter's attribute, its C entry). K1 and K1s are two entries of one
+    kernel source with a counter each."""
     from chatterbox_embed_tpu_torch.kernels import flash_attention as fa
     from chatterbox_embed_tpu_torch.kernels import flash_decode as fd
+    from chatterbox_embed_tpu_torch.kernels import fused_decode as fu
     from chatterbox_embed_tpu_torch.kernels import rel_attention as ra
-    return {"flash_decode": (fd, fd.decode_attention, "cbx_flash_decode"),
-            "rel_attention": (ra, ra.rel_attention, "cbx_rel_attention"),
-            "flash_attention": (fa, fa.flash_attention, "cbx_flash_attention")}
+    return {"flash_decode": (fd, fd.decode_attention, "launches", "cbx_flash_decode"),
+            "flash_decode_deferred": (fd, fd.decode_attention, "launches_deferred",
+                                      "cbx_flash_decode"),
+            "rel_attention": (ra, ra.rel_attention, "launches", "cbx_rel_attention"),
+            "flash_attention": (fa, fa.flash_attention, "launches", "cbx_flash_attention"),
+            "fused_decode": (fu, fu.fused_decode_step, "launches", "cbx_fused_decode")}
 
 
 def phase_build() -> None:
     from chatterbox_embed_tpu_torch.kernels import _build
     kernels = _kernels()
-    built = _build.build_all([m.SOURCE for m, _, _ in kernels.values()])
-    for name, (m, _, entry) in kernels.items():
+    built = _build.build_all(sorted({m.SOURCE for m, _, _, _ in kernels.values()}))
+    for name, (m, _, _, entry) in kernels.items():
         path, seconds = built[m.SOURCE]
         _build.load(m.SOURCE, entry, m._ARGTYPES)    # a bad library fails here
         log("build", kernel=name, seconds=f"{seconds:.2f}",
@@ -161,22 +216,25 @@ def _time_ms(fn, iters: int = 200) -> float:
     return a.elapsed_time(b) / iters
 
 
-def _device_ms(fn, iters: int = 50) -> float:
+def _device_ms(fn, iters: int = 50, tries: int = 3) -> float:
     """Device time per call: the summed kernel time that torch.profiler
-    records for `iters` calls (host enqueue excluded)."""
+    records for `iters` calls (host enqueue excluded). A capture that
+    records no device time at all (seen once in about ten runs on an H100)
+    is taken again, up to `tries` captures."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-    us = sum(e.self_device_time_total for e in prof.key_averages()
-             if e.device_type == DeviceType.CUDA)
-    if us <= 0:
-        raise RuntimeError("torch.profiler recorded no device time")
-    return us / 1e3 / iters
+    for _ in range(tries):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        us = sum(e.self_device_time_total for e in prof.key_averages()
+                 if e.device_type == DeviceType.CUDA)
+        if us > 0:
+            return us / 1e3 / iters
+    raise RuntimeError(f"torch.profiler recorded no device time in {tries} captures")
 
 
 def _timing(kernel, plain, iters: int = 50) -> dict:
@@ -219,10 +277,13 @@ def _batch_holes(b: int) -> torch.Tensor:
     return torch.tensor(holes, dtype=torch.int32, device="cuda")
 
 
-def phase_kernel_check(card: str) -> dict:
-    """flash_decode kernel vs decode_attention_reference on the card."""
+def phase_kernel_check(card: str, deferred: bool = False) -> dict:
+    """K1 against decode_attention_reference on the card, or with
+    `deferred` its deferred-insert entry K1s: a DEFER_LAYERS-layer stacked
+    cache with a layer index and the current row folded in."""
     from chatterbox_embed_tpu_torch.kernels import flash_decode as fd
-    g = torch.Generator(device="cuda").manual_seed(1234)
+    name = "flash_decode_deferred" if deferred else "flash_decode"
+    g = torch.Generator(device="cuda").manual_seed(4242 if deferred else 1234)
     h, d = KERNEL_H, KERNEL_D
     worst = {torch.float32: 0.0, torch.bfloat16: 0.0}
     timing = {}
@@ -233,36 +294,228 @@ def phase_kernel_check(card: str) -> dict:
             cases = [(0, 0), (3, 40), (10, 63), (63, 64), (64, 300), (130, 381),
                      (5, lc - 1)]
             for dtype in (torch.float32, torch.bfloat16):
-                q = torch.randn((b, h, d), generator=g, device="cuda").to(dtype)
-                k = torch.randn((lc, b, h, d), generator=g, device="cuda").to(dtype)
-                v = torch.randn((lc, b, h, d), generator=g, device="cuda").to(dtype)
-                if b == KERNEL_B:
-                    holes = [None, torch.tensor([[0, 0], [70, 200]], dtype=torch.int32,
-                                                device="cuda")]
-                else:
-                    holes = [_batch_holes(b)]
+                q, kc, vc = (torch.randn((b, h, d), generator=g, device="cuda").to(dtype)
+                             for _ in range(3))
+                shape = ((DEFER_LAYERS,) if deferred else ()) + (lc, b, h, d)
+                k, v = (torch.randn(shape, generator=g, device="cuda").to(dtype)
+                        for _ in range(2))
+                holes = [None, torch.tensor([[0, 0], [70, 200]], dtype=torch.int32,
+                                            device="cuda") if b == KERNEL_B else _batch_holes(b)]
+
+                def args(start, pos, hole, layer):
+                    extra = dict(layer=layer, k_cur=kc, v_cur=vc) if deferred else {}
+                    return (q, k, v, pos, start, hole), extra
+
                 for hole in holes:
                     for start, pos in cases:
-                        out = fd.decode_attention(q, k, v, pos, start, hole)
-                        ref = fd.decode_attention_reference(q, k, v, pos, start, hole)
-                        err = _check_err("flash_decode", out, ref, TOL[dtype], b=b, lc=lc,
+                        layer = (start + pos) % DEFER_LAYERS
+                        a, kw = args(start, pos, hole, layer)
+                        out = fd.decode_attention(*a, **kw)
+                        ref = fd.decode_attention_reference(*a, **kw)
+                        err = _check_err(name, out, ref, TOL[dtype], b=b, lc=lc,
                                          dtype=str(dtype)[6:], start=start, pos=pos,
-                                         hole=hole is not None)
+                                         hole=hole is not None,
+                                         **({"layer": layer} if deferred else {}))
                         worst[dtype] = max(worst[dtype], err)
                 if dtype == torch.bfloat16:
                     # time at the decode step's shape: the live range the main
                     # path reaches mid-generation
-                    start, pos = 4, min(lc - 1, 4 + (lc - 4) * 3 // 4)
-                    hole = holes[-1]
-                    t = _timing(lambda: fd.decode_attention(q, k, v, pos, start, hole),
-                                lambda: fd.decode_attention_reference(q, k, v, pos, start,
-                                                                      hole))
+                    start, pos, hole = 4, min(lc - 1, 4 + (lc - 4) * 3 // 4), holes[-1]
+                    a, kw = args(start, pos, hole, DEFER_LAYERS - 1)
+                    t = _timing(lambda: fd.decode_attention(*a, **kw),
+                                lambda: fd.decode_attention_reference(*a, **kw))
                     timing[(b, lc)] = t
-                    _log_time("flash_decode", t, card, b=b, lc=lc, start=start, pos=pos,
+                    _log_time(name, t, card, b=b, lc=lc, start=start, pos=pos,
                               hole=hole is not None)
-    # the JSON line reports the batched path's shape: 8 utterances, Lc 512
+    # the JSON line reports each path's shape at Lc 512: K1 on the batched
+    # path (8 utterances), K1s on the deferred one-utterance path
     return {"max_abs_err": worst[torch.bfloat16], "max_abs_err_fp32": worst[torch.float32],
-            "timing": timing[(KERNEL_B_BATCH, KERNEL_LC[0])]}
+            "timing": timing[(KERNEL_B if deferred else KERNEL_B_BATCH, KERNEL_LC[0])]}
+
+
+def _fused_chain(fused, cfg, lc: int, dtype, g, fused32=None, b: int = KERNEL_B,
+                 steps: int = FUSED_STEPS, fault: dict | None = None) -> dict:
+    """`steps` teacher-forced steps of K4 for `b` rows in `dtype` on a random
+    cache: before each step the plain version (and, with `fused32`, the
+    plain version in fp32 on the same values) starts from a copy of the
+    kernel's cache. `fault` plants a fault in the kernel's run only: its
+    "fused" weights or its "start". Returns {version: (h (steps, B, d), new
+    k/v rows)} in fp32, and the last step's arguments for timing."""
+    from chatterbox_embed_tpu_torch.kernels import fused_decode as fu
+    start = FUSED_START
+    fault = fault or {}
+    n_layers = fused["wall"].shape[0]
+    pos0 = lc - steps - 4
+    shape = (n_layers, lc, b, cfg.num_heads, cfg.head_dim)
+    ck, cv = (torch.randn(shape, generator=g, device="cuda").to(dtype) for _ in range(2))
+    rk, rv = torch.empty_like(ck), torch.empty_like(cv)
+    out = {v: ([], []) for v in ("kernel", "plain") + (("plain32",) if fused32 else ())}
+    for i in range(steps):
+        pos = pos0 + i
+        x = torch.randn((b, cfg.hidden_size), generator=g, device="cuda").to(dtype)
+        runs = [("plain", fused, rk, rv, x, fu.fused_decode_step_reference, dtype)]
+        if fused32:
+            runs.append(("plain32", fused32, ck.float(), cv.float(), x.float(),
+                         fu.fused_decode_step_reference, torch.float32))
+        rk.copy_(ck)
+        rv.copy_(cv)
+        runs.insert(0, ("kernel", fault.get("fused", fused), ck, cv, x, fu.fused_decode_step,
+                        dtype))
+        for name, fz, k, v, xi, fn, dt in runs:
+            st = fault.get("start", start) if name == "kernel" else start
+            h, k, v = fn(fz, xi, k, v, pos, st, cfg, dt)
+            out[name][0].append(h.float())
+            out[name][1].append(torch.stack([k[:, pos], v[:, pos]]).float())
+    res = {name: (torch.stack(hs), torch.stack(rows)) for name, (hs, rows) in out.items()}
+    return res, (x, ck, cv, rk, rv, pos0 + steps - 1, start)
+
+
+def _fused_fault(kind: str, fused16) -> dict:
+    """A fault to plant in K4's run (_fused_chain's `fault`): "start-1"
+    starts the walk and the RoPE positions one slot early; "wall-step-L"
+    moves every weight of layer L one bf16 step up; "ln2-step" moves every
+    layer's post-attention norm weights one bf16 step up."""
+    if kind == "start-1":
+        return {"start": FUSED_START - 1}
+    up = 1.0 + 2.0 ** -7
+    if kind.startswith("wall-step-"):
+        layer = int(kind.rsplit("-", 1)[1])
+        wall = fused16["wall"].clone()
+        wall[layer] = (wall[layer].float() * up).to(wall.dtype)
+        return {"fused": dict(fused16, wall=wall)}
+    if kind == "ln2-step":
+        return {"fused": dict(fused16, ln2=(fused16["ln2"].float() * up).to(
+            fused16["ln2"].dtype))}
+    raise ValueError(f"unknown fault {kind!r}")
+
+
+def _deep_check(res, run: str, **case) -> float:
+    """A bf16 chain against the fp32 plain version on the same values: for
+    h and the k/v rows, the kernel's and the bf16 plain version's worst
+    error divided by max(1, |ref|). Logs them; returns the kernel's worst
+    (inf if any is not finite)."""
+    worst = 0.0
+    for t_i, tensor in enumerate(("h", "kv_rows")):
+        truth = res["plain32"][t_i]
+        errs = {v: ((res[v][t_i] - truth).abs() / truth.abs().clamp_min(1.0)).max().item()
+                for v in ("kernel", "plain")}
+        direct = (res["kernel"][t_i] - res["plain"][t_i]).abs().max().item()
+        worst = max(worst, errs["kernel"] if np.isfinite(errs["kernel"]) else float("inf"))
+        log("kernel", name="fused_decode", run=run, tensor=tensor, dtype="bfloat16",
+            against="fp32_plain", **case, kernel_err_over_max1_ref=f"{errs['kernel']:.3e}",
+            plain_err_over_max1_ref=f"{errs['plain']:.3e}",
+            max_abs_kernel_minus_plain=f"{direct:.3e}", limit=FUSED_BF16_DEEP_LIMIT)
+    return worst
+
+
+def phase_fused_check(card: str, tts) -> dict:
+    """K4 against its plain version at full width (d=1024, B=2, start
+    FUSED_START, FUSED_STEPS teacher-forced steps ending near the top of
+    each cache capacity), on h and every layer's new k/v row:
+      fp32, 30 layers: <= FUSED_TOL (kernel and plain differ in summation
+        order only);
+      bf16, the first FUSED_BF16_LAYERS layers: <= FUSED_TOL after dividing
+        by max(1, |ref|);
+      bf16, 30 layers: a sum that rounds the other way moves one value by a
+        bf16 step, and the layers after carry and compound it (the fp32
+        check's 1e-7 summation differences end near 5e-6), so the kernel's
+        and the plain version's bf16 runs drift apart by several steps. The
+        kernel is held to the fp32 plain version on the same values instead:
+        <= FUSED_BF16_DEEP_LIMIT after dividing by max(1, |ref|). At Lc 512
+        the same inputs go through the kernel with each fault of
+        FUSED_CONTROLS planted, which must read above the limit.
+    Then the 4-, 8- and 16-row templates over FUSED_ROW_STEPS steps: 4 and 8
+    rows in fp32 through 30 layers, 16 rows in bf16 through one; and each
+    template's time at 30 layers in bf16."""
+    from chatterbox_embed_tpu_torch.kernels import fused_decode as fu
+    from chatterbox_embed_tpu_torch.weights import place
+    cfg = tts.cfg.t3.llama
+    g = torch.Generator(device="cuda").manual_seed(99)
+    fused32 = fu.stack_for_fused(place(tts.t3_params["llama"], "cuda", torch.float32), cfg,
+                                 torch.float32)
+    fused16 = fu.stack_for_fused(tts.t3_params["llama"], cfg, torch.bfloat16)
+    nb = FUSED_BF16_LAYERS
+    cut16 = {"wall": fused16["wall"][:nb], "ln1": fused16["ln1"][:nb],
+             "ln2": fused16["ln2"][:nb], "fnorm": fused16["fnorm"]}
+    worst = {torch.float32: 0.0, torch.bfloat16: 0.0}
+    timing = None
+
+    def check(out, ref, kind, **case):
+        rel = kind == torch.bfloat16
+        return max(_check_err("fused_decode", out[0], ref[0], FUSED_TOL[kind], rel,
+                              tensor="h", **case),
+                   _check_err("fused_decode", out[1], ref[1], FUSED_TOL[kind], rel,
+                              tensor="kv_rows", **case))
+
+    for lc in KERNEL_LC:
+        base = dict(b=KERNEL_B, lc=lc, d=cfg.hidden_size, steps=FUSED_STEPS, start=FUSED_START)
+        res, _ = _fused_chain(fused32, cfg, lc, torch.float32, g)
+        worst[torch.float32] = max(worst[torch.float32], check(
+            res["kernel"], res["plain"], torch.float32, layers=cfg.num_layers,
+            dtype="float32", **base))
+        res, _ = _fused_chain(cut16, cfg, lc, torch.bfloat16, g)
+        worst[torch.bfloat16] = max(worst[torch.bfloat16], check(
+            res["kernel"], res["plain"], torch.bfloat16, layers=nb, dtype="bfloat16", **base))
+        g_state = g.get_state()
+        res, last = _fused_chain(fused16, cfg, lc, torch.bfloat16, g, fused32)
+        err = _deep_check(res, "sound", layers=cfg.num_layers, **base)
+        if not err <= FUSED_BF16_DEEP_LIMIT:
+            raise AssertionError(f"fused_decode bf16, {cfg.num_layers} layers, lc={lc}: error "
+                                 f"against fp32 {err} > {FUSED_BF16_DEEP_LIMIT}")
+        for kind in FUSED_CONTROLS if lc == KERNEL_LC[0] else ():
+            g_ctl = torch.Generator(device="cuda")
+            g_ctl.set_state(g_state)         # the sound run's inputs
+            ctl, _ = _fused_chain(fused16, cfg, lc, torch.bfloat16, g_ctl, fused32,
+                                  fault=_fused_fault(kind, fused16))
+            ctl_err = _deep_check(ctl, kind, layers=cfg.num_layers, **base)
+            if not ctl_err > FUSED_BF16_DEEP_LIMIT:
+                raise AssertionError(f"fused_decode bf16: the planted fault {kind} read "
+                                     f"{ctl_err} <= {FUSED_BF16_DEEP_LIMIT}; the check "
+                                     f"cannot see it")
+            del ctl
+        if lc == KERNEL_LC[0]:
+            x, ck, cv, rk, rv, pos, start = last
+            timing = _timing(
+                lambda: fu.fused_decode_step(fused16, x, ck, cv, pos, start, cfg, torch.bfloat16),
+                lambda: fu.fused_decode_step_reference(fused16, x, rk, rv, pos, start, cfg,
+                                                       torch.bfloat16), iters=10)
+            wall_gb = fused16["wall"].numel() * fused16["wall"].element_size() / 1e9
+            _log_time("fused_decode", timing, card, b=KERNEL_B, lc=lc, start=start, pos=pos,
+                      layers=cfg.num_layers)
+            log("fused_decode_rate", wall_gb=f"{wall_gb:.4f}",
+                wall_gb_per_s=f"{wall_gb / (timing['ms'] / 1e3):.1f}",
+                share_of_3350_gb_per_s=f"{wall_gb / (timing['ms'] / 1e3) / 3350:.4f}",
+                card=repr(card))
+        del res, last
+        torch.cuda.empty_cache()
+    # the wider row templates (4, 8 and 16 rows; the fused gate admits them
+    # above one utterance), a short chain at Lc 512, then each one's time
+    for b, fz, dtype, layers in ((4, fused32, torch.float32, cfg.num_layers),
+                                 (8, fused32, torch.float32, cfg.num_layers),
+                                 (16, cut16, torch.bfloat16, nb)):
+        res, last = _fused_chain(fz, cfg, KERNEL_LC[0], dtype, g, b=b, steps=FUSED_ROW_STEPS)
+        worst[dtype] = max(worst[dtype], check(
+            res["kernel"], res["plain"], dtype, layers=layers, dtype=str(dtype)[6:], b=b,
+            lc=KERNEL_LC[0], d=cfg.hidden_size, steps=FUSED_ROW_STEPS, start=FUSED_START))
+        del res, last
+        lc = KERNEL_LC[0]
+        pos = lc - 5
+        x = torch.randn((b, cfg.hidden_size), generator=g, device="cuda").to(torch.bfloat16)
+        ck, cv = (torch.randn((cfg.num_layers, lc, b, cfg.num_heads, cfg.head_dim),
+                              generator=g, device="cuda").to(torch.bfloat16) for _ in range(2))
+        rk, rv = ck.clone(), cv.clone()
+        tm = _timing(
+            lambda: fu.fused_decode_step(fused16, x, ck, cv, pos, FUSED_START, cfg,
+                                         torch.bfloat16),
+            lambda: fu.fused_decode_step_reference(fused16, x, rk, rv, pos, FUSED_START, cfg,
+                                                   torch.bfloat16), iters=10)
+        _log_time("fused_decode", tm, card, b=b, lc=lc, start=FUSED_START, pos=pos,
+                  layers=cfg.num_layers)
+        del x, ck, cv, rk, rv
+    del fused32, fused16, cut16
+    torch.cuda.empty_cache()
+    return {"max_abs_err": worst[torch.bfloat16], "max_abs_err_fp32": worst[torch.float32],
+            "timing": timing}
 
 
 def _ragged_valid(b: int, t: int, g, empty_row: bool) -> torch.Tensor:
@@ -353,7 +606,7 @@ def _random_conds(cfg, device, n_s3gen_prompt=None, seed=0):
 DECODE_TOL = 1e-3
 
 
-def phase_decode_consistency(tts) -> float:
+def phase_decode_consistency(tts) -> dict:
     """T3's Llama at full width in fp32: prefill a context, run decode steps
     (each attends through the flash-decode kernel against the in-place
     cache), and compare every step's hidden state with one plain causal
@@ -368,31 +621,39 @@ def phase_decode_consistency(tts) -> float:
     pos = (torch.arange(p_len + steps, device="cuda") - pad).clamp_min(0)[None].expand(b, -1)
     total = 512
     with torch.no_grad():
-        idx = torch.arange(p_len, device="cuda")
-        kidx = torch.arange(total, device="cuda")
-        mask = ((kidx[None] <= idx[:, None]) & (kidx[None] >= pad))[None]
-        cache = llama.init_cache(cfg, b, total, torch.float32, "cuda")
-        _, cache = llama.forward(params, x[:, :p_len], pos[:, :p_len], mask, cache,
-                                 0, cfg, torch.float32)
-        dec = []
-        for i in range(steps):
-            hh, cache = llama.forward(params, x[:, p_len + i:p_len + i + 1],
-                                      pos[:, p_len + i:p_len + i + 1], cache=cache,
-                                      cache_pos=p_len + i, cfg=cfg, dtype=torch.float32,
-                                      flash_start=pad)
-            dec.append(hh)
         t = p_len + steps
         full_mask = ((torch.arange(t, device="cuda")[None] <= torch.arange(t, device="cuda")[:, None])
                      & (torch.arange(t, device="cuda")[None] >= pad))[None]
         ref, _ = llama.forward(params, x, pos, full_mask, cfg=cfg, dtype=torch.float32)
-    torch.cuda.synchronize()
-    err = (torch.cat(dec, dim=1) - ref[:, p_len:]).abs().max().item()
-    if not np.isfinite(err) or err > DECODE_TOL:
-        raise AssertionError(f"decode through the kernel vs plain forward: "
-                             f"max|err|={err} > {DECODE_TOL}")
-    log("decode_check", layers=cfg.num_layers, width=cfg.hidden_size, steps=steps,
-        dtype="float32", max_abs_err=f"{err:.3e}", limit=DECODE_TOL)
-    return err
+    errs = {}
+    for path, kernel in (("insert_first", "flash_decode"), ("defer", "flash_decode_deferred")):
+        with _env({"CHATTERBOX_DEFER_KV": "1" if path == "defer" else "0"}), torch.no_grad():
+            idx = torch.arange(p_len, device="cuda")
+            kidx = torch.arange(total, device="cuda")
+            mask = ((kidx[None] <= idx[:, None]) & (kidx[None] >= pad))[None]
+            cache = llama.init_cache(cfg, b, total, torch.float32, "cuda")
+            _, cache = llama.forward(params, x[:, :p_len], pos[:, :p_len], mask, cache,
+                                     0, cfg, torch.float32)
+            _reset_counts()
+            dec = []
+            for i in range(steps):
+                hh, cache = llama.forward(params, x[:, p_len + i:p_len + i + 1],
+                                          pos[:, p_len + i:p_len + i + 1], cache=cache,
+                                          cache_pos=p_len + i, cfg=cfg, dtype=torch.float32,
+                                          flash_start=pad)
+                dec.append(hh)
+            if _counts() != _want(**{kernel: cfg.num_layers * steps}):
+                raise AssertionError(f"{path} decode launched {_counts()}")
+        torch.cuda.synchronize()
+        err = (torch.cat(dec, dim=1) - ref[:, p_len:]).abs().max().item()
+        if not np.isfinite(err) or err > DECODE_TOL:
+            raise AssertionError(f"{path} decode through {kernel} vs plain forward: "
+                                 f"max|err|={err} > {DECODE_TOL}")
+        log("decode_check", path=path, kernel=kernel, layers=cfg.num_layers,
+            width=cfg.hidden_size, steps=steps, dtype="float32", max_abs_err=f"{err:.3e}",
+            limit=DECODE_TOL)
+        errs[path] = err
+    return errs
 
 
 def phase_batch_consistency(tts) -> None:
@@ -468,39 +729,102 @@ def phase_batch_consistency(tts) -> None:
 
 
 def _reset_counts() -> None:
-    for _, wrapper, _ in _kernels().values():
-        wrapper.launches = 0
+    for _, wrapper, attr, _ in _kernels().values():
+        setattr(wrapper, attr, 0)
 
 
 def _counts() -> dict:
-    return {name: wrapper.launches for name, (_, wrapper, _) in _kernels().items()}
+    return {name: getattr(wrapper, attr) for name, (_, wrapper, attr, _) in _kernels().items()}
 
 
-def phase_generate(card: str, tts) -> dict:
+def _want(**nonzero) -> dict:
+    """Every kernel's expected launches: 0 except those named."""
+    return {name: nonzero.get(name, 0) for name in _kernels()}
+
+
+@contextlib.contextmanager
+def _env(values: dict):
+    """Set environment variables for the block, then restore them."""
+    old = {k: os.environ.get(k) for k in values}
+    os.environ.update(values)
+    try:
+        yield
+    finally:
+        for k, v in old.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
+def phase_generate(card: str, tts, path: str = "default"):
+    """generate through the decode path `path` (GEN_PATHS): K1 on every
+    layer of every step (default), K4 once a step (fused) or K1s on every
+    layer of every step (defer). Returns (launches, timed perf)."""
     cfg = tts.cfg
-    for run in ("warmup", "timed"):
-        _reset_counts()
-        wav = tts.generate(TEXT, max_new_tokens=250, cfg_weight=0.5,
-                           temperature=0.7, seed=0)
-        counts = _counts()
-        perf = dict(tts.perf)
-        n_tok = perf["speech_tokens"]
-        steps = perf["decode_steps"]
-        if wav.ndim != 2 or wav.shape[0] != 1 or wav.shape[1] != 2 * n_tok * 480:
-            raise AssertionError(f"wav shape {wav.shape}, want (1, {2 * n_tok * 480})")
-        if not np.isfinite(wav).all():
-            raise AssertionError("wav has non-finite samples")
-        launches = counts["flash_decode"]
-        if launches != cfg.t3.llama.num_layers * steps or steps == 0:
-            raise AssertionError(f"flash_decode launched {launches} times for {steps} "
-                                 f"decode steps x {cfg.t3.llama.num_layers} layers")
-        log("generate", run=run, tokens=n_tok, decode_steps=steps,
-            flash_decode_launches=launches, wav_samples=wav.shape[1],
-            peak_abs=f"{float(np.abs(wav).max()):.4f}",
-            t3_s=f"{perf['t3_s']:.4f}", s3gen_s=f"{perf['s3gen_s']:.4f}",
-            tokens_per_s=f"{perf['tokens_per_s']:.2f}", rtf=f"{perf['rtf']:.4f}",
-            card=repr(card))
-    return counts
+    n_layers = cfg.t3.llama.num_layers
+    with _env(GEN_PATHS[path]):
+        for run in ("warmup", "timed"):
+            _reset_counts()
+            wav = tts.generate(TEXT, max_new_tokens=250, cfg_weight=0.5,
+                               temperature=0.7, seed=0)
+            counts = _counts()
+            perf = dict(tts.perf)
+            n_tok = perf["speech_tokens"]
+            steps = perf["decode_steps"]
+            if wav.ndim != 2 or wav.shape[0] != 1 or wav.shape[1] != 2 * n_tok * 480:
+                raise AssertionError(f"wav shape {wav.shape}, want (1, {2 * n_tok * 480})")
+            if not np.isfinite(wav).all():
+                raise AssertionError("wav has non-finite samples")
+            want = {"default": _want(flash_decode=n_layers * steps),
+                    "fused": _want(fused_decode=steps),
+                    "defer": _want(flash_decode_deferred=n_layers * steps)}[path]
+            if counts != want or steps == 0:
+                raise AssertionError(f"generate ({path}): launches {counts}, want {want}")
+            if perf["use_fused"] != (path == "fused"):
+                raise AssertionError(f"generate ({path}): use_fused {perf['use_fused']}")
+            log("generate", path=path, run=run, tokens=n_tok, decode_steps=steps,
+                launches=json.dumps({k: v for k, v in counts.items() if v}).replace(" ", ""),
+                wav_samples=wav.shape[1], peak_abs=f"{float(np.abs(wav).max()):.4f}",
+                t3_s=f"{perf['t3_s']:.4f}", ms_per_step=f"{1e3 * perf['t3_s'] / steps:.3f}",
+                s3gen_s=f"{perf['s3gen_s']:.4f}", tokens_per_s=f"{perf['tokens_per_s']:.2f}",
+                rtf=f"{perf['rtf']:.4f}", card=repr(card))
+    return counts, perf
+
+
+def phase_stream(card: str, tts, fused_step: bool):
+    """stream_generate of one utterance in 25-token blocks, with the fused
+    step (K4 once a step) or without it (K1 on every layer of every step),
+    twice (warm-up, then timed). Checks that the chunks are finite and join
+    to 2 * tokens * 480 samples, and the launch counts. Returns (launches,
+    timed perf with first_chunk_s)."""
+    n_layers = tts.cfg.t3.llama.num_layers
+    label = "fused_step" if fused_step else "default_step"
+    with _env({"CHATTERBOX_FUSED_STEP": "1" if fused_step else "0"}):
+        for run in ("warmup", "timed"):
+            _reset_counts()
+            chunks = list(tts.stream_generate(TEXT, **STREAM_KW))
+            counts = _counts()
+            perf = dict(tts.perf)
+            n_tok, steps = perf["speech_tokens"], perf["decode_steps"]
+            total = sum(c.size for c in chunks)
+            if not chunks or total != 2 * n_tok * 480 or n_tok == 0:
+                raise AssertionError(f"stream ({label}): {len(chunks)} chunks, {total} "
+                                     f"samples for {n_tok} tokens")
+            if not all(np.isfinite(c).all() for c in chunks):
+                raise AssertionError(f"stream ({label}): non-finite samples")
+            want = (_want(fused_decode=steps) if fused_step
+                    else _want(flash_decode=n_layers * steps))
+            if counts != want or steps == 0 or perf["use_fused"] != fused_step:
+                raise AssertionError(f"stream ({label}): launches {counts}, want {want}, "
+                                     f"use_fused {perf['use_fused']}")
+            log("stream_generate", step=label, run=run, tokens=n_tok, decode_steps=steps,
+                chunks=len(chunks), first_chunk_samples=chunks[0].size,
+                launches=json.dumps({k: v for k, v in counts.items() if v}).replace(" ", ""),
+                first_chunk_s=f"{perf['first_chunk_s']:.4f}", total_s=f"{perf['total_s']:.4f}",
+                audio_s=f"{perf['audio_s']:.3f}", rtf=f"{perf['total_s'] / perf['audio_s']:.4f}",
+                card=repr(card))
+    return counts, perf
 
 
 def phase_generate_batch(card: str, tts, conds, label: str) -> dict:
@@ -529,9 +853,9 @@ def phase_generate_batch(card: str, tts, conds, label: str) -> dict:
         flags = reuse_flags(cfg.s3gen.flow.cfm.n_timesteps, perf["cfm_cache_every"])
         reused = sum(flags)
         fresh = len(flags) - reused
-        want = {"flash_decode": n_layers * steps,
-                "rel_attention": n_blocks * dispatches,
-                "flash_attention": dispatches * (tblocks_fresh * fresh + tblocks_reuse * reused)}
+        want = _want(flash_decode=n_layers * steps, rel_attention=n_blocks * dispatches,
+                     flash_attention=dispatches * (tblocks_fresh * fresh
+                                                   + tblocks_reuse * reused))
         if counts != want or steps == 0:
             raise AssertionError(f"{label}: launches {counts}, want {want}")
         if perf["s3gen_sub_batch"] != BATCH_SUB or perf["cfm_cache_every"] != BATCH_STRIDE:
@@ -549,10 +873,24 @@ def phase_generate_batch(card: str, tts, conds, label: str) -> dict:
     return counts
 
 
+# the path whose launch count each kernel's JSON entry reports: this
+# slice's main path (stream_generate) for K1 and K4, the paths that run the
+# others
+MAIN_PATH = {"flash_decode": "stream_generate", "flash_decode_deferred": "generate_defer",
+             "rel_attention": "generate_batch", "flash_attention": "generate_batch",
+             "fused_decode": "stream_generate_fused_step"}
+REPLACES = {"flash_decode": "chatterbox_embed_tpu/kernels/flash_decode.py:85",
+            "flash_decode_deferred": "chatterbox_embed_tpu/kernels/flash_decode.py:169",
+            "rel_attention": "chatterbox_embed_tpu/kernels/rel_attention.py:45",
+            "flash_attention": "chatterbox_embed_tpu/models/layers.py:395",
+            "fused_decode": "chatterbox_embed_tpu/kernels/fused_decode.py:111"}
+
+
 if __name__ == "__main__":
     card = phase_device()
     phase_build()
-    check = {"flash_decode": phase_kernel_check(card)}
+    check = {"flash_decode": phase_kernel_check(card),
+             "flash_decode_deferred": phase_kernel_check(card, deferred=True)}
     check.update(phase_attention_check(card))
 
     from chatterbox_embed_tpu_torch.config import ChatterboxConfig
@@ -565,30 +903,38 @@ if __name__ == "__main__":
     log("model", config="ChatterboxConfig()", dtype="bfloat16",
         t3_layers=cfg.t3.llama.num_layers, d=cfg.t3.llama.hidden_size,
         init_s=f"{time.time() - t0:.2f}", text_chars=len(TEXT))
+    check["fused_decode"] = phase_fused_check(card, tts)
     phase_decode_consistency(tts)
     phase_batch_consistency(tts)
-    launches = {"generate": phase_generate(card, tts)}
+    launches, perfs = {}, {}
+    for path in GEN_PATHS:
+        launches[f"generate_{path}"], perfs[path] = phase_generate(card, tts, path)
+    log("decode_step", card=repr(card), **{
+        f"{path}_ms_per_step": f"{1e3 * p['t3_s'] / p['decode_steps']:.3f}"
+        for path, p in perfs.items()})
     launches["generate_batch"] = phase_generate_batch(card, tts, None, "one")
     voices = [_random_conds(cfg, "cuda", n, seed) for n, seed in ((150, 1), (110, 2))]
     launches["generate_batch_multi_voice"] = phase_generate_batch(
         card, tts, [voices[i % 2] for i in range(len(TEXTS))], "two")
+    launches["stream_generate_fused_step"], _ = phase_stream(card, tts, True)
+    launches["stream_generate"], _ = phase_stream(card, tts, False)
+    for name, path in MAIN_PATH.items():
+        if launches[path][name] == 0:
+            raise AssertionError(f"{name} was not launched on its path {path}")
 
     from chatterbox_embed_tpu_torch.kernels import _build
-    replaces = {"flash_decode": "chatterbox_embed_tpu/kernels/flash_decode.py:85",
-                "rel_attention": "chatterbox_embed_tpu/kernels/rel_attention.py:45",
-                "flash_attention": "chatterbox_embed_tpu/models/layers.py:395"}
     print(json.dumps({"kernels": [{
         "name": name, "route": "cuda",
         "source": str(m.SOURCE.relative_to(_build.PKG.parent)),
-        "replaces": replaces[name],
-        "launches": launches["generate_batch"][name],
+        "replaces": REPLACES[name],
+        "launches": launches[MAIN_PATH[name]][name],
         "launches_by_path": {p: c[name] for p, c in launches.items()},
         "max_abs_err": check[name]["max_abs_err"],
         "max_abs_err_fp32": check[name]["max_abs_err_fp32"],
         "ms": check[name]["timing"]["ms"], "plain_ms": check[name]["timing"]["plain_ms"],
         "call_ms": check[name]["timing"]["call_ms"],
         "plain_call_ms": check[name]["timing"]["plain_call_ms"]}
-        for name, (m, _, _) in _kernels().items()]}), flush=True)
+        for name, (m, _, _, _) in _kernels().items()]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

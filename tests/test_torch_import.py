@@ -48,3 +48,17 @@ def test_blocker_really_blocks_jax(module):
     code = BLOCKED_IMPORT.split("import chatterbox_embed_tpu_torch")[0] + f"import {module}\n"
     res = _run(code)
     assert res.returncode != 0 and "jax is blocked" in res.stderr
+
+
+@pytest.mark.parametrize("module", ["chatterbox_embed_tpu_torch.streaming",
+                                    "chatterbox_embed_tpu_torch.kernels.fused_decode"])
+def test_streaming_and_fused_step_import_with_jax_blocked(module):
+    """The streaming path and the fused decode step, each alone in a
+    process where importing jax fails."""
+    code = (BLOCKED_IMPORT.split("import chatterbox_embed_tpu_torch as pkg")[0]
+            + f"import {module}\n"
+            + "assert not any(m.split('.')[0] in ('jax', 'jaxlib') for m in sys.modules)\n"
+            + "print('imported')\n")
+    res = _run(code)
+    assert res.returncode == 0, res.stderr
+    assert res.stdout.split()[-1] == "imported"
