@@ -10,6 +10,7 @@ from typing import Any, Dict
 import numpy as np
 import torch
 
+from .device import resolve_device
 from .models.t3 import T3Cond
 
 
@@ -41,7 +42,9 @@ class Conditionals:
         torch.save({"t3": t3_dict, "gen": gen_dict}, path)
 
     @classmethod
-    def load(cls, path: str, device="cpu") -> "Conditionals":
+    def load(cls, path: str, device=None) -> "Conditionals":
+        """Read a conds.pt; the T3 tensors go to `device` (None: the card)."""
+        device = resolve_device(device)
         raw = torch.load(path, map_location="cpu", weights_only=True)
         t3_raw, gen_raw = raw["t3"], raw["gen"]
         prompt = t3_raw.get("cond_prompt_speech_tokens")

@@ -1,6 +1,7 @@
 // The single-token decode attention walk shared by the flash-decode kernel
-// (flash_decode.cu, K1 and its deferred-insert entry K1s) and the fused T3
-// decode step (fused_decode.cu, K4): one query row of one (row, head)
+// (flash_decode.cu, K1 and its deferred-insert entry K1s), the fused T3
+// decode step (fused_decode.cu, K4) and the decode-anatomy probe
+// (decode_anatomy.cu, K6): one query row of one (row, head)
 // against a sequence-major cache, fp32 online softmax, scale 1/sqrt(64).
 //
 // Layout: the key/value row of slot j for (row, head) bh starts at
@@ -63,7 +64,10 @@ __device__ __forceinline__ void fold_key(float s, float vd, float& m, float& l,
 // skipping the dead range [hole_lo, hole_hi). Four slots are loaded before
 // any is used, so each warp keeps eight row loads in flight. The state
 // (m, l, acc) is the warp's; acc holds this lane's two elements.
-template <typename T>
+// kWrap > 0 reads slot j's row from cache row j % kWrap (the decode-anatomy
+// probe's compute-only variant, which repeats one resident chunk); 0, the
+// decode paths' value, reads row j.
+template <typename T, int kWrap = 0>
 __device__ __forceinline__ void walk_keys(const T* __restrict__ k,
                                           const T* __restrict__ v, float2 qv,
                                           size_t row_stride, size_t head_off,
@@ -80,7 +84,8 @@ __device__ __forceinline__ void walk_keys(const T* __restrict__ k,
       const int j = j0 + u * step;
       live[u] = j <= last && !(j >= hole_lo && j < hole_hi);   // warp-uniform
       if (live[u]) {
-        const size_t off = (size_t)j * row_stride + head_off + 2 * lane;
+        const int jr = kWrap > 0 ? j % kWrap : j;
+        const size_t off = (size_t)jr * row_stride + head_off + 2 * lane;
         kk[u] = load2(k + off);
         vv[u] = load2(v + off);
       }

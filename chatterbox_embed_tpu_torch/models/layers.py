@@ -7,9 +7,10 @@ and the tests compare like with like. Public layouts stay channel-last.
 
 Parameter layouts (what `weights.from_jax_params` produces):
 - Linear:    {"w": (in, out), "b": (out,)?}       y = x @ w + b (as in JAX)
-- Conv1d:    {"w": (out, in, width), "b"}         torch's layout for F.conv1d
+- Conv1d:    {"w": (out, in/groups, width), "b"}  torch's layout for F.conv1d
+- Conv2d:    {"w": (out, in, kh, kw), "b"}        torch's layout for F.conv2d
 - ConvT1d:   {"w": (in, out, width), "b"}         torch's layout for F.conv_transpose1d
-- Norms:     {"scale": (c,), "bias": (c,)}
+- Norms:     {"scale": (c,), "bias": (c,)}; batch norm adds "mean", "var"
 - Embedding: {"w": (vocab, dim)}
 Matmul-bearing ops take a compute `dtype` and cast the weight to it (a no-op
 when the weights are stored in that dtype already).
@@ -21,6 +22,7 @@ import math
 import torch
 import torch.nn.functional as F
 
+from ..device import resolve_device
 from ..kernels.flash_attention import flash_attention
 
 
@@ -34,12 +36,12 @@ def _cast(p, dtype):
 
 class Init:
     """Random-tensor source for model init: a torch.Generator seeded from
-    `seed` on `device`. On the "meta" device it makes shape-only tensors,
+    `seed` on `device` (None: the card). On the "meta" device it makes shape-only tensors,
     which is how `weights.from_jax_params` learns the expected tree.
     Distributions follow the JAX package's initialisers (torch defaults)."""
 
-    def __init__(self, seed: int = 0, device="cpu"):
-        self.device = torch.device(device)
+    def __init__(self, seed: int = 0, device=None):
+        self.device = resolve_device(device)
         self.gen = None
         if self.device.type != "meta":
             self.gen = torch.Generator(device=self.device).manual_seed(seed)
@@ -79,9 +81,23 @@ def layer_norm_init(init: Init, dim):
     return {"scale": init.ones((dim,)), "bias": init.zeros((dim,))}
 
 
-def conv1d_init(init: Init, width, d_in, d_out, bias=True):
-    bound = 1.0 / math.sqrt(d_in * width)
-    p = {"w": init.uniform((d_out, d_in, width), math.sqrt(3.0) * bound)}
+def batch_norm_init(init: Init, dim):
+    """Eval-form batch norm: running statistics beside the affine pair."""
+    return {"scale": init.ones((dim,)), "bias": init.zeros((dim,)),
+            "mean": init.zeros((dim,)), "var": init.ones((dim,))}
+
+
+def conv1d_init(init: Init, width, d_in, d_out, bias=True, groups=1):
+    bound = 1.0 / math.sqrt(d_in // groups * width)
+    p = {"w": init.uniform((d_out, d_in // groups, width), math.sqrt(3.0) * bound)}
+    if bias:
+        p["b"] = init.uniform((d_out,), bound)
+    return p
+
+
+def conv2d_init(init: Init, kh, kw, d_in, d_out, bias=True):
+    bound = 1.0 / math.sqrt(d_in * kh * kw)
+    p = {"w": init.uniform((d_out, d_in, kh, kw), math.sqrt(3.0) * bound)}
     if bias:
         p["b"] = init.uniform((d_out,), bound)
     return p
@@ -117,6 +133,12 @@ def rms_norm(p, x, eps=1e-5):
     return (xf * torch.rsqrt(var + eps) * p["scale"]).to(x.dtype)
 
 
+def batch_norm(p, x, eps=1e-5):
+    """Batch norm in eval form over the last (channel) axis."""
+    inv = torch.rsqrt(p["var"] + eps) * p["scale"]
+    return ((x.float() - p["mean"]) * inv + p["bias"]).to(x.dtype)
+
+
 def _same_padding(t: int, width: int, stride: int, dilation: int):
     """XLA's SAME padding (lo, hi) for a 1-D window."""
     out = -(-t // stride)
@@ -124,7 +146,7 @@ def _same_padding(t: int, width: int, stride: int, dilation: int):
     return total // 2, total - total // 2
 
 
-def conv1d(p, x, stride=1, padding="SAME", dilation=1, dtype=None):
+def conv1d(p, x, stride=1, padding="SAME", dilation=1, groups=1, dtype=None):
     """x: (B, T, C_in) -> (B, T', C_out). padding: 'SAME'|'VALID'|int|(lo,hi)."""
     d = dtype or x.dtype
     w = _cast(p["w"], d)
@@ -137,8 +159,18 @@ def conv1d(p, x, stride=1, padding="SAME", dilation=1, dtype=None):
         xc = F.pad(xc, padding)
         padding = 0
     b = _cast(p["b"], d) if "b" in p else None
-    y = F.conv1d(xc, w, b, stride=stride, padding=padding, dilation=dilation)
+    y = F.conv1d(xc, w, b, stride=stride, padding=padding, dilation=dilation, groups=groups)
     return y.transpose(1, 2)
+
+
+def conv2d(p, x, stride=(1, 1), padding=0, dtype=None):
+    """x: (B, H, W, C_in) channel-last -> (B, H', W', C_out); padding is one
+    int for both axes."""
+    d = dtype or x.dtype
+    b = _cast(p["b"], d) if "b" in p else None
+    y = F.conv2d(x.to(d).permute(0, 3, 1, 2), _cast(p["w"], d), b, stride=stride,
+                 padding=padding)
+    return y.permute(0, 2, 3, 1)
 
 
 def conv_transpose1d(p, x, stride, padding, dtype=None):

@@ -26,6 +26,7 @@ import torch
 import torch.nn.functional as F
 
 from ..config import LlamaConfig
+from ..device import resolve_device
 from ..kernels.flash_decode import decode_attention
 from . import layers as L
 
@@ -95,7 +96,8 @@ def apply_rope(x, cos, sin):
 # ---------------------------------------------------------------------------
 
 def init_cache(cfg: LlamaConfig, batch: int, max_len: int, dtype=torch.float32,
-               device="cpu") -> KVCache:
+               device=None) -> KVCache:
+    device = resolve_device(device)
     shape = (cfg.num_layers, max_len, batch, cfg.num_kv_heads, cfg.head_dim)
     return KVCache(torch.zeros(shape, dtype=dtype, device=device),
                    torch.zeros(shape, dtype=dtype, device=device))

@@ -1,22 +1,29 @@
 """S3Gen: speech tokens -> mel (conformer + CFM) -> waveform (HiFT), the
 PyTorch counterpart of `chatterbox_embed_tpu/models/s3gen.py`: one shared
-voice prompt, or ragged per-row prompts for multi-voice batches, and the
-windowed flow of streaming (`flow_to_mel_window`)
-(conditioning from reference audio is not part of this port yet).
+voice prompt, or ragged per-row prompts for multi-voice batches, the
+windowed flow of streaming (`flow_to_mel_window`), the voice-reference
+embedding path (`embed_ref`) and the `.npy` VoiceProfile format.
 """
 from __future__ import annotations
+
+import dataclasses
+import time
+from typing import Dict, Optional
 
 import numpy as np
 import torch
 
-from ..config import S3GEN_SR, SPEECH_VOCAB_SIZE, S3GenConfig
+from ..config import S3_SR, S3GEN_SR, SPEECH_VOCAB_SIZE, S3GenConfig
+from ..device import lap
+from ..ops import mel as mel_ops
+from ..ops import resample as resample_ops
 from . import layers as L
-from . import cfm, conformer, flow_decoder, hifigan
+from . import cfm, conformer, flow_decoder, hifigan, s3tokenizer, xvector
 
 
 def init(init: L.Init, cfg: S3GenConfig = S3GenConfig()):
-    """The flow and vocoder parameters (the speaker encoder and the speech
-    tokenizer belong to the conditioning path, which is not ported yet)."""
+    """The flow and vocoder parameters, then the conditioning encoders (the
+    CAMPPlus speaker encoder and the S3 speech tokenizer)."""
     flow = {
         "input_embedding": L.embedding_init(init, cfg.flow.vocab_size, cfg.flow.input_size,
                                             std=0.02),
@@ -25,7 +32,9 @@ def init(init: L.Init, cfg: S3GenConfig = S3GenConfig()):
         "encoder_proj": L.linear_init(init, cfg.flow.encoder.output_size, cfg.flow.output_size),
         "decoder": flow_decoder.init(init, cfg.flow.decoder),
     }
-    return {"flow": flow, "hift": hifigan.init(init, cfg.hift)}
+    return {"flow": flow, "hift": hifigan.init(init, cfg.hift),
+            "speaker_encoder": xvector.init(init, cfg.campplus),
+            "tokenizer": s3tokenizer.init(init, cfg.tokenizer)}
 
 
 @torch.no_grad()
@@ -179,6 +188,131 @@ def token_to_wav(params, tokens, token_len, prompt_tokens, prompt_feat,
     fade = torch.from_numpy(trim_fade()).to(wav.device)
     wav[:, : fade.shape[0]] *= fade
     return wav
+
+
+# ---------------------------------------------------------------------------
+# reference embedding (host-orchestrated, device-computed)
+# ---------------------------------------------------------------------------
+
+def _param_device(params) -> torch.device:
+    return params["flow"]["input_embedding"]["w"].device
+
+
+def _resampled(wav: torch.Tensor, sr: int, new_sr: int) -> torch.Tensor:
+    return wav if sr == new_sr else resample_ops.resample(wav, sr, new_sr)
+
+
+@torch.no_grad()
+def embed_ref(params, ref_wav: np.ndarray, ref_sr: int,
+              cfg: S3GenConfig = S3GenConfig(), timings: Optional[dict] = None
+              ) -> Dict[str, np.ndarray]:
+    """Build the reference dict for voice cloning: the prompt mel at 24 kHz,
+    the CAMPPlus x-vector and the prompt speech tokens, all in fp32 on the
+    device of `params`. Returns numpy arrays with the shapes and dtypes of
+    the reference's ref_dict, so the `.npy` VoiceProfile format round-trips.
+
+    timings: optional dict that receives the seconds of each part (host
+    clock after a device synchronise): resample_s, mel_s, campplus_s,
+    tokenizer_s."""
+    dev = _param_device(params)
+    t0 = time.time()
+    ref = torch.from_numpy(np.asarray(ref_wav, np.float32).reshape(1, -1)).to(dev)
+    wav24 = _resampled(ref, ref_sr, S3GEN_SR)
+    wav16 = _resampled(ref, ref_sr, S3_SR)
+    t0 = lap(timings, "resample_s", t0, dev)
+    # pad to a whole mel hop so mel frames == 2 * tokens
+    hop = cfg.mel_hop
+    if wav24.shape[1] % hop:
+        wav24 = torch.nn.functional.pad(wav24, (0, hop - wav24.shape[1] % hop))
+    mel24 = mel_ops.mel_spectrogram_24k(
+        wav24, n_fft=cfg.mel_n_fft, num_mels=cfg.mel_num, hop_size=cfg.mel_hop,
+        win_size=cfg.mel_win, fmin=cfg.mel_fmin, fmax=cfg.mel_fmax)
+    mel24 = mel24.transpose(1, 2).cpu().numpy()           # (1, T_mel, 80)
+    t0 = lap(timings, "mel_s", t0, dev)
+
+    x_vector = xvector.inference(params["speaker_encoder"], wav16, cfg.campplus).cpu().numpy()
+    t0 = lap(timings, "campplus_s", t0, dev)
+    wav16p = s3tokenizer.pad_to_token_multiple(wav16.cpu().numpy())
+    tokens, tok_lens = s3tokenizer.tokenize_wave(
+        params["tokenizer"], torch.from_numpy(wav16p).to(dev), cfg=cfg.tokenizer)
+    tokens, tok_lens = tokens.cpu().numpy(), tok_lens.cpu().numpy()
+    lap(timings, "tokenizer_s", t0, dev)
+    if mel24.shape[1] != 2 * tokens.shape[1]:
+        n = mel24.shape[1] // 2
+        tokens = tokens[:, :n]
+        tok_lens = np.minimum(tok_lens, n)
+    return dict(
+        prompt_token=tokens.astype(np.int64),
+        prompt_token_len=tok_lens.astype(np.int64),
+        prompt_feat=mel24.astype(np.float32),
+        prompt_feat_len=None,
+        embedding=x_vector.astype(np.float32),
+    )
+
+
+# ---------------------------------------------------------------------------
+# VoiceProfile (.npy), byte-compatible with the JAX package's
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass
+class VoiceProfile:
+    """Dict-in-npy voice profile: the reference dict, plus the voice
+    encoder's embedding for T3."""
+    embedding: np.ndarray
+    prompt_feat: Optional[np.ndarray] = None
+    prompt_feat_len: Optional[int] = None
+    prompt_token: Optional[np.ndarray] = None
+    prompt_token_len: Optional[np.ndarray] = None
+    ve_embedding: Optional[np.ndarray] = None
+
+    def save(self, path: str):
+        data = {"embedding": np.asarray(self.embedding)}
+        if self.prompt_feat is not None:
+            data["prompt_feat"] = np.asarray(self.prompt_feat)
+        if self.prompt_feat_len is not None:
+            data["prompt_feat_len"] = self.prompt_feat_len
+        if self.prompt_token is not None:
+            data["prompt_token"] = np.asarray(self.prompt_token)
+        if self.prompt_token_len is not None:
+            data["prompt_token_len"] = np.asarray(self.prompt_token_len)
+        if self.ve_embedding is not None:
+            data["ve_embedding"] = np.asarray(self.ve_embedding)
+        np.save(path, data)
+
+    @classmethod
+    def load(cls, path: str) -> "VoiceProfile":
+        data = np.load(path, allow_pickle=True).item()
+        return cls(
+            embedding=data["embedding"],
+            prompt_feat=data.get("prompt_feat"),
+            prompt_feat_len=data.get("prompt_feat_len"),
+            prompt_token=data.get("prompt_token"),
+            prompt_token_len=data.get("prompt_token_len"),
+            ve_embedding=data.get("ve_embedding"),
+        )
+
+
+@torch.no_grad()
+def save_voice_clone(params, ref_wav: np.ndarray, ref_sr: int, save_path: str,
+                     cfg: S3GenConfig = S3GenConfig()):
+    """192-d CAMPPlus embedding -> .npy."""
+    wav = torch.from_numpy(np.asarray(ref_wav, np.float32).reshape(1, -1)).to(
+        _param_device(params))
+    emb = xvector.inference(params["speaker_encoder"], _resampled(wav, ref_sr, S3_SR),
+                            cfg.campplus).cpu().numpy()
+    np.save(save_path, emb)
+    return emb
+
+
+def save_voice_profile(params, ref_wav: np.ndarray, ref_sr: int, save_path: str,
+                       cfg: S3GenConfig = S3GenConfig()):
+    """Full profile -> .npy."""
+    rd = embed_ref(params, ref_wav, ref_sr, cfg)
+    VoiceProfile(
+        embedding=rd["embedding"], prompt_feat=rd["prompt_feat"],
+        prompt_feat_len=rd["prompt_feat_len"], prompt_token=rd["prompt_token"],
+        prompt_token_len=rd["prompt_token_len"],
+    ).save(save_path)
 
 
 def drop_invalid_tokens(x: np.ndarray) -> np.ndarray:

@@ -35,6 +35,7 @@ import numpy as np
 import torch
 
 from ..config import T3Config
+from ..device import resolve_device
 from ..kernels import fused_decode
 from ..ops import sampling
 from . import layers as L
@@ -300,7 +301,7 @@ def start_generation(params, cond: T3Cond, text_tokens: np.ndarray, *,
                      cfg_weight, max_new_tokens: int,
                      text_lens: Optional[np.ndarray] = None,
                      cfg: T3Config = T3Config(), dtype=torch.float32,
-                     device="cpu", free_bytes: Optional[int] = None):
+                     device=None, free_bytes: Optional[int] = None):
     """Left-pad the text (U, T) to its bucket, build the context and
     prefill. text_lens: per-row valid lengths of right-padded rows. Raises
     above max_decode_utterances, whose fence reads `free_bytes` (default:
@@ -314,6 +315,7 @@ def start_generation(params, cond: T3Cond, text_tokens: np.ndarray, *,
     takes, and unragged rows: its RoPE position is one for every row, and
     it attends [pad, pos] with no hole. These gates decide before any
     launch."""
+    device = resolve_device(device)
     tt_np = np.atleast_2d(np.asarray(text_tokens, np.int32))
     u, lt = tt_np.shape
     if lt > cfg.max_text_seq_len:
@@ -491,7 +493,7 @@ def generate_stream(params, cond: T3Cond, text_tokens: np.ndarray, *,
                     repetition_penalty=1.2, min_p=0.05, top_p=1.0,
                     stop_on_eos: bool = True, seed: int = 0, block: int = DECODE_BLOCK,
                     text_lens: Optional[np.ndarray] = None, draws=None,
-                    cfg: T3Config = T3Config(), dtype=torch.float32, device="cpu",
+                    cfg: T3Config = T3Config(), dtype=torch.float32, device=None,
                     info: Optional[dict] = None):
     """Yield numpy blocks of generated speech-token ids as they decode,
     `block` steps at a time: (n,) for one utterance, (n, U) for more. The
@@ -500,6 +502,7 @@ def generate_stream(params, cond: T3Cond, text_tokens: np.ndarray, *,
     draws: the Gumbel source (`sampling.Draws(seed, device)` by default).
     info: optional dict that receives p_len, pad, cache_total, use_fused and
     decode_steps (the decode forwards run so far)."""
+    device = resolve_device(device)
     single = np.atleast_2d(text_tokens).shape[0] == 1
     draws = draws if draws is not None else sampling.Draws(seed, device)
     for blk in _stream_rows(params, cond, text_tokens, text_lens, draws, temperature,
@@ -516,7 +519,7 @@ def generate(params, cond: T3Cond, text_tokens: np.ndarray, *,
              cfg_weight: float = 0.0, repetition_penalty: float = 1.2,
              min_p: float = 0.05, top_p: float = 1.0, stop_on_eos: bool = True,
              seed: int = 0, draws=None, cfg: T3Config = T3Config(),
-             dtype=torch.float32, device="cpu", info: Optional[dict] = None
+             dtype=torch.float32, device=None, info: Optional[dict] = None
              ) -> np.ndarray:
     """Speech tokens for one utterance. text_tokens: (1, T) wrapped in
     SOT/EOT. Returns the generated ids INCLUDING the terminating EOS if one
@@ -527,6 +530,7 @@ def generate(params, cond: T3Cond, text_tokens: np.ndarray, *,
     decode_steps (the number of decode forwards run)."""
     if np.atleast_2d(text_tokens).shape[0] != 1:
         raise ValueError("generate decodes one utterance; generate_batch takes more")
+    device = resolve_device(device)
     draws = draws if draws is not None else sampling.Draws(seed, device)
     tokens, ginfo = _generate_rows(
         params, cond, text_tokens, None, draws, temperature, cfg_weight,
@@ -568,7 +572,7 @@ def generate_batch(params, cond: T3Cond, text_tokens: np.ndarray, *,
                    stop_on_eos: bool = True, seed: int = 0,
                    text_lens: Optional[np.ndarray] = None,
                    make_draws: Optional[Callable[[int], object]] = None,
-                   cfg: T3Config = T3Config(), dtype=torch.float32, device="cpu",
+                   cfg: T3Config = T3Config(), dtype=torch.float32, device=None,
                    free_bytes: Optional[int] = None, info: Optional[dict] = None) -> list:
     """Speech tokens for U utterances decoded in lock-step, with per-row
     sampling and EOS. text_tokens (U, T) are right-padded to a common width
@@ -585,6 +589,7 @@ def generate_batch(params, cond: T3Cond, text_tokens: np.ndarray, *,
     `free_bytes` (default: the device's free memory, read once). info:
     optional dict that receives decode_steps (summed over sub-batches),
     sub_batches and sub_batch_utts."""
+    device = resolve_device(device)
     tt = np.atleast_2d(np.asarray(text_tokens, np.int32))
     n_utt, lt = tt.shape
     make_draws = make_draws or (lambda s: sampling.Draws(s, device))

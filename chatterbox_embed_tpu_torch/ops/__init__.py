@@ -1,1 +1,2 @@
-"""PyTorch ports of the JAX package's ops (sampling, STFT)."""
+"""PyTorch ports of the JAX package's ops (sampling, STFT, mel, fbank,
+resampling)."""

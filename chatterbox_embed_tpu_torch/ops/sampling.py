@@ -14,6 +14,8 @@ from typing import NamedTuple, Union
 import numpy as np
 import torch
 
+from ..device import resolve_device
+
 NEG_INF = float("-inf")
 
 
@@ -35,10 +37,10 @@ class Draws:
     depends on its index alone.
     """
 
-    def __init__(self, seed: int = 0, device="cpu"):
+    def __init__(self, seed: int = 0, device=None):
         self.seed = int(seed)
-        self.gen = torch.Generator(device=device).manual_seed(self.seed)
-        self.device = torch.device(device)
+        self.device = resolve_device(device)
+        self.gen = torch.Generator(device=self.device).manual_seed(self.seed)
 
     def gumbel(self, step: int, shape) -> torch.Tensor:
         u = torch.rand(shape, generator=self.gen, device=self.device)
@@ -114,15 +116,15 @@ class SamplingParams(NamedTuple):
     top_p: Union[float, torch.Tensor]
 
 
-def sampling_param(value, n_utt: int, device="cpu"):
+def sampling_param(value, n_utt: int, device=None):
     """A scalar -> float; a length-U sequence -> (U, 1) fp32 tensor on
-    `device`. Any other length raises."""
+    `device` (None: the card). Any other length raises."""
     a = np.asarray(value, np.float32)
     if a.ndim == 0:
         return float(a)
     if a.shape != (n_utt,):
         raise ValueError(f"per-row sampling param must have shape ({n_utt},), got {a.shape}")
-    return torch.from_numpy(a.reshape(n_utt, 1)).to(device)
+    return torch.from_numpy(a.reshape(n_utt, 1)).to(resolve_device(device))
 
 
 def process_logits(logits, counts, *, valid_size: int, eos_id: int,

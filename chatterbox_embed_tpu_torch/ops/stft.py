@@ -1,5 +1,6 @@
 """STFT / iSTFT as matmuls against a DFT basis, the PyTorch counterpart of
-`chatterbox_embed_tpu/ops/stft.py` (the vocoder's n_fft=16 pair).
+`chatterbox_embed_tpu/ops/stft.py`: the speech front-ends' forward
+transforms (n_fft 400 / 1920) and the vocoder's n_fft=16 pair.
 
 Framing is a strided view, the transform one fp32 matmul against a cos/sin
 basis, and the inverse an overlap-add written as a transposed convolution
@@ -62,16 +63,41 @@ def _t(a: np.ndarray, like: torch.Tensor) -> torch.Tensor:
     return torch.from_numpy(a).to(like.device)
 
 
-def stft(x: torch.Tensor, n_fft: int, hop_length: int, window: np.ndarray):
-    """x: (B, T) waveform -> (real, imag), each (B, n_freq, n_frames) fp32;
-    centred frames, reflect padding. `window` has length n_fft."""
-    pad = n_fft // 2
-    x = F.pad(x.float()[:, None, :], (pad, pad), mode="reflect")[:, 0]
-    frames = x.unfold(-1, n_fft, hop_length) * _t(np.asarray(window, np.float32), x)
+def frame(x: torch.Tensor, frame_length: int, hop: int) -> torch.Tensor:
+    """Slice (..., T) into overlapping frames (..., n_frames, frame_length);
+    T must be at least frame_length (callers pad)."""
+    return x.unfold(-1, frame_length, hop)
+
+
+def stft(x: torch.Tensor, n_fft: int, hop_length: int, window: np.ndarray,
+         win_length: int | None = None, center: bool = True, pad_mode: str = "reflect"):
+    """Matmul STFT with torch.stft / librosa.stft semantics.
+
+    x: (..., T) waveform; window: (win_length,), padded symmetrically to
+    n_fft when shorter; centred frames are padded by n_fft // 2 on both sides
+    in `pad_mode`. Returns (real, imag), each (..., n_freq, n_frames) fp32.
+    The transform is one fp32 matmul against the cos/sin basis (on the card a
+    fp32 matmul runs in full fp32 unless TF32 was switched on)."""
+    win_length = win_length or n_fft
+    window = np.asarray(window, np.float32)
+    if win_length < n_fft:
+        lp = (n_fft - win_length) // 2
+        window = np.pad(window, (lp, n_fft - win_length - lp))
+    x = x.float()
+    if center:
+        lead = x.shape[:-1]
+        pad = n_fft // 2
+        x = F.pad(x.reshape(-1, 1, x.shape[-1]), (pad, pad), mode=pad_mode)
+        x = x.reshape(lead + (x.shape[-1],))
+    frames = frame(x, n_fft, hop_length) * _t(window, x)
     cos_b, msin_b = _dft_basis(n_fft)
     real = frames @ _t(cos_b, x)
     imag = frames @ _t(msin_b, x)
     return real.transpose(-1, -2), imag.transpose(-1, -2)
+
+
+def magnitude(real: torch.Tensor, imag: torch.Tensor, eps: float = 0.0) -> torch.Tensor:
+    return torch.sqrt(real * real + imag * imag + eps)
 
 
 def istft(real: torch.Tensor, imag: torch.Tensor, n_fft: int, hop_length: int,

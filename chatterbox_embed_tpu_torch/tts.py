@@ -1,34 +1,46 @@
 """ChatterboxTTS, the public text-to-speech pipeline: the PyTorch counterpart
-of `chatterbox_embed_tpu/tts.py` with prepared conditionals: one utterance
-(`generate`: tokenize, T3, S3Gen), streamed (`stream_generate`: audio
-chunks as the tokens decode) or a batch of them (`generate_batch`: one
-lock-step T3 decode, then S3Gen in sub-batches), with one voice or one
-voice per utterance.
+of `chatterbox_embed_tpu/tts.py`: one utterance (`generate`: tokenize, T3,
+S3Gen), streamed (`stream_generate`: audio chunks as the tokens decode) or a
+batch of them (`generate_batch`: one lock-step T3 decode, then S3Gen in
+sub-batches), with one voice or one voice per utterance.
 
-Host code tokenizes, pads to buckets and moves numpy at the edges; T3 and
-S3Gen run on `device` with the compute `dtype`.
+The voice comes from prepared conditionals, or is prepared from reference
+audio (`prepare_conditionals_with_audio_prompt`: prompt mel, CAMPPlus
+x-vector, S3 prompt tokens, voice-encoder embedding), from a saved voice
+profile (`.npy`) or from a saved x-vector plus prompt audio; the last
+preparation is cached by its key.
+
+Host code tokenizes, pads to buckets and moves numpy at the edges; T3,
+S3Gen and the conditioning encoders run on `device` (the card unless the
+caller names another), T3 and S3Gen with the compute `dtype`, the
+conditioning encoders in fp32.
 """
 from __future__ import annotations
 
 import os
 import time
 from pathlib import Path
-from typing import Dict, List, Optional
+from typing import Any, Dict, List, Optional
 
 import numpy as np
 import torch
 
-from chatterbox_embed_tpu.utils import weights as jax_weights
-
 from . import streaming
 from .conditionals import Conditionals
-from .config import S3GEN_SR, ChatterboxConfig
+from .config import S3_SR, S3GEN_SR, ChatterboxConfig
+from .device import lap, resolve_device
 from .models import layers as L
 from .models import s3gen as s3gen_mod
+from .models import s3tokenizer as s3tok_mod
 from .models import t3 as t3_mod
+from .models import voice_encoder as ve_mod
+from .models.s3gen import VoiceProfile
+from .models.t3 import T3Cond
 from .models.tokenizer import EnTokenizer, FallbackTokenizer
 from .ops.sampling import Draws
-from .weights import from_jax_params, place
+from .utils import audio_io
+from .utils import weights as weights_mod
+from .weights import FP32_S3GEN, from_arrays, place
 
 _TOKEN_BUCKETS = (128, 256, 512, 1024)
 
@@ -91,20 +103,34 @@ def _derive_cfm_cfg_steps():
 
 
 class ChatterboxTTS:
+    ENC_COND_LEN = 6 * S3_SR
+    DEC_COND_LEN = 10 * S3GEN_SR
+
     def __init__(self, t3_params, s3gen_params, tokenizer,
                  conds: Optional[Conditionals] = None,
                  config: ChatterboxConfig = ChatterboxConfig(),
-                 dtype=torch.float32, device="cpu"):
-        """t3_params / s3gen_params: the port's trees (see weights.py); they
-        are placed on `device`, matmul and conv weights in `dtype`."""
+                 dtype=torch.float32, device=None, ve_params=None):
+        """t3_params / s3gen_params / ve_params: the port's trees (see
+        weights.py); they are placed on `device` (None: the card), T3's and
+        the flow's and vocoder's matmul and conv weights in `dtype`, the
+        conditioning encoders (CAMPPlus, S3 tokenizer, voice encoder) in
+        fp32. Without `ve_params` the pipeline speaks with prepared
+        conditionals and voice profiles only."""
         self.sr = S3GEN_SR
         self.cfg = config
         self.dtype = dtype
-        self.device = torch.device(device)
+        self.device = resolve_device(device)
         self.t3_params = place(t3_params, self.device, dtype)
-        self.s3gen_params = place(s3gen_params, self.device, dtype)
+        self.s3gen_params = place(s3gen_params, self.device, dtype, fp32=FP32_S3GEN)
+        self.ve_params = (None if ve_params is None
+                          else place(ve_params, self.device, torch.float32))
         self.tokenizer = tokenizer
         self.conds = conds.to(self.device) if conds is not None else None
+        # conditional cache: the last prepared voice, by its key
+        self._cached_conditionals: Optional[Conditionals] = None
+        self._cache_key = None
+        self._conditional_cache_hits = 0
+        self._conditional_cache_misses = 0
         # the last request's stage timings and counts (_record_perf)
         self.perf: Dict[str, float] = {}
         # per-voice S3Gen prompt rows on the device (_gen_device_voice_row)
@@ -112,31 +138,191 @@ class ChatterboxTTS:
 
     @classmethod
     def from_random(cls, seed: int = 0, config: ChatterboxConfig = ChatterboxConfig(),
-                    tokenizer=None, dtype=torch.float32, device="cpu"):
-        """Randomly initialised pipeline, drawn on `device` from `seed`."""
+                    tokenizer=None, dtype=torch.float32, device=None):
+        """Randomly initialised pipeline, drawn on `device` (None: the card)
+        from `seed`."""
         init = L.Init(seed, device)
-        return cls(t3_mod.init(init, config.t3), s3gen_mod.init(init, config.s3gen),
-                   tokenizer or FallbackTokenizer(config.t3), conds=None,
-                   config=config, dtype=dtype, device=device)
+        t3p = t3_mod.init(init, config.t3)
+        s3p = s3gen_mod.init(init, config.s3gen)
+        vep = ve_mod.init(init, config.voice_encoder)
+        return cls(t3p, s3p, tokenizer or FallbackTokenizer(config.t3), conds=None,
+                   config=config, dtype=dtype, device=init.device, ve_params=vep)
 
     @classmethod
     def from_local(cls, ckpt_dir, config: ChatterboxConfig = ChatterboxConfig(),
-                   dtype=torch.float32, device="cpu"):
-        """Load reference checkpoints: t3_cfg.safetensors, s3gen.safetensors,
-        tokenizer.json and (if present) conds.pt in `ckpt_dir`. The JAX
-        package's numpy converters build its trees, which `from_jax_params`
-        turns into the port's."""
+                   dtype=torch.float32, device=None):
+        """Load reference checkpoints: ve.safetensors, t3_cfg.safetensors,
+        s3gen.safetensors, tokenizer.json and (if present) conds.pt in
+        `ckpt_dir`. The port's numpy converters (utils/weights.py) build
+        trees in the port's layout, which `weights.from_arrays` checks leaf
+        by leaf and turns into tensors."""
         ckpt_dir = Path(ckpt_dir)
-        t3_sd = jax_weights.load_safetensors(str(ckpt_dir / "t3_cfg.safetensors"))
-        t3_tree = jax_weights.convert_t3(t3_sd, num_layers=config.t3.llama.num_layers)
-        s3_sd = jax_weights.load_safetensors(str(ckpt_dir / "s3gen.safetensors"))
-        s3_tree = jax_weights.convert_s3gen(s3_sd, cfg=config.s3gen)
-        state = from_jax_params(t3_tree, s3_tree, config)
+        device = resolve_device(device)
+        ve_sd = weights_mod.load_safetensors(str(ckpt_dir / "ve.safetensors"))
+        ve_tree = weights_mod.convert_voice_encoder(ve_sd)
+        t3_sd = weights_mod.load_safetensors(str(ckpt_dir / "t3_cfg.safetensors"))
+        t3_tree = weights_mod.convert_t3(t3_sd, num_layers=config.t3.llama.num_layers)
+        s3_sd = weights_mod.load_safetensors(str(ckpt_dir / "s3gen.safetensors"))
+        s3_tree = weights_mod.convert_s3gen(s3_sd, cfg=config.s3gen)
+        state = from_arrays(t3_tree, s3_tree, config, ve_params=ve_tree)
         tokenizer = EnTokenizer(str(ckpt_dir / "tokenizer.json"))
         conds = None
         if (ckpt_dir / "conds.pt").exists():
-            conds = Conditionals.load(str(ckpt_dir / "conds.pt"))
-        return cls(state["t3"], state["s3gen"], tokenizer, conds, config, dtype, device)
+            conds = Conditionals.load(str(ckpt_dir / "conds.pt"), device=device)
+        return cls(state["t3"], state["s3gen"], tokenizer, conds, config, dtype, device,
+                   ve_params=state["ve"])
+
+    # ------------------------------------------------------------------
+    # conditional preparation + cache
+    # ------------------------------------------------------------------
+
+    def _get_or_prepare_conditionals(self, voice_profile_path=None, saved_voice_path=None,
+                                     audio_prompt_path=None, exaggeration=0.5) -> Conditionals:
+        if voice_profile_path:
+            key = ("voice_profile", voice_profile_path, exaggeration)
+        elif saved_voice_path and audio_prompt_path:
+            key = ("saved_voice", saved_voice_path, audio_prompt_path, exaggeration)
+        elif audio_prompt_path:
+            key = ("audio_prompt", audio_prompt_path, exaggeration)
+        else:
+            raise ValueError("Must provide one of: voice_profile_path, "
+                             "(saved_voice_path + audio_prompt_path), or audio_prompt_path")
+        if self._cached_conditionals is not None and key == self._cache_key:
+            self._conditional_cache_hits += 1
+            return self._cached_conditionals
+        self._conditional_cache_misses += 1
+        self._prepare(voice_profile_path, saved_voice_path, audio_prompt_path, exaggeration)
+        self._cache_key = key
+        return self._cached_conditionals
+
+    def _prepare(self, voice_profile_path, saved_voice_path, audio_prompt_path, exaggeration):
+        if voice_profile_path:
+            self.prepare_conditionals_with_voice_profile(voice_profile_path, exaggeration)
+        elif saved_voice_path and audio_prompt_path:
+            self.prepare_conditionals_with_saved_voice(saved_voice_path, audio_prompt_path,
+                                                       exaggeration)
+        else:
+            self.prepare_conditionals_with_audio_prompt(audio_prompt_path, exaggeration)
+
+    def clear_conditional_cache(self):
+        self._cached_conditionals = None
+        self._cache_key = None
+
+    def get_conditional_cache_stats(self) -> Dict[str, Any]:
+        total = self._conditional_cache_hits + self._conditional_cache_misses
+        return {"hits": self._conditional_cache_hits,
+                "misses": self._conditional_cache_misses,
+                "total_requests": total,
+                "hit_rate_percent": 100.0 * self._conditional_cache_hits / total if total else 0.0,
+                "cache_size": 1 if self._cached_conditionals is not None else 0}
+
+    def prepare_conditionals_with_voice_profile(self, voice_profile_path: str,
+                                                exaggeration: float = 0.5):
+        profile = self.load_voice_profile(voice_profile_path)
+        gen = dict(prompt_token=profile.prompt_token,
+                   prompt_token_len=profile.prompt_token_len,
+                   prompt_feat=profile.prompt_feat,
+                   prompt_feat_len=profile.prompt_feat_len,
+                   embedding=profile.embedding)
+        plen = self.cfg.t3.speech_cond_prompt_len
+        t3_tokens = np.asarray(profile.prompt_token)[:, :plen] if plen else None
+        if profile.ve_embedding is None:
+            raise ValueError("Voice profile missing ve_embedding")
+        t3c = T3Cond(
+            speaker_emb=torch.as_tensor(np.asarray(profile.ve_embedding), dtype=torch.float32),
+            cond_prompt_speech_tokens=(None if t3_tokens is None else
+                                       torch.as_tensor(t3_tokens, dtype=torch.int32)),
+            emotion_adv=float(exaggeration))
+        self._set_conds(Conditionals(t3c, gen))
+
+    def prepare_conditionals_with_saved_voice(self, saved_voice_path: str,
+                                              prompt_audio_path: str, exaggeration=0.5):
+        """A saved CAMPPlus embedding with fresh prompt features."""
+        self._need_ve()
+        saved_emb = np.load(saved_voice_path)
+        rd = self._build_ref_dict(prompt_audio_path)
+        rd["embedding"] = saved_emb
+        t3c = self._build_t3_cond(prompt_audio_path, exaggeration)
+        self._set_conds(Conditionals(t3c, rd))
+
+    def prepare_conditionals_with_audio_prompt(self, wav_fpath: str, exaggeration=0.5,
+                                               timings: Optional[dict] = None):
+        """`timings`: optional dict that receives the seconds of each part
+        (resample, mel, campplus, tokenizer, voice_encoder); asking for them
+        makes the device wait after every part."""
+        self._need_ve()
+        rd = self._build_ref_dict(wav_fpath, timings)
+        t3c = self._build_t3_cond(wav_fpath, exaggeration, timings)
+        self._set_conds(Conditionals(t3c, rd))
+
+    def _set_conds(self, conds: Conditionals):
+        conds = conds.to(self.device)
+        self._cached_conditionals = conds
+        self.conds = conds
+
+    def _need_ve(self):
+        if self.ve_params is None:
+            raise RuntimeError("conditioning from audio needs the voice encoder: "
+                               "pass ve_params (from_random and from_local do)")
+
+    def _build_ref_dict(self, audio_path: str, timings: Optional[dict] = None
+                        ) -> Dict[str, np.ndarray]:
+        t0 = time.time()
+        wav24, _ = audio_io.load_audio(audio_path, sr=S3GEN_SR, device=self.device)
+        wav24 = wav24[: self.DEC_COND_LEN]
+        lap(timings, "resample_s", t0, self.device)
+        return s3gen_mod.embed_ref(self.s3gen_params, wav24, S3GEN_SR, self.cfg.s3gen,
+                                   timings=timings)
+
+    def _build_t3_cond(self, audio_path: str, exaggeration: float,
+                       timings: Optional[dict] = None) -> T3Cond:
+        t0 = time.time()
+        wav16, _ = audio_io.load_audio(audio_path, sr=S3_SR, device=self.device)
+        t0 = lap(timings, "resample_s", t0, self.device)
+        plen = self.cfg.t3.speech_cond_prompt_len
+        prompt_tokens = None
+        if plen:
+            wavp = s3tok_mod.pad_to_token_multiple(wav16[: self.ENC_COND_LEN])
+            toks, _ = s3tok_mod.tokenize_wave(
+                self.s3gen_params["tokenizer"], torch.from_numpy(wavp)[None].to(self.device),
+                max_len=plen, cfg=self.cfg.s3gen.tokenizer)
+            prompt_tokens = toks.to(torch.int32)
+            t0 = lap(timings, "tokenizer_s", t0, self.device)
+        ve_embed = self._ve_embedding(wav16)
+        lap(timings, "voice_encoder_s", t0, self.device)
+        return T3Cond(speaker_emb=torch.from_numpy(ve_embed),
+                      cond_prompt_speech_tokens=prompt_tokens,
+                      emotion_adv=float(exaggeration))
+
+    def _ve_embedding(self, wav16: np.ndarray) -> np.ndarray:
+        """(1, 256) fp32 voice-encoder embedding of one 16 kHz wav."""
+        ve_embed = ve_mod.embeds_from_wavs(self.ve_params, [wav16], S3_SR,
+                                           self.cfg.voice_encoder)
+        return ve_embed.mean(axis=0, keepdims=True).astype(np.float32)
+
+    # ------------------------------------------------------------------
+    # voice clone / profile I/O
+    # ------------------------------------------------------------------
+
+    def save_voice_clone(self, audio_file_path: str, save_path: str):
+        wav, sr = audio_io.load_audio(audio_file_path)
+        s3gen_mod.save_voice_clone(self.s3gen_params, wav, sr, save_path, self.cfg.s3gen)
+
+    def save_voice_profile(self, audio_file_path: str, save_path: str):
+        self._need_ve()
+        wav, sr = audio_io.load_audio(audio_file_path)
+        rd = s3gen_mod.embed_ref(self.s3gen_params, wav, sr, self.cfg.s3gen)
+        wav16, _ = audio_io.load_audio(audio_file_path, sr=S3_SR, device=self.device)
+        VoiceProfile(embedding=rd["embedding"], prompt_feat=rd["prompt_feat"],
+                     prompt_feat_len=rd["prompt_feat_len"], prompt_token=rd["prompt_token"],
+                     prompt_token_len=rd["prompt_token_len"],
+                     ve_embedding=self._ve_embedding(wav16)).save(save_path)
+
+    def load_voice_clone(self, path: str) -> np.ndarray:
+        return np.load(path)
+
+    def load_voice_profile(self, path: str) -> VoiceProfile:
+        return VoiceProfile.load(path)
 
     # ------------------------------------------------------------------
     # generation
@@ -203,17 +389,24 @@ class ChatterboxTTS:
                 f"T3 produced too few speech tokens after filtering ({speech_tokens.size} < 8)")
 
     def generate(self, text, repetition_penalty=1.2, min_p=0.05, top_p=1.0,
-                 cfg_weight=0.3, temperature=0.6, max_new_tokens=1000, seed=0,
-                 draws=None) -> np.ndarray:
-        """Single-utterance TTS with the prepared conditionals. Returns (1, T).
+                 audio_prompt_path=None, saved_voice_path=None, voice_profile_path=None,
+                 exaggeration=0.5, cfg_weight=0.3, temperature=0.6, max_new_tokens=1000,
+                 seed=0, draws=None) -> np.ndarray:
+        """Single-utterance TTS. Returns (1, T). With no conditionals
+        prepared, the voice comes from `voice_profile_path`, from
+        `saved_voice_path` with `audio_prompt_path`, or from
+        `audio_prompt_path` (with `exaggeration` as the emotion); prepared
+        conditionals are kept as they are.
 
         draws: optional draw source for the T3 Gumbel noise and the HiFT
         phases and noise; by default each stage draws from its own
         `Draws(seed, device)`."""
         if self.conds is None:
-            raise RuntimeError("Conditionals are not prepared: pass conds= (or a "
-                               "conds.pt through from_local); conditioning from "
-                               "reference audio is not ported yet")
+            if not (voice_profile_path or audio_prompt_path):
+                raise RuntimeError(
+                    "Conditionals are not prepared. Provide voice_profile_path, "
+                    "(saved_voice_path + audio_prompt_path), or audio_prompt_path.")
+            self._prepare(voice_profile_path, saved_voice_path, audio_prompt_path, exaggeration)
         info: dict = {}
         t0 = time.time()
         speech_tokens = self._run_t3(

@@ -30,6 +30,21 @@ Phases, one or more lines each, then the result line:
                            chain near the top of Lc 512 and 1280, start > 0;
                            planted faults that the 30-layer bf16 check must
                            catch; the 4-, 8- and 16-row templates
+       K5 weight_stream    the weight-stream probe: every (slab, nbuf) of its
+                           sweep on a 64 MB wall, on random walls of the
+                           probe's sizes (1 GB bf16, 0.5 GB int8) and on the
+                           probe's own 1 GB wall
+       K6 decode_anatomy   the decode-walk probe: full / load_only /
+                           compute_only at pos 44 and 379, fp32 and bf16
+     Each kernel's entry of the JSON line also carries the least time the
+     card could take for the timed call (bytes over 3.35 TB/s, or operations
+     over the peak of their type, whichever is larger) and, where one
+     PyTorch call computes the same function, that call's device time
+     (scaled_dot_product_attention for K1, K2, K3 and K6, an einsum for
+     K5); the port calls it nowhere else.
+     Then the two probes' entry points run in-process at full size (a 1 GB
+     wall; the 16 x 16 x 64, 1024-slot cache) and print one `probe` line per
+     configuration.
   4. full-width fp32 consistency: decode through K1, and through K1s with
      the deferred insert, against one plain causal forward; the conformer
      on 8 ragged rows (through K2) against each row alone (1 row, factored
@@ -37,17 +52,24 @@ Phases, one or more lines each, then the result line:
      cond/uncond pair alone (2 rows, written-out attention).
   5. generate: ChatterboxTTS.generate at the full ChatterboxConfig() width
      with random bf16 weights, twice (warm-up, then timed), through K1, then
-     under CHATTERBOX_FUSED_STEP=1 (K4, one launch a step) and under
+     under CHATTERBOX_FUSED_STEP=1 (K4, one launch a step), and once under
      CHATTERBOX_DEFER_KV=1 (K1s, 30 a step); checks each wav and that the
      launch counts are those of the path.
-  6. generate_batch: 8 texts in one lock-step batch, one voice, then two
-     voices, each twice (warm-up, then timed); checks every wav and that
+  6. generate_batch: 8 texts in one lock-step batch, one voice twice
+     (warm-up, then timed), then two voices once; checks every wav and that
      the launch counts of K1, K2 and K3 are those of the path.
   7. stream_generate: one utterance streamed in 25-token blocks, with the
-     fused step and without it, twice each; checks the chunks (finite,
+     fused step (twice) and without it (once); checks the chunks (finite,
      joining to the whole wav), the launch counts, and records the time to
      the first chunk.
-  8. a JSON line describing each kernel, then the last line
+  8. conditioning: a 10 s reference voice (24 kHz) and a 6 s source (16 kHz)
+     are synthesised from numpy seeds and written as wav files; the voice is
+     prepared from the audio (cold, then warm, timed by part), checked for
+     shapes and finiteness, and used by generate; a saved voice profile
+     gives the same conditionals and hits the conditional cache;
+     ChatterboxVC converts the source; and the card's conditionals are held
+     against the port's own CPU run on the same wavs and weights.
+  9. a JSON line describing each kernel, then the last line
      {"ok": true, "device": {...}}.
 
 Any failure raises and the script exits non-zero with no result line. It
@@ -58,7 +80,8 @@ from __future__ import annotations
 import contextlib
 import json
 import os
-import subprocess
+import shutil
+import tempfile
 import time
 
 import numpy as np
@@ -146,17 +169,48 @@ FUSED_ROW_STEPS = 4    # steps of the 4-, 8- and 16-row checks
 GEN_PATHS = {"default": {}, "fused": {"CHATTERBOX_FUSED_STEP": "1"},
              "defer": {"CHATTERBOX_DEFER_KV": "1"}}
 STREAM_KW = dict(block_tokens=25, max_new_tokens=250, cfg_weight=0.5, temperature=0.7, seed=0)
+# bounds: the card's published rates (H100 SXM data sheet): device memory
+# 3.35 TB/s; dense tensor-core peaks 989 TFLOP/s in bf16 and 1,979 TOP/s in
+# int8. Every timed call of the JSON line runs on bf16 (K5 also on int8)
+# inputs, so its operations are held to the tensor-core peak of that type.
+HBM_BYTES_PER_S = 3.35e12
+PEAK_OPS_PER_S = {"bf16_tensor": 989e12, "int8_tensor": 1979e12}
+# K5 on a 64 MB wall against its plain version in fp32: each of the 8 x 128
+# sums adds n = 262,144 products (256 rows x 1024) of a unit-normal bf16
+# activation and a weight uniform in [-1, 1), rms ~0.6. The products are
+# exact in fp32; kernel and plain version add them in another order, and a
+# running fp32 sum of n such terms drifts by about 2^-24 * n * rms. The
+# limit is twice that: 2^-23 * n * 0.6 = 0.019 on sums of ~300 rms. On a
+# random 1 GB wall n = 4,194,304 and the same formula gives 0.30 on sums of
+# ~1200 rms. The int8 walls accumulate exact integers: the limit is 0.
+# The probe's own 1 GB wall repeats every 256 rows, so a lane of the kernel
+# adds the same few products again and again: its running sum grows in step
+# with the walk, and the rounding of each addition (2^-24 of the sum) has
+# one sign instead of averaging out. A lane adds 4 products a slab, so the
+# kernel is held to 2^-24 * 4 * n_chunks of the largest sum, against a plain
+# fp64 result.
+WSTREAM_CHECK_MB = 64
+WSTREAM_RMS = 0.6
+WSTREAM_CHAIN = 2.0 ** -24
+# conditioning: seconds of the reference voice and of the VC source, the new
+# tokens of its two generate calls, and the limits of the card against the
+# port's CPU run (fp32, TF32 off, the same wavs and weights). The two runs
+# differ in summation order only. The prompt mel is a log of a clamped mel
+# (values -11.5..~3): 1e-3. The x-vector comes out of ~50 convolutions and
+# batch norms and is unit-scale with random weights: 1e-3 after dividing by
+# max(1, |ref|). The voice-encoder embedding is a unit vector: 1e-4. Speech
+# tokens round tanh(z) * 0.999 at +-0.5: they must be equal wherever every
+# pre-rounding value of the frame is farther than COND_TOKEN_MARGIN from a
+# boundary (fp32 sums in another order move z, of unit scale, by ~1e-4 and
+# less), and at most COND_UNSAFE_SHARE of the frames may lie nearer (8
+# values a frame, each within the margin with a probability of ~1 %).
+COND_REF_S, COND_SRC_S, COND_NEW_TOKENS = 10, 6, 120
+COND_TOL = {"prompt_feat": 1e-3, "embedding": 1e-3, "speaker_emb": 1e-4}
+COND_TOKEN_MARGIN, COND_UNSAFE_SHARE = 5e-3, 0.10
 
 
 def log(phase: str, **kw) -> None:
     print(f"[{phase}] " + " ".join(f"{k}={v}" for k, v in kw.items()), flush=True)
-
-
-def device_line() -> str:
-    out = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True).stdout.strip().splitlines()
-    return out[0]
 
 
 def phase_device() -> str:
@@ -164,7 +218,8 @@ def phase_device() -> str:
         raise RuntimeError("chip_smoke.py needs a CUDA device; none is available")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    card = device_line()
+    from chatterbox_embed_tpu_torch.probes import timing
+    card = timing.card_line()       # nvidia-smi's name and power limit
     print(card, flush=True)
     log("device", torch=torch.__version__, cuda=torch.version.cuda,
         name=repr(torch.cuda.get_device_name(0)), count=torch.cuda.device_count(),
@@ -177,16 +232,20 @@ def _kernels() -> dict:
     """name -> (kernel module, the wrapper that counts its launches, the
     counter's attribute, its C entry). K1 and K1s are two entries of one
     kernel source with a counter each."""
+    from chatterbox_embed_tpu_torch.kernels import decode_anatomy as da
     from chatterbox_embed_tpu_torch.kernels import flash_attention as fa
     from chatterbox_embed_tpu_torch.kernels import flash_decode as fd
     from chatterbox_embed_tpu_torch.kernels import fused_decode as fu
     from chatterbox_embed_tpu_torch.kernels import rel_attention as ra
+    from chatterbox_embed_tpu_torch.kernels import weight_stream as ws
     return {"flash_decode": (fd, fd.decode_attention, "launches", "cbx_flash_decode"),
             "flash_decode_deferred": (fd, fd.decode_attention, "launches_deferred",
                                       "cbx_flash_decode"),
             "rel_attention": (ra, ra.rel_attention, "launches", "cbx_rel_attention"),
             "flash_attention": (fa, fa.flash_attention, "launches", "cbx_flash_attention"),
-            "fused_decode": (fu, fu.fused_decode_step, "launches", "cbx_fused_decode")}
+            "fused_decode": (fu, fu.fused_decode_step, "launches", "cbx_fused_decode"),
+            "weight_stream": (ws, ws.stream_once, "launches", "cbx_weight_stream"),
+            "decode_anatomy": (da, da.attn, "launches", "cbx_decode_anatomy")}
 
 
 def phase_build() -> None:
@@ -201,45 +260,72 @@ def phase_build() -> None:
 
 
 def _time_ms(fn, iters: int = 200) -> float:
-    """Per-call time of back-to-back calls from CUDA events: what a caller's
-    loop pays, host enqueue included when the host is the slower side."""
-    for _ in range(10):
-        fn()
-    torch.cuda.synchronize()
-    a = torch.cuda.Event(enable_timing=True)
-    b = torch.cuda.Event(enable_timing=True)
-    a.record()
-    for _ in range(iters):
-        fn()
-    b.record()
-    torch.cuda.synchronize()
-    return a.elapsed_time(b) / iters
+    """Per-call time of back-to-back calls from CUDA events (the package's
+    probes/timing.py, which the probes use too)."""
+    from chatterbox_embed_tpu_torch.probes import timing
+    return timing.time_ms(fn, iters)
 
 
 def _device_ms(fn, iters: int = 50, tries: int = 3) -> float:
-    """Device time per call: the summed kernel time that torch.profiler
-    records for `iters` calls (host enqueue excluded). A capture that
-    records no device time at all (seen once in about ten runs on an H100)
-    is taken again, up to `tries` captures."""
+    """Device time per call from torch.profiler (probes/timing.py)."""
+    from chatterbox_embed_tpu_torch.probes import timing
+    return timing.device_ms(fn, iters, tries)
+
+
+def _bound(nbytes: float, ops: float, peak: str = "bf16_tensor") -> dict:
+    """The least time the card could take for a call that must move
+    `nbytes` (each input read once, each output written once) and do `ops`
+    operations of the type whose peak is named: the larger of the two."""
+    by_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    by_ops = ops / PEAK_OPS_PER_S[peak] * 1e3
+    return {"bound_ms": max(by_bytes, by_ops),
+            "bound_by": "bytes" if by_bytes >= by_ops else "operations",
+            "bound_bytes": int(nbytes), "bound_ops": int(ops), "bound_peak": peak}
+
+
+def _library(name: str, fn, card: str, iters: int = 20, **shape) -> float:
+    """Device time per call of the one PyTorch call `fn` that computes a
+    kernel's function, and the device kernel it spent most time in (which
+    tells the backend that ran). Measured only: no path of the port calls
+    it."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
-    fn()
-    torch.cuda.synchronize()
-    for _ in range(tries):
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            for _ in range(iters):
-                fn()
-            torch.cuda.synchronize()
-        us = sum(e.self_device_time_total for e in prof.key_averages()
-                 if e.device_type == DeviceType.CUDA)
-        if us > 0:
-            return us / 1e3 / iters
-    raise RuntimeError(f"torch.profiler recorded no device time in {tries} captures")
+    ms = _device_ms(fn, iters)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    events = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    top = max(events, key=lambda e: e.self_device_time_total).key if events else "none"
+    log("library_time", name=name, **shape, dtype="bfloat16", device_ms=f"{ms:.5f}",
+        top_kernel=repr(top[:100]), card=repr(card))
+    return ms
 
 
-def _timing(kernel, plain, iters: int = 50) -> dict:
-    return {"ms": _device_ms(kernel, iters), "plain_ms": _device_ms(plain, iters),
-            "call_ms": _time_ms(kernel, 4 * iters), "plain_call_ms": _time_ms(plain, 4 * iters)}
+def _decode_work(b: int, h: int, d: int, start: int, pos: int, hole, deferred: bool,
+                 itemsize: int = 2):
+    """(bytes, operations) that one decode-attention call needs on these
+    inputs: the live k and v rows of each batch row (its walk minus its
+    hole, plus the current row with the deferred entry), q and out; a
+    multiply-add for q.k and one for p.v per live key element."""
+    walk_end = pos - 1 if deferred else pos
+    holes = None if hole is None else hole.tolist()
+    keys = 0
+    for r in range(b):
+        n = walk_end - start + 1
+        if holes is not None:
+            lo, hi = holes[r]
+            n -= max(0, min(hi, walk_end + 1) - max(lo, start))
+        keys += n + (1 if deferred else 0)
+    return itemsize * h * d * (2 * keys + 2 * b), 4 * keys * h * d
+
+
+def _timing(kernel, plain, iters: int = 50, plain_iters=None) -> dict:
+    """Both versions' device time and back-to-back call time; `plain_iters`
+    gives the plain version fewer calls (a 30-layer plain step is ~1500
+    launches, and the profiler takes seconds to sum them)."""
+    p_iters = plain_iters or iters
+    return {"ms": _device_ms(kernel, iters), "plain_ms": _device_ms(plain, p_iters),
+            "call_ms": _time_ms(kernel, 4 * iters), "plain_call_ms": _time_ms(plain, 4 * p_iters)}
 
 
 def _log_time(name: str, timing: dict, card: str, **shape) -> None:
@@ -324,6 +410,24 @@ def phase_kernel_check(card: str, deferred: bool = False) -> dict:
                     a, kw = args(start, pos, hole, DEFER_LAYERS - 1)
                     t = _timing(lambda: fd.decode_attention(*a, **kw),
                                 lambda: fd.decode_attention_reference(*a, **kw))
+                    t.update(_bound(*_decode_work(b, h, d, start, pos, hole, deferred)))
+                    t["library_ms"] = None
+                    if not deferred:
+                        # the library's call for the same function: one query
+                        # row per (row, head) over the cache as (B, H, Lc, D)
+                        # views, a boolean mask for [start, pos] minus the hole
+                        idx = torch.arange(lc, device="cuda")[None, :]
+                        live = (idx >= start) & (idx <= pos) & ~(
+                            (idx >= hole[:, :1]) & (idx < hole[:, 1:2]))
+                        sq, sk, sv = q[:, :, None, :], k.permute(1, 2, 0, 3), v.permute(1, 2, 0, 3)
+                        smask = live[:, None, None, :]
+
+                        def sdpa():
+                            return torch.nn.functional.scaled_dot_product_attention(
+                                sq, sk, sv, attn_mask=smask)
+                        _check_err(name + "_library", sdpa()[:, :, 0], fd.decode_attention(*a),
+                                   TOL[dtype], b=b, lc=lc, call="sdpa")
+                        t["library_ms"] = _library(name, sdpa, card, b=b, lc=lc, call="sdpa")
                     timing[(b, lc)] = t
                     _log_time(name, t, card, b=b, lc=lc, start=start, pos=pos,
                               hole=hole is not None)
@@ -426,7 +530,7 @@ def phase_fused_check(card: str, tts) -> dict:
         FUSED_CONTROLS planted, which must read above the limit.
     Then the 4-, 8- and 16-row templates over FUSED_ROW_STEPS steps: 4 and 8
     rows in fp32 through 30 layers, 16 rows in bf16 through one; and each
-    template's time at 30 layers in bf16."""
+    template's kernel time at 30 layers in bf16."""
     from chatterbox_embed_tpu_torch.kernels import fused_decode as fu
     from chatterbox_embed_tpu_torch.weights import place
     cfg = tts.cfg.t3.llama
@@ -478,8 +582,19 @@ def phase_fused_check(card: str, tts) -> dict:
             timing = _timing(
                 lambda: fu.fused_decode_step(fused16, x, ck, cv, pos, start, cfg, torch.bfloat16),
                 lambda: fu.fused_decode_step_reference(fused16, x, rk, rv, pos, start, cfg,
-                                                       torch.bfloat16), iters=10)
+                                                       torch.bfloat16), iters=10, plain_iters=3)
             wall_gb = fused16["wall"].numel() * fused16["wall"].element_size() / 1e9
+            # K4 reads the wall, the norm weights and every layer's live
+            # cache rows [start, pos - 1], writes one row a layer, and does
+            # a multiply-add per weight and row and two per live key element
+            row = KERNEL_B * cfg.num_heads * cfg.head_dim * 2
+            nbytes = (sum(fused16[n].numel() * fused16[n].element_size()
+                          for n in ("wall", "ln1", "ln2", "fnorm"))
+                      + 2 * cfg.num_layers * (pos - start + 1) * row
+                      + 2 * KERNEL_B * cfg.hidden_size * 2)
+            ops = (2 * KERNEL_B * fused16["wall"].numel()
+                   + 4 * cfg.num_layers * (pos - start + 1) * row // 2)
+            timing.update(_bound(nbytes, ops), library_ms=None)
             _log_time("fused_decode", timing, card, b=KERNEL_B, lc=lc, start=start, pos=pos,
                       layers=cfg.num_layers)
             log("fused_decode_rate", wall_gb=f"{wall_gb:.4f}",
@@ -490,6 +605,7 @@ def phase_fused_check(card: str, tts) -> dict:
         torch.cuda.empty_cache()
     # the wider row templates (4, 8 and 16 rows; the fused gate admits them
     # above one utterance), a short chain at Lc 512, then each one's time
+    # (the kernel's only: the plain version is timed at B=2 above)
     for b, fz, dtype, layers in ((4, fused32, torch.float32, cfg.num_layers),
                                  (8, fused32, torch.float32, cfg.num_layers),
                                  (16, cut16, torch.bfloat16, nb)):
@@ -503,15 +619,13 @@ def phase_fused_check(card: str, tts) -> dict:
         x = torch.randn((b, cfg.hidden_size), generator=g, device="cuda").to(torch.bfloat16)
         ck, cv = (torch.randn((cfg.num_layers, lc, b, cfg.num_heads, cfg.head_dim),
                               generator=g, device="cuda").to(torch.bfloat16) for _ in range(2))
-        rk, rv = ck.clone(), cv.clone()
-        tm = _timing(
-            lambda: fu.fused_decode_step(fused16, x, ck, cv, pos, FUSED_START, cfg,
-                                         torch.bfloat16),
-            lambda: fu.fused_decode_step_reference(fused16, x, rk, rv, pos, FUSED_START, cfg,
-                                                   torch.bfloat16), iters=10)
-        _log_time("fused_decode", tm, card, b=b, lc=lc, start=FUSED_START, pos=pos,
-                  layers=cfg.num_layers)
-        del x, ck, cv, rk, rv
+
+        def step():
+            return fu.fused_decode_step(fused16, x, ck, cv, pos, FUSED_START, cfg, torch.bfloat16)
+        log("kernel_time", name="fused_decode", b=b, lc=lc, start=FUSED_START, pos=pos,
+            layers=cfg.num_layers, dtype="bfloat16", device_ms=f"{_device_ms(step, 10):.5f}",
+            call_ms=f"{_time_ms(step, 40):.5f}", card=repr(card))
+        del x, ck, cv
     del fused32, fused16, cut16
     torch.cuda.empty_cache()
     return {"max_abs_err": worst[torch.bfloat16], "max_abs_err_fp32": worst[torch.float32],
@@ -564,6 +678,21 @@ def phase_attention_check(card: str) -> dict:
                 if dtype == torch.bfloat16 and (b, t) in timed:
                     tm = _timing(lambda: kernel(q, k, v, valid), lambda: plain(q, k, v, valid),
                                  iters=20)
+                    # every query row of every head against the row's valid
+                    # keys: a multiply-add per q.k element and per p.v element
+                    n_keys = int(valid.sum())
+                    tm.update(_bound(2 * (q.numel() + k.numel() + 2 * v.numel()) + valid.numel(),
+                                     2 * ATT_H * t * n_keys * (da + ATT_D)))
+                    sq, sk, sv = (x.permute(0, 2, 1, 3) for x in (q, k, v))
+                    smask = valid[:, None, None, :]
+
+                    def sdpa():
+                        return torch.nn.functional.scaled_dot_product_attention(
+                            sq, sk, sv, attn_mask=smask, scale=scale)
+                    # the all-valid row 0 (a row without a valid key is NaN there)
+                    _check_err(name + "_library", sdpa()[0].permute(1, 0, 2), out[0],
+                               ATT_TOL[dtype], True, b=b, t=t, call="sdpa")
+                    tm["library_ms"] = _library(name, sdpa, card, b=b, t=t, da=da, call="sdpa")
                     timing[(b, t)] = tm
                     _log_time(name, tm, card, b=b, t=t, h=ATT_H, da=da)
                 del q, k, v, out, ref
@@ -572,6 +701,171 @@ def phase_attention_check(card: str) -> dict:
                         "max_abs_err_fp32": worst[torch.float32],
                         "timing": timing[timed[0]]}
     return result
+
+
+def phase_probe_check(card: str) -> dict:
+    """K5 and K6 against their plain versions on the card, then their time
+    at the probes' full size with bound and library time."""
+    from chatterbox_embed_tpu_torch.kernels import decode_anatomy as da
+    from chatterbox_embed_tpu_torch.kernels import weight_stream as ws
+    from chatterbox_embed_tpu_torch.probes import decode_anatomy as pda
+    from chatterbox_embed_tpu_torch.probes import weight_stream as pws
+    g = torch.Generator(device="cuda").manual_seed(77)
+    result = {}
+
+    # K5: every (slab, nbuf) of the sweep on a 64 MB wall from the probe's
+    # formula, then at the probe's own sizes (1 GB bf16, 0.5 GB int8), where
+    # a fault of the ring that shows only on a long walk would show. The
+    # group sums do not depend on how the wall is cut into slabs, so one
+    # plain result serves a whole sweep. The formula repeats every 256 rows,
+    # so all its slabs are equal (a stale stage would read the right values)
+    # and its sums grow in step: at full size the wall is therefore random
+    # (weights uniform in [-1, 1) in steps of 1/128, or in [-128, 128)), held
+    # to WSTREAM_RMS's formula, and the formula's wall is held to a plain
+    # fp64 result, relative to the largest sum (WSTREAM_CHAIN).
+    x = torch.randn((ws.ROWS_X, ws.D), generator=g, device="cuda").to(torch.bfloat16)
+    worst = {"bf16": 0.0, "int8": 0.0}
+
+    def sweep_check(tag, sweep, flat, ref, limit, wall, relative_to=None):
+        item = flat.element_size()
+        for slab_mb, nbuf in sweep:
+            w = flat.reshape(-1, (slab_mb << 20) // (ws.D * item), ws.D)
+            out = ws.stream_once(x, w, nbuf)
+            again = ws.stream_once(x, w, nbuf)
+            case = dict(dtype=tag, wall=wall, wall_mb=flat.numel() * item >> 20, slab_mb=slab_mb,
+                        nbuf=nbuf, products_per_sum=flat.shape[1] // ws.GROUPS * ws.D)
+            if relative_to is None:
+                err = _check_err("weight_stream", out, ref, limit, **case)
+                worst[tag] = max(worst[tag], err)
+            else:
+                _check_err("weight_stream", out.double() / relative_to, ref / relative_to,
+                           limit * 4 * w.shape[0], **case, largest_sum=f"{relative_to:.1f}")
+            if not torch.equal(out, again):
+                raise AssertionError(f"weight_stream {case}: two launches on the same inputs "
+                                     f"differ")
+
+    for dtype, tag, sweep in ((torch.bfloat16, "bf16", pws.BF16_SWEEP),
+                              (torch.int8, "int8", pws.INT8_SWEEP)):
+        item = 2 if tag == "bf16" else 1
+        full_rows = (pws.TOTAL_MB << 20) // (ws.D * 2)        # 1 GB bf16, 0.5 GB int8
+        walls = [("formula", ws.make_wall(1, (WSTREAM_CHECK_MB << 20) // (ws.D * item), dtype,
+                                          "cuda"))]
+        ints = torch.randint(-128, 128, (1, full_rows, ws.D), generator=g, device="cuda",
+                             dtype=torch.int8)
+        walls.append(("random", ints if tag == "int8" else (ints.float() / 128.0).to(dtype)))
+        del ints
+        for wall, flat in walls:
+            n_products = flat.shape[1] // ws.GROUPS * ws.D
+            limit = 2.0 ** -23 * n_products * WSTREAM_RMS if tag == "bf16" else 0.0
+            sweep_check(tag, sweep, flat, ws.stream_once_reference(x, flat), limit, wall)
+        del walls, flat
+        torch.cuda.empty_cache()
+    flat = ws.make_wall(1, (pws.TOTAL_MB << 20) // (ws.D * 2), torch.bfloat16, "cuda")
+    ref = (x.double() @ flat[0].double().T).reshape(ws.ROWS_X, -1, ws.GROUPS).sum(dim=1)
+    sweep_check("bf16", pws.BF16_SWEEP, flat, ref, WSTREAM_CHAIN, "formula",
+                relative_to=ref.abs().max().item())
+    del flat, ref
+    torch.cuda.empty_cache()
+    # its time on the probe's 1 GB bf16 wall at the sweep's last configuration,
+    # beside the plain version and the bound (the probe phase sweeps the rest)
+    slab_mb, nbuf = pws.BF16_SWEEP[-1]
+    w = ws.make_wall(1, (pws.TOTAL_MB << 20) // (ws.D * 2), torch.bfloat16, "cuda").reshape(
+        -1, (slab_mb << 20) // (ws.D * 2), ws.D)
+    tm = _timing(lambda: ws.stream_once(x, w, nbuf), lambda: ws.stream_once_reference(x, w),
+                 iters=10)
+    tm.update(_bound(w.numel() * 2 + x.numel() * 2 + 4 * ws.ROWS_X * ws.GROUPS,
+                     2 * ws.ROWS_X * w.numel()))
+    # the library's one call for the same function: an einsum that contracts
+    # the columns and sums wall row g * 128 + c into group c. It returns bf16
+    # (each sum rounded once, 2^-9 relative) and may add the wall's rows in
+    # another order, so it is held to 2^-6 of the largest sum.
+    wg = w.view(-1, ws.GROUPS, ws.D)
+
+    def einsum():
+        return torch.einsum("ik,gck->ic", x, wg)
+    out = ws.stream_once(x, w, nbuf)
+    top = out.abs().max()
+    _check_err("weight_stream_library", einsum().float() / top, out / top, 2.0 ** -6,
+               wall_mb=pws.TOTAL_MB, call="einsum", largest_sum=f"{top.item():.1f}")
+    tm["library_ms"] = _library("weight_stream", einsum, card, iters=5, wall_mb=pws.TOTAL_MB,
+                                call="einsum")
+    _log_time("weight_stream", tm, card, wall_mb=pws.TOTAL_MB, slab_mb=slab_mb, nbuf=nbuf)
+    # the library's matmul over the same wall without the group sums (not
+    # the same function: logged as the rate a library stream reaches)
+    wf = w.reshape(-1, ws.D)
+    _library("weight_stream_matmul_only", lambda: torch.matmul(x, wf.T), card, iters=5,
+             wall_mb=pws.TOTAL_MB, call="matmul")
+    del w, wf, wg, out
+    torch.cuda.empty_cache()
+    result["weight_stream"] = {"max_abs_err": worst["bf16"], "max_abs_err_int8": worst["int8"],
+                               "timing": tm}
+
+    # K6: three modes at pos 44 and 379 (and the chunk edges), K1's tolerances
+    worst = {torch.float32: 0.0, torch.bfloat16: 0.0}
+    for dtype in (torch.float32, torch.bfloat16):
+        q, k, v = (torch.randn(shape, generator=g, device="cuda").to(dtype)
+                   for shape in ((1, pda.F), (pda.TOTAL, pda.F), (pda.TOTAL, pda.F)))
+        for mode in da.MODES:
+            for pos in (0, 44, 63, 64, 379, pda.TOTAL - 1):
+                ref = da.attn_reference(q, k, v, pos, mode)
+                # load_only adds up to 16 rows of k + v: its sums reach ~20, where
+                # one bf16 step is 2^-3, so the error is taken relative to the sum
+                err = _check_err("decode_anatomy", da.attn(q, k, v, pos, mode), ref,
+                                 TOL[dtype], mode == "load_only", mode=mode, pos=pos,
+                                 dtype=str(dtype)[6:])
+                worst[dtype] = max(worst[dtype], err)
+    pos = pda.POSITIONS[-1][0]
+    tm = _timing(lambda: da.attn(q, k, v, pos, "full"),
+                 lambda: da.attn_reference(q, k, v, pos, "full"))
+    groups = pda.F // da.HEAD_DIM
+    tm.update(_bound(*_decode_work(groups, 1, da.HEAD_DIM, 0, pos, None, False)))
+    sq = q.reshape(groups, 1, da.HEAD_DIM)[None]
+    sk, sv = (x.reshape(pda.TOTAL, groups, da.HEAD_DIM).permute(1, 0, 2)[None] for x in (k, v))
+    smask = (torch.arange(pda.TOTAL, device="cuda") <= pos)[None, None, None, :]
+
+    def sdpa():
+        return torch.nn.functional.scaled_dot_product_attention(sq, sk, sv, attn_mask=smask)
+    _check_err("decode_anatomy_library", sdpa().reshape(1, pda.F), da.attn(q, k, v, pos, "full"),
+               TOL[torch.bfloat16], pos=pos, call="sdpa")
+    tm["library_ms"] = _library("decode_anatomy", sdpa, card, mode="full", pos=pos, call="sdpa")
+    _log_time("decode_anatomy", tm, card, mode="full", pos=pos, groups=groups, lc=pda.TOTAL)
+    result["decode_anatomy"] = {"max_abs_err": worst[torch.bfloat16],
+                                "max_abs_err_fp32": worst[torch.float32], "timing": tm}
+    return result
+
+
+def phase_probes(card: str) -> dict:
+    """The probes' own entry points, in-process at full size: the launch
+    counts are set to 0 just before and read just after. One `probe` line
+    per configuration."""
+    from chatterbox_embed_tpu_torch.probes import decode_anatomy as pda
+    from chatterbox_embed_tpu_torch.probes import weight_stream as pws
+    launches = {}
+    _reset_counts()
+    res = pws.run(iters=10)
+    launches["probe_weight_stream"] = _counts()
+    for key, r in res.items():
+        if isinstance(r, dict):
+            log("probe", kernel="weight_stream", config=key, ms_per_pass=f"{r['ms_per_pass']:.5f}",
+                gb_per_s=f"{r['GBps']:.1f}", share_of_3350_gb_per_s=f"{r['GBps'] / 3350:.4f}",
+                call_ms=f"{r['call_ms']:.5f}", card=repr(card))
+    best = max((r["GBps"], k) for k, r in res.items() if k.startswith("bf16"))
+    log("probe", kernel="weight_stream", best_bf16=best[1], gb_per_s=f"{best[0]:.1f}",
+        card=repr(card))
+    _reset_counts()
+    res = pda.run(steps=(1024,), device_iters=30)
+    launches["probe_decode_anatomy"] = _counts()
+    for mode, key in pda.SCRIPT_KEY.items():
+        for _, tag in pda.POSITIONS:
+            log("probe", kernel="decode_anatomy", mode=mode, script_key=f"{key}_{tag}",
+                chain_us=f"{res[f'{key}_{tag}_s1024_us']:.3f}",
+                device_us=f"{res[f'{key}_{tag}_device_us']:.3f}",
+                cold_device_us=f"{res[f'{key}_{tag}_cold_device_us']:.3f}", card=repr(card))
+    for name, path in (("weight_stream", "probe_weight_stream"),
+                       ("decode_anatomy", "probe_decode_anatomy")):
+        if launches[path] != _want(**{name: launches[path][name]}) or not launches[path][name]:
+            raise AssertionError(f"{path}: launches {launches[path]}")
+    return launches
 
 
 def _random_conds(cfg, device, n_s3gen_prompt=None, seed=0):
@@ -757,14 +1051,15 @@ def _env(values: dict):
                 os.environ[k] = v
 
 
-def phase_generate(card: str, tts, path: str = "default"):
+def phase_generate(card: str, tts, path: str = "default", runs=("warmup", "timed")):
     """generate through the decode path `path` (GEN_PATHS): K1 on every
     layer of every step (default), K4 once a step (fused) or K1s on every
-    layer of every step (defer). Returns (launches, timed perf)."""
+    layer of every step (defer), once per entry of `runs`. Returns
+    (launches, the last run's perf)."""
     cfg = tts.cfg
     n_layers = cfg.t3.llama.num_layers
     with _env(GEN_PATHS[path]):
-        for run in ("warmup", "timed"):
+        for run in runs:
             _reset_counts()
             wav = tts.generate(TEXT, max_new_tokens=250, cfg_weight=0.5,
                                temperature=0.7, seed=0)
@@ -792,16 +1087,16 @@ def phase_generate(card: str, tts, path: str = "default"):
     return counts, perf
 
 
-def phase_stream(card: str, tts, fused_step: bool):
+def phase_stream(card: str, tts, fused_step: bool, runs=("warmup", "timed")):
     """stream_generate of one utterance in 25-token blocks, with the fused
     step (K4 once a step) or without it (K1 on every layer of every step),
-    twice (warm-up, then timed). Checks that the chunks are finite and join
+    once per entry of `runs`. Checks that the chunks are finite and join
     to 2 * tokens * 480 samples, and the launch counts. Returns (launches,
     timed perf with first_chunk_s)."""
     n_layers = tts.cfg.t3.llama.num_layers
     label = "fused_step" if fused_step else "default_step"
     with _env({"CHATTERBOX_FUSED_STEP": "1" if fused_step else "0"}):
-        for run in ("warmup", "timed"):
+        for run in runs:
             _reset_counts()
             chunks = list(tts.stream_generate(TEXT, **STREAM_KW))
             counts = _counts()
@@ -827,9 +1122,9 @@ def phase_stream(card: str, tts, fused_step: bool):
     return counts, perf
 
 
-def phase_generate_batch(card: str, tts, conds, label: str) -> dict:
-    """generate_batch on the 8 texts with `conds` (one voice or a list);
-    checks each wav and the launch counts of the path."""
+def phase_generate_batch(card: str, tts, conds, label: str, runs=("warmup", "timed")) -> dict:
+    """generate_batch on the 8 texts with `conds` (one voice or a list), once
+    per entry of `runs`; checks each wav and the launch counts of the path."""
     from chatterbox_embed_tpu_torch.models.cfm import reuse_flags
     cfg = tts.cfg
     n_layers = cfg.t3.llama.num_layers
@@ -837,7 +1132,7 @@ def phase_generate_batch(card: str, tts, conds, label: str) -> dict:
     dec = cfg.s3gen.flow.decoder
     tblocks_fresh = (2 + dec.num_mid_blocks) * dec.n_blocks
     tblocks_reuse = 2 * dec.n_blocks
-    for run in ("warmup", "timed"):
+    for run in runs:
         _reset_counts()
         wavs = tts.generate_batch(TEXTS, conds=conds, **BATCH_KW)
         counts = _counts()
@@ -873,51 +1168,285 @@ def phase_generate_batch(card: str, tts, conds, label: str) -> dict:
     return counts
 
 
-# the path whose launch count each kernel's JSON entry reports: this
-# slice's main path (stream_generate) for K1 and K4, the paths that run the
-# others
+def _voice(seed: int, seconds: float, sr: int) -> np.ndarray:
+    """A synthetic voice from a numpy seed: six harmonics of a drifting
+    pitch under a syllable-rate amplitude envelope with quiet edges, plus
+    low noise, so that the silence trim and the mels have something to work
+    on."""
+    rng = np.random.default_rng(seed)
+    n = int(seconds * sr)
+    t = np.arange(n) / sr
+    f0 = 110.0 + 30.0 * rng.random() + 12.0 * np.sin(2 * np.pi * 0.6 * t)
+    phase = 2 * np.pi * np.cumsum(f0) / sr
+    x = sum(np.sin(k * phase + rng.random() * 6.28) / k for k in range(1, 7))
+    env = 0.55 + 0.45 * np.sin(2 * np.pi * 2.3 * t)
+    env[: n // 25] *= 0.002
+    env[-n // 30:] *= 0.002
+    return (0.18 * x * env + 0.003 * rng.standard_normal(n)).astype(np.float32)
+
+
+def _token_margins(tts, wav16: np.ndarray, max_len=None) -> np.ndarray:
+    """(T,) distance of each token frame's nearest pre-rounding value from
+    a rounding boundary (+-0.5), computed on the card."""
+    from chatterbox_embed_tpu_torch.models import s3tokenizer as tok
+    from chatterbox_embed_tpu_torch.ops import mel as mel_ops
+    cfg = tts.cfg.s3gen.tokenizer
+    wavp = torch.from_numpy(tok.pad_to_token_multiple(wav16)[None]).to(tts.device)
+    mels = mel_ops.log_mel_s3tokenizer(wavp, n_fft=cfg.n_fft, hop=cfg.hop, n_mels=cfg.n_mels)
+    if max_len is not None:
+        mels = mels[..., : 4 * max_len]
+    lens = torch.tensor([mels.shape[-1]], device=tts.device)
+    h, _ = tok.encode(tts.s3gen_params["tokenizer"], mels, lens, cfg)
+    pre = tok.fsq_pre_round(tts.s3gen_params["tokenizer"], h)
+    return (pre.abs() - 0.5).abs().amin(dim=-1)[0].cpu().numpy()
+
+
+def _assert_tokens_match(name: str, card_tok, cpu_tok, margins: np.ndarray) -> None:
+    card_tok, cpu_tok = (np.asarray(a).reshape(-1) for a in (card_tok, cpu_tok))
+    n = card_tok.size
+    if cpu_tok.size != n or margins.size < n:
+        raise AssertionError(f"{name}: {n} tokens on the card, {cpu_tok.size} on the CPU")
+    unsafe = margins[:n] <= COND_TOKEN_MARGIN
+    differ = card_tok != cpu_tok
+    if (differ & ~unsafe).any() or unsafe.mean() > COND_UNSAFE_SHARE:
+        raise AssertionError(f"{name}: {int((differ & ~unsafe).sum())} tokens differ away from "
+                             f"a rounding boundary; {int(unsafe.sum())} of {n} frames lie "
+                             f"within {COND_TOKEN_MARGIN} of one")
+    log("conditioning_check", tensor=name, tokens=n, differ=int(differ.sum()),
+        frames_near_boundary=int(unsafe.sum()), margin=COND_TOKEN_MARGIN,
+        min_margin=f"{float(margins[:n].min()):.3e}")
+
+
+def phase_conditioning(card: str, tts) -> dict:
+    """Voice conditioning from reference audio at full width, then
+    generate, the voice-profile route, the conditional cache, ChatterboxVC,
+    and the card's conditionals against the port's CPU run (see the module
+    docstring). Returns the K1 launches of the audio-prompt generate."""
+    from chatterbox_embed_tpu_torch.tts import ChatterboxTTS
+    from chatterbox_embed_tpu_torch.utils import audio_io
+    from chatterbox_embed_tpu_torch.vc import ChatterboxVC
+    cfg = tts.cfg
+    n_layers = cfg.t3.llama.num_layers
+    tmp = tempfile.mkdtemp(prefix="cbx_smoke_")
+    try:
+        ref, src, prof = (os.path.join(tmp, n) for n in ("ref.wav", "src.wav", "voice.npy"))
+        audio_io.write_wav(ref, _voice(1, COND_REF_S, 24_000), 24_000)
+        audio_io.write_wav(src, _voice(2, COND_SRC_S, 16_000), 16_000)
+
+        # prepare from audio: cold (first use of every encoder), then warm
+        for run in ("cold", "warm"):
+            tts.conds = None
+            torch.cuda.synchronize()
+            t0 = time.time()
+            parts = {}
+            tts.prepare_conditionals_with_audio_prompt(ref, exaggeration=0.5, timings=parts)
+            torch.cuda.synchronize()
+            log("conditioning", run=run, prompt_s=COND_REF_S, total_s=f"{time.time() - t0:.4f}",
+                **{k: f"{v:.4f}" for k, v in sorted(parts.items())}, card=repr(card))
+        audio = tts.conds
+        n_tok = COND_REF_S * 25
+        plen = cfg.t3.speech_cond_prompt_len
+        want = {"embedding": (1, cfg.s3gen.flow.spk_embed_dim), "prompt_token": (1, n_tok),
+                "prompt_token_len": (1,), "prompt_feat": (1, 2 * n_tok, cfg.s3gen.mel_num)}
+        for k, shape in want.items():
+            a = np.asarray(audio.gen[k])
+            if a.shape != shape or not np.isfinite(a).all():
+                raise AssertionError(f"conditioning: {k} {a.shape}, want {shape}, all finite")
+        if audio.gen["prompt_feat_len"] is not None or int(audio.gen["prompt_token_len"][0]) != n_tok:
+            raise AssertionError("conditioning: prompt_feat_len / prompt_token_len")
+        spk, ptok = audio.t3.speaker_emb, audio.t3.cond_prompt_speech_tokens
+        if (tuple(spk.shape) != (1, cfg.t3.speaker_embed_size) or tuple(ptok.shape) != (1, plen)
+                or not bool(torch.isfinite(spk).all()) or int(ptok.max()) >= 6561
+                or int(ptok.min()) < 0 or abs(float(spk.norm()) - 1.0) > 1e-3):
+            raise AssertionError(f"conditioning: T3 cond {tuple(spk.shape)} {tuple(ptok.shape)}")
+        log("conditioning_shapes", embedding=want["embedding"], prompt_feat=want["prompt_feat"],
+            prompt_token=want["prompt_token"], speaker_emb=tuple(spk.shape),
+            t3_prompt_tokens=tuple(ptok.shape), distinct_tokens=len(np.unique(audio.gen["prompt_token"])))
+
+        def generate(**voice):
+            tts.conds = None
+            _reset_counts()
+            wav = tts.generate(TEXT, max_new_tokens=COND_NEW_TOKENS, cfg_weight=0.5,
+                               temperature=0.7, seed=0, **voice)
+            counts, perf = _counts(), dict(tts.perf)
+            n, steps = perf["speech_tokens"], perf["decode_steps"]
+            if wav.shape != (1, 2 * n * 480) or n == 0 or not np.isfinite(wav).all():
+                raise AssertionError(f"conditioning generate {list(voice)}: wav {wav.shape}, "
+                                     f"{n} tokens")
+            if counts != _want(flash_decode=n_layers * steps) or steps == 0:
+                raise AssertionError(f"conditioning generate {list(voice)}: launches {counts}")
+            log("conditioning_generate", voice=",".join(voice), tokens=n, decode_steps=steps,
+                launches=json.dumps({k: v for k, v in counts.items() if v}).replace(" ", ""),
+                wav_samples=wav.shape[1], t3_s=f"{perf['t3_s']:.4f}",
+                s3gen_s=f"{perf['s3gen_s']:.4f}", card=repr(card))
+            return counts
+
+        counts = generate(audio_prompt_path=ref, exaggeration=0.5)
+        from_audio = tts.conds
+
+        # the voice-profile route gives the same voice: the S3Gen reference
+        # and the speaker embedding are equal arrays. Its T3 prompt tokens are
+        # the first `plen` of the 10 s prompt's tokens, where the audio route
+        # tokenizes the first 6 s on their own (as in the JAX package), so
+        # those are compared with the reference dict, not across routes.
+        tts.save_voice_profile(ref, prof)
+        tts.clear_conditional_cache()
+        generate(voice_profile_path=prof, exaggeration=0.5)
+        from_profile = tts.conds
+        for k in ("embedding", "prompt_token", "prompt_token_len", "prompt_feat"):
+            if not np.array_equal(np.asarray(from_profile.gen[k]), np.asarray(from_audio.gen[k])):
+                raise AssertionError(f"conditioning: the profile route's {k} differs from the "
+                                     f"audio route's")
+        if not torch.equal(from_profile.t3.speaker_emb, from_audio.t3.speaker_emb):
+            raise AssertionError("conditioning: the profile route's speaker_emb differs")
+        if not np.array_equal(from_profile.t3.cond_prompt_speech_tokens.cpu().numpy(),
+                              np.asarray(from_audio.gen["prompt_token"])[:, :plen]):
+            raise AssertionError("conditioning: the profile route's T3 prompt tokens")
+        same = int((from_profile.t3.cond_prompt_speech_tokens
+                    == from_audio.t3.cond_prompt_speech_tokens).sum())
+        tts.clear_conditional_cache()
+        before = tts.get_conditional_cache_stats()
+        first = tts._get_or_prepare_conditionals(voice_profile_path=prof)
+        second = tts._get_or_prepare_conditionals(voice_profile_path=prof)
+        stats = tts.get_conditional_cache_stats()
+        if (second is not first or stats["hits"] != before["hits"] + 1
+                or stats["misses"] != before["misses"] + 1 or stats["cache_size"] != 1):
+            raise AssertionError(f"conditioning: cache stats {before} -> {stats}")
+        log("conditioning_profile", gen_equal=True, speaker_emb_equal=True,
+            t3_prompt_tokens_equal_across_routes=f"{same}/{plen}", cache_hits=stats["hits"],
+            cache_misses=stats["misses"], profile_bytes=os.path.getsize(prof))
+
+        # voice conversion of the 6 s source into the reference voice
+        vc = ChatterboxVC(tts.s3gen_params, tts.t3_params, tts.ve_params, tts.tokenizer,
+                          config=cfg, dtype=tts.dtype, device=tts.device)
+        vc.set_target_voice(ref)
+        for run in ("warmup", "timed"):
+            _reset_counts()
+            torch.cuda.synchronize()
+            t0 = time.time()
+            wav = vc.generate(src, seed=0)
+            vc_s = time.time() - t0
+            n_src = COND_SRC_S * 25
+            if wav.shape != (1, 2 * n_src * 480) or not np.isfinite(wav).all():
+                raise AssertionError(f"vc: wav {wav.shape}, want (1, {2 * n_src * 480})")
+            if _counts() != _want():
+                raise AssertionError(f"vc: launches {_counts()} (one row stays below the "
+                                     f"K2 / K3 gates)")
+            log("vc", run=run, source_s=COND_SRC_S, tokens=n_src, wav_samples=wav.shape[1],
+                seconds=f"{vc_s:.4f}", seconds_per_source_second=f"{vc_s / COND_SRC_S:.4f}",
+                peak_abs=f"{float(np.abs(wav).max()):.4f}", card=repr(card))
+
+        # the card against the port's CPU run: the same wavs, the same
+        # conditioning weights, fp32, asked for with device="cpu"
+        cpu = ChatterboxTTS(
+            {}, {"flow": {"input_embedding": tts.s3gen_params["flow"]["input_embedding"]},
+                 "speaker_encoder": tts.s3gen_params["speaker_encoder"],
+                 "tokenizer": tts.s3gen_params["tokenizer"]},
+            tts.tokenizer, config=cfg, dtype=torch.float32, device="cpu", ve_params=tts.ve_params)
+        t0 = time.time()
+        cpu_gen = cpu._build_ref_dict(ref)
+        cpu_t3 = cpu._build_t3_cond(ref, 0.5)
+        cpu_s = time.time() - t0
+        for k in ("prompt_feat", "embedding"):
+            _check_err("conditioning_vs_cpu", torch.from_numpy(np.asarray(from_audio.gen[k])),
+                       torch.from_numpy(cpu_gen[k]), COND_TOL[k], k == "embedding", tensor=k)
+        _check_err("conditioning_vs_cpu", from_audio.t3.speaker_emb.cpu(), cpu_t3.speaker_emb,
+                   COND_TOL["speaker_emb"], tensor="speaker_emb")
+        wav16, _ = audio_io.load_audio(ref, sr=16_000, device=tts.device)
+        _assert_tokens_match("prompt_token", from_audio.gen["prompt_token"],
+                             cpu_gen["prompt_token"], _token_margins(tts, wav16))
+        _assert_tokens_match("t3_prompt_tokens", from_audio.t3.cond_prompt_speech_tokens.cpu(),
+                             cpu_t3.cond_prompt_speech_tokens,
+                             _token_margins(tts, wav16[: tts.ENC_COND_LEN], plen))
+        log("conditioning_cpu", seconds=f"{cpu_s:.2f}", threads=torch.get_num_threads())
+        del vc, cpu
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    tts.conds = None
+    tts.clear_conditional_cache()
+    torch.cuda.empty_cache()
+    return counts
+
+
+# the path whose launch count each kernel's JSON entry reports: the
+# streamed request for K1 and K4, the paths that run the others, and for the
+# two probe kernels their probe's entry point
 MAIN_PATH = {"flash_decode": "stream_generate", "flash_decode_deferred": "generate_defer",
              "rel_attention": "generate_batch", "flash_attention": "generate_batch",
-             "fused_decode": "stream_generate_fused_step"}
+             "fused_decode": "stream_generate_fused_step",
+             "weight_stream": "probe_weight_stream", "decode_anatomy": "probe_decode_anatomy"}
 REPLACES = {"flash_decode": "chatterbox_embed_tpu/kernels/flash_decode.py:85",
             "flash_decode_deferred": "chatterbox_embed_tpu/kernels/flash_decode.py:169",
             "rel_attention": "chatterbox_embed_tpu/kernels/rel_attention.py:45",
             "flash_attention": "chatterbox_embed_tpu/models/layers.py:395",
-            "fused_decode": "chatterbox_embed_tpu/kernels/fused_decode.py:111"}
+            "fused_decode": "chatterbox_embed_tpu/kernels/fused_decode.py:111",
+            "weight_stream": "scripts/microbench_weight_stream.py:39",
+            "decode_anatomy": "scripts/microbench_decode_anatomy.py:40"}
 
 
 if __name__ == "__main__":
+    started = [time.time(), time.time()]
+
+    def phase_done(name: str) -> None:
+        """One line with the seconds the phase took and the seconds so far."""
+        torch.cuda.synchronize()
+        now = time.time()
+        log("phase_time", name=name, seconds=f"{now - started[1]:.1f}",
+            since_start=f"{now - started[0]:.1f}")
+        started[1] = now
+
     card = phase_device()
     phase_build()
+    phase_done("build")
     check = {"flash_decode": phase_kernel_check(card),
              "flash_decode_deferred": phase_kernel_check(card, deferred=True)}
+    phase_done("kernel_check_k1_k1s")
     check.update(phase_attention_check(card))
+    phase_done("kernel_check_k2_k3")
+    check.update(phase_probe_check(card))
+    phase_done("kernel_check_k5_k6")
+    launches = phase_probes(card)
+    phase_done("probes")
 
     from chatterbox_embed_tpu_torch.config import ChatterboxConfig
     from chatterbox_embed_tpu_torch.tts import ChatterboxTTS
     cfg = ChatterboxConfig()
     t0 = time.time()
-    tts = ChatterboxTTS.from_random(seed=0, config=cfg, dtype=torch.bfloat16, device="cuda")
+    tts = ChatterboxTTS.from_random(seed=0, config=cfg, dtype=torch.bfloat16)   # the card
+    if tts.device.type != "cuda":
+        raise AssertionError(f"from_random without a device landed on {tts.device}")
     tts.conds = _random_conds(cfg, "cuda")
     torch.cuda.synchronize()
     log("model", config="ChatterboxConfig()", dtype="bfloat16",
         t3_layers=cfg.t3.llama.num_layers, d=cfg.t3.llama.hidden_size,
         init_s=f"{time.time() - t0:.2f}", text_chars=len(TEXT))
     check["fused_decode"] = phase_fused_check(card, tts)
+    phase_done("model_and_kernel_check_k4")
     phase_decode_consistency(tts)
     phase_batch_consistency(tts)
-    launches, perfs = {}, {}
+    phase_done("consistency")
+    perfs = {}
     for path in GEN_PATHS:
-        launches[f"generate_{path}"], perfs[path] = phase_generate(card, tts, path)
+        # the deferred insert runs one pass (no warm-up): its step is the
+        # default path's, host-bound, and the pass is there for its launches
+        launches[f"generate_{path}"], perfs[path] = phase_generate(
+            card, tts, path, ("timed",) if path == "defer" else ("warmup", "timed"))
     log("decode_step", card=repr(card), **{
         f"{path}_ms_per_step": f"{1e3 * p['t3_s'] / p['decode_steps']:.3f}"
         for path, p in perfs.items()})
+    phase_done("generate")
     launches["generate_batch"] = phase_generate_batch(card, tts, None, "one")
     voices = [_random_conds(cfg, "cuda", n, seed) for n, seed in ((150, 1), (110, 2))]
     launches["generate_batch_multi_voice"] = phase_generate_batch(
-        card, tts, [voices[i % 2] for i in range(len(TEXTS))], "two")
+        card, tts, [voices[i % 2] for i in range(len(TEXTS))], "two", ("timed",))
+    phase_done("generate_batch")
     launches["stream_generate_fused_step"], _ = phase_stream(card, tts, True)
-    launches["stream_generate"], _ = phase_stream(card, tts, False)
+    # the default step streams one pass: the fused passes before it warmed
+    # the flow windows and the vocoder, and generate warmed the K1 step
+    launches["stream_generate"], _ = phase_stream(card, tts, False, ("timed",))
+    phase_done("stream_generate")
+    launches["generate_audio_prompt"] = phase_conditioning(card, tts)
+    phase_done("conditioning")
     for name, path in MAIN_PATH.items():
         if launches[path][name] == 0:
             raise AssertionError(f"{name} was not launched on its path {path}")
@@ -930,8 +1459,14 @@ if __name__ == "__main__":
         "launches": launches[MAIN_PATH[name]][name],
         "launches_by_path": {p: c[name] for p, c in launches.items()},
         "max_abs_err": check[name]["max_abs_err"],
-        "max_abs_err_fp32": check[name]["max_abs_err_fp32"],
+        "max_abs_err_fp32": check[name].get("max_abs_err_fp32"),
         "ms": check[name]["timing"]["ms"], "plain_ms": check[name]["timing"]["plain_ms"],
+        "bound_ms": check[name]["timing"]["bound_ms"],
+        "bound_by": check[name]["timing"]["bound_by"],
+        "library_ms": check[name]["timing"]["library_ms"],
+        "bound_bytes": check[name]["timing"]["bound_bytes"],
+        "bound_ops": check[name]["timing"]["bound_ops"],
+        "bound_peak": check[name]["timing"]["bound_peak"],
         "call_ms": check[name]["timing"]["call_ms"],
         "plain_call_ms": check[name]["timing"]["plain_call_ms"]}
         for name, (m, _, _, _) in _kernels().items()]}), flush=True)

@@ -88,14 +88,14 @@ def test_llama_defer_step_equals_insert_first(rng, monkeypatch):
     """One decode step of llama.forward with the deferred insert: the same
     hidden state and the same cache as insert-first."""
     cfg = TINY.llama
-    params = tllama.init(L.Init(3), cfg)
+    params = tllama.init(L.Init(3, device="cpu"), cfg)
     b, total, p_len = 2, 64, 20
     x = torch.randn((b, p_len + 1, cfg.hidden_size), generator=torch.Generator().manual_seed(0))
     pos = torch.arange(p_len + 1)[None].expand(b, -1)
     caches = []
     for defer in ("0", "1"):
         monkeypatch.setenv("CHATTERBOX_DEFER_KV", defer)
-        cache = tllama.init_cache(cfg, b, total)
+        cache = tllama.init_cache(cfg, b, total, device="cpu")
         _, cache = tllama.forward(params, x[:, :p_len], pos[:, :p_len], cache=cache,
                                   cache_pos=0, cfg=cfg)
         h, cache = tllama.forward(params, x[:, p_len:], pos[:, p_len:], cache=cache,
@@ -125,12 +125,12 @@ def test_generate_defer_tokens_equal_jax(rng, models, monkeypatch):
     jc, tc = _voice(rng)
     text = np.concatenate([[5], rng.integers(1, 50, 11), [0]])[None].astype(np.int32)
     kw = dict(max_new_tokens=30, temperature=0.8, cfg_weight=0.5, seed=2, cfg=TINY)
-    plain = tt3.generate(tp, tc, text, draws=JaxDraws(2), **kw)
+    plain = tt3.generate(tp, tc, text, draws=JaxDraws(2), **kw, device="cpu")
     monkeypatch.setenv("CHATTERBOX_PALLAS", "1")
     monkeypatch.setenv("CHATTERBOX_DEFER_KV", "1")
     ref = np.asarray(jt3.generate(jp, jc, text, **kw))
     assert jt3.LAST_GENERATION_INFO["use_flash"] is True
-    out = tt3.generate(tp, tc, text, draws=JaxDraws(2), **kw)
+    out = tt3.generate(tp, tc, text, draws=JaxDraws(2), **kw, device="cpu")
     np.testing.assert_array_equal(out, ref)
     np.testing.assert_array_equal(out, plain)
 
@@ -146,11 +146,11 @@ def test_generate_batch_defer_tokens_equal_jax(rng, models, monkeypatch):
         rows[i, 0], rows[i, n - 1] = 5, 0
     kw = dict(max_new_tokens=24, temperature=0.8, cfg_weight=0.5, seed=6,
               text_lens=np.array([12, 7], np.int32), cfg=TINY)
-    plain = tt3.generate_batch(tp, tc, rows, make_draws=JaxDraws, **kw)
+    plain = tt3.generate_batch(tp, tc, rows, make_draws=JaxDraws, **kw, device="cpu")
     monkeypatch.setenv("CHATTERBOX_PALLAS", "1")
     monkeypatch.setenv("CHATTERBOX_DEFER_KV", "1")
     ref = jt3.generate_batch(jp, jc, rows, **kw)
-    out = tt3.generate_batch(tp, tc, rows, make_draws=JaxDraws, **kw)
+    out = tt3.generate_batch(tp, tc, rows, make_draws=JaxDraws, **kw, device="cpu")
     for a, r, p in zip(out, ref, plain):
         np.testing.assert_array_equal(a, np.asarray(r))
         np.testing.assert_array_equal(a, p)

@@ -174,12 +174,12 @@ def test_generate_fused_tokens_equal_jax(t3_models, monkeypatch):
     ref = np.asarray(jt3.generate(jp, jc, text, **kw))
     assert jt3.LAST_GENERATION_INFO["use_fused"] is True
     info = {}
-    out = tt3.generate(tp, tc, text, draws=JaxDraws(4), info=info, **kw)
+    out = tt3.generate(tp, tc, text, draws=JaxDraws(4), info=info, **kw, device="cpu")
     assert info["use_fused"] is True
     np.testing.assert_array_equal(out, ref)
     monkeypatch.setenv("CHATTERBOX_FUSED_STEP", "0")
     info = {}
-    plain = tt3.generate(tp, tc, text, draws=JaxDraws(4), info=info, **kw)
+    plain = tt3.generate(tp, tc, text, draws=JaxDraws(4), info=info, **kw, device="cpu")
     assert info["use_fused"] is False
     np.testing.assert_array_equal(plain, out)
     assert info["decode_steps"] >= len(out)
@@ -191,20 +191,20 @@ def test_fused_gate_ragged_rows_and_utterance_cap(t3_models, monkeypatch):
     two = np.concatenate([text, text])
     monkeypatch.setenv("CHATTERBOX_FUSED_STEP", "1")
     kw = dict(cfg_weight=0.5, max_new_tokens=8, cfg=TCFG)
-    _, info = tt3.start_generation(tp, tc, text, **kw)
+    _, info = tt3.start_generation(tp, tc, text, **kw, device="cpu")
     assert info["use_fused"] is True and info["fused"] is not None
     # above FUSED_STEP_MAX_UTTERANCES (1 by default)
-    _, info = tt3.start_generation(tp, tc, two, **kw)
+    _, info = tt3.start_generation(tp, tc, two, **kw, device="cpu")
     assert info["use_fused"] is False and info["fused"] is None
     monkeypatch.setattr(tt3, "FUSED_STEP_MAX_UTTERANCES", 2)
-    _, info = tt3.start_generation(tp, tc, two, text_lens=np.array([11, 11]), **kw)
+    _, info = tt3.start_generation(tp, tc, two, text_lens=np.array([11, 11]), **kw, device="cpu")
     assert info["use_fused"] is True
     # ragged rows need per-row key holes: the fused step is off
     two[1, 8:] = 0
-    _, info = tt3.start_generation(tp, tc, two, text_lens=np.array([11, 8]), **kw)
+    _, info = tt3.start_generation(tp, tc, two, text_lens=np.array([11, 8]), **kw, device="cpu")
     assert info["use_fused"] is False and info["hole"] is not None
     monkeypatch.setenv("CHATTERBOX_FUSED_STEP", "0")
-    _, info = tt3.start_generation(tp, tc, text, **kw)
+    _, info = tt3.start_generation(tp, tc, text, **kw, device="cpu")
     assert info["use_fused"] is False
 
 
@@ -216,9 +216,9 @@ def test_fused_batch_of_two_equals_default(t3_models, monkeypatch):
     rows = np.concatenate([text, text[:, ::-1].copy()])
     kw = dict(max_new_tokens=10, cfg_weight=0.5, temperature=0.8, seed=1,
               text_lens=np.array([11, 11]), cfg=TCFG)
-    plain = tt3.generate_batch(tp, tc, rows, **kw)
+    plain = tt3.generate_batch(tp, tc, rows, **kw, device="cpu")
     monkeypatch.setenv("CHATTERBOX_FUSED_STEP", "1")
     monkeypatch.setattr(tt3, "FUSED_STEP_MAX_UTTERANCES", 2)
-    fused = tt3.generate_batch(tp, tc, rows, **kw)
+    fused = tt3.generate_batch(tp, tc, rows, **kw, device="cpu")
     for a, b in zip(fused, plain):
         np.testing.assert_array_equal(a, b)

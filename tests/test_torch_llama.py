@@ -54,7 +54,7 @@ def test_prefill_and_decode_match_jax(params, jax_path):
                             jnp.asarray(mask), cache=jl.init_cache(CFG, B, TOTAL),
                             cache_pos=0, cfg=CFG)
     th, tcache = tl.forward(tp, torch.from_numpy(x[:, :P]), torch.from_numpy(pos[:, :P]),
-                            torch.from_numpy(mask), cache=tl.init_cache(CFG, B, TOTAL),
+                            torch.from_numpy(mask), cache=tl.init_cache(CFG, B, TOTAL, device="cpu"),
                             cache_pos=0, cfg=CFG)
     np.testing.assert_allclose(th.numpy(), np.asarray(jh), **TOL)
     np.testing.assert_allclose(tcache.k.numpy(), np.asarray(jcache.k), **TOL)
@@ -79,7 +79,7 @@ def test_decode_equals_full_causal_forward(params):
     rng = np.random.default_rng(2)
     x = torch.from_numpy(rng.standard_normal((B, P + STEPS, CFG.hidden_size)).astype(np.float32))
     pos = torch.arange(P + STEPS)[None].expand(B, -1)
-    _, cache = tl.forward(tp, x[:, :P], pos[:, :P], cache=tl.init_cache(CFG, B, TOTAL), cfg=CFG)
+    _, cache = tl.forward(tp, x[:, :P], pos[:, :P], cache=tl.init_cache(CFG, B, TOTAL, device="cpu"), cfg=CFG)
     steps = []
     for i in range(STEPS):
         h, cache = tl.forward(tp, x[:, P + i:P + i + 1], pos[:, P + i:P + i + 1],

@@ -108,7 +108,7 @@ def test_hift_inference_matches_jax(rng):
 def test_token_to_wav_matches_jax(rng):
     jp = js3.init(jax.random.PRNGKey(5), S3)
     meta = L.Init(device="meta")
-    tp = convert_tree(ts3.init(meta, S3), jp, "S3Gen", skip=("speaker_encoder", "tokenizer"))
+    tp = convert_tree(ts3.init(meta, S3), jp, "S3Gen")
     prompt = rng.integers(0, 6561, (1, 6))
     toks = np.zeros((1, 16), np.int64)
     toks[0, :11] = rng.integers(0, 6561, 11)

@@ -74,7 +74,7 @@ def test_cond_embeds_and_prefill_logits_match(models):
     np.testing.assert_allclose(tt3.cond_embeds(tp, tc, TINY).numpy(),
                                np.asarray(jt3.cond_embeds(jp, jc, TINY)), **TOL)
     state, info = tt3.start_generation(tp, tc, text, cfg_weight=0.5, max_new_tokens=30,
-                                       cfg=TINY)
+                                       cfg=TINY, device="cpu")
     pad = info["pad"]
     tb = jnp.asarray(np.pad(text, ((0, 0), (pad, 0))))
     jstate = jt3._context_prefill(jp, jc, tb, None, jnp.int32(pad), TINY,
@@ -99,7 +99,7 @@ def test_generate_tokens_equal_jax(models, monkeypatch, top_p, cfg_weight, palla
     ref = jt3.generate(jp, jc, text, **kw)
     assert jt3.LAST_GENERATION_INFO["use_flash"] == (pallas == "1")
     info = {}
-    out = tt3.generate(tp, tc, text, draws=JaxDraws(0), info=info, **kw)
+    out = tt3.generate(tp, tc, text, draws=JaxDraws(0), info=info, **kw, device="cpu")
     np.testing.assert_array_equal(out, np.asarray(ref))
     assert info["decode_steps"] >= len(out) > 0
     if not stop:
@@ -113,10 +113,10 @@ def test_start_generation_rejects_out_of_range_requests(models):
     _, tc, text = _conds()
     with pytest.raises(ValueError, match="speech positions"):
         tt3.start_generation(tp, tc, text, cfg_weight=0.5,
-                             max_new_tokens=TINY.max_speech_seq_len, cfg=TINY)
+                             max_new_tokens=TINY.max_speech_seq_len, cfg=TINY, device="cpu")
     two = np.concatenate([text, text])
     with pytest.raises(ValueError, match="max_decode_utterances"):
         tt3.start_generation(tp, tc, two, cfg_weight=0.5, max_new_tokens=10, cfg=TINY,
-                             free_bytes=1)
+                             free_bytes=1, device="cpu")
     with pytest.raises(ValueError, match="one utterance"):
-        tt3.generate(tp, tc, two, cfg_weight=0.5, max_new_tokens=10, cfg=TINY)
+        tt3.generate(tp, tc, two, cfg_weight=0.5, max_new_tokens=10, cfg=TINY, device="cpu")

@@ -87,7 +87,7 @@ def test_per_row_process_logits_matches_jax(rng):
         jnp.asarray(logits), jnp.asarray(counts), temperature=temps.reshape(u, 1),
         repetition_penalty_val=pens.reshape(u, 1), min_p=minps.reshape(u, 1),
         top_p=tops.reshape(u, 1), **kw)
-    params = [tsampling.sampling_param(a, u) for a in (temps, pens, minps, tops)]
+    params = [tsampling.sampling_param(a, u, device="cpu") for a in (temps, pens, minps, tops)]
     vec = tsampling.process_logits(t(logits), t(counts), temperature=params[0],
                                    repetition_penalty_val=params[1], min_p=params[2],
                                    top_p=params[3], **kw)
@@ -101,10 +101,10 @@ def test_per_row_process_logits_matches_jax(rng):
 
 
 def test_sampling_param_shapes():
-    assert tsampling.sampling_param(0.7, 3) == pytest.approx(0.7)
-    assert tuple(tsampling.sampling_param([0.1, 0.2, 0.3], 3).shape) == (3, 1)
+    assert tsampling.sampling_param(0.7, 3, device="cpu") == pytest.approx(0.7)
+    assert tuple(tsampling.sampling_param([0.1, 0.2, 0.3], 3, device="cpu").shape) == (3, 1)
     with pytest.raises(ValueError, match="shape"):
-        tsampling.sampling_param([0.1, 0.2], 3)
+        tsampling.sampling_param([0.1, 0.2], 3, device="cpu")
 
 
 @pytest.mark.parametrize("per_row", [False, True])
@@ -117,7 +117,7 @@ def test_generate_batch_ragged_rows_match_jax(rng, models, per_row):
     kw = dict(max_new_tokens=30, seed=2, text_lens=lens, cfg=TINY, **params)
     ref = jt3.generate_batch(jp, jc, rows, **kw)
     info = {}
-    out = tt3.generate_batch(tp, tc, rows, make_draws=JaxDraws, info=info, **kw)
+    out = tt3.generate_batch(tp, tc, rows, make_draws=JaxDraws, info=info, **kw, device="cpu")
     _assert_rows_equal(out, ref)
     assert info["sub_batches"] == 1 and info["decode_steps"] >= max(len(o) for o in out)
 
@@ -136,7 +136,7 @@ def test_sub_batched_split_matches_jax(rng, models, monkeypatch):
     seeds = []
     info = {}
     out = tt3.generate_batch(tp, tc, rows, info=info,
-                             make_draws=lambda s: seeds.append(s) or JaxDraws(s), **kw)
+                             make_draws=lambda s: seeds.append(s) or JaxDraws(s), **kw, device="cpu")
     _assert_rows_equal(out, ref)
     assert seeds == [5, 7, 9]
     assert info["sub_batches"] == 3 and info["sub_batch_utts"] == 2
@@ -152,7 +152,7 @@ def test_multi_voice_rows_match_jax(rng, models):
     rows, lens = _ragged(rng, [7, 12, 5])
     kw = dict(max_new_tokens=24, seed=1, text_lens=lens, cfg=TINY, temperature=0.8,
               cfg_weight=0.5)
-    _assert_rows_equal(tt3.generate_batch(tp, tc, rows, make_draws=JaxDraws, **kw),
+    _assert_rows_equal(tt3.generate_batch(tp, tc, rows, make_draws=JaxDraws, **kw, device="cpu"),
                        jt3.generate_batch(jp, jc, rows, **kw))
 
 
@@ -168,7 +168,7 @@ def test_shared_voice_with_per_row_emotion(rng, models):
     np.testing.assert_allclose(ce.numpy(), np.asarray(jt3.cond_embeds(jp, jc, TINY)), atol=1e-5)
     rows, lens = _ragged(rng, [9, 12, 6])
     kw = dict(max_new_tokens=16, seed=4, text_lens=lens, cfg=TINY, cfg_weight=0.5)
-    _assert_rows_equal(tt3.generate_batch(tp, tc, rows, make_draws=JaxDraws, **kw),
+    _assert_rows_equal(tt3.generate_batch(tp, tc, rows, make_draws=JaxDraws, **kw, device="cpu"),
                        jt3.generate_batch(jp, jc, rows, **kw))
 
 
@@ -195,5 +195,5 @@ def test_generate_batch_sub_batches_under_free_bytes(rng, models):
     rows, lens = _ragged(rng, [6, 12, 9])
     info = {}
     out = tt3.generate_batch(tp, tc, rows, max_new_tokens=8, cfg_weight=0.5, text_lens=lens,
-                             cfg=TINY, free_bytes=1, info=info)
+                             cfg=TINY, free_bytes=1, info=info, device="cpu")
     assert len(out) == 3 and info["sub_batches"] == 3 and info["sub_batch_utts"] == 1

@@ -70,7 +70,7 @@ def pair():
     jax_tts.conds = jconds
     state = from_jax_params(jax_tts.t3_params, jax_tts.s3gen_params, TINY)
     port = ChatterboxTTS(state["t3"], state["s3gen"], FallbackTokenizer(TINY.t3),
-                         conds=conds, config=TINY)
+                         conds=conds, config=TINY, device="cpu")
     yield jax_tts, port
     mp.undo()
 
@@ -102,7 +102,7 @@ def test_default_draws_are_seeded(pair):
 
 def test_generate_needs_conds(pair):
     _, port = pair
-    bare = ChatterboxTTS(port.t3_params, port.s3gen_params, port.tokenizer, config=TINY)
+    bare = ChatterboxTTS(port.t3_params, port.s3gen_params, port.tokenizer, config=TINY, device="cpu")
     with pytest.raises(RuntimeError, match="Conditionals are not prepared"):
         bare.generate(TEXT)
 
@@ -126,7 +126,7 @@ def test_conds_pt_roundtrip(tmp_path):
     jconds, conds = _conds()
     path = str(tmp_path / "conds.pt")
     conds.save(path)
-    back = Conditionals.load(path)
+    back = Conditionals.load(path, device="cpu")
     np.testing.assert_array_equal(back.t3.speaker_emb.numpy(), conds.t3.speaker_emb.numpy())
     np.testing.assert_array_equal(back.t3.cond_prompt_speech_tokens.numpy(),
                                   conds.t3.cond_prompt_speech_tokens.numpy())
@@ -136,7 +136,7 @@ def test_conds_pt_roundtrip(tmp_path):
     jback = JConditionals.load(path)
     np.testing.assert_array_equal(np.asarray(jback.t3.speaker_emb), conds.t3.speaker_emb.numpy())
     jconds.save(str(tmp_path / "jconds.pt"))
-    back = Conditionals.load(str(tmp_path / "jconds.pt"))
+    back = Conditionals.load(str(tmp_path / "jconds.pt"), device="cpu")
     np.testing.assert_array_equal(back.t3.speaker_emb.numpy(), conds.t3.speaker_emb.numpy())
 
 
@@ -151,26 +151,44 @@ def test_from_random_full_width_tree_shapes():
 
 
 def test_from_local_wires_converters_tokenizer_and_conds(pair, tmp_path, monkeypatch):
-    """from_local reads t3_cfg / s3gen safetensors through the JAX package's
-    numpy converters, then from_jax_params; tokenizer.json through
-    EnTokenizer; conds.pt when present. The converters are stubbed to hand
-    back the JAX pipeline's trees (no reference checkpoint exists here)."""
+    """from_local reads ve / t3_cfg / s3gen safetensors through the port's
+    own numpy converters (utils/weights.py), then weights.from_arrays;
+    tokenizer.json through EnTokenizer; conds.pt when present. The
+    converters are stubbed to hand back the pipeline's trees as arrays in
+    the port's layout (no reference checkpoint exists here;
+    test_torch_weights.py holds the real converters against the JAX
+    package's)."""
     from tokenizers import Tokenizer, models, pre_tokenizers
-    from chatterbox_embed_tpu.utils import weights as jw
+    from chatterbox_embed_tpu_torch.models import layers as L
+    from chatterbox_embed_tpu_torch.models import voice_encoder as tve
+    from chatterbox_embed_tpu_torch.utils import weights as tw
     jax_tts, port = pair
+
+    def arrays(tree):
+        if isinstance(tree, dict):
+            return {k: arrays(v) for k, v in tree.items()}
+        if isinstance(tree, list):
+            return [arrays(v) for v in tree]
+        return tree.numpy()
+
+    ve = tve.init(L.Init(1, device="cpu"), TINY.voice_encoder)
     read = []
-    monkeypatch.setattr(jw, "load_safetensors", lambda p: read.append(p) or {"path": p})
-    monkeypatch.setattr(jw, "convert_t3", lambda sd, num_layers: jax_tts.t3_params)
-    monkeypatch.setattr(jw, "convert_s3gen", lambda sd, cfg: jax_tts.s3gen_params)
+    monkeypatch.setattr(tw, "load_safetensors", lambda p: read.append(p) or {"path": p})
+    monkeypatch.setattr(tw, "convert_voice_encoder", lambda sd: arrays(ve))
+    monkeypatch.setattr(tw, "convert_t3", lambda sd, num_layers: arrays(port.t3_params))
+    monkeypatch.setattr(tw, "convert_s3gen", lambda sd, cfg: arrays(port.s3gen_params))
     vocab = {"[UNK]": 0, "[START]": 1, "[STOP]": 2, "[SPACE]": 3, "hello": 4, "port": 5}
     tok = Tokenizer(models.WordLevel(vocab, unk_token="[UNK]"))
     tok.pre_tokenizer = pre_tokenizers.Split("[SPACE]", "isolated")
     tok.save(str(tmp_path / "tokenizer.json"))
     port.conds.save(str(tmp_path / "conds.pt"))
-    loaded = ChatterboxTTS.from_local(tmp_path, config=TINY)
-    assert [p.rsplit("/", 1)[-1] for p in read] == ["t3_cfg.safetensors", "s3gen.safetensors"]
+    loaded = ChatterboxTTS.from_local(tmp_path, config=TINY, device="cpu")
+    assert [p.rsplit("/", 1)[-1] for p in read] == ["ve.safetensors", "t3_cfg.safetensors",
+                                                    "s3gen.safetensors"]
     assert loaded.tokenizer.encode("hello port") == [4, 3, 5]
     np.testing.assert_array_equal(loaded.conds.t3.speaker_emb.numpy(),
                                   port.conds.t3.speaker_emb.numpy())
     np.testing.assert_array_equal(loaded.t3_params["speech_head"]["w"].numpy(),
                                   port.t3_params["speech_head"]["w"].numpy())
+    np.testing.assert_array_equal(loaded.ve_params["lstm"][2]["wh"].numpy(),
+                                  ve["lstm"][2]["wh"].numpy())

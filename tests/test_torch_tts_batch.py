@@ -55,7 +55,7 @@ def pair():
     jax_tts.conds = jconds
     state = from_jax_params(jax_tts.t3_params, jax_tts.s3gen_params, TINY)
     port = ChatterboxTTS(state["t3"], state["s3gen"], FallbackTokenizer(TINY.t3),
-                         conds=conds, config=TINY)
+                         conds=conds, config=TINY, device="cpu")
     yield jax_tts, port
     mp.undo()
 
@@ -105,7 +105,7 @@ def test_generate_batch_rejects_mismatched_voices(pair):
     _, ta = _voice(11, 8)
     with pytest.raises(ValueError, match="Conditionals for"):
         port.generate_batch(TEXTS, conds=[ta, ta], **GEN)
-    bare = ChatterboxTTS(port.t3_params, port.s3gen_params, port.tokenizer, config=TINY)
+    bare = ChatterboxTTS(port.t3_params, port.s3gen_params, port.tokenizer, config=TINY, device="cpu")
     with pytest.raises(RuntimeError, match="Conditionals are not prepared"):
         bare.generate_batch(TEXTS, **GEN)
 

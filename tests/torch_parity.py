@@ -112,5 +112,5 @@ def tiny_tts_pair(cfg, monkeypatch):
     jax_tts.conds = JConditionals(jt3.T3Cond(jnp.asarray(spk), jnp.asarray(prompt), 0.5), gen)
     state = from_jax_params(jax_tts.t3_params, jax_tts.s3gen_params, cfg)
     port = ChatterboxTTS(state["t3"], state["s3gen"], FallbackTokenizer(cfg.t3),
-                         conds=Conditionals(T3Cond(t(spk), t(prompt), 0.5), gen), config=cfg)
+                         conds=Conditionals(T3Cond(t(spk), t(prompt), 0.5), gen), config=cfg, device="cpu")
     return jax_tts, port
