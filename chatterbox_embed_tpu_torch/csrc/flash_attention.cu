@@ -3,10 +3,12 @@
 // chatterbox_embed_tpu/models/layers.py:mha_flash calls (non-causal, key
 // padding given as segment ids, no `ab` bias on this path).
 //
-// q, k, v, out (B, T, H, 64) and key_valid (B, T); scale 1/sqrt(64). The
-// kernel and its design notes are in masked_attention.cuh; what bounds it
-// there: 4 * T^2 * 64 FLOP per (row, head) for scores and p.v, about
-// 0.17 GFLOP at T = 812, so it is compute-bound too.
+// q, k, v, out (B, T, H, 64) and key_valid (B, T); scale 1/sqrt(64). Two
+// kernels, each with its design notes: bf16 inputs run on the tensor cores
+// (masked_attention_tc.cuh), fp32 inputs on the CUDA cores
+// (masked_attention.cuh). What bounds it: 4 * T^2 * 64 FLOP per (row, head)
+// for scores and p.v, about 0.17 GFLOP at T = 812 against 0.4 MB of
+// operands, so it is compute-bound too.
 //
 // Semantics: the port takes layers.mha's key-mask semantics at every query
 // row (every query attends the valid keys of its row). The TPU kernel
@@ -18,16 +20,18 @@
 // where layers.mha averages all keys; no CFM row on the path is empty.
 
 #include "masked_attention.cuh"
+#include "masked_attention_tc.cuh"
 
 // Plain C entry for ctypes. dtype: 0 = float32, 1 = bfloat16. head_dim
-// must be 64. Returns the cudaError_t of the launch (0 on success); it
-// never synchronises and allocates nothing.
+// must be 64. Returns the cudaError_t of the launch (0 on success); it never
+// synchronises and allocates nothing.
 extern "C" int cbx_flash_attention(const void* q, const void* k, const void* v,
                                    const void* key_valid, void* out, int batch,
                                    int seq, int heads, int head_dim, int dtype,
                                    void* stream) {
   if (head_dim != cbx::kDV) return (int)cudaErrorInvalidValue;
   const float scale = 1.0f / sqrtf((float)head_dim);
-  return cbx::dispatch_masked_attention(q, k, v, key_valid, out, batch, seq,
-                                        heads, head_dim, scale, dtype, stream);
+  return cbx::dispatch_masked_attention<true>(q, k, v, key_valid, out, batch,
+                                              seq, heads, head_dim, scale, dtype,
+                                              stream);
 }

@@ -1,17 +1,20 @@
-// Masked softmax attention over a whole key row, written for Hopper (sm_90a).
-// One templated kernel serves two entries that differ only in the q.k width:
+// Masked softmax attention over a whole key row, written for Hopper (sm_90a):
+// the fp32 kernel. One templated kernel serves two entries that differ only
+// in the q.k width:
 //   rel_attention.cu    cbx_rel_attention    (K2: the conformer's rel-pos
 //                       attention, q.k over the augmented width Da = 576)
 //   flash_attention.cu  cbx_flash_attention  (K3: the CFM estimator's
 //                       self-attention, q.k over the head width 64)
+// bf16 inputs go to the tensor-core kernel of masked_attention_tc.cuh; this
+// one serves fp32 inputs only (the full-width consistency checks and the
+// callers that run in fp32), where its fp32 arithmetic is the point.
 //
 // What it computes, for every (row b, head h, query t):
 //   s[j]   = scale * sum_d q[b, t, h, d] * k[b, j, h, d]   over d < Da
 //   out    = sum_{j valid} softmax_j(s) v[b, j, h, :]      over the keys j
 //            with key_valid[b, j]; a row with no valid key writes 0
-// in fp32 whatever the input dtype (an online softmax (m, l, acc) per query
-// row); the output has v's dtype. Invalid queries attend the valid keys as
-// valid ones do (callers mask outputs).
+// in fp32 (an online softmax (m, l, acc) per query row). Invalid queries
+// attend the valid keys as valid ones do (callers mask outputs).
 //
 //   q, k        (B, T, H, Da)  contiguous, read in place (no transposes)
 //   v, out      (B, T, H, 64)  contiguous
@@ -28,20 +31,17 @@
 // tile in registers. Shared memory per block: 66,560 bytes (dynamic, above
 // the 48 KB default; the launch raises the limit once).
 //
-// What bounds it on an H100: arithmetic. At the batched path's shapes the
-// scores are 2 * T^2 * Da FLOP per (row, head): 0.76 GFLOP for K2 at
-// T = 812, against reads of 2 * T * Da * 2 B = 1.9 MB of q and k in bf16.
-// The kernel runs them as fp32 FMAs on the CUDA cores; the inner loop is
-// bound by shared-memory loads (8 loads for 16 FMAs), so it reaches well
-// under the card's 67 TFLOP/s fp32. Left to later PRs: bf16 tensor-core
-// tiles (mma.sync, then wgmma with TMA-fed shared memory and a warp-
-// specialised producer), vector loads, and double-buffered staging.
+// What bounds it on an H100: arithmetic, as fp32 FMAs on the CUDA cores; the
+// inner loop is bound by shared-memory loads (8 loads for 16 FMAs), so it
+// reaches well under the card's 67 TFLOP/s fp32. The kernel keeps its
+// element-type parameter; float is the one type it is built for.
 
 #pragma once
 
 #include <cuda_runtime.h>
-#include <cuda_bf16.h>
 #include <math.h>
+
+#include "masked_attention_tc.cuh"
 
 // Everything here has internal linkage: each .cu that includes this header
 // builds its own library, and a shared symbol (the static flag of a template,
@@ -62,13 +62,7 @@ constexpr size_t kSmemBytes =
     sizeof(int) * kBK;
 
 __device__ __forceinline__ float to_float(float x) { return x; }
-__device__ __forceinline__ float to_float(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
 __device__ __forceinline__ void store(float* p, float x) { *p = x; }
-__device__ __forceinline__ void store(__nv_bfloat16* p, float x) {
-  *p = __float2bfloat16_rn(x);
-}
 
 template <typename T>
 __global__ void __launch_bounds__(kThreads)
@@ -232,11 +226,13 @@ int launch_masked_attention(const void* q, const void* k, const void* v,
   return (int)cudaGetLastError();
 }
 
-// dtype: 0 = float32, 1 = bfloat16.
-inline int dispatch_masked_attention(const void* q, const void* k, const void* v,
-                                     const void* key_valid, void* out, int batch,
-                                     int seq, int heads, int da, float scale,
-                                     int dtype, void* stream) {
+// dtype: 0 = float32 (this header's kernel), 1 = bfloat16 (the tensor-core
+// kernel of masked_attention_tc.cuh; kNarrowOnly is its).
+template <bool kNarrowOnly>
+int dispatch_masked_attention(const void* q, const void* k, const void* v,
+                              const void* key_valid, void* out, int batch, int seq,
+                              int heads, int da, float scale, int dtype,
+                              void* stream) {
   if (batch < 1 || seq < 1 || heads < 1 || da < kDC || da % kDC != 0)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
@@ -244,8 +240,8 @@ inline int dispatch_masked_attention(const void* q, const void* k, const void* v
     return launch_masked_attention<float>(q, k, v, key_valid, out, batch, seq,
                                           heads, da, scale, s);
   if (dtype == 1)
-    return launch_masked_attention<__nv_bfloat16>(q, k, v, key_valid, out,
-                                                  batch, seq, heads, da, scale, s);
+    return dispatch_masked_attention_tc<kNarrowOnly>(q, k, v, key_valid, out, batch,
+                                                     seq, heads, da, scale, s);
   return (int)cudaErrorInvalidValue;
 }
 

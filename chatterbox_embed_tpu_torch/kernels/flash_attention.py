@@ -9,7 +9,8 @@ one). It takes `layers.mha`'s key-mask semantics at every query row, where
 the TPU kernel differs at invalid query rows only (see
 `csrc/flash_attention.cu`); a row with no valid key gives 0. On a CUDA
 tensor it launches the hand-written kernel of `csrc/flash_attention.cu`
-(design notes in `csrc/masked_attention.cuh`); on a CPU tensor it runs
+(bf16 on the tensor cores, `csrc/masked_attention_tc.cuh`; fp32 on the CUDA
+cores, `csrc/masked_attention.cuh`); on a CPU tensor it runs
 `flash_attention_reference`, which is `layers.mha` with a key mask. A CUDA
 call the kernel cannot take raises.
 """
@@ -59,6 +60,9 @@ def _check(q, k, v, key_valid):
     for name, x in (("q", q), ("k", k), ("v", v), ("key_valid", key_valid)):
         if not x.is_contiguous():
             raise ValueError(f"flash_attention: {name} must be contiguous")
+    for name, x in (("q", q), ("k", k), ("v", v)):
+        if x.data_ptr() % 16:
+            raise ValueError(f"flash_attention: {name} must start on a 16-byte boundary")
 
 
 def flash_attention(q, k, v, key_valid):

@@ -11,9 +11,11 @@ the JAX package's docstring derives the identity):
 `rel_attention` takes q_aug, k_aug (B, T, H, Da) and v (B, T, H, 64) with a
 (B, T) key-validity mask. Invalid queries attend the valid keys; a row with
 no valid key gives 0. On a CUDA tensor it launches the hand-written kernel
-of `csrc/rel_attention.cu` (design notes in `csrc/masked_attention.cuh`);
-on a CPU tensor it runs `rel_attention_reference`, the plain PyTorch
-version. A CUDA call the kernel cannot take raises.
+of `csrc/rel_attention.cu`: bf16 inputs run on the tensor cores
+(`csrc/masked_attention_tc.cuh`, q.k widths up to 576), fp32 inputs on the
+CUDA cores (`csrc/masked_attention.cuh`); `masked_attention.plan` states the
+tiles of a call. On a CPU tensor it runs `rel_attention_reference`, the
+plain PyTorch version. A CUDA call the kernel cannot take raises.
 """
 from __future__ import annotations
 
@@ -22,10 +24,10 @@ import ctypes
 import torch
 
 from . import _build
+from .masked_attention import check_width
 
 SOURCE = _build.CSRC / "rel_attention.cu"
 VALUE_DIM = 64          # the kernel's compiled value width
-WIDTH_STEP = 64         # the q.k width is staged in slices of 64
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _ARGTYPES = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 + [ctypes.c_float]
              + [ctypes.c_int, ctypes.c_void_p])
@@ -46,7 +48,7 @@ def rel_attention_reference(q_aug, k_aug, v, key_valid, scale: float):
     return o.transpose(1, 2).to(v.dtype)
 
 
-def _check(q_aug, k_aug, v, key_valid):
+def _check(q_aug, k_aug, v, key_valid, scale=1.0):
     if q_aug.device.type != "cuda":
         raise ValueError(f"rel_attention: unsupported device {q_aug.device}")
     for name, x in (("k_aug", k_aug), ("v", v), ("key_valid", key_valid)):
@@ -66,15 +68,18 @@ def _check(q_aug, k_aug, v, key_valid):
                          f"{tuple(k_aug.shape)}, {tuple(v.shape)}, {tuple(key_valid.shape)}")
     if v.shape[-1] != VALUE_DIM:
         raise ValueError(f"rel_attention: value dim {v.shape[-1]} != {VALUE_DIM}")
-    da = q_aug.shape[-1]
-    if da < WIDTH_STEP or da % WIDTH_STEP:
-        raise ValueError(f"rel_attention: augmented width {da} is not a positive "
-                         f"multiple of {WIDTH_STEP}")
     if q_aug.shape[1] < 1:
         raise ValueError("rel_attention: empty sequence")
+    check_width(q_aug.shape[-1], q_aug.dtype)
+    if q_aug.dtype == torch.bfloat16 and not scale > 0:
+        raise ValueError(f"rel_attention: the bf16 kernel takes its row max over the raw "
+                         f"scores and needs scale > 0, got {scale}")
     for name, x in (("q_aug", q_aug), ("k_aug", k_aug), ("v", v), ("key_valid", key_valid)):
         if not x.is_contiguous():
             raise ValueError(f"rel_attention: {name} must be contiguous")
+    for name, x in (("q_aug", q_aug), ("k_aug", k_aug), ("v", v)):
+        if x.data_ptr() % 16:
+            raise ValueError(f"rel_attention: {name} must start on a 16-byte boundary")
 
 
 def rel_attention(q_aug, k_aug, v, key_valid, scale: float):
@@ -86,7 +91,7 @@ def rel_attention(q_aug, k_aug, v, key_valid, scale: float):
     count the launch in `rel_attention.launches`) or raise."""
     if q_aug.device.type == "cpu":
         return rel_attention_reference(q_aug, k_aug, v, key_valid, scale)
-    _check(q_aug, k_aug, v, key_valid)
+    _check(q_aug, k_aug, v, key_valid, scale)
     b, t, h, da = q_aug.shape
     lib = _build.load(SOURCE, "cbx_rel_attention", _ARGTYPES)
     out = torch.empty_like(v)

@@ -25,6 +25,13 @@ Phases, one or more lines each, then the result line:
        K3 flash_attention  CFM estimator self-attention: B 8/16/32, T 812 and
                            2348, ragged masks with an all-valid row and a
                            single-valid-key row
+                           K2 and K3 run fp32 on their SIMT kernel and bf16 on
+                           their tensor-core kernel, the latter also on
+                           one-hot rows, on masks with dead 64-key tiles (at
+                           the start, in the middle, one valid key a tile)
+                           and at T = 40, 64, 65; both are timed beside the
+                           library's call on the ragged mask and on an
+                           all-valid one
        K4 fused_decode     the whole T3 token step at full width (30 layers,
                            d=1024, B=2 CFG rows), a 16-step teacher-forced
                            chain near the top of Lc 512 and 1280, start > 0;
@@ -113,6 +120,10 @@ REL_SHAPES = [(b, t) for b in (4, 8, 16) for t in (406, 812)] + [(8, 2348)]
 REL_TIMED = ((8, 812), (8, 406))
 FLASH_SHAPES = [(b, t) for b in (8, 16, 32) for t in (812, 2348)]
 FLASH_TIMED = ((16, 812),)
+# bf16 only: masks with dead 64-key tiles (at the start, in the middle, one
+# valid key a tile, random), among them one key tile alone (T = 40)
+ATT_SMALL_T = 40
+ATT_DEAD_SHAPES = ((8, 812), (8, 406), (8, ATT_SMALL_T), (8, 64), (8, 65))
 # fp32 batch against solo at full width: the outputs are unit-scale
 # (after the conformer's final LayerNorm; the estimator's velocity); the
 # two runs differ in summation order only (kernel against factored or
@@ -642,9 +653,58 @@ def _ragged_valid(b: int, t: int, g, empty_row: bool) -> torch.Tensor:
     return torch.arange(t, device="cuda")[None] < lens[:, None]
 
 
+def _dead_tile_valid(b: int, t: int, g, empty_row: bool) -> torch.Tensor:
+    """Key masks that are not prefixes, in the 64-key tiles the bf16 kernel
+    walks (b >= 8): row 0 all valid, row 1 its first tiles dead, row 2 none
+    (when `empty_row`; else only the last key), row 3 one valid key in every
+    tile, row 4 its middle tiles dead, the rest random tiles dead and 70 %
+    of the live tiles' keys valid. Every row but the empty one has a valid
+    key."""
+    n = -(-t // 64)
+    pos = torch.arange(t, device="cuda")
+    tile = pos // 64
+    live = torch.rand((b, n), generator=g, device="cuda") < 0.5
+    valid = (torch.rand((b, t), generator=g, device="cuda") < 0.7) & live[:, tile]
+    valid[:, t - 1] |= ~valid.any(dim=1)
+    valid[0] = True
+    valid[1] = tile >= min(2, n - 1)
+    valid[2] = False if empty_row else pos == t - 1
+    valid[3] = pos % 64 == (7 * tile + 3) % 64
+    valid[3, t - 1] |= ~valid[3].any()
+    valid[4] = (tile < 1) | (tile >= n - 1)
+    return valid
+
+
+def _onehot_case(b: int, t: int, da: int, g):
+    """q and k rows with a single 4 at column (5 t + 3 h) % da, v random: the
+    scores are 16 where the columns meet and 0 elsewhere, so a shared-memory
+    layout that disagrees with the products' descriptors moves whole keys
+    (random data would only blur)."""
+    pos = torch.arange(t, device="cuda")[None, :, None]
+    head = torch.arange(ATT_H, device="cuda")[None, None, :]
+    col = ((5 * pos + 3 * head) % da).expand(b, t, ATT_H)
+    q = torch.zeros((b, t, ATT_H, da), device="cuda")
+    q.scatter_(3, col[..., None], 4.0)
+    k = q.roll(1, dims=1).contiguous()
+    v = torch.randn((b, t, ATT_H, ATT_D), generator=g, device="cuda")
+    return (x.to(torch.bfloat16) for x in (q, k, v))
+
+
+def _sdpa(q, k, v, valid, scale):
+    """The one PyTorch call for K2's and K3's function (timed only)."""
+    sq, sk, sv = (x.permute(0, 2, 1, 3) for x in (q, k, v))
+    smask = valid[:, None, None, :]
+    return lambda: torch.nn.functional.scaled_dot_product_attention(
+        sq, sk, sv, attn_mask=smask, scale=scale)
+
+
 def phase_attention_check(card: str) -> dict:
-    """K2 and K3 against their plain versions on the card."""
+    """K2 and K3 against their plain versions on the card: fp32 (the SIMT
+    kernel) and bf16 (the tensor-core kernel) on ragged prefix masks, bf16 on masks with dead 64-key tiles, at T = 40 and
+    on one-hot rows; then the times of the kernel and of the library's call
+    on the ragged mask and on an all-valid one."""
     from chatterbox_embed_tpu_torch.kernels import flash_attention as fa
+    from chatterbox_embed_tpu_torch.kernels import masked_attention as ma
     from chatterbox_embed_tpu_torch.kernels import rel_attention as ra
     g = torch.Generator(device="cuda").manual_seed(4321)
     result = {}
@@ -656,48 +716,91 @@ def phase_attention_check(card: str) -> dict:
         ("flash_attention", FLASH_SHAPES, FLASH_TIMED, ATT_D, False,
          fa.flash_attention, fa.flash_attention_reference),
     ]
+    bf16 = torch.bfloat16
+
+    def rand(b, t, da, dtype):
+        return (torch.randn((b, t, ATT_H, w), generator=g, device="cuda").to(dtype)
+                for w in (da, da, ATT_D))
+
     for name, shapes, timed, da, empty_row, kernel, plain in specs:
-        worst = {torch.float32: 0.0, torch.bfloat16: 0.0}
+        worst = {torch.float32: 0.0, bf16: 0.0}
         timing = {}
+
+        def check(q, k, v, valid, dtype, **case):
+            """The kernel against the plain version; a failure also says how
+            far the plain walk of the kernel's algorithm is, to tell the
+            algorithm from the kernel's layouts."""
+            ref = plain(q, k, v, valid)
+            out = kernel(q, k, v, valid)
+            try:
+                err = _check_err(name, out, ref, ATT_TOL[dtype], dtype == bf16,
+                                 h=ATT_H, da=da, dtype=str(dtype)[6:], **case)
+            except AssertionError as e:
+                walk = ma.tiled_reference(q, k, v, valid, scale)
+                raise AssertionError(
+                    f"{e}; the plain tile walk is "
+                    f"{(walk.float() - ref.float()).abs().max().item():.3e} from the "
+                    f"plain version") from None
+            worst[dtype] = max(worst[dtype], err)
+            if empty_row:
+                zero = out[2].float().abs().max().item()
+                if zero != 0.0:
+                    raise AssertionError(f"{name}: the row without a valid key "
+                                         f"gave max|out|={zero}, not 0")
+            return out
+
+        # layouts first: one-hot rows, then one valid key a tile (row 3 below)
+        for b, t in ((8, 128), (8, ATT_SMALL_T)):
+            q, k, v = _onehot_case(b, t, da, g)
+            check(q, k, v, _dead_tile_valid(b, t, g, empty_row), bf16, b=b, t=t,
+                  case="onehot")
+        for b, t in ATT_DEAD_SHAPES:
+            q, k, v = rand(b, t, da, bf16)
+            check(q, k, v, _dead_tile_valid(b, t, g, empty_row), bf16, b=b, t=t,
+                  case="dead_tiles")
         for b, t in shapes:
             valid = _ragged_valid(b, t, g, empty_row)
-            for dtype in (torch.float32, torch.bfloat16):
-                q = torch.randn((b, t, ATT_H, da), generator=g, device="cuda").to(dtype)
-                k = torch.randn((b, t, ATT_H, da), generator=g, device="cuda").to(dtype)
-                v = torch.randn((b, t, ATT_H, ATT_D), generator=g, device="cuda").to(dtype)
-                out = kernel(q, k, v, valid)
-                ref = plain(q, k, v, valid)
-                err = _check_err(name, out, ref, ATT_TOL[dtype], dtype == torch.bfloat16,
-                                 b=b, t=t, h=ATT_H, da=da, dtype=str(dtype)[6:])
-                worst[dtype] = max(worst[dtype], err)
-                if empty_row:
-                    zero = out[2].float().abs().max().item()
-                    if zero != 0.0:
-                        raise AssertionError(f"{name}: the row without a valid key "
-                                             f"gave max|out|={zero}, not 0")
-                if dtype == torch.bfloat16 and (b, t) in timed:
+            for dtype in (torch.float32, bf16):
+                q, k, v = rand(b, t, da, dtype)
+                out = check(q, k, v, valid, dtype, b=b, t=t, case="ragged")
+                if dtype == bf16 and (b, t) in timed:
                     tm = _timing(lambda: kernel(q, k, v, valid), lambda: plain(q, k, v, valid),
                                  iters=20)
                     # every query row of every head against the row's valid
                     # keys: a multiply-add per q.k element and per p.v element
-                    n_keys = int(valid.sum())
-                    tm.update(_bound(2 * (q.numel() + k.numel() + 2 * v.numel()) + valid.numel(),
-                                     2 * ATT_H * t * n_keys * (da + ATT_D)))
-                    sq, sk, sv = (x.permute(0, 2, 1, 3) for x in (q, k, v))
-                    smask = valid[:, None, None, :]
-
-                    def sdpa():
-                        return torch.nn.functional.scaled_dot_product_attention(
-                            sq, sk, sv, attn_mask=smask, scale=scale)
+                    nbytes = 2 * (q.numel() + k.numel() + 2 * v.numel()) + valid.numel()
+                    ops = 2 * ATT_H * t * int(valid.sum()) * (da + ATT_D)
+                    tm.update(_bound(nbytes, ops))
+                    sdpa = _sdpa(q, k, v, valid, scale)
                     # the all-valid row 0 (a row without a valid key is NaN there)
                     _check_err(name + "_library", sdpa()[0].permute(1, 0, 2), out[0],
                                ATT_TOL[dtype], True, b=b, t=t, call="sdpa")
                     tm["library_ms"] = _library(name, sdpa, card, b=b, t=t, da=da, call="sdpa")
+                    # the same on an all-valid mask, where no tile is skipped;
+                    # the fp32 kernel once
+                    full = torch.ones_like(valid)
+                    ops_full = 2 * ATT_H * t * b * t * (da + ATT_D)
+                    tm["ms_all_valid"] = _device_ms(lambda: kernel(q, k, v, full), 20)
+                    tm["library_ms_all_valid"] = _library(
+                        name, _sdpa(q, k, v, full, scale), card, b=b, t=t, da=da,
+                        call="sdpa_all_valid")
+                    tm["bound_ms_all_valid"] = _bound(nbytes, ops_full)["bound_ms"]
+                    q32, k32, v32 = (x.float() for x in (q, k, v))
+                    tm["ms_fp32"] = _device_ms(lambda: kernel(q32, k32, v32, valid), 5)
+                    del q32, k32, v32
+                    plan = ma.plan(t, da, bf16)
+                    log("attention_time", name=name, b=b, t=t, da=da, rows=plan.rows,
+                        smem_bytes=plan.smem_bytes,
+                        tflops=f"{ops / tm['ms'] / 1e9:.1f}",
+                        tflops_all_valid=f"{ops_full / tm['ms_all_valid'] / 1e9:.1f}",
+                        **{key: f"{val:.5f}" for key, val in tm.items()
+                           if key.startswith(("ms_", "library_ms", "bound_ms"))},
+                        card=repr(card))
                     timing[(b, t)] = tm
                     _log_time(name, tm, card, b=b, t=t, h=ATT_H, da=da)
-                del q, k, v, out, ref
+                del q, k, v, out
         torch.cuda.empty_cache()
-        result[name] = {"max_abs_err": worst[torch.bfloat16],
+        result[name] = {"max_abs_err": worst[bf16],
                         "max_abs_err_fp32": worst[torch.float32],
                         "timing": timing[timed[0]]}
     return result
@@ -1468,7 +1571,10 @@ if __name__ == "__main__":
         "bound_ops": check[name]["timing"]["bound_ops"],
         "bound_peak": check[name]["timing"]["bound_peak"],
         "call_ms": check[name]["timing"]["call_ms"],
-        "plain_call_ms": check[name]["timing"]["plain_call_ms"]}
+        "plain_call_ms": check[name]["timing"]["plain_call_ms"],
+        # K2 and K3: the all-valid mask, both block heights, the fp32 kernel
+        **{key: val for key, val in check[name]["timing"].items()
+           if key.startswith(("ms_", "library_ms_", "bound_ms_"))}}
         for name, (m, _, _, _) in _kernels().items()]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
