@@ -1,5 +1,5 @@
 // Split-KV flash-decode attention for the T3 decode step, written for Hopper
-// (sm_90a). It replaces the Pallas TPU kernel
+// (sm_90a), one launch a call. It replaces the Pallas TPU kernel
 // chatterbox_embed_tpu/kernels/flash_decode.py:_kernel (entry decode_attention),
 // both of its entries:
 //   K1   one layer's cache (Lc, B, H, D); the walk covers [start, cache_pos];
@@ -22,52 +22,58 @@
 //   hole         (B, 2) int32           or null
 //   k_cur, v_cur (B, H, D)              or null (K1)
 //   out          (B, H, D)
+//   part         (D + 2) * B*H*S fp32   workspace: the splits' partials
+//                                       (m, then l, then acc)
+//   counters     (B*H) int32            workspace, zero between launches
 //
 // What bounds it on an H100: the live K/V bytes, 2 * (pos - start + 1) * B *
 // H * D * sizeof(T) per layer, against ~1 FLOP per byte -- it is memory-bound
-// (and, at the decode shapes, latency-bound: a few MB per call). The design
-// reads only live slots and splits the cache over many blocks so that the
-// whole card streams it:
-//   pass 1  grid (B*H, n_splits), 128 threads. A block owns the keys
-//           [s * split_len, (s+1) * split_len) of one (row, head) (the
-//           wrapper passes split_len = 32: each warp walks 8 keys, loading
-//           4 before it uses any) and skips every slot outside the live
-//           range, so a split wholly before `start`, after the walk's end or
-//           inside the hole reads nothing and writes m = -inf, l = 0,
-//           acc = 0. The walk and the merge of the 4 warps' online-softmax
-//           states are decode_walk.cuh's, shared with the fused step (K4).
-//   pass 2  grid (B*H), D threads: merges the n_splits partials of one
-//           (row, head) with the usual max-rescale (splits with l = 0 add
-//           nothing, so an empty split makes no NaN), then folds k_cur/v_cur
-//           in as one more key with K1s.
-// The grid covers the whole cache capacity whatever cache_pos is, so the
-// launch shape is static across decode steps.
+// and, at the decode shapes (0.8-24 MB a call), latency-bound: one launch,
+// one round of loads, one merge. The design:
+//   grid (B*H, S) of 128 threads, S = splits_for(B*H, Lc): kSplitBlocks /
+//   (B*H) rounded up, at most Lc / kMinSplitKeys, at least 1. 512 blocks is
+//   ~4 a SM of the 132, and 4 warps a block keep 16 warps an SM walking:
+//     B=2  (B*H = 32):  S = 16, 512 blocks (Lc 512: at most 32 slots a split)
+//     B=16 (B*H = 256): S = 2,  512 blocks
+//   S depends on (B, H, Lc) only, so the launch shape is static across
+//   decode steps (a CUDA graph can capture it). Each block splits the LIVE
+//   range [start, walk_end] itself: split s takes ceil(live / S) slots from
+//   start + s * ceil(live / S), so no block walks dead capacity; a split past
+//   the walk's end reads nothing and leaves m = -inf, l = 0.
+//   A block walks its slots with decode_walk.cuh (4 keys a warp-wide load,
+//   32 slots a warp in flight, the softmax once a tile), merges its 4 warps,
+//   writes its partial and counts itself in (arrive_last). The last block of
+//   a (row, head) merges the S partials with the max-rescale (an empty split
+//   adds nothing, so no NaN), folds k_cur / v_cur in as one more key with
+//   K1s, writes out, and puts the counter back to 0: no memset launch, no
+//   second kernel.
 
 #include "decode_walk.cuh"
 
 namespace {
 
-constexpr int kWarps = 4;
+constexpr int kWarps = kSplitWarps;
 constexpr int kThreads = kWarps * 32;
 
 template <typename T>
 __global__ void __launch_bounds__(kThreads)
-split_kernel(const T* __restrict__ q, const T* __restrict__ k,
-             const T* __restrict__ v, const int* __restrict__ hole,
-             float* __restrict__ part_m, float* __restrict__ part_l,
-             float* __restrict__ part_acc, int bh_total, int heads,
-             int walk_end, int start, int split_len, int n_splits,
-             float scale) {
+decode_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
+              const int* __restrict__ hole, const T* __restrict__ k_cur,
+              const T* __restrict__ v_cur, T* __restrict__ out, float* __restrict__ part,
+              int* __restrict__ counters, int bh_total, int heads, int walk_end,
+              int start, int n_splits) {
+  __shared__ float sm_m[kWarps], sm_l[kWarps];
+  __shared__ float sm_acc[kWarps * kHeadDim];
+  __shared__ float sm_dot[kHeadDim / 32];
+  __shared__ int sm_last;
   const int bh = blockIdx.x;
   const int split = blockIdx.y;
-  const int warp = threadIdx.x / 32;
-  const int lane = threadIdx.x % 32;
   const int row = bh / heads;
 
-  int lo = split * split_len;
-  int hi = lo + split_len - 1;                // inclusive
-  if (lo < start) lo = start;
-  if (hi > walk_end) hi = walk_end;
+  const int live = walk_end - start + 1;             // <= 0: nothing to walk
+  const int per = live > 0 ? (live + n_splits - 1) / n_splits : 0;
+  const int lo = start + split * per;
+  const int hi = min(walk_end, lo + per - 1);
   int hole_lo = 0, hole_hi = 0;
   if (hole != nullptr) {
     hole_lo = hole[2 * row];
@@ -76,107 +82,84 @@ split_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
   // q has the cache dtype (the wrapper checks), so q.k multiplies values of
   // that dtype exactly in fp32, as the TPU kernel's cache-dtype product does
-  const float2 qv = load2(q + (size_t)bh * kHeadDim + 2 * lane);
+  float qv[kElems];
+  load_lane(q + (size_t)bh * kHeadDim, qv);
   float m = -INFINITY, l = 0.f;
-  float2 acc = make_float2(0.f, 0.f);
-  walk_keys(k, v, qv, (size_t)bh_total * kHeadDim, (size_t)bh * kHeadDim,
-            lo + warp, hi, kWarps, hole_lo, hole_hi, scale, lane, m, l, acc);
-
-  __shared__ float sm_m[kWarps], sm_l[kWarps];
-  __shared__ float sm_acc[kWarps * kHeadDim];
+  float acc[kElems] = {};
+  walk_keys<T, kWarps>(k, v, qv, (size_t)bh_total * kHeadDim, (size_t)bh * kHeadDim, lo, hi,
+                       hole_lo, hole_hi, m, l, acc);
+  reduce_groups(l, acc);
   float mb, lb, ab;
   merge_warps<kWarps>(m, l, acc, sm_m, sm_l, sm_acc, mb, lb, ab);
-  if (threadIdx.x < kHeadDim) {
-    const int d = threadIdx.x;
-    const size_t p = (size_t)bh * n_splits + split;
-    part_acc[p * kHeadDim + d] = ab;
-    if (d == 0) {
-      part_m[p] = mb;
-      part_l[p] = lb;
-    }
-  }
-}
 
-template <typename T>
-__global__ void __launch_bounds__(kHeadDim)
-combine_kernel(const float* __restrict__ part_m, const float* __restrict__ part_l,
-               const float* __restrict__ part_acc, const T* __restrict__ q,
-               const T* __restrict__ k_cur, const T* __restrict__ v_cur,
-               T* __restrict__ out, int n_splits, float scale) {
-  __shared__ float sm_dot[kHeadDim / 32];
-  const int bh = blockIdx.x;
+  const size_t base = (size_t)bh * n_splits;
+  float* part_m = part;
+  float* part_l = part + (size_t)bh_total * n_splits;
+  float* part_acc = part + 2 * (size_t)bh_total * n_splits;
+  if (!arrive_last(mb, lb, ab, part_m + base + split, part_l + base + split,
+                   part_acc + (base + split) * kHeadDim, counters + bh, n_splits, &sm_last))
+    return;
   const int d = threadIdx.x;
-  const float* m = part_m + (size_t)bh * n_splits;
-  const float* l = part_l + (size_t)bh * n_splits;
-  float mb = -INFINITY;
-  for (int s = 0; s < n_splits; ++s) mb = fmaxf(mb, m[s]);
-  float lb = 0.f, ab = 0.f;
-  for (int s = 0; s < n_splits; ++s) {
-    if (l[s] > 0.f) {
-      const float f = expf(m[s] - mb);
-      lb += l[s] * f;
-      ab += part_acc[((size_t)bh * n_splits + s) * kHeadDim + d] * f;
-    }
-  }
+  if (d < kHeadDim)
+    merge_parts(part_m + base, part_l + base, part_acc + base * kHeadDim, n_splits, d, mb,
+                lb, ab);
   if (k_cur != nullptr) {
     // K1s: the current token's row is the last key
     const size_t e = (size_t)bh * kHeadDim + d;
-    const float part = warp_sum(load1(q + e) * load1(k_cur + e));
-    if (d % 32 == 0) sm_dot[d / 32] = part;
+    if (d < kHeadDim) {
+      const float dot = warp_sum(load1(q + e) * load1(k_cur + e));
+      if (d % 32 == 0) sm_dot[d / 32] = dot;
+    }
     __syncthreads();
-    float s = 0.f;
+    if (d < kHeadDim) {
+      float s = 0.f;
 #pragma unroll
-    for (int w = 0; w < kHeadDim / 32; ++w) s += sm_dot[w];
-    fold_key(s * scale, load1(v_cur + e), mb, lb, ab);
+      for (int w = 0; w < kHeadDim / 32; ++w) s += sm_dot[w];
+      fold_key(s, load1(v_cur + e), mb, lb, ab);
+    }
   }
-  store1(out + (size_t)bh * kHeadDim + d, lb > 0.f ? ab / lb : 0.f);
+  if (d < kHeadDim) store1(out + (size_t)bh * kHeadDim + d, lb > 0.f ? ab / lb : 0.f);
 }
 
 template <typename T>
-int launch(const void* q, const void* k, const void* v, const int* hole,
-           const void* k_cur, const void* v_cur, void* out, float* part_m,
-           float* part_l, float* part_acc, int batch, int heads, int lcache,
-           int layer, int cache_pos, int start, int split_len, int n_splits,
+int launch(const void* q, const void* k, const void* v, const int* hole, const void* k_cur,
+           const void* v_cur, void* out, float* part, int* counters, int batch, int heads,
+           int lcache, int layer, int cache_pos, int start, int n_splits,
            cudaStream_t stream) {
   const int bh = batch * heads;
-  const float scale = 1.0f / sqrtf((float)kHeadDim);
   const size_t layer_off = (size_t)layer * lcache * bh * kHeadDim;
   const int walk_end = k_cur != nullptr ? cache_pos - 1 : cache_pos;
-  split_kernel<T><<<dim3(bh, n_splits), kThreads, 0, stream>>>(
+  decode_kernel<T><<<dim3(bh, n_splits), kThreads, 0, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k) + layer_off,
-      static_cast<const T*>(v) + layer_off, hole, part_m, part_l, part_acc, bh,
-      heads, walk_end, start, split_len, n_splits, scale);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  combine_kernel<T><<<bh, kHeadDim, 0, stream>>>(
-      part_m, part_l, part_acc, static_cast<const T*>(q),
-      static_cast<const T*>(k_cur), static_cast<const T*>(v_cur),
-      static_cast<T*>(out), n_splits, scale);
+      static_cast<const T*>(v) + layer_off, hole, static_cast<const T*>(k_cur),
+      static_cast<const T*>(v_cur), static_cast<T*>(out), part, counters, bh, heads,
+      walk_end, start, n_splits);
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
 // Plain C entry for ctypes. dtype: 0 = float32, 1 = bfloat16. k_cur and
-// v_cur are both null (K1) or both given (K1s). Returns the cudaError_t of
-// the launches (0 on success); it never synchronises and allocates nothing.
+// v_cur are both null (K1) or both given (K1s). n_splits must be
+// splits_for(batch * heads, lcache) (the wrapper's mirror sizes `part`
+// with it); `counters` must hold batch * heads zeros before the first
+// launch, and the kernel leaves them so. Returns the cudaError_t of the
+// launch (0 on success); it never synchronises and allocates nothing.
 extern "C" int cbx_flash_decode(const void* q, const void* k, const void* v,
                                 const int* hole, const void* k_cur,
-                                const void* v_cur, void* out, float* part_m,
-                                float* part_l, float* part_acc, int batch,
-                                int heads, int head_dim, int lcache, int layer,
-                                int cache_pos, int start, int split_len,
+                                const void* v_cur, void* out, float* part,
+                                int* counters, int batch, int heads, int head_dim,
+                                int lcache, int layer, int cache_pos, int start,
                                 int n_splits, int dtype, void* stream) {
-  if (head_dim != kHeadDim) return (int)cudaErrorInvalidValue;
+  if (head_dim != kHeadDim || n_splits != splits_for(batch * heads, lcache))
+    return (int)cudaErrorInvalidValue;
   if ((k_cur == nullptr) != (v_cur == nullptr)) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
-    return launch<float>(q, k, v, hole, k_cur, v_cur, out, part_m, part_l,
-                         part_acc, batch, heads, lcache, layer, cache_pos,
-                         start, split_len, n_splits, s);
+    return launch<float>(q, k, v, hole, k_cur, v_cur, out, part, counters, batch, heads,
+                         lcache, layer, cache_pos, start, n_splits, s);
   if (dtype == 1)
-    return launch<__nv_bfloat16>(q, k, v, hole, k_cur, v_cur, out, part_m,
-                                 part_l, part_acc, batch, heads, lcache, layer,
-                                 cache_pos, start, split_len, n_splits, s);
+    return launch<__nv_bfloat16>(q, k, v, hole, k_cur, v_cur, out, part, counters, batch,
+                                 heads, lcache, layer, cache_pos, start, n_splits, s);
   return (int)cudaErrorInvalidValue;
 }

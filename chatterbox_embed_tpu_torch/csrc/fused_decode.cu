@@ -24,36 +24,57 @@
 //   ln1, ln2 (L, d), fnorm (d,) fp32;  inv_freq (hd/2,) fp32 (llama3 RoPE)
 //   x (B, d) T;  cache_k, cache_v (L, Lc, B, H, 64) T, written at pos
 //   h_out (B, d) T;  scratch h (B, d), qkv (B, 3*qo), att (B, qo),
-//   mm (B, I) fp32, all holding values that T represents exactly
+//   mm (B, I) fp32, all holding values that T represents exactly; part
+//   (B*H*kMaxSplits*(64 + 2)) fp32, the walk's partials; counters (B*H)
+//   int32, set to 0 by the kernel
 //
 // What bounds it on an H100: the weight bytes. At T3's width (30 layers,
 // d = 1024, I = 4096) the wall is 30 * 16384 * 1024 * 2 B = 1.0 GB in bf16,
 // read once a step: ~0.3 ms at 3.35 TB/s, whatever B is up to ~16 rows.
-// Then the latency of ~5 grid-wide barriers a layer, and the cache walk.
+// Then the latency of 5 grid-wide barriers a layer, and the cache walk.
 //
-// Design. One persistent cooperative launch: the grid is exactly the blocks
-// that fit on the card at once (occupancy x SMs; a larger cooperative grid
-// is refused with cudaErrorCooperativeLaunchTooLarge, which the entry
-// returns), and cooperative_groups' grid.sync() separates the phases of a
-// layer:
+// Design. One persistent cooperative launch: one block of 512 threads an
+// SM (132 on an H100; a larger cooperative grid is refused with
+// cudaErrorCooperativeLaunchTooLarge, which the entry returns), and
+// cooperative_groups' grid.sync() separates the phases of a layer:
 //   P1 qkv + RoPE   every block stages xn = T(rmsnorm(h)) for all rows in
 //                   shared memory (each block recomputes the norm, so no
 //                   barrier is spent on it); a warp owns a pair of output
 //                   columns (j, j + hd/2) of one head, so it can rotate them
 //                   itself; k and v rows go to the cache at pos.
-//   P2 attention    one block per (row, head): its 8 warps walk the cache
-//                   slots [start, pos-1] (decode_walk.cuh, shared with the
-//                   flash-decode kernel), merge, and fold the current k/v.
-//   P3 o-proj       att staged in shared memory; a warp owns an output
-//                   column, adds it into the residual h.
+//   P2 attention    the cache walk split across the whole grid: a task is
+//                   (row, head, split), S = gridDim / (B*H) splits (at most
+//                   kMaxSplits; 4 at B=2, 1 at B=16, where 256 tasks take
+//                   two rounds of the 132 blocks), each a live-range
+//                   split of [start, pos-1] walked by the block's 16 warps
+//                   (decode_walk.cuh, shared with K1). The last block of a
+//                   (row, head) to arrive merges the S partials, folds the
+//                   current k/v in as one more key and writes att -- K1's
+//                   counter scheme, so no barrier is added.
+//   P3 o-proj       att staged in shared memory; two warps of a block share
+//                   an output column (half its k-range each, added in
+//                   shared memory), so the 1024 columns keep every warp of
+//                   the grid busy; the residual goes into h.
 //   P4 gate/up      rmsnorm(h) staged; a warp owns column j of gate and of
 //                   up and writes T(silu(g) * u).
-//   P5 down         mm staged; a warp owns an output column of down (one
-//                   contiguous I-long wall read) and adds it into h.
-// A warp reads each wall row once, 16 bytes a lane, coalesced, and
-// multiplies it with every row (B rows share each weight read); the sums
-// are fp32 shuffle reductions. The kernel is templated on a row count R in
-// {2, 4, 8, 16}; rows b >= B are staged as zeros and never written.
+//   P5 down         mm staged; as P3, two warps to an output column of down
+//                   (one contiguous I-long wall row), added into h.
+// A warp reads each wall row once, 16 bytes a lane, coalesced, kDotLoads
+// loads a lane in flight, and multiplies it with every row (B rows share
+// each weight read); the sums are fp32 shuffle reductions. Staging loads
+// kStageLoads values a thread before it stores any. The kernel is
+// templated on a row count R in {2, 4, 8, 16}; rows b >= B are staged as
+// zeros and never written.
+// What the measurements chose (PERF.md, Findings: bf16, B = 2, Lc 512,
+// pos 507, CUDA events over queued steps, each scratch build timed in turns
+// with this one by scripts/torch_decode_check.py --builds): this design
+// 1.33 ms; four or eight wall loads a lane in flight 1.47 / 1.63 ms (ptxas
+// spills more); two blocks of 256 threads an SM 1.62 ms; the block's share
+// of each wall phase asked of L2 (cp.async.bulk.prefetch.L2) one phase
+// ahead 1.57 ms, or just before the barrier that precedes it 1.45 ms, and
+// slower again with four or eight loads a lane. The step is bound by the
+// latency of each phase's few dependent round trips (staging, wall loads,
+// the write) and its 151 barriers, not by the wall's bytes.
 // Not carried over from the TPU kernel: its DMA ring and block geometry
 // (VMEM), the +-1 permutation matmul for RoPE, the one-hot row shuffles, and
 // its rounding of q*k to the cache dtype before the sum.
@@ -66,8 +87,14 @@ namespace cg = cooperative_groups;
 
 namespace {
 
-constexpr int kThreads = 256;
+constexpr int kThreads = 512;
 constexpr int kWarps = kThreads / 32;
+// walk splits a (row, head), at most: what 132 blocks give one row's 16
+// heads (4 at B=2, 1 at B=16); the workspace is sized by it
+constexpr int kMaxSplits = 8;
+constexpr int kDotLoads = 2;                     // 16-byte wall loads a lane in flight, a row
+constexpr int kStageLoads = 8;                   // activation loads a thread in flight, staging
+constexpr int kWalkLoads = 4;                    // key rows a warp in flight in the walk
 
 template <typename T>
 struct Vec;
@@ -75,13 +102,14 @@ struct Vec;
 template <>
 struct Vec<float> {
   static constexpr int N = 4;
+  using Raw = float4;
   __device__ static void unpack(float4 u, float* o) {
     o[0] = u.x; o[1] = u.y; o[2] = u.z; o[3] = u.w;
   }
   // weights stream once per step: the evict-first load keeps them from
   // pushing the caches and the scratch out of L2
-  __device__ static void load_stream(const float* p, float* o) {
-    unpack(__ldcs(reinterpret_cast<const float4*>(p)), o);
+  __device__ static Raw load_stream(const float* p) {
+    return __ldcs(reinterpret_cast<const float4*>(p));
   }
   __device__ static void load(const float* p, float* o) {
     unpack(*reinterpret_cast<const float4*>(p), o);
@@ -91,6 +119,7 @@ struct Vec<float> {
 template <>
 struct Vec<__nv_bfloat16> {
   static constexpr int N = 8;
+  using Raw = uint4;
   __device__ static void unpack(uint4 u, float* o) {
     const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&u);
 #pragma unroll
@@ -100,8 +129,8 @@ struct Vec<__nv_bfloat16> {
       o[2 * i + 1] = f.y;
     }
   }
-  __device__ static void load_stream(const __nv_bfloat16* p, float* o) {
-    unpack(__ldcs(reinterpret_cast<const uint4*>(p)), o);
+  __device__ static Raw load_stream(const __nv_bfloat16* p) {
+    return __ldcs(reinterpret_cast<const uint4*>(p));
   }
   __device__ static void load(const __nv_bfloat16* p, float* o) {
     unpack(*reinterpret_cast<const uint4*>(p), o);
@@ -140,12 +169,15 @@ struct Params {
   float* qkv;
   float* att;
   float* mm;
-  int layers, rows, d, heads, hd, inter, lcache, pos, start;
+  float* part;
+  int* counters;
+  int layers, rows, d, heads, hd, inter, lcache, pos, start, splits;
   float eps;
 };
 
 // One warp: y[b] = sum_k act[b][k] * w0[k] (and z[b] with w1), k < len, for
-// the R staged rows; the result is in every lane.
+// the R staged rows; the result is in every lane. Each lane keeps kDotLoads
+// 16-byte loads of each wall row in flight before it uses any.
 template <typename T, int R, bool kTwo>
 __device__ __forceinline__ void warp_dots(const T* act, int act_stride,
                                           const T* __restrict__ w0,
@@ -153,24 +185,38 @@ __device__ __forceinline__ void warp_dots(const T* act, int act_stride,
                                           int lane, float (&y)[R],
                                           float (&z)[R]) {
   constexpr int N = Vec<T>::N;
+  using Raw = typename Vec<T>::Raw;
 #pragma unroll
   for (int b = 0; b < R; ++b) {
     y[b] = 0.f;
     z[b] = 0.f;
   }
-#pragma unroll 2
-  for (int k = lane * N; k < len; k += 32 * N) {
-    float wa[N], wb[N];
-    Vec<T>::load_stream(w0 + k, wa);
-    if constexpr (kTwo) Vec<T>::load_stream(w1 + k, wb);
+  for (int k0 = lane * N; k0 < len; k0 += kDotLoads * 32 * N) {
+    Raw ra[kDotLoads], rb[kDotLoads];
 #pragma unroll
-    for (int b = 0; b < R; ++b) {
-      float a[N];
-      Vec<T>::load(act + (size_t)b * act_stride + k, a);
+    for (int u = 0; u < kDotLoads; ++u) {
+      const int k = k0 + u * 32 * N;
+      if (k < len) {
+        ra[u] = Vec<T>::load_stream(w0 + k);
+        if constexpr (kTwo) rb[u] = Vec<T>::load_stream(w1 + k);
+      }
+    }
 #pragma unroll
-      for (int e = 0; e < N; ++e) {
-        y[b] = fmaf(a[e], wa[e], y[b]);
-        if constexpr (kTwo) z[b] = fmaf(a[e], wb[e], z[b]);
+    for (int u = 0; u < kDotLoads; ++u) {
+      const int k = k0 + u * 32 * N;
+      if (k >= len) break;
+      float wa[N], wb[N];
+      Vec<T>::unpack(ra[u], wa);
+      if constexpr (kTwo) Vec<T>::unpack(rb[u], wb);
+#pragma unroll
+      for (int b = 0; b < R; ++b) {
+        float a[N];
+        Vec<T>::load(act + (size_t)b * act_stride + k, a);
+#pragma unroll
+        for (int e = 0; e < N; ++e) {
+          y[b] = fmaf(a[e], wa[e], y[b]);
+          if constexpr (kTwo) z[b] = fmaf(a[e], wb[e], z[b]);
+        }
       }
     }
   }
@@ -181,22 +227,49 @@ __device__ __forceinline__ void warp_dots(const T* act, int act_stride,
   }
 }
 
+// Every block: fn(b, k, src[b][k]) for every element of the R x len rows
+// (0 for rows b >= rows), each thread keeping kStageLoads loads in flight
+// before it uses any (a load followed by a store to shared memory would
+// otherwise wait out each round trip to L2). src was written by other
+// blocks before the last barrier: the loads bypass L1.
+template <int R, typename F>
+__device__ __forceinline__ void staged(const float* __restrict__ src, int len, int rows,
+                                       F&& fn) {
+  const int total = R * len;
+  for (int e0 = threadIdx.x; e0 < total; e0 += kStageLoads * kThreads) {
+    float x[kStageLoads];
+#pragma unroll
+    for (int u = 0; u < kStageLoads; ++u) {
+      const int e = e0 + u * kThreads;
+      x[u] = e < total && e / len < rows ? __ldcg(src + e) : 0.f;
+    }
+#pragma unroll
+    for (int u = 0; u < kStageLoads; ++u) {
+      const int e = e0 + u * kThreads;
+      if (e < total) fn(e / len, e % len, x[u]);
+    }
+  }
+}
+
 // Every block: act[b][k] = T(rmsnorm(h[b]) * scale[k]) for b < rows, zeros
 // for rows <= b < R. fp32 sum of squares over the block, then 1/sqrt.
 template <typename T, int R>
-__device__ void stage_rmsnorm(const float* h, const float* scale, int d,
+__device__ void stage_rmsnorm(const float* h, const float* __restrict__ scale, int d,
                               int rows, float eps, T* act, int act_stride,
                               float* red, float* inv_rms) {
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  float ss[R];
+#pragma unroll
+  for (int b = 0; b < R; ++b) ss[b] = 0.f;
+  staged<R>(h, d, rows, [&](int b, int, float x) {
+#pragma unroll
+    for (int r = 0; r < R; ++r)
+      if (r == b) ss[r] = fmaf(x, x, ss[r]);
+  });
+#pragma unroll
   for (int b = 0; b < R; ++b) {
-    float ss = 0.f;
-    if (b < rows)
-      for (int k = threadIdx.x; k < d; k += kThreads) {
-        const float x = h[(size_t)b * d + k];
-        ss += x * x;
-      }
-    ss = warp_sum(ss);
-    if (lane == 0) red[b * kWarps + warp] = ss;
+    const float t = warp_sum(ss[b]);
+    if (lane == 0) red[b * kWarps + warp] = t;
   }
   __syncthreads();
   if (threadIdx.x < R) {
@@ -206,11 +279,10 @@ __device__ void stage_rmsnorm(const float* h, const float* scale, int d,
     inv_rms[threadIdx.x] = 1.0f / sqrtf(t / (float)d + eps);
   }
   __syncthreads();
-  for (int e = threadIdx.x; e < R * d; e += kThreads) {
-    const int b = e / d, k = e % d;
-    const float x = b < rows ? h[(size_t)b * d + k] * inv_rms[b] * scale[k] : 0.f;
-    act[(size_t)b * act_stride + k] = to_t<T>(x);
-  }
+  staged<R>(h, d, rows, [&](int b, int k, float x) {
+    act[(size_t)b * act_stride + k] = to_t<T>(b < rows ? x * inv_rms[b] * __ldg(scale + k)
+                                                       : 0.f);
+  });
   __syncthreads();
 }
 
@@ -219,15 +291,47 @@ __device__ void stage_rmsnorm(const float* h, const float* scale, int d,
 template <typename T, int R>
 __device__ void stage_copy(const float* src, int len, int rows, T* act,
                            int act_stride) {
-  for (int e = threadIdx.x; e < R * len; e += kThreads) {
-    const int b = e / len, k = e % len;
-    act[(size_t)b * act_stride + k] = to_t<T>(b < rows ? src[(size_t)b * len + k] : 0.f);
-  }
+  staged<R>(src, len, rows, [&](int b, int k, float x) {
+    act[(size_t)b * act_stride + k] = to_t<T>(x);
+  });
   __syncthreads();
 }
 
+// h[b][n] = T(h[b][n] + T(act[b] . wrow_n)) for the n < d output columns of
+// one projection, whose wall rows (len long) start at w. Two warps of a
+// block share a column, half of its k-range each; their sums meet in
+// shared memory (sm_y: kWarps / 2 x R floats).
 template <typename T, int R>
-__global__ void __launch_bounds__(kThreads)
+__device__ void residual_proj(const T* act, int act_stride, const T* __restrict__ w, int len,
+                              float* h, int d, int rows, float* sm_y) {
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int pair = warp / 2, half = warp % 2, span = len / 2;
+  float y[R], unused[R];
+  for (int base = blockIdx.x * (kWarps / 2); base < d; base += gridDim.x * (kWarps / 2)) {
+    const int n = base + pair;                     // block-uniform trip count
+    if (n < d)
+      warp_dots<T, R, false>(act + half * span, act_stride,
+                             w + (size_t)n * len + half * span, nullptr, span, lane, y,
+                             unused);
+    if (n < d && half == 1 && lane == 0) {
+#pragma unroll
+      for (int b = 0; b < R; ++b) sm_y[pair * R + b] = y[b];
+    }
+    __syncthreads();
+    if (n < d && half == 0 && lane == 0) {
+#pragma unroll
+      for (int b = 0; b < R; ++b) {
+        if (b >= rows) break;
+        float* hp = h + (size_t)b * d + n;
+        *hp = round_to<T>(*hp + round_to<T>(y[b] + sm_y[pair * R + b]));
+      }
+    }
+    __syncthreads();
+  }
+}
+
+template <typename T, int R>
+__global__ void __launch_bounds__(kThreads, 1)
 fused_step_kernel(Params p) {
   cg::grid_group grid = cg::this_grid();
   extern __shared__ __align__(16) unsigned char smem_raw[];
@@ -236,6 +340,8 @@ fused_step_kernel(Params p) {
   __shared__ float inv_rms[R];
   __shared__ float sm_m[kWarps], sm_l[kWarps];
   __shared__ float sm_acc[kWarps * kHeadDim];
+  __shared__ float sm_y[kWarps / 2 * R];
+  __shared__ int sm_last;
 
   const T* wall = static_cast<const T*>(p.wall);
   const T* x = static_cast<const T*>(p.x);
@@ -244,23 +350,24 @@ fused_step_kernel(Params p) {
   const int d = p.d, hd = p.hd, inter = p.inter, rows = p.rows;
   const int qo = p.heads * hd;
   const int half = hd / 2;
+  const int bh_total = rows * p.heads;
   const size_t s_total = (size_t)3 * qo + d + 3 * (size_t)inter;
   const int act_stride = d > inter ? d : inter;
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int gwarp = blockIdx.x * kWarps + warp;
   const int nwarps = gridDim.x * kWarps;
   const size_t slot = (size_t)rows * qo;            // one cache slot, B*H*hd
-  const float scale = 1.0f / sqrtf((float)kHeadDim);
   const float rope_pos = (float)(p.pos - p.start);
-  float dummy[R];
-
   for (int e = blockIdx.x * kThreads + threadIdx.x; e < rows * d;
        e += gridDim.x * kThreads)
     p.h[e] = load1(x + e);
+  for (int e = blockIdx.x * kThreads + threadIdx.x; e < bh_total; e += gridDim.x * kThreads)
+    p.counters[e] = 0;
   grid.sync();
 
   for (int layer = 0; layer < p.layers; ++layer) {
-    const T* w = wall + (size_t)layer * s_total * d;
+    const size_t r0 = (size_t)layer * s_total;       // the layer's first wall row
+    const T* w = wall + r0 * d;
     T* ck = cache_k + (size_t)layer * p.lcache * slot;
     T* cv = cache_v + (size_t)layer * p.lcache * slot;
 
@@ -305,23 +412,45 @@ fused_step_kernel(Params p) {
     }
     grid.sync();
 
-    // P2: attention, one block per (row, head)
-    for (int bh = blockIdx.x; bh < rows * p.heads; bh += gridDim.x) {
+    // P2: attention; task (row, head, split) walks a split of [start, pos-1]
+    for (int task = blockIdx.x; task < bh_total * p.splits; task += gridDim.x) {
+      const int bh = task % bh_total, split = task / bh_total;
       const int b = bh / p.heads, head = bh % p.heads;
       const float* qrow = p.qkv + (size_t)b * 3 * qo + head * hd;
-      const float* krow = qrow + qo;
-      const float* vrow = qrow + 2 * qo;
-      const float2 qv = make_float2(qrow[2 * lane], qrow[2 * lane + 1]);
-      const float s_cur =
-          warp_sum(qv.x * krow[2 * lane] + qv.y * krow[2 * lane + 1]) * scale;
+      float q8[kElems], k8[kElems];
+      load_lane(qrow, q8);
+      load_lane(qrow + qo, k8);
+      float s_cur = 0.f;                             // q . k_cur, in every lane
+#pragma unroll
+      for (int e = 0; e < kElems; ++e) s_cur = fmaf(q8[e], k8[e], s_cur);
+      s_cur += __shfl_xor_sync(0xffffffffu, s_cur, 1);
+      s_cur += __shfl_xor_sync(0xffffffffu, s_cur, 2);
+      s_cur += __shfl_xor_sync(0xffffffffu, s_cur, 4);
+      int lo = p.start, hi = p.pos - 1;
+      {
+        const int live = hi - lo + 1;
+        const int per = live > 0 ? (live + p.splits - 1) / p.splits : 0;
+        lo += split * per;
+        hi = min(hi, lo + per - 1);
+      }
       float m = -INFINITY, l = 0.f;
-      float2 acc = make_float2(0.f, 0.f);
-      walk_keys(ck, cv, qv, slot, (size_t)bh * hd, p.start + warp, p.pos - 1,
-                kWarps, 0, 0, scale, lane, m, l, acc);
+      float acc[kElems] = {};
+      walk_keys<T, kWarps, 0, kWalkLoads>(ck, cv, q8, slot, (size_t)bh * hd, lo, hi, 0, 0, m, l,
+                                          acc);
+      reduce_groups(l, acc);
       float mb, lb, ab;
       merge_warps<kWarps>(m, l, acc, sm_m, sm_l, sm_acc, mb, lb, ab);
-      if (threadIdx.x < kHeadDim) {
-        fold_key(s_cur, vrow[threadIdx.x], mb, lb, ab);
+      const size_t pi = (size_t)bh * p.splits;
+      float* part_m = p.part;
+      float* part_l = p.part + (size_t)bh_total * p.splits;
+      float* part_acc = p.part + 2 * (size_t)bh_total * p.splits;
+      if (arrive_last(mb, lb, ab, part_m + pi + split, part_l + pi + split,
+                      part_acc + (pi + split) * kHeadDim, p.counters + bh, p.splits,
+                      &sm_last) &&
+          threadIdx.x < kHeadDim) {
+        merge_parts(part_m + pi, part_l + pi, part_acc + pi * kHeadDim, p.splits,
+                    threadIdx.x, mb, lb, ab);
+        fold_key(s_cur, qrow[2 * qo + threadIdx.x], mb, lb, ab);
         p.att[(size_t)b * qo + head * hd + threadIdx.x] = round_to<T>(ab / lb);
       }
       __syncthreads();                              // sm_* reused next round
@@ -330,19 +459,7 @@ fused_step_kernel(Params p) {
 
     // P3: o-proj, residual
     stage_copy<T, R>(p.att, qo, rows, act, act_stride);
-    for (int n = gwarp; n < d; n += nwarps) {
-      float y[R];
-      warp_dots<T, R, false>(act, act_stride, w + (size_t)(3 * qo + n) * d,
-                             nullptr, qo, lane, y, dummy);
-      if (lane == 0) {
-#pragma unroll
-        for (int b = 0; b < R; ++b) {
-          if (b >= rows) break;
-          float* hp = p.h + (size_t)b * d + n;
-          *hp = round_to<T>(*hp + round_to<T>(y[b]));
-        }
-      }
-    }
+    residual_proj<T, R>(act, act_stride, w + (size_t)3 * qo * d, qo, p.h, d, rows, sm_y);
     grid.sync();
 
     // P4: gate, up, SiLU
@@ -366,20 +483,8 @@ fused_step_kernel(Params p) {
 
     // P5: down, residual
     stage_copy<T, R>(p.mm, inter, rows, act, act_stride);
-    const T* wd = w + (size_t)(3 * qo + d + 2 * inter) * d;
-    for (int n = gwarp; n < d; n += nwarps) {
-      float y[R];
-      warp_dots<T, R, false>(act, act_stride, wd + (size_t)n * inter, nullptr,
-                             inter, lane, y, dummy);
-      if (lane == 0) {
-#pragma unroll
-        for (int b = 0; b < R; ++b) {
-          if (b >= rows) break;
-          float* hp = p.h + (size_t)b * d + n;
-          *hp = round_to<T>(*hp + round_to<T>(y[b]));
-        }
-      }
-    }
+    residual_proj<T, R>(act, act_stride, w + (size_t)(3 * qo + d + 2 * inter) * d, inter,
+                        p.h, d, rows, sm_y);
     grid.sync();
   }
 
@@ -422,10 +527,13 @@ int launch(const Params& p, cudaStream_t stream) {
   err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kern, kThreads, smem);
   if (err != cudaSuccess) return (int)err;
   if (per_sm < 1) return (int)cudaErrorCooperativeLaunchTooLarge;
+  const int grid = per_sm * sms;
   Params arg = p;
+  const int by_grid = grid / (p.rows * p.heads);
+  arg.splits = by_grid < 1 ? 1 : (by_grid > kMaxSplits ? kMaxSplits : by_grid);
   void* args[] = {&arg};
-  err = cudaLaunchCooperativeKernel((const void*)kern, dim3(per_sm * sms),
-                                    dim3(kThreads), args, smem, stream);
+  err = cudaLaunchCooperativeKernel((const void*)kern, dim3(grid), dim3(kThreads), args, smem,
+                                    stream);
   return (int)err;
 }
 
@@ -443,14 +551,17 @@ int launch_rows(const Params& p, int rows_t, cudaStream_t stream) {
 }  // namespace
 
 // Plain C entry for ctypes. dtype: 0 = float32, 1 = bfloat16; rows_t is the
-// compiled row count (2, 4, 8 or 16, >= rows). Returns the cudaError_t of
-// the launch (0 on success; cudaErrorCooperativeLaunchTooLarge when no block
-// fits on an SM); it never synchronises and allocates nothing.
+// compiled row count (2, 4, 8 or 16, >= rows). part must hold rows * heads
+// * kMaxSplits * (head_dim + 2) floats and counters rows * heads ints.
+// Returns the cudaError_t of the launch (0 on success;
+// cudaErrorCooperativeLaunchTooLarge when no block fits on an SM); it never
+// synchronises and allocates nothing.
 extern "C" int cbx_fused_decode(const void* wall, const float* ln1,
                                 const float* ln2, const float* fnorm,
                                 const float* inv_freq, const void* x,
                                 void* cache_k, void* cache_v, void* h_out,
                                 float* h, float* qkv, float* att, float* mm,
+                                float* part, int* counters,
                                 int layers, int rows, int rows_t, int d,
                                 int heads, int head_dim, int inter, int lcache,
                                 int pos, int start, int dtype, float eps,
@@ -459,8 +570,8 @@ extern "C" int cbx_fused_decode(const void* wall, const float* ln1,
       pos < start || start < 0 || pos >= lcache)
     return (int)cudaErrorInvalidValue;
   const Params p{wall, ln1, ln2, fnorm, inv_freq, x, cache_k, cache_v, h_out, h,
-                 qkv, att, mm, layers, rows, d, heads, head_dim, inter, lcache,
-                 pos, start, eps};
+                 qkv, att, mm, part, counters, layers, rows, d, heads, head_dim, inter,
+                 lcache, pos, start, 1, eps};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0) return launch_rows<float>(p, rows_t, s);
   if (dtype == 1) return launch_rows<__nv_bfloat16>(p, rows_t, s);

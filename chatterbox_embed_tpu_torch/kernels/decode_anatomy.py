@@ -17,8 +17,9 @@ head) of the decode step), and returns `(1, F)` in q's dtype. With CHUNK =
                 scratch buffer that nothing filled, so its output is not
                 defined there; this is the port's definition.
 
-It launches the hand-written kernel in `csrc/decode_anatomy.cu`, built over
-the port's decode walk (`csrc/decode_walk.cuh`), and nothing else: a tensor
+It launches the hand-written kernel in `csrc/decode_anatomy.cu`, K1's
+one-launch design over the port's decode walk (`csrc/decode_walk.cuh`, K1's
+split count and workspace), and nothing else: a tensor
 that is not on a CUDA device, or a shape the kernel does not take, raises.
 `attn_reference` is the plain PyTorch version, used by the tests and by the
 card's check of the kernel, never as a fallback.
@@ -31,14 +32,14 @@ import math
 import torch
 
 from . import _build
-from .flash_decode import SPLIT_LEN
+from . import flash_decode as _fd
 
 SOURCE = _build.CSRC / "decode_anatomy.cu"
 HEAD_DIM = 64
 CHUNK = 64             # the TPU kernel's chunk: the unit of load_only and compute_only
 MODES = ("full", "load_only", "compute_only")
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
-_ARGTYPES = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
+_ARGTYPES = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
 
 
 def attn_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, pos: int,
@@ -98,18 +99,14 @@ def attn(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, pos: int, mode: str
     if not 0 <= pos < lcache or (pos // CHUNK + 1) * CHUNK > lcache:
         raise ValueError(f"attn: pos {pos} and its chunks must lie inside Lc {lcache}")
     groups = f // HEAD_DIM
-    n_splits = -(-lcache // SPLIT_LEN)
     lib = _library()
     out = torch.empty_like(q)
-    part_m = torch.empty((groups, n_splits), dtype=torch.float32, device=q.device)
-    part_l = torch.empty_like(part_m)
-    sink = torch.empty_like(part_m)
-    part_acc = torch.empty((groups, n_splits, HEAD_DIM), dtype=torch.float32, device=q.device)
+    part, counters = _fd.workspace(q.device, q.dtype, groups, 1, lcache)
     stream = torch.cuda.current_stream(q.device).cuda_stream
     rc = lib.cbx_decode_anatomy(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), part_m.data_ptr(),
-        part_l.data_ptr(), part_acc.data_ptr(), sink.data_ptr(), groups, HEAD_DIM, lcache,
-        pos, SPLIT_LEN, n_splits, MODES.index(mode), _DTYPE_CODE[q.dtype], stream)
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), part.data_ptr(),
+        counters.data_ptr(), groups, HEAD_DIM, lcache, pos, _fd.splits_for(groups, lcache),
+        MODES.index(mode), _DTYPE_CODE[q.dtype], stream)
     if rc != 0:
         raise RuntimeError(f"decode_anatomy kernel launch failed: cudaError {rc} (mode {mode})")
     attn.launches += 1

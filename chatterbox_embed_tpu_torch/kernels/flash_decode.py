@@ -10,9 +10,11 @@ deferred insert) takes the whole stacked cache (nL, Lc, B, H, D) with a
 [start, cache_pos - 1] and the current row finishes the softmax, so the
 caller writes every layer's row in one stacked insert after the layer loop.
 On a CUDA tensor it launches the hand-written split-KV kernel in
-`csrc/flash_decode.cu` (design notes there); on a CPU tensor it runs
-`decode_attention_reference`, the plain PyTorch version. There is no other
-path: a CUDA call that the kernel cannot take raises.
+`csrc/flash_decode.cu` (design notes there), one launch a call, with a
+scratch workspace kept per (device, dtype, B, H, Lc); on a CPU tensor it
+runs `decode_attention_reference`, the plain PyTorch version. There is no
+other path: a CUDA call that the kernel cannot take raises.
+`walk_reference` walks the kernel's schedule in plain PyTorch for the tests.
 
 The kernel is compiled with `nvcc` for sm_90a into a shared library with a
 plain C entry, loaded with ctypes, the first time a CUDA tensor arrives
@@ -29,11 +31,59 @@ from . import _build
 
 SOURCE = _build.CSRC / "flash_decode.cu"
 HEAD_DIM = 64          # the kernel's compiled head width
-# cache slots per pass-1 block: 32 measured best of {8, 16, 32, 64, 128}
-# at the decode shapes on an H100 (PERF.md, Findings)
-SPLIT_LEN = 32
+# The split-KV launch (csrc/decode_walk.cuh; kept equal by
+# tests/test_torch_decode_walk.py): a grid (B*H, S) of SPLIT_WARPS-warp
+# blocks, S = splits_for(B*H, Lc). A warp-wide load brings GROUPS keys (8
+# lanes a 64-wide row) and a warp keeps LOADS[dtype] of them in flight.
+SPLIT_WARPS = 4
+SPLIT_BLOCKS = 512     # B*H*S the split count aims at: ~4 blocks on each of 132 SMs
+MIN_SPLIT_KEYS = 32    # slots a split covers at least, at full capacity
+GROUPS = 4
+LOADS = {torch.bfloat16: 8, torch.float32: 4}
+_SCALE_LOG2 = 0.125 * math.log2(math.e)
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
-_ARGTYPES = ([ctypes.c_void_p] * 10 + [ctypes.c_int] * 10 + [ctypes.c_void_p])
+_ARGTYPES = ([ctypes.c_void_p] * 9 + [ctypes.c_int] * 9 + [ctypes.c_void_p])
+
+
+def splits_for(bh: int, lcache: int) -> int:
+    """The kernels' split count for B*H (row, head)s and cache capacity Lc:
+    SPLIT_BLOCKS / (B*H) rounded up, at most Lc / MIN_SPLIT_KEYS, at least 1."""
+    want = -(-SPLIT_BLOCKS // bh)
+    cap = -(-lcache // MIN_SPLIT_KEYS)
+    return max(1, min(want, cap))
+
+
+def split_range(start: int, walk_end: int, n_splits: int, split: int):
+    """Split `split`'s slots [lo, hi] of the live range [start, walk_end]
+    (empty when lo > hi): ceil(live / S) slots each, from the start."""
+    live = walk_end - start + 1
+    per = -(-live // n_splits) if live > 0 else 0
+    lo = start + split * per
+    return lo, min(walk_end, lo + per - 1)
+
+
+_WORKSPACE: dict = {}
+
+
+def stream_key(device) -> int:
+    """The current stream of `device` (0 off the card): launches on two
+    streams may overlap, so each stream gets its own workspace."""
+    device = torch.device(device)
+    return torch.cuda.current_stream(device).cuda_stream if device.type == "cuda" else 0
+
+
+def workspace(device, dtype, b: int, h: int, lcache: int):
+    """The kernels' scratch for one (device, stream, dtype, B, H, Lc), made
+    once: the partials (m, l: B*H*S each, then acc: B*H*S*64, fp32) and one
+    arrival counter a (row, head), zero, which every launch leaves zero."""
+    key = (str(device), stream_key(device), dtype, b, h, lcache)
+    ws = _WORKSPACE.get(key)
+    if ws is None:
+        n = b * h * splits_for(b * h, lcache)
+        ws = (torch.empty(n * (HEAD_DIM + 2), dtype=torch.float32, device=device),
+              torch.zeros(b * h, dtype=torch.int32, device=device))
+        _WORKSPACE[key] = ws
+    return ws
 
 
 def _layer_slab(k, v, layer):
@@ -72,6 +122,79 @@ def decode_attention_reference(q, k, v, cache_pos, start=0, hole=None, layer=Non
         vals = torch.cat([vals, v_cur.float()[None]], dim=0)
     w = torch.softmax(logits, dim=-1)
     return torch.einsum("bhk,kbhd->bhd", w, vals).to(q.dtype)
+
+
+def _exp2s(x):
+    """exp2(x * scale * log2 e), the kernels' exponent, with exp2(-inf) = 0."""
+    return torch.exp2(x * _SCALE_LOG2)
+
+
+def _merge(m, l, acc, dim):
+    """Max-rescale merge of online-softmax states along `dim` (unscaled m);
+    a state with l = 0 adds nothing, and all-empty gives m = -inf, l = 0."""
+    mb = m.amax(dim=dim)
+    f = torch.where(l > 0, _exp2s(m - mb.unsqueeze(dim)), torch.zeros_like(l))
+    return mb, (l * f).sum(dim), (acc * f.unsqueeze(-1)).sum(dim)
+
+
+@torch.no_grad()
+def walk_reference(q, k, v, cache_pos, start=0, hole=None, layer=None, k_cur=None,
+                   v_cur=None):
+    """The kernels' schedule (csrc/flash_decode.cu over decode_walk.cuh)
+    walked in plain PyTorch, fp32, for tests: the live range [start,
+    walk_end] cut into splits_for(B*H, Lc) splits; in each split, tiles of
+    SPLIT_WARPS * LOADS[q.dtype] * GROUPS keys, slot u of warp w's group g
+    holding key base + (u * SPLIT_WARPS + w) * GROUPS + g; per warp one max
+    a tile, exp2 with the scale folded in, one rescale a tile; the warps
+    merged, then the splits by the last block (max-rescale, empty splits
+    adding nothing); K1s's current row folded in last. Arguments as
+    decode_attention; returns (B, H, D) in q's dtype. Nothing on a serving
+    path calls it."""
+    k, v = _layer_slab(k, v, layer)
+    lcache, b, h, d = k.shape
+    bh, w_n = b * h, SPLIT_WARPS
+    qf = q.float().reshape(bh, d)
+    kf, vf = k.float().reshape(lcache, bh, d), v.float().reshape(lcache, bh, d)
+    walk_end = cache_pos - 1 if k_cur is not None else cache_pos
+    hole_lo = torch.zeros(bh, dtype=torch.long)
+    hole_hi = torch.zeros(bh, dtype=torch.long)
+    if hole is not None:
+        hole = torch.as_tensor(hole, dtype=torch.long).cpu()
+        hole_lo, hole_hi = hole[:, 0].repeat_interleave(h), hole[:, 1].repeat_interleave(h)
+    n_splits = splits_for(bh, lcache)
+    tile = w_n * LOADS[q.dtype] * GROUPS
+    slot = torch.arange(tile).reshape(LOADS[q.dtype], w_n, GROUPS).transpose(0, 1)
+    slot = slot.reshape(w_n, -1)                        # (warp, its keys in a tile)
+    parts = []
+    for s in range(n_splits):
+        lo, hi = split_range(start, walk_end, n_splits, s)
+        m = torch.full((bh, w_n), -math.inf)
+        l = torch.zeros(bh, w_n)
+        acc = torch.zeros(bh, w_n, d)
+        for base in range(lo, hi + 1, tile):
+            j = base + slot                                              # (W, K)
+            live = (j <= hi)[None] & ((j[None] < hole_lo[:, None, None])
+                                      | (j[None] >= hole_hi[:, None, None]))   # (BH, W, K)
+            jc = j.clamp(max=lcache - 1)
+            sc = torch.einsum("bd,wkbd->bwk", qf, kf[jc]).masked_fill(~live, -math.inf)
+            m_new = torch.maximum(m, sc.amax(-1))
+            keep = m_new == -math.inf                       # nothing live yet: no change
+            alpha = torch.where(keep, torch.ones_like(m), _exp2s(m - m_new))
+            p = torch.where(keep[..., None], torch.zeros_like(sc),
+                            _exp2s(sc - m_new[..., None]))
+            l = l * alpha + p.sum(-1)
+            acc = acc * alpha[..., None] + torch.einsum("bwk,wkbd->bwd", p, vf[jc])
+            m = torch.where(keep, m, m_new)
+        parts.append(_merge(m, l, acc, 1))                 # the block's warps
+    mb, lb, ab = _merge(*(torch.stack(x, 1) for x in zip(*parts)), 1)   # the last block
+    if k_cur is not None:
+        s_cur = (qf * k_cur.float().reshape(bh, d)).sum(-1)
+        m_new = torch.maximum(mb, s_cur)
+        alpha, p = _exp2s(mb - m_new), _exp2s(s_cur - m_new)
+        lb = lb * alpha + p
+        ab = ab * alpha[:, None] + p[:, None] * v_cur.float().reshape(bh, d)
+    out = torch.where(lb[:, None] > 0, ab / lb.clamp_min(1e-30)[:, None], torch.zeros_like(ab))
+    return out.reshape(b, h, d).to(q.dtype)
 
 
 def _library():
@@ -138,20 +261,17 @@ def decode_attention(q, k, v, cache_pos, start=0, hole=None, layer=None,
     if not 0 <= layer < n_layers:
         raise ValueError(f"decode_attention: layer {layer} outside [0, {n_layers})")
     b, h, d = q.shape
-    n_splits = -(-lcache // SPLIT_LEN)
     lib = _library()
+    part, counters = workspace(q.device, q.dtype, b, h, lcache)
     out = torch.empty_like(q)
-    part_m = torch.empty((b * h, n_splits), dtype=torch.float32, device=q.device)
-    part_l = torch.empty_like(part_m)
-    part_acc = torch.empty((b * h, n_splits, d), dtype=torch.float32, device=q.device)
     stream = torch.cuda.current_stream(q.device).cuda_stream
     deferred = k_cur is not None
     rc = lib.cbx_flash_decode(
         q.data_ptr(), k.data_ptr(), v.data_ptr(),
         None if hole is None else hole.data_ptr(),
         k_cur.data_ptr() if deferred else None, v_cur.data_ptr() if deferred else None,
-        out.data_ptr(), part_m.data_ptr(), part_l.data_ptr(), part_acc.data_ptr(),
-        b, h, d, lcache, layer, cache_pos, start, SPLIT_LEN, n_splits,
+        out.data_ptr(), part.data_ptr(), counters.data_ptr(),
+        b, h, d, lcache, layer, cache_pos, start, splits_for(b * h, lcache),
         _DTYPE_CODE[q.dtype], stream)
     if rc != 0:
         raise RuntimeError(f"flash_decode kernel launch failed: cudaError {rc}")

@@ -23,16 +23,17 @@ import torch.nn.functional as F
 from ..config import LlamaConfig
 from ..models.llama import _scaled_inv_freq
 from . import _build
-from .flash_decode import decode_attention_reference
+from .flash_decode import decode_attention_reference, stream_key
 
 SOURCE = _build.CSRC / "fused_decode.cu"
 HEAD_DIM = 64             # the kernel's compiled head width
 MAX_ROWS = 16             # the kernel's widest row template
+MAX_SPLITS = 8            # the kernel's walk splits a (row, head), at most (kMaxSplits)
 # dynamic shared memory a block may use on sm_90 (227 KB), less the kernel's
-# fixed reduction scratch
-SMEM_LIMIT = 227 * 1024 - 4096
+# fixed reduction scratch (under 6 KB at 16 rows and 512 threads)
+SMEM_LIMIT = 227 * 1024 - 8192
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
-_ARGTYPES = ([ctypes.c_void_p] * 13 + [ctypes.c_int] * 11 + [ctypes.c_float]
+_ARGTYPES = ([ctypes.c_void_p] * 15 + [ctypes.c_int] * 11 + [ctypes.c_float]
              + [ctypes.c_void_p])
 
 
@@ -152,6 +153,7 @@ def _library():
 
 
 _INV_FREQ: dict = {}
+_WORKSPACE: dict = {}
 
 
 def _inv_freq(cfg: LlamaConfig, device):
@@ -162,6 +164,22 @@ def _inv_freq(cfg: LlamaConfig, device):
         t = torch.from_numpy(_scaled_inv_freq(cfg)).to(device)
         _INV_FREQ[key] = t
     return t
+
+
+def _workspace(device, b: int, p: dict):
+    """The kernel's fp32 scratch for b rows of plan `p`, made once per
+    (device, stream, shape): h (B, d), qkv (B, 3 qo), att (B, qo), mm (B, I)
+    and the walk's partials (B*H*MAX_SPLITS*(D + 2)); and B*H int32 arrival
+    counters, which the kernel sets to 0 itself."""
+    key = (str(device), stream_key(device), b, p["d"], p["qo"], p["inter"], p["h"])
+    ws = _WORKSPACE.get(key)
+    if ws is None:
+        sizes = (b * p["d"], b * 3 * p["qo"], b * p["qo"], b * p["inter"],
+                 b * p["h"] * MAX_SPLITS * (HEAD_DIM + 2))
+        flat = torch.empty(sum(sizes), dtype=torch.float32, device=device)
+        ws = (flat.split(sizes), torch.zeros(b * p["h"], dtype=torch.int32, device=device))
+        _WORKSPACE[key] = ws
+    return ws
 
 
 def _check(fused, x, cache_k, cache_v, p, dtype):
@@ -232,20 +250,16 @@ def fused_decode_step(fused, x, cache_k, cache_v, cache_pos, start,
     if not 0 <= st <= pos < lcache:
         raise ValueError(f"fused_decode_step: need 0 <= start ({st}) <= cache_pos "
                          f"({pos}) < Lc ({lcache})")
-    d, qo, inter = p["d"], p["qo"], p["inter"]
+    d, inter = p["d"], p["inter"]
     lib = _library()
-    f32 = dict(dtype=torch.float32, device=x.device)
-    h_res = torch.empty((b, d), **f32)
-    qkv = torch.empty((b, 3 * qo), **f32)
-    att = torch.empty((b, qo), **f32)
-    mm = torch.empty((b, inter), **f32)
+    (h_res, qkv, att, mm, part), counters = _workspace(x.device, b, p)
     h_out = torch.empty((b, d), dtype=dtype, device=x.device)
     stream = torch.cuda.current_stream(x.device).cuda_stream
     rc = lib.cbx_fused_decode(
         fused["wall"].data_ptr(), fused["ln1"].data_ptr(), fused["ln2"].data_ptr(),
         fused["fnorm"].data_ptr(), _inv_freq(cfg, x.device).data_ptr(), x.data_ptr(),
         cache_k.data_ptr(), cache_v.data_ptr(), h_out.data_ptr(), h_res.data_ptr(),
-        qkv.data_ptr(), att.data_ptr(), mm.data_ptr(),
+        qkv.data_ptr(), att.data_ptr(), mm.data_ptr(), part.data_ptr(), counters.data_ptr(),
         n_layers, b, _row_template(b), d, p["h"], p["hd"], inter, lcache, pos, st,
         _DTYPE_CODE[dtype], float(cfg.rms_norm_eps), stream)
     if rc != 0:

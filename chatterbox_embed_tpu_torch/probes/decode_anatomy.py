@@ -33,7 +33,7 @@ F = B * H * D
 POSITIONS = ((44, "1chunk"), (379, "6chunk"))
 STEPS = (1024, 4096)
 SCRIPT_KEY = {"full": "full", "load_only": "dma_only", "compute_only": "compute_only"}
-KERNEL_NAMES = ("split_kernel", "combine_kernel")
+KERNEL_NAMES = ("anatomy_kernel",)
 
 
 def run(steps=STEPS, device_iters: int = 50, seed: int = 0, out=sys.stderr) -> dict:

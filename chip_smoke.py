@@ -14,7 +14,12 @@ Phases, one or more lines each, then the result line:
      (torch.profiler) and per-call time of back-to-back calls (CUDA events)
      at the main paths' shapes.
        K1 flash_decode     T3 decode attention: B=2 (one utterance) and B=16
-                           (8 utterances, a different hole per row)
+                           (8 utterances, a different hole per row), Lc 512
+                           and 1280; among the cases a walk of one slot,
+                           fewer live slots than splits and a live range
+                           that starts inside a row's hole (splits empty at
+                           both ends); timed beside the library's call at
+                           both capacities
        K1s flash_decode_deferred
                            its deferred-insert entry (the stacked cache with a
                            layer index, the current row folded in): B=2 and
@@ -36,7 +41,10 @@ Phases, one or more lines each, then the result line:
                            d=1024, B=2 CFG rows), a 16-step teacher-forced
                            chain near the top of Lc 512 and 1280, start > 0;
                            planted faults that the 30-layer bf16 check must
-                           catch; the 4-, 8- and 16-row templates
+                           catch; a chain at the lowest positions (most walk
+                           splits empty); the 4-, 8- and 16-row templates;
+                           its time at pos 44, 260 and 507 (the walk's cost
+                           per slot, the wall's GB/s)
        K5 weight_stream    the weight-stream probe: every (slab, nbuf) of its
                            sweep on a 64 MB wall, on random walls of the
                            probe's sizes (1 GB bf16, 0.5 GB int8) and on the
@@ -176,6 +184,13 @@ FUSED_BF16_LAYERS = 1
 FUSED_BF16_DEEP_LIMIT = 0.15
 FUSED_CONTROLS = ("ln2-step", "start-1")     # _fused_fault kinds
 FUSED_ROW_STEPS = 4    # steps of the 4-, 8- and 16-row checks
+# a chain at the lowest positions (start FUSED_START, pos FUSED_START + 1 ...
+# + FUSED_LOW_STEPS): the walk covers 1-4 slots, so most of its splits are
+# empty; and the positions K4 is timed at (Lc 512), for the walk's cost per
+# attended slot and the wall's rate
+FUSED_LOW_STEPS = 4
+FUSED_TIMED_POS = (44, 260, 507)
+FUSED_TIMED_ROWS = (4, 8, 16)     # also timed, at the top position
 # generate, by decode path: the environment that selects it
 GEN_PATHS = {"default": {}, "fused": {"CHATTERBOX_FUSED_STEP": "1"},
              "defer": {"CHATTERBOX_DEFER_KV": "1"}}
@@ -283,6 +298,17 @@ def _device_ms(fn, iters: int = 50, tries: int = 3) -> float:
     return timing.device_ms(fn, iters, tries)
 
 
+def _clocks() -> str:
+    """The card's SM and memory clocks, power draw and temperature now, as
+    nvidia-smi prints them (logged beside K4's times, which vary by machine
+    and run while these read the same: PERF.md)."""
+    import subprocess
+    out = subprocess.run(["nvidia-smi", "--query-gpu=clocks.sm,clocks.mem,power.draw,"
+                          "temperature.gpu", "--format=csv,noheader"],
+                         capture_output=True, text=True)
+    return out.stdout.strip().splitlines()[0] if out.returncode == 0 and out.stdout else "n/a"
+
+
 def _bound(nbytes: float, ops: float, peak: str = "bf16_tensor") -> dict:
     """The least time the card could take for a call that must move
     `nbytes` (each input read once, each output written once) and do `ops`
@@ -387,9 +413,13 @@ def phase_kernel_check(card: str, deferred: bool = False) -> dict:
     for b in (KERNEL_B, KERNEL_B_BATCH):
         for lc in KERNEL_LC:
             # (start, cache_pos) pairs: inside one split, across split edges,
-            # a start on an edge, the last slot, and the smoke's decode range
+            # a start on an edge, the last slot, and the smoke's decode range;
+            # a walk of one slot (K1s: of none, the current row alone); fewer
+            # live slots than splits (the last splits empty); and a live range
+            # that starts inside a row's hole (B=2: row 1 dead over [70, 200),
+            # so its first splits read nothing and its last is empty)
             cases = [(0, 0), (3, 40), (10, 63), (63, 64), (64, 300), (130, 381),
-                     (5, lc - 1)]
+                     (5, lc - 1), (300, 300), (300, 305), (72, 205)]
             for dtype in (torch.float32, torch.bfloat16):
                 q, kc, vc = (torch.randn((b, h, d), generator=g, device="cuda").to(dtype)
                              for _ in range(3))
@@ -449,9 +479,11 @@ def phase_kernel_check(card: str, deferred: bool = False) -> dict:
 
 
 def _fused_chain(fused, cfg, lc: int, dtype, g, fused32=None, b: int = KERNEL_B,
-                 steps: int = FUSED_STEPS, fault: dict | None = None) -> dict:
+                 steps: int = FUSED_STEPS, fault: dict | None = None,
+                 pos0: int | None = None) -> dict:
     """`steps` teacher-forced steps of K4 for `b` rows in `dtype` on a random
-    cache: before each step the plain version (and, with `fused32`, the
+    cache, from position `pos0` (default: ending 4 slots below the top of
+    Lc): before each step the plain version (and, with `fused32`, the
     plain version in fp32 on the same values) starts from a copy of the
     kernel's cache. `fault` plants a fault in the kernel's run only: its
     "fused" weights or its "start". Returns {version: (h (steps, B, d), new
@@ -460,7 +492,7 @@ def _fused_chain(fused, cfg, lc: int, dtype, g, fused32=None, b: int = KERNEL_B,
     start = FUSED_START
     fault = fault or {}
     n_layers = fused["wall"].shape[0]
-    pos0 = lc - steps - 4
+    pos0 = lc - steps - 4 if pos0 is None else pos0
     shape = (n_layers, lc, b, cfg.num_heads, cfg.head_dim)
     ck, cv = (torch.randn(shape, generator=g, device="cuda").to(dtype) for _ in range(2))
     rk, rv = torch.empty_like(ck), torch.empty_like(cv)
@@ -523,6 +555,30 @@ def _deep_check(res, run: str, **case) -> float:
     return worst
 
 
+def fused_times(fused16, cfg, card: str, build: str = "shipped") -> dict:
+    """K4's bf16 time by CUDA events over steps queued behind a spin kernel
+    (probes/timing.fused_step_ms), Lc 512: at B=KERNEL_B at each of
+    FUSED_TIMED_POS (what the walk adds per attended slot, the rate of the
+    wall), and at 4, 8 and 16 rows at the top position. (b, pos) -> ms."""
+    from chatterbox_embed_tpu_torch.probes import timing
+    lc = KERNEL_LC[0]
+    at = timing.fused_step_ms(fused16, cfg, KERNEL_B, FUSED_TIMED_POS, lc, FUSED_START)
+    wall_gb = fused16["wall"].numel() * fused16["wall"].element_size() / 1e9
+    lo_pos, hi_pos = FUSED_TIMED_POS[0], FUSED_TIMED_POS[-1]
+    log("fused_decode_positions", build=build, b=KERNEL_B, lc=lc, start=FUSED_START,
+        dtype="bfloat16", **{f"queued_ms_pos{pos}": f"{ms:.5f}" for pos, ms in at.items()},
+        slope_us_per_slot=f"{(at[hi_pos] - at[lo_pos]) * 1e3 / (hi_pos - lo_pos):.4f}",
+        **{f"wall_gb_per_s_pos{pos}": f"{wall_gb / (ms / 1e3):.1f}" for pos, ms in at.items()},
+        clocks_after=repr(_clocks()), card=repr(card))
+    times = {(KERNEL_B, pos): ms for pos, ms in at.items()}
+    for b in FUSED_TIMED_ROWS:
+        ms = timing.fused_step_ms(fused16, cfg, b, (hi_pos,), lc, FUSED_START)[hi_pos]
+        times[(b, hi_pos)] = ms
+        log("fused_decode_rows", build=build, b=b, lc=lc, start=FUSED_START, pos=hi_pos,
+            layers=cfg.num_layers, dtype="bfloat16", queued_ms=f"{ms:.5f}", card=repr(card))
+    return times
+
+
 def phase_fused_check(card: str, tts) -> dict:
     """K4 against its plain version at full width (d=1024, B=2, start
     FUSED_START, FUSED_STEPS teacher-forced steps ending near the top of
@@ -541,7 +597,7 @@ def phase_fused_check(card: str, tts) -> dict:
         FUSED_CONTROLS planted, which must read above the limit.
     Then the 4-, 8- and 16-row templates over FUSED_ROW_STEPS steps: 4 and 8
     rows in fp32 through 30 layers, 16 rows in bf16 through one; and each
-    template's kernel time at 30 layers in bf16."""
+    template's kernel time at 30 layers in bf16 (fused_times)."""
     from chatterbox_embed_tpu_torch.kernels import fused_decode as fu
     from chatterbox_embed_tpu_torch.weights import place
     cfg = tts.cfg.t3.llama
@@ -608,15 +664,24 @@ def phase_fused_check(card: str, tts) -> dict:
             timing.update(_bound(nbytes, ops), library_ms=None)
             _log_time("fused_decode", timing, card, b=KERNEL_B, lc=lc, start=start, pos=pos,
                       layers=cfg.num_layers)
-            log("fused_decode_rate", wall_gb=f"{wall_gb:.4f}",
+            log("fused_decode_rate", clocks_after=repr(_clocks()), wall_gb=f"{wall_gb:.4f}",
                 wall_gb_per_s=f"{wall_gb / (timing['ms'] / 1e3):.1f}",
                 share_of_3350_gb_per_s=f"{wall_gb / (timing['ms'] / 1e3) / 3350:.4f}",
                 card=repr(card))
         del res, last
         torch.cuda.empty_cache()
-    # the wider row templates (4, 8 and 16 rows; the fused gate admits them
-    # above one utterance), a short chain at Lc 512, then each one's time
-    # (the kernel's only: the plain version is timed at B=2 above)
+    # the lowest positions, Lc 512: fp32 through 30 layers, bf16 through one
+    lc = KERNEL_LC[0]
+    low = dict(b=KERNEL_B, lc=lc, d=cfg.hidden_size, steps=FUSED_LOW_STEPS, start=FUSED_START,
+               pos0=FUSED_START + 1)
+    for fz, dtype, layers in ((fused32, torch.float32, cfg.num_layers),
+                              (cut16, torch.bfloat16, nb)):
+        res, _ = _fused_chain(fz, cfg, lc, dtype, g, steps=FUSED_LOW_STEPS, pos0=FUSED_START + 1)
+        worst[dtype] = max(worst[dtype], check(res["kernel"], res["plain"], dtype, layers=layers,
+                                               dtype=str(dtype)[6:], **low))
+        del res
+    # the wider row templates (4, 8 and 16 rows; CHATTERBOX_FUSED_MAX_UTT
+    # admits them above one utterance), a short chain at Lc 512
     for b, fz, dtype, layers in ((4, fused32, torch.float32, cfg.num_layers),
                                  (8, fused32, torch.float32, cfg.num_layers),
                                  (16, cut16, torch.bfloat16, nb)):
@@ -625,19 +690,10 @@ def phase_fused_check(card: str, tts) -> dict:
             res["kernel"], res["plain"], dtype, layers=layers, dtype=str(dtype)[6:], b=b,
             lc=KERNEL_LC[0], d=cfg.hidden_size, steps=FUSED_ROW_STEPS, start=FUSED_START))
         del res, last
-        lc = KERNEL_LC[0]
-        pos = lc - 5
-        x = torch.randn((b, cfg.hidden_size), generator=g, device="cuda").to(torch.bfloat16)
-        ck, cv = (torch.randn((cfg.num_layers, lc, b, cfg.num_heads, cfg.head_dim),
-                              generator=g, device="cuda").to(torch.bfloat16) for _ in range(2))
-
-        def step():
-            return fu.fused_decode_step(fused16, x, ck, cv, pos, FUSED_START, cfg, torch.bfloat16)
-        log("kernel_time", name="fused_decode", b=b, lc=lc, start=FUSED_START, pos=pos,
-            layers=cfg.num_layers, dtype="bfloat16", device_ms=f"{_device_ms(step, 10):.5f}",
-            call_ms=f"{_time_ms(step, 40):.5f}", card=repr(card))
-        del x, ck, cv
-    del fused32, fused16, cut16
+    del fused32, cut16
+    torch.cuda.empty_cache()
+    fused_times(fused16, cfg, card)
+    del fused16
     torch.cuda.empty_cache()
     return {"max_abs_err": worst[torch.bfloat16], "max_abs_err_fp32": worst[torch.float32],
             "timing": timing}
