@@ -21,6 +21,9 @@ class Conditionals:
     t3: T3Cond
     gen: Dict[str, Any]
 
+    def replace_emotion(self, emotion_adv: float) -> "Conditionals":
+        return Conditionals(self.t3._replace(emotion_adv=float(emotion_adv)), self.gen)
+
     def to(self, device) -> "Conditionals":
         t3 = self.t3._replace(
             speaker_emb=self.t3.speaker_emb.to(device),

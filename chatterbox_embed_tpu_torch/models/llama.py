@@ -14,7 +14,12 @@
   kernel's deferred-insert entry (the stacked cache with `layer`, the
   current k/v row folded in) and all layers' rows land in one stacked write
   after the loop. Only the JAX package's flash branch of that path applies:
-  the port has no int8 cache, phased reads or alignment spy.
+  the port has no int8 cache or phased reads;
+- the alignment spy (`collect_attn_layer`): at a decode step that one
+  layer runs plain attention (a matmul and a softmax, as the JAX package's
+  XLA spy path does) and also returns its head-mean probability row over
+  cache coordinates; every other layer keeps K1 (K1s under the deferred
+  insert).
 """
 from __future__ import annotations
 
@@ -113,7 +118,8 @@ def forward(params, x: torch.Tensor, pos_ids: torch.Tensor,
             attn_mask: Optional[torch.Tensor] = None,
             cache: Optional[KVCache] = None, cache_pos: int = 0,
             cfg: LlamaConfig = LlamaConfig(), dtype=torch.float32,
-            flash_start: int = 0, flash_hole: Optional[torch.Tensor] = None):
+            flash_start: int = 0, flash_hole: Optional[torch.Tensor] = None,
+            collect_attn_layer: Optional[int] = None):
     """Run the transformer over a block of embeddings.
 
     Args:
@@ -127,7 +133,11 @@ def forward(params, x: torch.Tensor, pos_ids: torch.Tensor,
       cache: optional static KVCache; the block's K/V are written in place
         at [cache_pos, cache_pos + T) before attention, or, for a decode step
         under CHATTERBOX_DEFER_KV=1, for every layer at once after the loop.
-    Returns (hidden (B, T, D) after the final norm, cache).
+      collect_attn_layer: at a decode step, the layer whose attention runs
+        plain (`_spy_attention`) and whose head-mean probability row over
+        the cache is returned as well (the alignment spy).
+    Returns (hidden (B, T, D) after the final norm, cache[, attn_row (B, Lc)
+    fp32]).
     """
     b, t, _ = x.shape
     h = x.to(dtype)
@@ -135,6 +145,9 @@ def forward(params, x: torch.Tensor, pos_ids: torch.Tensor,
     decode = t == 1 and cache is not None
     defer = decode and _defer_kv_enabled()
     new_ks, new_vs = [], []
+    if collect_attn_layer is not None and not decode:
+        raise ValueError("collect_attn_layer needs a single-token decode step with a cache")
+    attn_row = None
 
     if attn_mask is None and not decode:
         if cache is None:
@@ -165,6 +178,12 @@ def forward(params, x: torch.Tensor, pos_ids: torch.Tensor,
             v_cur = v[:, 0].to(cache.v.dtype).contiguous()
             new_ks.append(k_cur)
             new_vs.append(v_cur)
+        if decode and i == collect_attn_layer:
+            att, attn_row = _spy_attention(
+                q[:, 0], cache.k[i], cache.v[i], cache_pos, flash_start, flash_hole,
+                k_cur if defer else None, v_cur if defer else None)
+            att = att[:, None]
+        elif defer:
             att = decode_attention(q[:, 0].contiguous(), cache.k, cache.v, cache_pos,
                                    start=flash_start, hole=flash_hole, layer=i,
                                    k_cur=k_cur, v_cur=v_cur)[:, None]
@@ -190,4 +209,44 @@ def forward(params, x: torch.Tensor, pos_ids: torch.Tensor,
         # one stacked write of all layers' rows at slot cache_pos
         cache.k[:, cache_pos] = torch.stack(new_ks)
         cache.v[:, cache_pos] = torch.stack(new_vs)
-    return L.rms_norm(params["norm"], h, cfg.rms_norm_eps), cache
+    h = L.rms_norm(params["norm"], h, cfg.rms_norm_eps)
+    if collect_attn_layer is not None:
+        return h, cache, attn_row
+    return h, cache
+
+
+def _spy_attention(q, k, v, cache_pos: int, start: int, hole, k_cur=None, v_cur=None):
+    """The alignment spy layer's decode attention, plain: q (B, H, D) over
+    one layer's cache k, v (Lc, B, H, D), slots [start, cache_pos] minus
+    each row's hole [lo, hi), logits and softmax in fp32 (the JAX package's
+    XLA decode attention). With k_cur/v_cur (the deferred insert) the slots
+    end at cache_pos - 1 and the current row is one more key, whose
+    probability is folded back into slot cache_pos of the row, as the JAX
+    package's `_spy_row` does. Only the live prefix [0, cache_pos] is read.
+
+    Returns (att (B, H, D) in q's dtype, head-mean probabilities (B, Lc)
+    fp32 over cache coordinates)."""
+    lc = k.shape[0]
+    n = cache_pos + 1
+    dev = q.device
+    kidx = torch.arange(n, device=dev)
+    end = cache_pos - 1 if k_cur is not None else cache_pos
+    valid = ((kidx >= start) & (kidx <= end))[None].expand(q.shape[0], n)
+    if hole is not None:
+        hole = hole.to(dev).long()
+        valid = valid & ~((kidx[None] >= hole[:, :1]) & (kidx[None] < hole[:, 1:]))
+    scale = float(np.sqrt(q.shape[-1]))
+    logits = torch.einsum("bhd,lbhd->bhl", q.float(), k[:n].float()) / scale
+    logits = torch.where(valid[:, None, :], logits,
+                         torch.tensor(-1e10, dtype=torch.float32, device=dev))
+    if k_cur is not None:
+        lcur = (q.float() * k_cur.float()).sum(-1, keepdim=True) / scale   # (B, H, 1)
+        logits = torch.cat([logits, lcur], dim=-1)
+    w = torch.softmax(logits, dim=-1)
+    row = torch.zeros((q.shape[0], lc), dtype=torch.float32, device=dev)
+    row[:, :n] = w[..., :n].mean(dim=1)
+    att = torch.einsum("bhl,lbhd->bhd", w[..., :n].to(v.dtype), v[:n])
+    if k_cur is not None:
+        row[:, cache_pos] += w[..., n].mean(dim=1)
+        att = (att.float() + w[..., n:] * v_cur.float()).to(v.dtype)
+    return att.to(q.dtype), row

@@ -24,6 +24,13 @@ counterpart of `chatterbox_embed_tpu/models/t3.py`: one utterance
 - Sampling parameters are one value for every row or one per utterance
   (ops/sampling.py:SamplingParams); each sub-batch of `generate_batch`
   draws from its own source.
+- The alignment guard (`alignment=True`; the JAX package's on-device copy
+  of models/alignment.py): layer min(ALIGNMENT_LAYER, L-1) runs plain
+  attention and returns its head-mean probabilities; their argmax over a
+  row's text span drives a per-row ring of attended positions, which
+  suppresses EOS until attention reaches the text's tail and forces it on a
+  long dwell there or on repeated backward jumps. Every other layer keeps
+  K1 (K1s); the fused step is off under the guard.
 """
 from __future__ import annotations
 
@@ -40,6 +47,7 @@ from ..kernels import fused_decode
 from ..ops import sampling
 from . import layers as L
 from . import llama
+from .alignment import ALIGNMENT_LAYER
 
 
 class T3Cond(NamedTuple):
@@ -170,6 +178,61 @@ def _build_context(params, cond: T3Cond, text_tokens: torch.Tensor,
 # inference
 # ---------------------------------------------------------------------------
 
+class AlignState(NamedTuple):
+    """The alignment guard's per-utterance state, on the device."""
+    ring: torch.Tensor          # (U, 6) int32: the last attended text positions
+    complete: torch.Tensor      # (U,) bool: attention reached the text's tail
+    completed_at: torch.Tensor  # (U,) int32: the step after that happened
+
+
+def init_align(n_utt: int, device) -> AlignState:
+    return AlignState(torch.zeros((n_utt, 6), dtype=torch.int32, device=device),
+                      torch.zeros((n_utt,), dtype=torch.bool, device=device),
+                      torch.zeros((n_utt,), dtype=torch.int32, device=device))
+
+
+def alignment_flags(align: AlignState, i: int):
+    """(force_eos, suppress_eos), each (U,) bool, at global step i: force
+    on a dwell of more than 15 steps after completion or on >= 3 backward
+    jumps of more than 3 positions in the ring; suppress while incomplete
+    and not forced (the JAX package's decode_block.alignment_flags)."""
+    long_tail = align.complete & ((i - align.completed_at) > 15)
+    back = align.ring[:, 1:] < align.ring[:, :-1] - 3
+    force = long_tail | (back.sum(dim=1) >= 3)
+    return force, ~align.complete & ~force
+
+
+def _align_logits(lg: torch.Tensor, align: AlignState, i: int, eos: int) -> torch.Tensor:
+    """EOS logit surgery before sampling: a forced row keeps only EOS (0,
+    every other id -1e30); a suppressed row loses EOS (-1e30)."""
+    force, suppress = alignment_flags(align, i)
+    eos_oh = torch.arange(lg.shape[-1], device=lg.device) == eos
+    neg = torch.tensor(-1e30, dtype=lg.dtype, device=lg.device)
+    forced = torch.where(eos_oh, torch.zeros((), dtype=lg.dtype, device=lg.device), neg)
+    lg = torch.where(force[:, None], forced[None], lg)
+    return torch.where(suppress[:, None] & eos_oh[None], neg, lg)
+
+
+def _align_update(align: AlignState, arow: torch.Tensor, text_start: int,
+                  text_len: torch.Tensor, i: int) -> AlignState:
+    """Fold step i's spy row (B, Lc) into the state: the argmax of the
+    cond rows' probabilities over each row's text span [text_start,
+    text_start + text_len) is the attended position; reaching text_len - 2
+    completes the row at step i + 1."""
+    n_utt = text_len.shape[0]
+    kidx = torch.arange(arow.shape[1], device=arow.device)
+    in_text = (kidx[None] >= text_start) & (kidx[None] < text_start + text_len[:, None])
+    trow = arow[:n_utt] * in_text
+    trow = trow / trow.sum(dim=-1, keepdim=True).clamp_min(1e-9)
+    pos = trow.argmax(dim=-1).to(torch.int32) - text_start
+    reached = pos >= text_len - 2
+    newly = reached & ~align.complete
+    return AlignState(torch.cat([align.ring[:, 1:], pos[:, None]], dim=1),
+                      align.complete | reached,
+                      torch.where(newly, torch.full_like(align.completed_at, i + 1),
+                                  align.completed_at))
+
+
 class DecodeState(NamedTuple):
     """A resumable decode. `cache`, `logits` and `counts` are updated in
     place by decode_block."""
@@ -180,6 +243,7 @@ class DecodeState(NamedTuple):
     done: torch.Tensor          # (U,) bool: the row has emitted EOS
     forwards: int = 0           # decode forwards run; may pass i by the steps
                                 # run between the host's EOS checks
+    align: Optional[AlignState] = None   # the guard's state (prefill makes it)
 
 
 def prefill(params, context, cfg: T3Config, total: int, pad_len: int,
@@ -206,7 +270,8 @@ def prefill(params, context, cfg: T3Config, total: int, pad_len: int,
                           device=dev)
     counts0[:, cfg.start_speech_token] = 1
     return DecodeState(cache, logits0, counts0, 0,
-                       torch.zeros((n_utt,), dtype=torch.bool, device=dev))
+                       torch.zeros((n_utt,), dtype=torch.bool, device=dev),
+                       align=init_align(n_utt, dev))
 
 
 _TEXT_BUCKETS = (48, 96, 192, 384, 768)
@@ -299,7 +364,7 @@ def _fused_params(params, cfg: T3Config, dtype):
 
 def start_generation(params, cond: T3Cond, text_tokens: np.ndarray, *,
                      cfg_weight, max_new_tokens: int,
-                     text_lens: Optional[np.ndarray] = None,
+                     text_lens: Optional[np.ndarray] = None, alignment: bool = False,
                      cfg: T3Config = T3Config(), dtype=torch.float32,
                      device=None, free_bytes: Optional[int] = None):
     """Left-pad the text (U, T) to its bucket, build the context and
@@ -307,14 +372,16 @@ def start_generation(params, cond: T3Cond, text_tokens: np.ndarray, *,
     above max_decode_utterances, whose fence reads `free_bytes` (default:
     the device's free memory now); generate_batch sub-batches below it.
     Returns (state, info) with the decode's p_len, pad, cfg_on,
-    cache_total, the K1 hole (or None), use_fused and the fused step's
-    weights (or None).
+    cache_total, the K1 hole (or None), use_fused, the fused step's weights
+    (or None), and the guard's align_layer, text_start and per-row text_len
+    (None without `alignment`).
 
     The fused step (K4) serves when CHATTERBOX_FUSED_STEP=1, at most
     FUSED_STEP_MAX_UTTERANCES utterances, a config `fused_decode.plan`
     takes, and unragged rows: its RoPE position is one for every row, and
     it attends [pad, pos] with no hole. These gates decide before any
-    launch."""
+    launch. Under `alignment` it is off: the guard's spy layer runs plain
+    attention."""
     device = resolve_device(device)
     tt_np = np.atleast_2d(np.asarray(text_tokens, np.int32))
     u, lt = tt_np.shape
@@ -334,8 +401,15 @@ def start_generation(params, cond: T3Cond, text_tokens: np.ndarray, *,
     if u > cap_utt:
         raise ValueError(f"{u} utterances > max_decode_utterances({cap})={cap_utt} for "
                          f"one lock-step decode; generate_batch sub-batches")
-    use_fused = (_use_fused_step() and u <= FUSED_STEP_MAX_UTTERANCES
+    use_fused = (_use_fused_step() and not alignment and u <= FUSED_STEP_MAX_UTTERANCES
                  and fused_decode.plan(cfg.llama, (2 if cfg_on else 1) * u) is not None)
+    align_layer = text_start = text_len = None
+    if alignment:
+        align_layer = min(ALIGNMENT_LAYER, cfg.llama.num_layers - 1)
+        text_start = pad + cond_width(cond, cfg)
+        lens_np = (np.asarray(text_lens, np.int32).reshape(-1) if text_lens is not None
+                   else np.full((u,), lt, np.int32))
+        text_len = torch.from_numpy(lens_np).to(device)
     total = -(-cap // CACHE_ALIGN) * CACHE_ALIGN
     key_valid = hole = None
     if text_lens is not None:
@@ -357,7 +431,8 @@ def start_generation(params, cond: T3Cond, text_tokens: np.ndarray, *,
     state = prefill(params, context, cfg, total, pad, cfg_on, dtype, key_valid)
     info = dict(p_len=p_len, pad=pad, cfg_on=cfg_on, cache_total=total, hole=hole,
                 use_fused=use_fused,
-                fused=_fused_params(params, cfg, dtype) if use_fused else None)
+                fused=_fused_params(params, cfg, dtype) if use_fused else None,
+                align_layer=align_layer, text_start=text_start, text_len=text_len)
     return state, info
 
 
@@ -375,12 +450,15 @@ def decode_block(params, state: DecodeState, ginfo: dict, sp: sampling.SamplingP
     finished rows emit EOS there, and n_new counts as the JAX while-loop
     does (up to the step that finished the last row). The decode step is
     the fused kernel when ginfo["use_fused"], else llama.forward (K1, or
-    K1s under CHATTERBOX_DEFER_KV=1).
+    K1s under CHATTERBOX_DEFER_KV=1). With ginfo["align_layer"] set, the
+    guard's EOS surgery runs before each sample and its state takes the
+    spy layer's row after each forward.
 
     Returns (state, tokens (block, U) int32 numpy, zero past n_new, n_new).
     The state's cache, logits and counts are updated in place."""
     p_len, pad_len, cfg_on = ginfo["p_len"], ginfo["pad"], ginfo["cfg_on"]
     cache, logits, counts, i0, done0 = state.cache, state.logits, state.counts, state.i, state.done
+    align_layer, align = ginfo["align_layer"], state.align
     n_utt = counts.shape[0]
     b = logits.shape[0]
     eos = cfg.stop_speech_token
@@ -404,6 +482,8 @@ def decode_block(params, state: DecodeState, ginfo: dict, sp: sampling.SamplingP
             lg, counts, valid_size=cfg.start_speech_token, eos_id=eos,
             temperature=sp.temperature, repetition_penalty_val=sp.repetition_penalty,
             min_p=sp.min_p, top_p=sp.top_p, use_top_p=use_top_p)
+        if align_layer is not None:
+            lg = _align_logits(lg, align, i, eos)
         tok = sampling.sample_token(lg, draws.gumbel(i, tuple(lg.shape)).to(dev))
         tok = torch.where(done, torch.full_like(tok, eos), tok)  # finished rows emit EOS
         toks.append(tok)
@@ -419,11 +499,14 @@ def decode_block(params, state: DecodeState, ginfo: dict, sp: sampling.SamplingP
                 cfg.llama, dtype)
         else:
             pos_id = torch.full((b, 1), p_len - pad_len + i, dtype=torch.int64, device=dev)
-            hh, cache = llama.forward(params["llama"], emb[:, None, :].to(dtype), pos_id,
-                                      cache=cache, cache_pos=p_len + i, cfg=cfg.llama,
-                                      dtype=dtype, flash_start=pad_len,
-                                      flash_hole=ginfo["hole"])
-            hh = hh[:, -1]
+            out = llama.forward(params["llama"], emb[:, None, :].to(dtype), pos_id,
+                                cache=cache, cache_pos=p_len + i, cfg=cfg.llama,
+                                dtype=dtype, flash_start=pad_len, flash_hole=ginfo["hole"],
+                                collect_attn_layer=align_layer)
+            hh, cache = out[0][:, -1], out[1]
+            if align_layer is not None:
+                align = _align_update(align, out[2], ginfo["text_start"],
+                                      ginfo["text_len"], i)
         logits = L.linear(params["speech_head"], hh, torch.float32)
     steps = len(toks)
     tok_np = (torch.stack(toks).cpu().numpy().astype(np.int32) if steps
@@ -436,13 +519,14 @@ def decode_block(params, state: DecodeState, ginfo: dict, sp: sampling.SamplingP
             n_new = int(hit[0]) + 1
     out = np.zeros((block, n_utt), np.int32)
     out[:n_new] = tok_np[:n_new]
-    return DecodeState(cache, logits, counts, i0 + n_new, done, state.forwards + steps), out, n_new
+    return (DecodeState(cache, logits, counts, i0 + n_new, done, state.forwards + steps, align),
+            out, n_new)
 
 
 def _stream_rows(params, cond: T3Cond, text_tokens, text_lens, draws, temperature,
                  cfg_weight, repetition_penalty, min_p, top_p, *, max_new_tokens: int,
                  stop_on_eos: bool, block: int, cfg: T3Config, dtype, device,
-                 free_bytes, info: Optional[dict]):
+                 free_bytes, info: Optional[dict], alignment: bool = False):
     """Prefill one lock-step batch of U rows and yield (n, U) int32 token
     blocks as they decode (the JAX package's generate_stream loop). `info`,
     if given, receives start_generation's info (without the weights) and
@@ -450,7 +534,7 @@ def _stream_rows(params, cond: T3Cond, text_tokens, text_lens, draws, temperatur
     n_utt = np.atleast_2d(text_tokens).shape[0]
     state, ginfo = start_generation(params, cond, text_tokens, cfg_weight=cfg_weight,
                                     max_new_tokens=max_new_tokens, text_lens=text_lens,
-                                    cfg=cfg, dtype=dtype, device=device,
+                                    alignment=alignment, cfg=cfg, dtype=dtype, device=device,
                                     free_bytes=free_bytes)
     sp = sampling.SamplingParams(*(sampling.sampling_param(v, n_utt, device) for v in (
         temperature, cfg_weight, repetition_penalty, min_p, top_p)))
@@ -473,7 +557,8 @@ def _stream_rows(params, cond: T3Cond, text_tokens, text_lens, draws, temperatur
 
 def _generate_rows(params, cond: T3Cond, text_tokens, text_lens, draws, temperature,
                    cfg_weight, repetition_penalty, min_p, top_p, *, max_new_tokens: int,
-                   stop_on_eos: bool, cfg: T3Config, dtype, device, free_bytes):
+                   stop_on_eos: bool, cfg: T3Config, dtype, device, free_bytes,
+                   alignment: bool = False):
     """Prefill and decode one lock-step batch of U rows. Returns (tokens
     (steps, U) int32 numpy, info of start_generation plus decode_steps)."""
     info: dict = {}
@@ -481,7 +566,7 @@ def _generate_rows(params, cond: T3Cond, text_tokens, text_lens, draws, temperat
         params, cond, text_tokens, text_lens, draws, temperature, cfg_weight,
         repetition_penalty, min_p, top_p, max_new_tokens=max_new_tokens,
         stop_on_eos=stop_on_eos, block=DECODE_BLOCK, cfg=cfg, dtype=dtype, device=device,
-        free_bytes=free_bytes, info=info))
+        free_bytes=free_bytes, info=info, alignment=alignment))
     n_utt = np.atleast_2d(text_tokens).shape[0]
     tokens = np.concatenate(blocks) if blocks else np.zeros((0, n_utt), np.int32)
     return tokens, info
@@ -493,13 +578,14 @@ def generate_stream(params, cond: T3Cond, text_tokens: np.ndarray, *,
                     repetition_penalty=1.2, min_p=0.05, top_p=1.0,
                     stop_on_eos: bool = True, seed: int = 0, block: int = DECODE_BLOCK,
                     text_lens: Optional[np.ndarray] = None, draws=None,
-                    cfg: T3Config = T3Config(), dtype=torch.float32, device=None,
-                    info: Optional[dict] = None):
+                    alignment: bool = False, cfg: T3Config = T3Config(),
+                    dtype=torch.float32, device=None, info: Optional[dict] = None):
     """Yield numpy blocks of generated speech-token ids as they decode,
     `block` steps at a time: (n,) for one utterance, (n, U) for more. The
     final block includes the terminating EOS when one is produced.
 
     draws: the Gumbel source (`sampling.Draws(seed, device)` by default).
+    alignment: the alignment guard (module docstring).
     info: optional dict that receives p_len, pad, cache_total, use_fused and
     decode_steps (the decode forwards run so far)."""
     device = resolve_device(device)
@@ -509,7 +595,7 @@ def generate_stream(params, cond: T3Cond, text_tokens: np.ndarray, *,
                             cfg_weight, repetition_penalty, min_p, top_p,
                             max_new_tokens=max_new_tokens, stop_on_eos=stop_on_eos,
                             block=block, cfg=cfg, dtype=dtype, device=device,
-                            free_bytes=None, info=info):
+                            free_bytes=None, info=info, alignment=alignment):
         yield blk[:, 0] if single else blk
 
 
@@ -518,14 +604,15 @@ def generate(params, cond: T3Cond, text_tokens: np.ndarray, *,
              max_new_tokens: int = 1000, temperature: float = 0.8,
              cfg_weight: float = 0.0, repetition_penalty: float = 1.2,
              min_p: float = 0.05, top_p: float = 1.0, stop_on_eos: bool = True,
-             seed: int = 0, draws=None, cfg: T3Config = T3Config(),
-             dtype=torch.float32, device=None, info: Optional[dict] = None
-             ) -> np.ndarray:
+             seed: int = 0, draws=None, alignment: bool = False,
+             cfg: T3Config = T3Config(), dtype=torch.float32, device=None,
+             info: Optional[dict] = None) -> np.ndarray:
     """Speech tokens for one utterance. text_tokens: (1, T) wrapped in
     SOT/EOT. Returns the generated ids INCLUDING the terminating EOS if one
     was produced.
 
     draws: the Gumbel source (`sampling.Draws(seed, device)` by default).
+    alignment: the alignment guard (module docstring).
     info: optional dict that receives p_len, pad, cache_total, use_fused and
     decode_steps (the number of decode forwards run)."""
     if np.atleast_2d(text_tokens).shape[0] != 1:
@@ -535,7 +622,8 @@ def generate(params, cond: T3Cond, text_tokens: np.ndarray, *,
     tokens, ginfo = _generate_rows(
         params, cond, text_tokens, None, draws, temperature, cfg_weight,
         repetition_penalty, min_p, top_p, max_new_tokens=max_new_tokens,
-        stop_on_eos=stop_on_eos, cfg=cfg, dtype=dtype, device=device, free_bytes=None)
+        stop_on_eos=stop_on_eos, cfg=cfg, dtype=dtype, device=device, free_bytes=None,
+        alignment=alignment)
     out = tokens[:, 0]
     eos_at = np.nonzero(out == cfg.stop_speech_token)[0]
     if stop_on_eos and eos_at.size:
@@ -572,8 +660,9 @@ def generate_batch(params, cond: T3Cond, text_tokens: np.ndarray, *,
                    stop_on_eos: bool = True, seed: int = 0,
                    text_lens: Optional[np.ndarray] = None,
                    make_draws: Optional[Callable[[int], object]] = None,
-                   cfg: T3Config = T3Config(), dtype=torch.float32, device=None,
-                   free_bytes: Optional[int] = None, info: Optional[dict] = None) -> list:
+                   alignment: bool = False, cfg: T3Config = T3Config(),
+                   dtype=torch.float32, device=None, free_bytes: Optional[int] = None,
+                   info: Optional[dict] = None) -> list:
     """Speech tokens for U utterances decoded in lock-step, with per-row
     sampling and EOS. text_tokens (U, T) are right-padded to a common width
     with valid lengths `text_lens`. Returns a list of U 1-D id arrays, each
@@ -586,9 +675,10 @@ def generate_batch(params, cond: T3Cond, text_tokens: np.ndarray, *,
     Above max_decode_utterances the rows decode in sequential sub-batches;
     sub-batch [s0, s1) samples with seed + s0 from `make_draws(seed + s0)`
     (default `sampling.Draws(seed + s0, device)`). The fence reads
-    `free_bytes` (default: the device's free memory, read once). info:
-    optional dict that receives decode_steps (summed over sub-batches),
-    sub_batches and sub_batch_utts."""
+    `free_bytes` (default: the device's free memory, read once).
+    alignment: the alignment guard (module docstring), with each row's own
+    text length. info: optional dict that receives decode_steps (summed
+    over sub-batches), sub_batches and sub_batch_utts."""
     device = resolve_device(device)
     tt = np.atleast_2d(np.asarray(text_tokens, np.int32))
     n_utt, lt = tt.shape
@@ -609,7 +699,7 @@ def generate_batch(params, cond: T3Cond, text_tokens: np.ndarray, *,
             *(_slice_param(v, s0, s1) for v in (temperature, cfg_weight,
                                                 repetition_penalty, min_p, top_p)),
             max_new_tokens=max_new_tokens, stop_on_eos=stop_on_eos, cfg=cfg,
-            dtype=dtype, device=device, free_bytes=free_bytes)
+            dtype=dtype, device=device, free_bytes=free_bytes, alignment=alignment)
         steps += ginfo["decode_steps"]
         for col in range(s1 - s0):
             seq = tokens[:, col]

@@ -2,7 +2,17 @@
 of `chatterbox_embed_tpu/tts.py`: one utterance (`generate`: tokenize, T3,
 S3Gen), streamed (`stream_generate`: audio chunks as the tokens decode) or a
 batch of them (`generate_batch`: one lock-step T3 decode, then S3Gen in
-sub-batches), with one voice or one voice per utterance.
+sub-batches), with one voice or one voice per utterance, and long text
+(`generate_long_text`, `generate_long_text_batch`: sanitise, chunk, one
+pooled `generate_batch` over every chunk, the retry pyramid for chunks that
+fail a gate, stitch, watermark).
+
+CHATTERBOX_ALIGNMENT=1 (read at call time) decodes under the alignment
+guard (models/t3.py). The long-text path catches only what the JAX
+package's catches are there for: the token guard's TokenGuardError (retry),
+a batch of voices generate_batch cannot pool (VoiceBatchError: the chunks
+run one by one) and a bad job's text or voice file (per-job isolation).
+CUDA and kernel errors propagate.
 
 The voice comes from prepared conditionals, or is prepared from reference
 audio (`prepare_conditionals_with_audio_prompt`: prompt mel, CAMPPlus
@@ -17,15 +27,18 @@ conditioning encoders in fp32.
 """
 from __future__ import annotations
 
+import logging
 import os
+import tempfile
 import time
 from pathlib import Path
-from typing import Any, Dict, List, Optional
+from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
 
 from . import streaming
+from .chunking import ChunkInfo, SmartChunker
 from .conditionals import Conditionals
 from .config import S3_SR, S3GEN_SR, ChatterboxConfig
 from .device import lap, resolve_device
@@ -38,11 +51,48 @@ from .models.s3gen import VoiceProfile
 from .models.t3 import T3Cond
 from .models.tokenizer import EnTokenizer, FallbackTokenizer
 from .ops.sampling import Draws
+from .parameters import AdaptiveParameterManager
+from .quality import ChunkQualityAnalyzer
+from .stitching import AdvancedStitcher
+from .text import STORY_BREAK_TOKEN, AdvancedTextSanitizer
 from .utils import audio_io
 from .utils import weights as weights_mod
+from .utils.watermark import get_watermarker
 from .weights import FP32_S3GEN, from_arrays, place
 
+logger = logging.getLogger(__name__)
+
+CHATTERBOX_RUNTIME_VERSION = "torch-0.1.0"
 _TOKEN_BUCKETS = (128, 256, 512, 1024)
+# what a long-text job's own text or voice file may raise before generation;
+# generate_long_text_batch records it as that job's error
+_JOB_ERRORS = (ValueError, OSError, KeyError)
+
+
+class TokenGuardError(RuntimeError):
+    """T3 gave no or too few speech tokens (`_guard_tokens`). The long-text
+    retry pyramid retries on this error and on nothing else."""
+
+
+class VoiceBatchError(ValueError):
+    """generate_batch cannot hold these voices in one lock-step batch (the
+    JAX package's multi-voice asserts); the long-text path then runs the
+    chunks one by one."""
+
+
+def _env_bool(key: str, default: bool = False) -> bool:
+    raw = os.getenv(key)
+    if raw is None:
+        return default
+    return str(raw).strip().lower() in ("1", "true", "yes", "on")
+
+
+def _alignment_on() -> bool:
+    """CHATTERBOX_ALIGNMENT=1 (read at call time): decode under the
+    alignment guard (models/t3.py), meant for long-form and unattended
+    synthesis, where a runaway or truncated chunk costs more than the spy
+    layer's plain attention."""
+    return _env_bool("CHATTERBOX_ALIGNMENT", False)
 
 
 def _bucket_tokens(n: int) -> int:
@@ -126,13 +176,26 @@ class ChatterboxTTS:
                           else place(ve_params, self.device, torch.float32))
         self.tokenizer = tokenizer
         self.conds = conds.to(self.device) if conds is not None else None
+        self.watermarker = get_watermarker()
+        # the long-text components
+        self.smart_chunker = SmartChunker()
+        self.param_manager = AdaptiveParameterManager()
+        self.text_sanitizer = AdvancedTextSanitizer()
+        self.quality_analyzer = ChunkQualityAnalyzer()
+        self.advanced_stitcher = AdvancedStitcher(sample_rate=self.sr)
+        self.prod_mode = _env_bool("CHATTERBOX_PROD_MODE")
+        self.enable_quality_analysis = (_env_bool("CHATTERBOX_ENABLE_QUALITY_ANALYSIS")
+                                        and not self.prod_mode)
+        self.experiment_config = self._init_experiment_config()
         # conditional cache: the last prepared voice, by its key
         self._cached_conditionals: Optional[Conditionals] = None
         self._cache_key = None
         self._conditional_cache_hits = 0
         self._conditional_cache_misses = 0
-        # the last request's stage timings and counts (_record_perf)
+        # the last request's stage timings and counts (_record_perf), and
+        # their totals over a long-text job (_perf_acc_snapshot)
         self.perf: Dict[str, float] = {}
+        self._perf_acc: Dict[str, float] = self._fresh_perf_acc()
         # per-voice S3Gen prompt rows on the device (_gen_device_voice_row)
         self._gen_dev_rows: Dict = {}
 
@@ -171,6 +234,113 @@ class ChatterboxTTS:
             conds = Conditionals.load(str(ckpt_dir / "conds.pt"), device=device)
         return cls(state["t3"], state["s3gen"], tokenizer, conds, config, dtype, device,
                    ve_params=state["ve"])
+
+    # ------------------------------------------------------------------
+    # experiment switches (environment, read once at construction)
+    # ------------------------------------------------------------------
+
+    def _init_experiment_config(self) -> Dict[str, Any]:
+        """The JAX package's CHATTERBOX_EXPERIMENT_* switches of the
+        long-text gates: all on unless CHATTERBOX_EXPERIMENT_MODE is set;
+        ISSUE_ONLY_MODE keeps only the token guards and the silence gate."""
+        cfg = {
+            "enabled": _env_bool("CHATTERBOX_EXPERIMENT_MODE", False),
+            "name": os.getenv("CHATTERBOX_EXPERIMENT_NAME", "default"),
+            "issue_only_mode": _env_bool("CHATTERBOX_EXPERIMENT_ISSUE_ONLY_MODE", False),
+            "enable_token_guards": _env_bool("CHATTERBOX_EXPERIMENT_ENABLE_TOKEN_GUARDS", True),
+            "enable_silence_gate": _env_bool("CHATTERBOX_EXPERIMENT_ENABLE_SILENCE_GATE", True),
+            "enable_qa_regen": _env_bool("CHATTERBOX_EXPERIMENT_ENABLE_QA_REGEN", True),
+            "enable_retry_param_drift": _env_bool(
+                "CHATTERBOX_EXPERIMENT_ENABLE_RETRY_PARAM_DRIFT", True),
+            "enable_adaptive_voice_params": _env_bool(
+                "CHATTERBOX_EXPERIMENT_ENABLE_ADAPTIVE_VOICE_PARAMS", True),
+            "force_adaptive_blend": None,
+        }
+        raw = os.getenv("CHATTERBOX_EXPERIMENT_FORCE_ADAPTIVE_BLEND")
+        if raw:
+            try:
+                cfg["force_adaptive_blend"] = max(0.0, min(1.0, float(raw)))
+            except ValueError:
+                pass
+        if not cfg["enabled"]:
+            cfg.update(name="off", issue_only_mode=False, enable_token_guards=True,
+                       enable_silence_gate=True, enable_qa_regen=True,
+                       enable_retry_param_drift=True, enable_adaptive_voice_params=True,
+                       force_adaptive_blend=None)
+        elif cfg["issue_only_mode"]:
+            cfg.update(enable_retry_param_drift=False, enable_adaptive_voice_params=False,
+                       enable_qa_regen=False)
+        return cfg
+
+    # ------------------------------------------------------------------
+    # warm-up
+    # ------------------------------------------------------------------
+
+    def warmup(self, batch_sizes=(1,), max_new_tokens: int = 1000,
+               token_buckets=(256,), stream: bool = False) -> Dict[str, float]:
+        """Run the serving shapes once before the first request: on the card
+        build every serving kernel (K1/K1s, K2, K3, K4: one nvcc each, all
+        started together) and, under CHATTERBOX_FUSED_STEP=1, stack K4's
+        weight wall; then the JAX package's stages: `generate` or
+        `generate_batch` per batch size, `_run_s3gen` per token bucket and
+        optionally a stream's first chunk.
+
+        Uses the prepared conditionals when present, else prepares
+        throwaway ones from a synthetic 10 s tone and restores the
+        conditional-cache state afterwards. Returns {stage: seconds}. A
+        stage that trips the token guard is skipped (the JAX package skips a
+        failed stage); any other error propagates."""
+        timings: Dict[str, float] = {}
+        saved = (self.conds, self._cached_conditionals, self._cache_key)
+        tmp = None
+
+        def stage(name, fn):
+            t0 = time.time()
+            try:
+                fn()
+            except TokenGuardError:
+                logger.warning("warmup stage %s tripped the token guard (skipped)", name)
+                return
+            if self.device.type == "cuda":
+                torch.cuda.synchronize(self.device)
+            timings[name] = time.time() - t0
+
+        if self.device.type == "cuda":
+            stage("kernels_s", _build_serving_kernels)
+            if (t3_mod._use_fused_step() and t3_mod.fused_decode.plan(
+                    self.cfg.t3.llama, 2) is not None):
+                stage("fused_wall_s", lambda: t3_mod._fused_params(
+                    self.t3_params, self.cfg.t3, self.dtype))
+        try:
+            if self.conds is None:
+                fd, tmp = tempfile.mkstemp(suffix=".wav")
+                os.close(fd)
+                t = np.arange(self.DEC_COND_LEN) / S3GEN_SR
+                wav = (0.2 * np.sin(2 * np.pi * 180 * t)
+                       * (1 + 0.3 * np.sin(2 * np.pi * 2.5 * t))).astype(np.float32)
+                audio_io.write_wav(tmp, wav, S3GEN_SR)
+                stage("conditionals_s", lambda: self.prepare_conditionals_with_audio_prompt(tmp))
+            text = "This warmup sentence compiles the serving shape buckets."
+            for b in batch_sizes:
+                if b == 1:
+                    stage("batch1_s", lambda: self.generate(
+                        text, max_new_tokens=max_new_tokens, seed=0))
+                else:
+                    stage(f"batch{b}_s", lambda b=b: self.generate_batch(
+                        [text] * b, max_new_tokens=max_new_tokens, seed=0))
+            gen = self.conds.gen
+            for bkt in token_buckets:
+                stage(f"tokens{bkt}_s", lambda bkt=bkt: self._run_s3gen(
+                    np.zeros((int(bkt),), np.int32), gen, seed=0))
+            if stream:
+                stage("stream_first_chunk_s", lambda: next(iter(
+                    self.stream_generate(text, max_new_tokens=50, seed=0))))
+        finally:
+            if tmp is not None:
+                self.conds, self._cached_conditionals, self._cache_key = saved
+                os.unlink(tmp)
+        logger.info("warmup: %s", {k: round(v, 2) for k, v in timings.items()})
+        return timings
 
     # ------------------------------------------------------------------
     # conditional preparation + cache
@@ -328,11 +498,33 @@ class ChatterboxTTS:
     # generation
     # ------------------------------------------------------------------
 
+    @staticmethod
+    def _fresh_perf_acc() -> Dict[str, float]:
+        return {"t3_s": 0.0, "s3gen_s": 0.0, "speech_tokens": 0, "decode_steps": 0,
+                "samples": 0, "requests": 0}
+
+    def _perf_acc_snapshot(self) -> Dict[str, float]:
+        """The totals of every request since the job began (a long-text
+        job's first pass and retries), with their rates."""
+        acc = self._perf_acc
+        audio_s = acc["samples"] / float(self.sr)
+        total = acc["t3_s"] + acc["s3gen_s"]
+        return {
+            "t3_s": acc["t3_s"], "s3gen_s": acc["s3gen_s"], "total_s": total,
+            "speech_tokens": int(acc["speech_tokens"]),
+            "decode_steps": int(acc["decode_steps"]),
+            "tokens_per_s": acc["speech_tokens"] / acc["t3_s"] if acc["t3_s"] > 0 else 0.0,
+            "audio_s": audio_s,
+            "rtf": total / audio_s if audio_s > 0 else 0.0,
+            "requests": int(acc["requests"]),
+        }
+
     def _record_perf(self, t3_s: float, s3gen_s: float, tokens: int,
                      samples: int, decode_steps: int, batch: int = 1) -> Dict[str, float]:
         """The last request's stage timings (host clock around work that
-        ends in a device->host copy) and counts; for a batch, rtf is the
-        stage seconds over the summed audio seconds."""
+        ends in a device->host copy) and counts, also folded into the job's
+        totals; for a batch, rtf is the stage seconds over the summed audio
+        seconds."""
         total = t3_s + s3gen_s
         audio_s = samples / float(self.sr)
         self.perf = {
@@ -343,6 +535,13 @@ class ChatterboxTTS:
             "rtf": total / audio_s if audio_s > 0 else 0.0,
             "batch": int(batch),
         }
+        acc = self._perf_acc
+        acc["t3_s"] += t3_s
+        acc["s3gen_s"] += s3gen_s
+        acc["speech_tokens"] += int(tokens)
+        acc["decode_steps"] += int(decode_steps)
+        acc["samples"] += int(samples)
+        acc["requests"] += int(batch)
         return self.perf
 
     def _run_t3(self, text: str, conds: Conditionals, *, temperature, cfg_weight,
@@ -355,8 +554,8 @@ class ChatterboxTTS:
             self.t3_params, conds.t3, text_tokens, max_new_tokens=max_new_tokens,
             temperature=temperature, cfg_weight=cfg_weight,
             repetition_penalty=repetition_penalty, min_p=min_p, top_p=top_p,
-            seed=seed, draws=draws, cfg=self.cfg.t3, dtype=self.dtype,
-            device=self.device, info=info)
+            seed=seed, draws=draws, alignment=_alignment_on(), cfg=self.cfg.t3,
+            dtype=self.dtype, device=self.device, info=info)
         # generate stops at (and includes) the first EOS; drop it and every
         # other non-speech id
         return s3gen_mod.drop_invalid_tokens(speech)
@@ -382,10 +581,12 @@ class ChatterboxTTS:
         return wav[0, :n_samples].float().cpu().numpy()
 
     def _guard_tokens(self, speech_tokens: np.ndarray):
+        if not self.experiment_config.get("enable_token_guards", True):
+            return
         if speech_tokens.size == 0:
-            raise RuntimeError("T3 produced empty speech token sequence (likely early EOS)")
+            raise TokenGuardError("T3 produced empty speech token sequence (likely early EOS)")
         if speech_tokens.size < 8:
-            raise RuntimeError(
+            raise TokenGuardError(
                 f"T3 produced too few speech tokens after filtering ({speech_tokens.size} < 8)")
 
     def generate(self, text, repetition_penalty=1.2, min_p=0.05, top_p=1.0,
@@ -513,17 +714,18 @@ class ChatterboxTTS:
 
         make_draws: draw-source factory, called with seed + s0 for the T3
         sub-batch from row s0 and with `seed` for every S3Gen dispatch
-        (default `Draws(s, device)`)."""
+        (default `Draws(s, device)`). Voices that cannot share one batch
+        raise VoiceBatchError."""
         multi = isinstance(conds, (list, tuple))
         dev = self.device
         if multi:
             conds_list = [c.to(dev) for c in conds]
             if len(conds_list) != len(texts):
-                raise ValueError(f"multi-voice: {len(conds_list)} Conditionals for "
-                                 f"{len(texts)} texts")
+                raise VoiceBatchError(f"multi-voice: {len(conds_list)} Conditionals for "
+                                      f"{len(texts)} texts")
             pts = [c.t3.cond_prompt_speech_tokens for c in conds_list]
             if len({None if p is None else p.shape[-1] for p in pts}) != 1:
-                raise ValueError("multi-voice: T3 cond prompt lengths must match")
+                raise VoiceBatchError("multi-voice: T3 cond prompt lengths must match")
             t3_cond = t3_mod.T3Cond(
                 speaker_emb=torch.cat([c.t3.speaker_emb.reshape(1, -1) for c in conds_list]),
                 cond_prompt_speech_tokens=(None if pts[0] is None else torch.cat(
@@ -555,8 +757,9 @@ class ChatterboxTTS:
             self.t3_params, t3_cond, text_tokens, max_new_tokens=max_new_tokens,
             temperature=temperature, cfg_weight=cfg_weight,
             repetition_penalty=repetition_penalty, min_p=min_p, top_p=top_p,
-            seed=seed, text_lens=text_lens, make_draws=make_draws, cfg=self.cfg.t3,
-            dtype=self.dtype, device=dev, info=info)
+            seed=seed, text_lens=text_lens, make_draws=make_draws,
+            alignment=_alignment_on(), cfg=self.cfg.t3, dtype=self.dtype, device=dev,
+            info=info)
         t3_s = time.time() - t0
         t0 = time.time()
         outs, lens, vinfo = self._vocode_batch(
@@ -666,3 +869,469 @@ class ChatterboxTTS:
                     prompt_feat=torch.cat([r["pf"] for r in rows]),
                     embedding=torch.cat([r["em"] for r in rows]),
                     prompt_len=np.asarray(p_lens, np.int64), p_bkt=p_bkt)
+
+    # ------------------------------------------------------------------
+    # long text: chunk -> pooled batch -> retry -> stitch -> watermark
+    # ------------------------------------------------------------------
+
+    def _generate_with_prepared_conditionals(self, text: str, conditionals: Conditionals,
+                                             exaggeration=None, repetition_penalty=1.2,
+                                             min_p=0.05, top_p=1.0, cfg_weight=0.3,
+                                             temperature=0.6,
+                                             max_new_tokens_override: Optional[int] = None,
+                                             return_token_count: bool = False, seed: int = 0,
+                                             draws=None):
+        """One utterance with the given conditionals (emotion replaced when
+        `exaggeration` is given): T3, the token guard, S3Gen. `draws`
+        serves both stages (default: a `Draws(seed, device)` each).
+        Returns (1, T), with the token count when asked."""
+        conds = conditionals.to(self.device)
+        if exaggeration is not None:
+            conds = conds.replace_emotion(exaggeration)
+        info: dict = {}
+        t0 = time.time()
+        speech_tokens = self._run_t3(
+            text, conds, temperature=temperature, cfg_weight=cfg_weight,
+            repetition_penalty=repetition_penalty, min_p=min_p, top_p=top_p,
+            max_new_tokens=max_new_tokens_override or 1000, seed=seed, draws=draws,
+            info=info)
+        t3_s = time.time() - t0
+        self._guard_tokens(speech_tokens)
+        t0 = time.time()
+        wav = self._run_s3gen(speech_tokens, conds.gen, seed=seed, draws=draws)[None, :]
+        self._record_perf(t3_s, time.time() - t0, speech_tokens.size, wav.size,
+                          info["decode_steps"])
+        if return_token_count:
+            return wav, int(speech_tokens.size)
+        return wav
+
+    def chunk_text(self, text: str, target_chars: int = 400,
+                   max_chars: int = 600) -> List[ChunkInfo]:
+        """Sanitise, then smart-chunk each part between story breaks on its
+        own: a break never lands inside a chunk, and the chunk before it is
+        marked (has_story_break, paragraph_break_after) for the stitcher's
+        pause. Ids run over the whole text."""
+        sanitized = self.text_sanitizer.deep_clean(text)
+        segments = [s for s in sanitized.split(STORY_BREAK_TOKEN) if s.strip()]
+        chunks: List[ChunkInfo] = []
+        for si, segment in enumerate(segments):
+            part = self.smart_chunker.smart_chunk(segment, target_chars, max_chars)
+            if not part:
+                continue
+            if chunks:
+                part[0].is_first_chunk = False
+            if si < len(segments) - 1:
+                part[-1].has_story_break = True
+                part[-1].paragraph_break_after = True
+            part[-1].is_last_chunk = False
+            for ch in part:
+                ch.id = len(chunks)
+                chunks.append(ch)
+        if chunks:
+            chunks[-1].is_last_chunk = True
+        return chunks
+
+    def _job_settings(self, adaptive_voice_param_blend: float):
+        """(blend, max attempts, fail on a bad chunk) of a job: the forced
+        blend of the experiment config wins; CHATTERBOX_CHUNK_REGEN_ATTEMPTS
+        (4) and CHATTERBOX_FAIL_ON_BAD_CHUNK (off) are read at call time."""
+        blend = self.experiment_config.get("force_adaptive_blend")
+        if blend is None:
+            blend = adaptive_voice_param_blend
+        return (blend, int(os.getenv("CHATTERBOX_CHUNK_REGEN_ATTEMPTS", "4")),
+                _env_bool("CHATTERBOX_FAIL_ON_BAD_CHUNK", False))
+
+    def generate_chunks(self, chunk_infos: List[ChunkInfo],
+                        voice_profile_path: Optional[str] = None,
+                        saved_voice_path: Optional[str] = None,
+                        audio_prompt_path: Optional[str] = None,
+                        exaggeration=0.5, cfg_weight=0.6, temperature=0.7,
+                        adaptive_voice_param_blend: float = 0.2,
+                        max_new_tokens: int = 1000, seed: int = 0,
+                        make_draws=None) -> Tuple[List[np.ndarray], Dict[str, Any]]:
+        """Every chunk of one story with the voice named by the paths (the
+        conditional cache). Per-chunk adaptive parameters; first attempts
+        of a story of more than one chunk in one lock-step `generate_batch`
+        (CHATTERBOX_BATCH_CHUNKS=0: one by one); a take that fails a gate
+        goes through the retry pyramid. Returns (segments, stats).
+
+        make_draws: draw-source factory, called with `seed` for the pooled
+        pass (generate_batch's rule) and with seed + 1000 * attempt +
+        chunk id for each retry (default `Draws(s, device)`)."""
+        conds = self._get_or_prepare_conditionals(
+            voice_profile_path, saved_voice_path, audio_prompt_path, exaggeration)
+        base = dict(exaggeration=exaggeration, cfg_weight=cfg_weight,
+                    temperature=temperature, repetition_penalty=1.2, min_p=0.05, top_p=1.0)
+        blend, max_attempts, fail_on_bad = self._job_settings(adaptive_voice_param_blend)
+        self._perf_acc = self._fresh_perf_acc()
+        per_chunk = self._adaptive_chunk_params(chunk_infos, base, blend)
+        first: Dict[int, np.ndarray] = {}
+        if len(chunk_infos) > 1 and os.getenv("CHATTERBOX_BATCH_CHUNKS", "1") != "0":
+            first = self._batched_first_pass([c.text for c in chunk_infos], per_chunk, conds,
+                                             max_new_tokens, seed, make_draws)
+        segments: List[np.ndarray] = []
+        stats = {"chunks": [], "regenerations": 0, "batched_first_pass": bool(first)}
+        t_start = time.time()
+        for idx, info in enumerate(chunk_infos):
+            wav, attempts = self._accept_or_retry(
+                info, per_chunk[idx], first.get(idx), conds, max_attempts, fail_on_bad,
+                seed, max_new_tokens, make_draws)
+            stats["regenerations"] += attempts - 1
+            stats["chunks"].append({"id": info.id, "attempts": attempts,
+                                    "samples": int(wav.size), "params": per_chunk[idx]})
+            segments.append(wav)
+        stats["generation_time_s"] = time.time() - t_start
+        stats["perf"] = self._perf_acc_snapshot()
+        return segments, stats
+
+    def _adaptive_chunk_params(self, chunk_infos: List[ChunkInfo], base: Dict[str, float],
+                               blend: float) -> List[Dict[str, float]]:
+        """Per-chunk sampling parameters: the job's base blended with the
+        AdaptiveParameterManager's profile of the chunk."""
+        per_chunk: List[Dict[str, float]] = []
+        for info in chunk_infos:
+            params = dict(base)
+            if self.experiment_config.get("enable_adaptive_voice_params", True):
+                adaptive = self.param_manager.get_adaptive_parameters(info)
+                for k in ("temperature", "exaggeration", "cfg_weight",
+                          "repetition_penalty", "min_p", "top_p"):
+                    params[k] = (1 - blend) * base.get(k, adaptive[k]) + blend * adaptive[k]
+            per_chunk.append(params)
+        return per_chunk
+
+    def _batched_first_pass(self, texts: List[str], per_chunk: List[Dict[str, float]],
+                            conds, max_new_tokens: int, seed: int,
+                            make_draws=None) -> Dict[int, np.ndarray]:
+        """One lock-step `generate_batch` over all pending chunks, each row
+        with its own parameters; `conds` is one Conditionals or one per row.
+        Returns {row: wav}, or {} when the voices cannot share a batch
+        (VoiceBatchError: the caller runs the chunks one by one).
+
+        CHATTERBOX_CONTINUOUS=1 asks for the JAX package's slot-refill
+        engine, which the port does not have yet (ROADMAP item 18): it
+        raises NotImplementedError rather than run another route."""
+        if _env_bool("CHATTERBOX_CONTINUOUS", False) and len(texts) > 1:
+            raise NotImplementedError(
+                "CHATTERBOX_CONTINUOUS=1: the continuous engine (models/t3_engine.py, "
+                "serving/continuous.py) is not ported yet (ROADMAP item 18)")
+        try:
+            wavs = self.generate_batch(
+                texts,
+                temperature=np.array([p["temperature"] for p in per_chunk]),
+                cfg_weight=np.array([p["cfg_weight"] for p in per_chunk]),
+                repetition_penalty=np.array([p["repetition_penalty"] for p in per_chunk]),
+                min_p=np.array([p["min_p"] for p in per_chunk]),
+                top_p=np.array([p["top_p"] for p in per_chunk]),
+                exaggeration=np.array([p["exaggeration"] for p in per_chunk]),
+                max_new_tokens=max_new_tokens, seed=seed, conds=conds,
+                make_draws=make_draws)
+        except VoiceBatchError:
+            logger.exception("the chunks' voices cannot share a batch; one by one")
+            return {}
+        return dict(enumerate(wavs))
+
+    def _accept_or_retry(self, info: ChunkInfo, params: Dict[str, float],
+                         wav0: Optional[np.ndarray], conds: Conditionals,
+                         max_attempts: int, fail_on_bad: bool, seed: int,
+                         max_new_tokens: int, make_draws=None) -> Tuple[np.ndarray, int]:
+        """Accept the pooled take when it has at least the token guard's 8
+        tokens (in samples) and passes the gates, else run the retry
+        pyramid. Returns (wav, attempts), the pooled take counted."""
+        min_samples = 8 * 2 * 480
+        if (wav0 is not None and wav0.size >= min_samples
+                and self._chunk_gates_ok(wav0.reshape(-1), info)[0]):
+            return wav0.reshape(-1), 1
+        wav, attempts = self._generate_single_chunk_with_quality(
+            info, conds, params, max_attempts, fail_on_bad, seed, max_new_tokens, make_draws)
+        if wav0 is not None:
+            attempts += 1
+        return wav, attempts
+
+    def generate_chunks_multi(self, jobs_chunks: List[List[ChunkInfo]],
+                              jobs_conds: List[Conditionals],
+                              jobs_params: Optional[List[Dict[str, float]]] = None,
+                              adaptive_voice_param_blend: float = 0.2,
+                              max_new_tokens: int = 1000, seed: int = 0,
+                              make_draws=None
+                              ) -> List[Tuple[List[np.ndarray], Dict[str, Any]]]:
+        """The chunks of many stories, each with its own voice, in one
+        pooled lock-step `generate_batch` (per-row voices and parameters),
+        with the gates and the retry pyramid per job. Returns [(segments,
+        stats)] per job; the stage totals and the wall time are the
+        pool's. make_draws: as in generate_chunks."""
+        if len(jobs_chunks) != len(jobs_conds) or (
+                jobs_params is not None and len(jobs_params) != len(jobs_chunks)):
+            raise ValueError("generate_chunks_multi: one voice (and parameter set) per job")
+        blend, max_attempts, fail_on_bad = self._job_settings(adaptive_voice_param_blend)
+        self._perf_acc = self._fresh_perf_acc()
+        defaults = dict(exaggeration=0.5, cfg_weight=0.6, temperature=0.7,
+                        repetition_penalty=1.2, min_p=0.05, top_p=1.0)
+        rows: List[Tuple[int, ChunkInfo, Dict[str, float]]] = []
+        for j, chunks in enumerate(jobs_chunks):
+            base = dict(defaults)
+            if jobs_params and jobs_params[j]:
+                base.update({k: v for k, v in jobs_params[j].items() if v is not None})
+            for info, params in zip(chunks, self._adaptive_chunk_params(chunks, base, blend)):
+                rows.append((j, info, params))
+        first: Dict[int, np.ndarray] = {}
+        if len(rows) > 1 and os.getenv("CHATTERBOX_BATCH_CHUNKS", "1") != "0":
+            first = self._batched_first_pass(
+                [r[1].text for r in rows], [r[2] for r in rows],
+                [jobs_conds[r[0]] for r in rows], max_new_tokens, seed, make_draws)
+        out: List[Tuple[List[np.ndarray], Dict[str, Any]]] = []
+        t_start = time.time()
+        row_idx = 0
+        for j, chunks in enumerate(jobs_chunks):
+            segments: List[np.ndarray] = []
+            stats: Dict[str, Any] = {"chunks": [], "regenerations": 0,
+                                     "batched_first_pass": bool(first),
+                                     "pooled_jobs": len(jobs_chunks), "pooled_rows": len(rows)}
+            for info in chunks:
+                params = rows[row_idx][2]
+                wav, attempts = self._accept_or_retry(
+                    info, params, first.get(row_idx), jobs_conds[j], max_attempts,
+                    fail_on_bad, seed, max_new_tokens, make_draws)
+                row_idx += 1
+                stats["regenerations"] += attempts - 1
+                stats["chunks"].append({"id": info.id, "attempts": attempts,
+                                        "samples": int(wav.size), "params": params})
+                segments.append(wav)
+            out.append((segments, stats))
+        batch_perf = self._perf_acc_snapshot()
+        wall = time.time() - t_start
+        for _, stats in out:
+            stats["generation_time_s"] = wall
+            stats["perf"] = batch_perf
+        return out
+
+    def _chunk_gates_ok(self, flat: np.ndarray, info: ChunkInfo) -> Tuple[bool, str]:
+        """The chunk gates of the pooled take and of each retry: (ok,
+        reason), reason "silence" (peak < 1e-6 and rms < 1e-7) or "qa" (the
+        quality analyzer asks for a regeneration; only with
+        CHATTERBOX_ENABLE_QUALITY_ANALYSIS outside prod mode)."""
+        if self.experiment_config.get("enable_silence_gate", True):
+            peak = float(np.abs(flat).max()) if flat.size else 0.0
+            rms = float(np.sqrt(np.mean(np.square(flat)))) if flat.size else 0.0
+            if peak < 1e-6 and rms < 1e-7:
+                return False, "silence"
+        if self.enable_quality_analysis and self.experiment_config.get("enable_qa_regen", True):
+            q = self.quality_analyzer.analyze_chunk_quality(flat, self.sr, info)
+            if q.should_regenerate:
+                return False, "qa"
+        return True, ""
+
+    def _generate_single_chunk_with_quality(self, info: ChunkInfo, conds: Conditionals,
+                                            params: Dict[str, float], max_attempts: int,
+                                            fail_on_bad: bool, seed: int,
+                                            max_new_tokens: int = 1000,
+                                            make_draws=None) -> Tuple[np.ndarray, int]:
+        """The retry pyramid: attempt a runs with the parameters drifted by
+        a (temperature -0.08 a, cfg_weight +0.08 a, exaggeration -0.05 a,
+        clamped) and seed + 1000 a + chunk id. A token-guard failure or a
+        silent take retries; a QA rejection retries while attempts remain
+        and is kept on the last. When every attempt failed, half a second
+        of silence stands in (CHATTERBOX_FAIL_ON_BAD_CHUNK=1: raise).
+        Returns (wav, attempts)."""
+        drift_on = self.experiment_config.get("enable_retry_param_drift", True)
+        last_wav = None
+        for attempt in range(max_attempts):
+            p = dict(params)
+            if drift_on and attempt > 0:
+                p["temperature"] = max(0.5, p["temperature"] - 0.08 * attempt)
+                p["cfg_weight"] = min(0.8, p["cfg_weight"] + 0.08 * attempt)
+                p["exaggeration"] = max(0.1, p["exaggeration"] - 0.05 * attempt)
+            s = seed + attempt * 1000 + info.id
+            try:
+                wav = self._generate_with_prepared_conditionals(
+                    info.text, conds, exaggeration=p["exaggeration"],
+                    repetition_penalty=p["repetition_penalty"], min_p=p["min_p"],
+                    top_p=p["top_p"], cfg_weight=p["cfg_weight"],
+                    temperature=p["temperature"], max_new_tokens_override=max_new_tokens,
+                    seed=s, draws=make_draws(s) if make_draws is not None else None)
+            except TokenGuardError as e:
+                logger.warning("chunk %d attempt %d failed: %s", info.id, attempt, e)
+                continue
+            flat = wav.reshape(-1)
+            last_wav = flat
+            ok, reason = self._chunk_gates_ok(flat, info)
+            if not ok:
+                if reason == "silence":
+                    logger.warning("chunk %d attempt %d: silent output", info.id, attempt)
+                    continue
+                if attempt < max_attempts - 1:
+                    logger.info("chunk %d QA regen", info.id)
+                    continue
+            return flat, attempt + 1
+        if last_wav is None:
+            if fail_on_bad:
+                raise RuntimeError(f"chunk {info.id} failed after {max_attempts} attempts")
+            last_wav = np.zeros(self.sr // 2, np.float32)
+        return last_wav, max_attempts
+
+    def stitch_and_normalize(self, segments: List[np.ndarray], chunk_infos: List[ChunkInfo],
+                             output_path: Optional[str] = None):
+        """(wav, sample rate, seconds): fades, smart pauses, peak
+        normalisation to -0.5 dBFS; written to `output_path` when given."""
+        return self.advanced_stitcher.advanced_stitch(segments, chunk_infos, output_path)
+
+    def cleanup_chunks(self, paths: List[str]):
+        for p in paths:
+            try:
+                os.unlink(p)
+            except OSError:
+                pass
+
+    def generate_long_text(self, text: str, voice_profile_path: Optional[str] = None,
+                           saved_voice_path: Optional[str] = None,
+                           audio_prompt_path: Optional[str] = None,
+                           exaggeration=0.5, cfg_weight=0.6, temperature=0.7,
+                           target_chars: int = 400, max_chars: int = 600,
+                           output_path: Optional[str] = None, seed: int = 0,
+                           max_new_tokens: int = 1000, make_draws=None
+                           ) -> Tuple[np.ndarray, Dict[str, Any]]:
+        """The story path: chunk, generate (generate_chunks), stitch,
+        watermark. Returns (wav (1, T), metadata with the chunk stats and
+        the job's stage totals under "perf")."""
+        t0 = time.time()
+        chunks = self.chunk_text(text, target_chars, max_chars)
+        if not chunks:
+            raise ValueError("no synthesisable text after sanitisation")
+        segments, gen_stats = self.generate_chunks(
+            chunks, voice_profile_path, saved_voice_path, audio_prompt_path,
+            exaggeration, cfg_weight, temperature, max_new_tokens=max_new_tokens, seed=seed,
+            make_draws=make_draws)
+        wav, sr, duration = self.stitch_and_normalize(segments, chunks, output_path)
+        wav = self.watermarker.apply_watermark(wav, sample_rate=sr)
+        total = time.time() - t0
+        metadata = {
+            "runtime_version": CHATTERBOX_RUNTIME_VERSION,
+            "num_chunks": len(chunks),
+            "duration_s": duration,
+            "generation_time_s": total,
+            "audio_ratio": duration / total if total > 0 else 0.0,
+            "cache_stats": self.get_conditional_cache_stats(),
+            "chunk_stats": gen_stats,
+            "perf": gen_stats.get("perf", {}),
+        }
+        return wav[None, :], metadata
+
+    def generate_long_text_batch(self, texts: List[str],
+                                 voice_profile_paths: Optional[List[str]] = None,
+                                 conds_list: Optional[List[Conditionals]] = None,
+                                 exaggeration=0.5, cfg_weight=0.6, temperature=0.7,
+                                 target_chars: int = 400, max_chars: int = 600,
+                                 seed: int = 0, max_new_tokens: int = 1000,
+                                 pause_scales: Optional[List[float]] = None,
+                                 make_draws=None
+                                 ) -> List[Tuple[Optional[np.ndarray], Dict[str, Any]]]:
+        """Many stories, each with its own voice (a profile path or
+        Conditionals), through one pooled decode (generate_chunks_multi),
+        then stitched and watermarked one by one with each job's pause
+        scale (the stitcher's own is restored afterwards). Sampling
+        parameters and pause scales are one value or one per job. Entry i
+        is (wav (1, T), metadata), or (None, {"error": ...}) when job i's
+        text or voice file failed before generation; other errors
+        propagate."""
+        n = len(texts)
+        if conds_list is None:
+            if voice_profile_paths is None or len(voice_profile_paths) != n:
+                raise ValueError("generate_long_text_batch: one voice profile path per text")
+        elif len(conds_list) != n:
+            raise ValueError("generate_long_text_batch: one Conditionals per text")
+
+        def per_job(v, default):
+            if v is None:
+                v = default
+            if isinstance(v, (list, tuple, np.ndarray)):
+                if len(v) != n:
+                    raise ValueError(f"generate_long_text_batch: {len(v)} values for {n} jobs")
+                return [float(x) for x in v]
+            return [float(v)] * n
+
+        exg = per_job(exaggeration, 0.5)
+        cfgw = per_job(cfg_weight, 0.6)
+        temp = per_job(temperature, 0.7)
+        pauses = per_job(pause_scales, self.advanced_stitcher.global_pause_factor)
+        t0 = time.time()
+        errors: Dict[int, str] = {}
+        jobs_chunks: List[List[ChunkInfo]] = []
+        jobs_conds: List[Conditionals] = []
+        jobs_params: List[Dict[str, float]] = []
+        live: List[int] = []
+        for i in range(n):
+            try:
+                chunks = self.chunk_text(texts[i], target_chars, max_chars)
+                if not chunks:
+                    raise ValueError("no synthesisable text after sanitisation")
+                conds = (conds_list[i] if conds_list is not None
+                         else self._get_or_prepare_conditionals(
+                             voice_profile_path=voice_profile_paths[i], exaggeration=exg[i]))
+            except _JOB_ERRORS as e:
+                logger.exception("batch job %d failed before generation", i)
+                errors[i] = str(e)
+                continue
+            jobs_chunks.append(chunks)
+            jobs_conds.append(conds)
+            jobs_params.append(dict(exaggeration=exg[i], cfg_weight=cfgw[i],
+                                    temperature=temp[i]))
+            live.append(i)
+        gen = (self.generate_chunks_multi(jobs_chunks, jobs_conds, jobs_params,
+                                          max_new_tokens=max_new_tokens, seed=seed,
+                                          make_draws=make_draws)
+               if jobs_chunks else [])
+        results: List[Tuple[Optional[np.ndarray], Dict[str, Any]]] = [
+            (None, {"error": errors.get(i, "job skipped")}) for i in range(n)]
+        prev_pause = self.advanced_stitcher.global_pause_factor
+        try:
+            for k, i in enumerate(live):
+                segments, gen_stats = gen[k]
+                self.advanced_stitcher.global_pause_factor = pauses[i]
+                wav, sr, duration = self.stitch_and_normalize(segments, jobs_chunks[k])
+                wav = self.watermarker.apply_watermark(wav, sample_rate=sr)
+                total = time.time() - t0
+                results[i] = (wav[None, :], {
+                    "runtime_version": CHATTERBOX_RUNTIME_VERSION,
+                    "num_chunks": len(jobs_chunks[k]),
+                    "duration_s": duration,
+                    "generation_time_s": total,
+                    "audio_ratio": duration / total if total > 0 else 0.0,
+                    "cache_stats": self.get_conditional_cache_stats(),
+                    "chunk_stats": gen_stats,
+                    "perf": gen_stats.get("perf", {}),
+                    "batched_jobs": len(live),
+                })
+        finally:
+            self.advanced_stitcher.global_pause_factor = prev_pause
+        return results
+
+    def generate_long_text_with_saved_voice(self, text, saved_voice_path, audio_prompt_path,
+                                            **kw):
+        return self.generate_long_text(text, saved_voice_path=saved_voice_path,
+                                       audio_prompt_path=audio_prompt_path, **kw)
+
+    def generate_long_text_with_audio_prompt(self, text, audio_prompt_path, **kw):
+        return self.generate_long_text(text, audio_prompt_path=audio_prompt_path, **kw)
+
+    def generate_chunks_with_saved_voice(self, chunk_infos, saved_voice_path,
+                                         audio_prompt_path, **kw):
+        return self.generate_chunks(chunk_infos, saved_voice_path=saved_voice_path,
+                                    audio_prompt_path=audio_prompt_path, **kw)
+
+    def generate_chunks_with_audio_prompt(self, chunk_infos, audio_prompt_path, **kw):
+        return self.generate_chunks(chunk_infos, audio_prompt_path=audio_prompt_path, **kw)
+
+    def generate_chunks_parallel(self, chunk_infos, **kw):
+        """The chunks in parallel: generate_chunks, whose pooled first pass
+        is the lock-step batch (the JAX package's alias)."""
+        return self.generate_chunks(chunk_infos, **kw)
+
+
+def _build_serving_kernels() -> None:
+    """Build (one nvcc each, all started together) and load every kernel a
+    request can launch: K1/K1s, K2, K3 and K4. The probes build when run."""
+    from .kernels import _build, flash_attention, flash_decode, fused_decode, rel_attention
+    entries = {flash_decode: "cbx_flash_decode", rel_attention: "cbx_rel_attention",
+               flash_attention: "cbx_flash_attention", fused_decode: "cbx_fused_decode"}
+    _build.build_all([m.SOURCE for m in entries])
+    for m, entry in entries.items():
+        _build.load(m.SOURCE, entry, m._ARGTYPES)

@@ -84,7 +84,23 @@ Phases, one or more lines each, then the result line:
      gives the same conditionals and hits the conditional cache;
      ChatterboxVC converts the source; and the card's conditionals are held
      against the port's own CPU run on the same wavs and weights.
-  9. a JSON line describing each kernel, then the last line
+  9. long_text: two synthetic voices saved as `.npy` profiles; warmup()
+     with no voice prepared (kernels built, K4's wall, a throwaway voice,
+     generate, generate_batch of 4, S3Gen at 256 tokens, a stream's first
+     chunk), its stage seconds, the conditional state restored; (a) one
+     story of 4 chunks with a story break through generate_long_text:
+     one pooled generate_batch, every chunk accepted at its first take,
+     each segment 2 * tokens * 480 samples, the stitched wav finite within
+     [-1, 1], the watermark's score printed, K1 30 x steps, K2 10 x
+     dispatches, K3 dispatches x (56 fresh + 8 reused CFM steps), K4 0;
+     (b) two stories with two voices through generate_long_text_batch:
+     one pooled generate_batch of 8 rows, the same checks per job; (c) the
+     8 texts of phase 6 under CHATTERBOX_ALIGNMENT=1 with
+     CHATTERBOX_FUSED_STEP=1 asked for: K1 29 x steps (the spy layer runs
+     plain attention), K4 0, each wav 2 * tokens * 480 samples, and the
+     rows the guard stopped before the cap printed. rtf and audio_ratio
+     of each job.
+ 10. a JSON line describing each kernel, then the last line
      {"ok": true, "device": {...}}.
 
 Any failure raises and the script exits non-zero with no result line. It
@@ -233,6 +249,27 @@ WSTREAM_CHAIN = 2.0 ** -24
 COND_REF_S, COND_SRC_S, COND_NEW_TOKENS = 10, 6, 120
 COND_TOL = {"prompt_feat": 1e-3, "embedding": 1e-3, "speaker_emb": 1e-4}
 COND_TOKEN_MARGIN, COND_UNSAFE_SHARE = 5e-3, 0.10
+# long text: two stories of 4 chunks each at target 120 / max 180 characters
+# (79-166 characters a chunk, one story break in each), so one story is one
+# S3Gen dispatch of 4 rows (K2's and K3's gates hold) and the pair one of 8.
+# Random weights emit no EOS: each chunk decodes LONG_NEW_TOKENS steps.
+LONG_STORIES = [
+    "The knight rode out of the castle at dawn, past the sleeping village and the mill. "
+    "He crossed the cold river and climbed the hills until the sun stood high above him. "
+    "His horse was tired, so they rested by a stream and ate the last of the bread. "
+    "\u2042 In a cave beyond the pass a green dragon lay asleep on a bed of old gold coins. "
+    "It woke when the knight came near, looked at him for a long time, and then smiled. "
+    "They talked until the stars came out, and the knight forgot why he had come.",
+    "The harbour was quiet before the fishing boats came home with the morning tide. "
+    "Gulls circled the masts while the old keeper lit the lamp one last time that year. "
+    "Nobody on the pier remembered a morning as calm as this one had been. "
+    "\u2042 By noon the market was full of voices, baskets of silver fish and the smell of "
+    "bread. Children ran between the stalls and the dogs chased them down to the water. "
+    "Nobody noticed the small ship with red sails tied up at the end of the pier.",
+]
+LONG_CHUNKS = 4
+LONG_NEW_TOKENS = 150
+LONG_KW = dict(target_chars=120, max_chars=180, max_new_tokens=LONG_NEW_TOKENS, seed=0)
 
 
 def log(phase: str, **kw) -> None:
@@ -1284,13 +1321,8 @@ def phase_stream(card: str, tts, fused_step: bool, runs=("warmup", "timed")):
 def phase_generate_batch(card: str, tts, conds, label: str, runs=("warmup", "timed")) -> dict:
     """generate_batch on the 8 texts with `conds` (one voice or a list), once
     per entry of `runs`; checks each wav and the launch counts of the path."""
-    from chatterbox_embed_tpu_torch.models.cfm import reuse_flags
     cfg = tts.cfg
     n_layers = cfg.t3.llama.num_layers
-    n_blocks = cfg.s3gen.flow.encoder.num_blocks + cfg.s3gen.flow.encoder.num_up_blocks
-    dec = cfg.s3gen.flow.decoder
-    tblocks_fresh = (2 + dec.num_mid_blocks) * dec.n_blocks
-    tblocks_reuse = 2 * dec.n_blocks
     for run in runs:
         _reset_counts()
         wavs = tts.generate_batch(TEXTS, conds=conds, **BATCH_KW)
@@ -1304,12 +1336,8 @@ def phase_generate_batch(card: str, tts, conds, label: str, runs=("warmup", "tim
             if not np.isfinite(w).all():
                 raise AssertionError(f"row {i}: wav has non-finite samples")
         steps, dispatches = perf["decode_steps"], perf["s3gen_dispatches"]
-        flags = reuse_flags(cfg.s3gen.flow.cfm.n_timesteps, perf["cfm_cache_every"])
-        reused = sum(flags)
-        fresh = len(flags) - reused
-        want = _want(flash_decode=n_layers * steps, rel_attention=n_blocks * dispatches,
-                     flash_attention=dispatches * (tblocks_fresh * fresh
-                                                   + tblocks_reuse * reused))
+        fresh, reused = _cfm_steps(cfg, perf["cfm_cache_every"])
+        want = _want(flash_decode=n_layers * steps, **_s3gen_launches(cfg, perf))
         if counts != want or steps == 0:
             raise AssertionError(f"{label}: launches {counts}, want {want}")
         if perf["s3gen_sub_batch"] != BATCH_SUB or perf["cfm_cache_every"] != BATCH_STRIDE:
@@ -1527,6 +1555,171 @@ def phase_conditioning(card: str, tts) -> dict:
     return counts
 
 
+def _cfm_steps(cfg, stride: int):
+    """(fresh, reused) Euler steps of the CFM solver at DeepCache stride
+    `stride` (cfm.solve_euler's rule: no reuse below a stride of 2)."""
+    from chatterbox_embed_tpu_torch.models.cfm import reuse_flags
+    n_steps = cfg.s3gen.flow.cfm.n_timesteps
+    flags = (reuse_flags(n_steps, stride) if stride >= 2 and n_steps > 2
+             else [False] * n_steps)
+    return n_steps - sum(flags), sum(flags)
+
+
+def _s3gen_launches(cfg, perf: dict) -> dict:
+    """K2's and K3's launches of the S3Gen dispatches that `perf` (a
+    generate_batch's) records: every conformer block once a dispatch, and
+    every CFM transformer block once a fresh Euler step and the two outer
+    ones once a reused step."""
+    n_blocks = cfg.s3gen.flow.encoder.num_blocks + cfg.s3gen.flow.encoder.num_up_blocks
+    dec = cfg.s3gen.flow.decoder
+    fresh, reused = _cfm_steps(cfg, perf["cfm_cache_every"])
+    dispatches = perf["s3gen_dispatches"]
+    return dict(rel_attention=n_blocks * dispatches,
+                flash_attention=dispatches * ((2 + dec.num_mid_blocks) * dec.n_blocks * fresh
+                                              + 2 * dec.n_blocks * reused))
+
+
+def _long_perf(meta: dict) -> dict:
+    perf = meta["perf"]
+    return dict(t3_s=f"{perf['t3_s']:.4f}", s3gen_s=f"{perf['s3gen_s']:.4f}",
+                audio_s=f"{perf['audio_s']:.3f}", rtf=f"{perf['rtf']:.4f}",
+                generation_time_s=f"{meta['generation_time_s']:.4f}",
+                audio_ratio=f"{meta['audio_ratio']:.4f}")
+
+
+def _check_story(label: str, wav, meta: dict, row_tokens) -> None:
+    """Every chunk accepted at its pooled take, each segment 2 * tokens *
+    480 samples (no chunk filled with silence), the stitched wav finite
+    and within [-1, 1]."""
+    stats = meta["chunk_stats"]
+    attempts = [c["attempts"] for c in stats["chunks"]]
+    samples = [c["samples"] for c in stats["chunks"]]
+    if (not stats["batched_first_pass"] or set(attempts) != {1} or stats["regenerations"]
+            or meta["num_chunks"] != LONG_CHUNKS):
+        raise AssertionError(f"{label}: {meta['num_chunks']} chunks, batched "
+                             f"{stats['batched_first_pass']}, attempts {attempts}")
+    if samples != [2 * n * 480 for n in row_tokens] or 0 in row_tokens:
+        raise AssertionError(f"{label}: segment samples {samples} for tokens {row_tokens}")
+    if wav.ndim != 2 or wav.shape[0] != 1 or not np.isfinite(wav).all() \
+            or float(np.abs(wav).max()) > 1.0:
+        raise AssertionError(f"{label}: stitched wav {wav.shape}, finite "
+                             f"{bool(np.isfinite(wav).all())}, peak {np.abs(wav).max()}")
+
+
+def phase_long_text(card: str, tts) -> dict:
+    """Long text at full width (see the module docstring): warmup, (a) one
+    story through generate_long_text, (b) two stories with two voices
+    through one pooled generate_long_text_batch, (c) the 8 texts under the
+    alignment guard. Returns the launches of (a), (b) and (c)."""
+    from chatterbox_embed_tpu_torch.utils import audio_io
+    from chatterbox_embed_tpu_torch.utils.watermark import ImplicitWatermarker
+    cfg = tts.cfg
+    n_layers = cfg.t3.llama.num_layers
+    launches = {}
+    tmp = tempfile.mkdtemp(prefix="cbx_smoke_long_")
+    try:
+        profiles = []
+        for seed in (1, 3):
+            ref, prof = (os.path.join(tmp, f"{n}{seed}.{ext}")
+                         for n, ext in (("ref", "wav"), ("voice", "npy")))
+            audio_io.write_wav(ref, _voice(seed, COND_REF_S, 24_000), 24_000)
+            tts.save_voice_profile(ref, prof)
+            profiles.append(prof)
+
+        tts.conds = None
+        tts.clear_conditional_cache()
+        with _env({"CHATTERBOX_FUSED_STEP": "1"}):
+            stages = tts.warmup(batch_sizes=(1, LONG_CHUNKS), max_new_tokens=20,
+                                token_buckets=(256,), stream=True)
+        if tts.conds is not None or set(stages) != {
+                "kernels_s", "fused_wall_s", "conditionals_s", "batch1_s",
+                f"batch{LONG_CHUNKS}_s", "tokens256_s", "stream_first_chunk_s"}:
+            raise AssertionError(f"warmup: stages {sorted(stages)}, conds {tts.conds}")
+        log("warmup", **{k: f"{v:.4f}" for k, v in stages.items()}, card=repr(card))
+
+        # (a) one story, one voice
+        _reset_counts()
+        wav, meta = tts.generate_long_text(LONG_STORIES[0], voice_profile_path=profiles[0],
+                                           **LONG_KW)
+        counts, perf = _counts(), dict(tts.perf)      # perf: the pooled generate_batch's
+        _check_story("long_text", wav, meta, perf["row_tokens"])
+        want = _want(flash_decode=n_layers * perf["decode_steps"], **_s3gen_launches(cfg, perf))
+        if counts != want or perf["s3gen_dispatches"] != 1:
+            raise AssertionError(f"long_text: launches {counts}, want {want}")
+        log("long_text", chunks=meta["num_chunks"], row_tokens=",".join(
+            map(str, perf["row_tokens"])), decode_steps=perf["decode_steps"],
+            s3gen_dispatches=perf["s3gen_dispatches"], duration_s=f"{meta['duration_s']:.3f}",
+            peak_abs=f"{float(np.abs(wav).max()):.4f}",
+            watermark=f"{ImplicitWatermarker().get_watermark(wav[0], tts.sr):.4f}",
+            launches=json.dumps({k: v for k, v in counts.items() if v}).replace(" ", ""),
+            **_long_perf(meta), card=repr(card))
+        launches["long_text"] = counts
+
+        # (b) two stories, two voices, one pooled decode
+        calls = []
+        pooled = tts.generate_batch
+        tts.generate_batch = lambda texts, **kw: calls.append(len(texts)) or pooled(texts, **kw)
+        try:
+            _reset_counts()
+            res = tts.generate_long_text_batch(LONG_STORIES, voice_profile_paths=profiles,
+                                               pause_scales=[1.0, 1.4], **LONG_KW)
+            counts, perf = _counts(), dict(tts.perf)
+        finally:
+            del tts.generate_batch
+        if calls != [2 * LONG_CHUNKS]:
+            raise AssertionError(f"long_text_batch: generate_batch calls {calls}")
+        for j, (wav, meta) in enumerate(res):
+            if wav is None:
+                raise AssertionError(f"long_text_batch: job {j} failed: {meta}")
+            if meta["chunk_stats"]["pooled_jobs"] != 2 or meta["batched_jobs"] != 2:
+                raise AssertionError(f"long_text_batch: job {j} pooled "
+                                     f"{meta['chunk_stats']['pooled_jobs']}")
+            _check_story(f"long_text_batch job {j}", wav, meta,
+                         perf["row_tokens"][j * LONG_CHUNKS:(j + 1) * LONG_CHUNKS])
+        want = _want(flash_decode=n_layers * perf["decode_steps"], **_s3gen_launches(cfg, perf))
+        if counts != want:
+            raise AssertionError(f"long_text_batch: launches {counts}, want {want}")
+        for j, (wav, meta) in enumerate(res):
+            log("long_text_batch", job=j, chunks=meta["num_chunks"],
+                duration_s=f"{meta['duration_s']:.3f}", rows=perf["batch"],
+                decode_steps=perf["decode_steps"], s3gen_dispatches=perf["s3gen_dispatches"],
+                cfm_stride=perf["cfm_cache_every"],
+                launches=json.dumps({k: v for k, v in counts.items() if v}).replace(" ", ""),
+                **_long_perf(meta), card=repr(card))
+        launches["long_text_batch"] = counts
+
+        # (c) the alignment guard on the 8 texts; the fused step is asked
+        # for and must stay off
+        conds = _random_conds(cfg, "cuda")
+        with _env({"CHATTERBOX_ALIGNMENT": "1", "CHATTERBOX_FUSED_STEP": "1"}):
+            _reset_counts()
+            wavs = tts.generate_batch(TEXTS, conds=conds, **BATCH_KW)
+            counts, perf = _counts(), dict(tts.perf)
+        cap = BATCH_KW["max_new_tokens"]
+        for i, (w, n) in enumerate(zip(wavs, perf["row_tokens"])):
+            if w.shape != (2 * n * 480,) or n == 0 or not np.isfinite(w).all():
+                raise AssertionError(f"alignment row {i}: wav {w.shape} for {n} tokens")
+        want = _want(flash_decode=(n_layers - 1) * perf["decode_steps"],
+                     **_s3gen_launches(cfg, perf))
+        if counts != want or perf["decode_steps"] == 0:
+            raise AssertionError(f"alignment: launches {counts}, want {want} (K1 on every "
+                                 f"layer but the spy layer, no fused step)")
+        log("alignment", rows=len(wavs), row_tokens=",".join(map(str, perf["row_tokens"])),
+            stopped_before_cap=sum(n < cap for n in perf["row_tokens"]), cap=cap,
+            decode_steps=perf["decode_steps"],
+            launches=json.dumps({k: v for k, v in counts.items() if v}).replace(" ", ""),
+            t3_s=f"{perf['t3_s']:.4f}", ms_per_step=f"{1e3 * perf['t3_s'] / perf['decode_steps']:.3f}",
+            s3gen_s=f"{perf['s3gen_s']:.4f}", audio_s=f"{perf['audio_s']:.3f}",
+            batch_rtf=f"{perf['rtf']:.4f}", card=repr(card))
+        launches["alignment"] = counts
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    tts.conds = None
+    tts.clear_conditional_cache()
+    torch.cuda.empty_cache()
+    return launches
+
+
 # the path whose launch count each kernel's JSON entry reports: the
 # streamed request for K1 and K4, the paths that run the others, and for the
 # two probe kernels their probe's entry point
@@ -1606,6 +1799,8 @@ if __name__ == "__main__":
     phase_done("stream_generate")
     launches["generate_audio_prompt"] = phase_conditioning(card, tts)
     phase_done("conditioning")
+    launches.update(phase_long_text(card, tts))
+    phase_done("long_text")
     for name, path in MAIN_PATH.items():
         if launches[path][name] == 0:
             raise AssertionError(f"{name} was not launched on its path {path}")

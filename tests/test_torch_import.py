@@ -43,7 +43,7 @@ def _run(code):
 def test_port_imports_with_jax_blocked():
     res = _run(BLOCKED_IMPORT)
     assert res.returncode == 0, res.stderr
-    assert int(res.stdout.split()[-1]) >= 35, res.stdout
+    assert int(res.stdout.split()[-1]) >= 56, res.stdout
 
 
 @pytest.mark.parametrize("module", ["chatterbox_embed_tpu.models.llama",
@@ -72,10 +72,18 @@ def test_blocker_refuses_jax_free_modules_of_the_jax_package_too(module):
                                     "chatterbox_embed_tpu_torch.kernels.fused_decode",
                                     "chatterbox_embed_tpu_torch.vc",
                                     "chatterbox_embed_tpu_torch.probes.weight_stream",
-                                    "chatterbox_embed_tpu_torch.probes.decode_anatomy"])
+                                    "chatterbox_embed_tpu_torch.probes.decode_anatomy",
+                                    "chatterbox_embed_tpu_torch.chunking",
+                                    "chatterbox_embed_tpu_torch.text.sanitizer",
+                                    "chatterbox_embed_tpu_torch.parameters.adaptive",
+                                    "chatterbox_embed_tpu_torch.quality.analyzer",
+                                    "chatterbox_embed_tpu_torch.stitching.stitcher",
+                                    "chatterbox_embed_tpu_torch.models.alignment",
+                                    "chatterbox_embed_tpu_torch.tts"])
 def test_streaming_and_fused_step_import_with_jax_blocked(module):
-    """The streaming path, the fused decode step, voice conversion and the
-    probes, each alone in a process where importing jax or the JAX package
+    """The streaming path, the fused decode step, voice conversion, the
+    probes, and the long-text helpers and pipeline with the alignment
+    guard, each alone in a process where importing jax or the JAX package
     fails."""
     code = (BLOCKED_IMPORT.split("import chatterbox_embed_tpu_torch as pkg")[0]
             + f"import {module}\n"
