@@ -15,11 +15,24 @@
 // K1s. The softmax is an fp32 online softmax with scale 1/sqrt(D); q.k and
 // p.v accumulate in fp32 whatever the input dtype; the output has q's dtype.
 //
+// K1 may take a per-row span in place of the shared [start, cache_pos]: row
+// b then walks [span[b, 0], span[b, 1]] (clamped to [0, Lc - 1]) minus its
+// hole. The continuous engine gives each slot's two CFG rows the keys
+// [pad, p_len) of its own context plus the ring columns it wrote, a range
+// that may wrap; with one hole a row this is (models/t3_engine.py:
+// engine_spans):
+//   no wrap: span [pad, p_len + c],  hole [p_len, p_len + a)
+//   wrap:    span [pad, Lc - 1],     hole [p_len + c + 1, p_len + a)
+// (c: this step's ring column, a: the slot's first). An empty span (lo > hi)
+// writes 0, as a row with no live key does. The split count stays
+// splits_for(B*H, Lc); each block cuts its own row's range.
+//
 //   q            (B, H, D)              contiguous
 //   k, v         (nL, Lc, B, H, D)      contiguous, sequence-major (nL = 1
 //                                       for K1); layer `layer` is read, as a
 //                                       pointer offset (no copy)
 //   hole         (B, 2) int32           or null
+//   span         (B, 2) int32           or null (K1 only)
 //   k_cur, v_cur (B, H, D)              or null (K1)
 //   out          (B, H, D)
 //   part         (D + 2) * B*H*S fp32   workspace: the splits' partials
@@ -58,10 +71,10 @@ constexpr int kThreads = kWarps * 32;
 template <typename T>
 __global__ void __launch_bounds__(kThreads)
 decode_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-              const int* __restrict__ hole, const T* __restrict__ k_cur,
-              const T* __restrict__ v_cur, T* __restrict__ out, float* __restrict__ part,
-              int* __restrict__ counters, int bh_total, int heads, int walk_end,
-              int start, int n_splits) {
+              const int* __restrict__ hole, const int* __restrict__ span,
+              const T* __restrict__ k_cur, const T* __restrict__ v_cur, T* __restrict__ out,
+              float* __restrict__ part, int* __restrict__ counters, int bh_total, int heads,
+              int lcache, int walk_end, int start, int n_splits) {
   __shared__ float sm_m[kWarps], sm_l[kWarps];
   __shared__ float sm_acc[kWarps * kHeadDim];
   __shared__ float sm_dot[kHeadDim / 32];
@@ -69,6 +82,10 @@ decode_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restr
   const int bh = blockIdx.x;
   const int split = blockIdx.y;
   const int row = bh / heads;
+  if (span != nullptr) {
+    start = max(span[2 * row], 0);
+    walk_end = min(span[2 * row + 1], lcache - 1);
+  }
 
   const int live = walk_end - start + 1;             // <= 0: nothing to walk
   const int per = live > 0 ? (live + n_splits - 1) / n_splits : 0;
@@ -122,8 +139,8 @@ decode_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restr
 }
 
 template <typename T>
-int launch(const void* q, const void* k, const void* v, const int* hole, const void* k_cur,
-           const void* v_cur, void* out, float* part, int* counters, int batch, int heads,
+int launch(const void* q, const void* k, const void* v, const int* hole, const int* span,
+           const void* k_cur, const void* v_cur, void* out, float* part, int* counters, int batch, int heads,
            int lcache, int layer, int cache_pos, int start, int n_splits,
            cudaStream_t stream) {
   const int bh = batch * heads;
@@ -131,8 +148,8 @@ int launch(const void* q, const void* k, const void* v, const int* hole, const v
   const int walk_end = k_cur != nullptr ? cache_pos - 1 : cache_pos;
   decode_kernel<T><<<dim3(bh, n_splits), kThreads, 0, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k) + layer_off,
-      static_cast<const T*>(v) + layer_off, hole, static_cast<const T*>(k_cur),
-      static_cast<const T*>(v_cur), static_cast<T*>(out), part, counters, bh, heads,
+      static_cast<const T*>(v) + layer_off, hole, span, static_cast<const T*>(k_cur),
+      static_cast<const T*>(v_cur), static_cast<T*>(out), part, counters, bh, heads, lcache,
       walk_end, start, n_splits);
   return (int)cudaGetLastError();
 }
@@ -140,13 +157,14 @@ int launch(const void* q, const void* k, const void* v, const int* hole, const v
 }  // namespace
 
 // Plain C entry for ctypes. dtype: 0 = float32, 1 = bfloat16. k_cur and
-// v_cur are both null (K1) or both given (K1s). n_splits must be
+// v_cur are both null (K1) or both given (K1s); span (K1 only) replaces
+// start and cache_pos for every row when it is not null. n_splits must be
 // splits_for(batch * heads, lcache) (the wrapper's mirror sizes `part`
 // with it); `counters` must hold batch * heads zeros before the first
 // launch, and the kernel leaves them so. Returns the cudaError_t of the
 // launch (0 on success); it never synchronises and allocates nothing.
 extern "C" int cbx_flash_decode(const void* q, const void* k, const void* v,
-                                const int* hole, const void* k_cur,
+                                const int* hole, const int* span, const void* k_cur,
                                 const void* v_cur, void* out, float* part,
                                 int* counters, int batch, int heads, int head_dim,
                                 int lcache, int layer, int cache_pos, int start,
@@ -154,12 +172,13 @@ extern "C" int cbx_flash_decode(const void* q, const void* k, const void* v,
   if (head_dim != kHeadDim || n_splits != splits_for(batch * heads, lcache))
     return (int)cudaErrorInvalidValue;
   if ((k_cur == nullptr) != (v_cur == nullptr)) return (int)cudaErrorInvalidValue;
+  if (span != nullptr && k_cur != nullptr) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
-    return launch<float>(q, k, v, hole, k_cur, v_cur, out, part, counters, batch, heads,
-                         lcache, layer, cache_pos, start, n_splits, s);
+    return launch<float>(q, k, v, hole, span, k_cur, v_cur, out, part, counters, batch,
+                         heads, lcache, layer, cache_pos, start, n_splits, s);
   if (dtype == 1)
-    return launch<__nv_bfloat16>(q, k, v, hole, k_cur, v_cur, out, part, counters, batch,
-                                 heads, lcache, layer, cache_pos, start, n_splits, s);
+    return launch<__nv_bfloat16>(q, k, v, hole, span, k_cur, v_cur, out, part, counters,
+                                 batch, heads, lcache, layer, cache_pos, start, n_splits, s);
   return (int)cudaErrorInvalidValue;
 }

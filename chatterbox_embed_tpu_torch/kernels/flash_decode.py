@@ -9,6 +9,10 @@ deferred insert) takes the whole stacked cache (nL, Lc, B, H, D) with a
 `layer` index and the current token's `k_cur`/`v_cur`: the walk then covers
 [start, cache_pos - 1] and the current row finishes the softmax, so the
 caller writes every layer's row in one stacked insert after the layer loop.
+K1 also takes an optional per-row `span` (B, 2): row b then attends
+[span[b, 0], span[b, 1]] minus its hole in place of the shared [start,
+cache_pos] (the continuous engine's slots, models/t3_engine.py:
+engine_spans); an empty span gives 0.
 On a CUDA tensor it launches the hand-written split-KV kernel in
 `csrc/flash_decode.cu` (design notes there), one launch a call, with a
 scratch workspace kept per (device, dtype, B, H, Lc); on a CPU tensor it
@@ -42,7 +46,7 @@ GROUPS = 4
 LOADS = {torch.bfloat16: 8, torch.float32: 4}
 _SCALE_LOG2 = 0.125 * math.log2(math.e)
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
-_ARGTYPES = ([ctypes.c_void_p] * 9 + [ctypes.c_int] * 9 + [ctypes.c_void_p])
+_ARGTYPES = ([ctypes.c_void_p] * 10 + [ctypes.c_int] * 9 + [ctypes.c_void_p])
 
 
 def splits_for(bh: int, lcache: int) -> int:
@@ -95,23 +99,37 @@ def _layer_slab(k, v, layer):
     return k, v
 
 
+def _row_ranges(b, cache_pos, start, span, deferred, device):
+    """Each row's walk [lo, hi] as (B,) long tensors: the shared [start,
+    cache_pos] (cache_pos - 1 with the deferred entry), or the rows' span."""
+    if span is not None:
+        span = torch.as_tensor(span, dtype=torch.long, device=device)
+        return span[:, 0], span[:, 1]
+    last = cache_pos - 1 if deferred else cache_pos
+    return (torch.full((b,), start, dtype=torch.long, device=device),
+            torch.full((b,), last, dtype=torch.long, device=device))
+
+
 def decode_attention_reference(q, k, v, cache_pos, start=0, hole=None, layer=None,
-                               k_cur=None, v_cur=None):
+                               k_cur=None, v_cur=None, span=None):
     """Plain PyTorch version (mirrors the JAX package's
     decode_attention_reference, and its kernel's deferred-insert entry).
     q (B, H, D); k, v (Lc, B, H, D), or (nL, Lc, B, H, D) with `layer`;
     hole (B, 2) int or None. With k_cur/v_cur (B, H, D) the cache slots
     [start, cache_pos - 1] attend and the current row is one more
-    logit/value column. Returns (B, H, D) in q's dtype."""
+    logit/value column. span (B, 2) int or None: row b attends [span[b, 0],
+    span[b, 1]] in place of [start, cache_pos], and a row whose span holds
+    no live key gives 0 (the kernel's value; without a span such a row is
+    NaN, as in the JAX package). Returns (B, H, D) in q's dtype."""
     k, v = _layer_slab(k, v, layer)
     lcache = k.shape[0]
-    last = cache_pos - 1 if k_cur is not None else cache_pos
+    lo, hi = _row_ranges(q.shape[0], cache_pos, start, span, k_cur is not None, q.device)
     idx = torch.arange(lcache, device=q.device)
-    mask = ((idx <= last) & (idx >= start))[None, None, :]
+    mask = (idx[None, :] >= lo[:, None]) & (idx[None, :] <= hi[:, None])
     if hole is not None:
         hole = torch.as_tensor(hole, dtype=torch.int32, device=q.device)
-        dead = (idx[None, :] >= hole[:, :1]) & (idx[None, :] < hole[:, 1:2])
-        mask = mask & ~dead[:, None, :]
+        mask = mask & ~((idx[None, :] >= hole[:, :1]) & (idx[None, :] < hole[:, 1:2]))
+    mask = mask[:, None, :]
     scale = 1.0 / math.sqrt(q.shape[-1])
     logits = torch.einsum("bhd,kbhd->bhk", q.float(), k.float()) * scale
     logits = logits.masked_fill(~mask, float("-inf"))
@@ -121,6 +139,8 @@ def decode_attention_reference(q, k, v, cache_pos, start=0, hole=None, layer=Non
         logits = torch.cat([logits, cur], dim=-1)
         vals = torch.cat([vals, v_cur.float()[None]], dim=0)
     w = torch.softmax(logits, dim=-1)
+    if span is not None:
+        w = torch.where(mask.any(-1, keepdim=True), w, torch.zeros_like(w))
     return torch.einsum("bhk,kbhd->bhd", w, vals).to(q.dtype)
 
 
@@ -139,23 +159,27 @@ def _merge(m, l, acc, dim):
 
 @torch.no_grad()
 def walk_reference(q, k, v, cache_pos, start=0, hole=None, layer=None, k_cur=None,
-                   v_cur=None):
+                   v_cur=None, span=None):
     """The kernels' schedule (csrc/flash_decode.cu over decode_walk.cuh)
-    walked in plain PyTorch, fp32, for tests: the live range [start,
-    walk_end] cut into splits_for(B*H, Lc) splits; in each split, tiles of
-    SPLIT_WARPS * LOADS[q.dtype] * GROUPS keys, slot u of warp w's group g
-    holding key base + (u * SPLIT_WARPS + w) * GROUPS + g; per warp one max
-    a tile, exp2 with the scale folded in, one rescale a tile; the warps
-    merged, then the splits by the last block (max-rescale, empty splits
-    adding nothing); K1s's current row folded in last. Arguments as
-    decode_attention; returns (B, H, D) in q's dtype. Nothing on a serving
-    path calls it."""
+    walked in plain PyTorch, fp32, for tests: each row's live range [start,
+    walk_end] (or its span, clamped to the cache) cut into splits_for(B*H,
+    Lc) splits; in each split, tiles of SPLIT_WARPS * LOADS[q.dtype] *
+    GROUPS keys, slot u of warp w's group g holding key base + (u *
+    SPLIT_WARPS + w) * GROUPS + g; per warp one max a tile, exp2 with the
+    scale folded in, one rescale a tile; the warps merged, then the splits
+    by the last block (max-rescale, empty splits adding nothing); K1s's
+    current row folded in last. Arguments as decode_attention; returns (B,
+    H, D) in q's dtype. Nothing on a serving path calls it."""
     k, v = _layer_slab(k, v, layer)
     lcache, b, h, d = k.shape
     bh, w_n = b * h, SPLIT_WARPS
     qf = q.float().reshape(bh, d)
     kf, vf = k.float().reshape(lcache, bh, d), v.float().reshape(lcache, bh, d)
-    walk_end = cache_pos - 1 if k_cur is not None else cache_pos
+    lo_r, hi_r = _row_ranges(b, cache_pos, start, None if span is None else
+                             torch.as_tensor(span).cpu(), k_cur is not None, "cpu")
+    if span is not None:
+        lo_r, hi_r = lo_r.clamp_min(0), hi_r.clamp_max(lcache - 1)
+    start_bh, end_bh = lo_r.repeat_interleave(h), hi_r.repeat_interleave(h)
     hole_lo = torch.zeros(bh, dtype=torch.long)
     hole_hi = torch.zeros(bh, dtype=torch.long)
     if hole is not None:
@@ -165,25 +189,31 @@ def walk_reference(q, k, v, cache_pos, start=0, hole=None, layer=None, k_cur=Non
     tile = w_n * LOADS[q.dtype] * GROUPS
     slot = torch.arange(tile).reshape(LOADS[q.dtype], w_n, GROUPS).transpose(0, 1)
     slot = slot.reshape(w_n, -1)                        # (warp, its keys in a tile)
+    live_n = (end_bh - start_bh + 1).clamp_min(0)
+    per = -(-live_n // n_splits)                        # (BH,) slots a split
+    rows = torch.arange(bh)[:, None, None]
     parts = []
     for s in range(n_splits):
-        lo, hi = split_range(start, walk_end, n_splits, s)
+        lo = start_bh + s * per
+        hi = torch.minimum(end_bh, lo + per - 1)
         m = torch.full((bh, w_n), -math.inf)
         l = torch.zeros(bh, w_n)
         acc = torch.zeros(bh, w_n, d)
-        for base in range(lo, hi + 1, tile):
-            j = base + slot                                              # (W, K)
-            live = (j <= hi)[None] & ((j[None] < hole_lo[:, None, None])
-                                      | (j[None] >= hole_hi[:, None, None]))   # (BH, W, K)
-            jc = j.clamp(max=lcache - 1)
-            sc = torch.einsum("bd,wkbd->bwk", qf, kf[jc]).masked_fill(~live, -math.inf)
+        n_tiles = int(((hi - lo + 1).clamp_min(0) + tile - 1).div(tile, rounding_mode="floor")
+                      .max()) if bh else 0
+        for t in range(n_tiles):
+            j = lo[:, None, None] + t * tile + slot[None]                  # (BH, W, K)
+            live = (j <= hi[:, None, None]) & ((j < hole_lo[:, None, None])
+                                               | (j >= hole_hi[:, None, None]))
+            jc = j.clamp(0, lcache - 1)
+            sc = torch.einsum("bd,bwkd->bwk", qf, kf[jc, rows]).masked_fill(~live, -math.inf)
             m_new = torch.maximum(m, sc.amax(-1))
             keep = m_new == -math.inf                       # nothing live yet: no change
             alpha = torch.where(keep, torch.ones_like(m), _exp2s(m - m_new))
             p = torch.where(keep[..., None], torch.zeros_like(sc),
                             _exp2s(sc - m_new[..., None]))
             l = l * alpha + p.sum(-1)
-            acc = acc * alpha[..., None] + torch.einsum("bwk,wkbd->bwd", p, vf[jc])
+            acc = acc * alpha[..., None] + torch.einsum("bwk,bwkd->bwd", p, vf[jc, rows])
             m = torch.where(keep, m, m_new)
         parts.append(_merge(m, l, acc, 1))                 # the block's warps
     mb, lb, ab = _merge(*(torch.stack(x, 1) for x in zip(*parts)), 1)   # the last block
@@ -201,7 +231,14 @@ def _library():
     return _build.load(SOURCE, "cbx_flash_decode", _ARGTYPES)
 
 
-def _check(q, k, v, hole, k_cur, v_cur):
+def _check_rows(name, t, q):
+    if (t.device != q.device or t.dtype != torch.int32 or t.shape != (q.shape[0], 2)
+            or not t.is_contiguous()):
+        raise ValueError(f"decode_attention: {name} must be a contiguous "
+                         "(B, 2) int32 tensor on q's device")
+
+
+def _check(q, k, v, hole, k_cur, v_cur, span):
     if q.device.type != "cuda":
         raise ValueError(f"decode_attention: unsupported device {q.device}")
     pairs = [("k", k), ("v", v)]
@@ -227,30 +264,35 @@ def _check(q, k, v, hole, k_cur, v_cur):
         raise ValueError(f"decode_attention: head dim {q.shape[-1]} != {HEAD_DIM}")
     if not q.is_contiguous():
         raise ValueError("decode_attention: q must be contiguous")
-    if hole is not None:
-        if (hole.device != q.device or hole.dtype != torch.int32
-                or hole.shape != (q.shape[0], 2) or not hole.is_contiguous()):
-            raise ValueError("decode_attention: hole must be a contiguous "
-                             "(B, 2) int32 tensor on q's device")
+    for name, t in (("hole", hole), ("span", span)):
+        if t is not None:
+            _check_rows(name, t, q)
 
 
 def decode_attention(q, k, v, cache_pos, start=0, hole=None, layer=None,
-                     k_cur=None, v_cur=None):
+                     k_cur=None, v_cur=None, span=None):
     """q (B, H, D); k, v (Lc, B, H, D) one layer's cache, or the stacked
     (nL, Lc, B, H, D) cache with `layer`. Attends slots [start, cache_pos]
     minus each row's optional hole [lo, hi) (hole: (B, 2) int32); with
     k_cur/v_cur (B, H, D), slots [start, cache_pos - 1] and then the current
-    row (the cache slot cache_pos is not read). Returns (B, H, D) in q's
-    dtype.
+    row (the cache slot cache_pos is not read). With span ((B, 2) int32, K1
+    only) row b attends [span[b, 0], span[b, 1]] minus its hole instead, and
+    a row with no live key gives 0; the span is read on the device (no
+    check of its values on the host: the kernel clamps it to the cache).
+    Returns (B, H, D) in q's dtype.
 
     CPU tensors take the plain version; CUDA tensors launch the kernel or
     raise. A launch adds one to `decode_attention.launches` (K1) or, with
     k_cur/v_cur, to `decode_attention.launches_deferred` (K1s)."""
     if (k_cur is None) != (v_cur is None):
         raise ValueError("decode_attention: give both k_cur and v_cur, or neither")
+    if span is not None and k_cur is not None:
+        raise ValueError("decode_attention: a per-row span is K1's; the deferred entry "
+                         "takes none")
     if q.device.type == "cpu":
-        return decode_attention_reference(q, k, v, cache_pos, start, hole, layer, k_cur, v_cur)
-    _check(q, k, v, hole, k_cur, v_cur)
+        return decode_attention_reference(q, k, v, cache_pos, start, hole, layer, k_cur,
+                                          v_cur, span)
+    _check(q, k, v, hole, k_cur, v_cur, span)
     cache_pos, start = int(cache_pos), int(start)
     n_layers = k.shape[0] if k.dim() == 5 else 1
     layer = 0 if k.dim() == 4 else int(layer)
@@ -269,6 +311,7 @@ def decode_attention(q, k, v, cache_pos, start=0, hole=None, layer=None,
     rc = lib.cbx_flash_decode(
         q.data_ptr(), k.data_ptr(), v.data_ptr(),
         None if hole is None else hole.data_ptr(),
+        None if span is None else span.data_ptr(),
         k_cur.data_ptr() if deferred else None, v_cur.data_ptr() if deferred else None,
         out.data_ptr(), part.data_ptr(), counters.data_ptr(),
         b, h, d, lcache, layer, cache_pos, start, splits_for(b * h, lcache),

@@ -119,7 +119,8 @@ def forward(params, x: torch.Tensor, pos_ids: torch.Tensor,
             cache: Optional[KVCache] = None, cache_pos: int = 0,
             cfg: LlamaConfig = LlamaConfig(), dtype=torch.float32,
             flash_start: int = 0, flash_hole: Optional[torch.Tensor] = None,
-            collect_attn_layer: Optional[int] = None):
+            collect_attn_layer: Optional[int] = None,
+            flash_span: Optional[torch.Tensor] = None):
     """Run the transformer over a block of embeddings.
 
     Args:
@@ -129,7 +130,9 @@ def forward(params, x: torch.Tensor, pos_ids: torch.Tensor,
         cache): True = attend. Defaults to causal. Unused at T == 1 with a
         cache: the decode step attends slots [flash_start, cache_pos]
         through the flash-decode kernel, minus each row's dead range
-        [lo, hi) of `flash_hole` ((B, 2) int32, or None).
+        [lo, hi) of `flash_hole` ((B, 2) int32, or None); with `flash_span`
+        ((B, 2) int32) row b attends [span[b, 0], span[b, 1]] minus its hole
+        instead (the K/V insert stays at the shared cache_pos).
       cache: optional static KVCache; the block's K/V are written in place
         at [cache_pos, cache_pos + T) before attention, or, for a decode step
         under CHATTERBOX_DEFER_KV=1, for every layer at once after the loop.
@@ -143,10 +146,13 @@ def forward(params, x: torch.Tensor, pos_ids: torch.Tensor,
     h = x.to(dtype)
     cos, sin = rope_cos_sin(pos_ids, cfg)
     decode = t == 1 and cache is not None
-    defer = decode and _defer_kv_enabled()
+    defer = decode and _defer_kv_enabled() and flash_span is None
     new_ks, new_vs = [], []
     if collect_attn_layer is not None and not decode:
         raise ValueError("collect_attn_layer needs a single-token decode step with a cache")
+    if flash_span is not None and (not decode or collect_attn_layer is not None):
+        raise ValueError("flash_span needs a single-token decode step with a cache and "
+                         "no alignment spy")
     attn_row = None
 
     if attn_mask is None and not decode:
@@ -189,7 +195,8 @@ def forward(params, x: torch.Tensor, pos_ids: torch.Tensor,
                                    k_cur=k_cur, v_cur=v_cur)[:, None]
         elif decode:
             att = decode_attention(q[:, 0], cache.k[i], cache.v[i], cache_pos,
-                                   start=flash_start, hole=flash_hole)[:, None]
+                                   start=flash_start, hole=flash_hole,
+                                   span=flash_span)[:, None]
         else:
             if cache is not None:
                 k_att = cache.k[i].transpose(0, 1).to(dtype)     # (B, L, H, D)

@@ -8,11 +8,16 @@ pooled `generate_batch` over every chunk, the retry pyramid for chunks that
 fail a gate, stitch, watermark).
 
 CHATTERBOX_ALIGNMENT=1 (read at call time) decodes under the alignment
-guard (models/t3.py). The long-text path catches only what the JAX
-package's catches are there for: the token guard's TokenGuardError (retry),
-a batch of voices generate_batch cannot pool (VoiceBatchError: the chunks
-run one by one) and a bad job's text or voice file (per-job isolation).
-CUDA and kernel errors propagate.
+guard (models/t3.py); CHATTERBOX_CONTINUOUS=1 runs the long-text pooled
+pass on the slot-refill engine (serving/continuous.py). The long-text path
+catches only what the JAX package's catches are there for: the token
+guard's TokenGuardError (retry), a batch of voices generate_batch cannot
+pool (VoiceBatchError: the chunks run one by one), a chunk the engine
+refuses at submit (the lock-step batch serves) and a bad job's text or
+voice file (per-job isolation). CUDA and kernel errors propagate.
+
+Serving jobs (`generate_tts_story`, `upload_to_storage`) go through
+serving/jobs.py and serving/storage.py.
 
 The voice comes from prepared conditionals, or is prepared from reference
 audio (`prepare_conditionals_with_audio_prompt`: prompt mel, CAMPPlus
@@ -651,13 +656,7 @@ class ChatterboxTTS:
                                "conds.pt through from_local)")
         t0 = time.time()
         dev = self.device
-        gen = self.conds.gen
-        prompt_token = torch.as_tensor(np.asarray(gen["prompt_token"]), dtype=torch.int64,
-                                       device=dev)
-        prompt_feat = torch.as_tensor(np.asarray(gen["prompt_feat"]), dtype=torch.float32,
-                                      device=dev)
-        embedding = torch.as_tensor(np.asarray(gen["embedding"]), dtype=torch.float32,
-                                    device=dev)
+        prompt_token, prompt_feat, embedding = self._gen_tensors(self.conds.gen)
         tok = self.tokenizer.text_to_tokens(text)[0]
         sot, eot = self.cfg.t3.start_text_token, self.cfg.t3.stop_text_token
         text_tokens = np.concatenate([[sot], tok, [eot]]).astype(np.int32)[None]
@@ -693,6 +692,15 @@ class ChatterboxTTS:
                      "speech_tokens": int(speech.size), "decode_steps": int(info["decode_steps"]),
                      "chunks": stats["chunks"], "audio_s": stats["samples"] / float(self.sr),
                      "use_fused": bool(info["use_fused"])}
+
+    def _gen_tensors(self, gen: Dict):
+        """A voice's S3Gen prompt on the device: (prompt_token int64,
+        prompt_feat fp32, embedding fp32), one row each."""
+        dev = self.device
+        return (torch.as_tensor(np.asarray(gen["prompt_token"]), dtype=torch.int64, device=dev),
+                torch.as_tensor(np.asarray(gen["prompt_feat"]), dtype=torch.float32,
+                                device=dev),
+                torch.as_tensor(np.asarray(gen["embedding"]), dtype=torch.float32, device=dev))
 
     # ------------------------------------------------------------------
     # batched generation
@@ -1007,13 +1015,15 @@ class ChatterboxTTS:
         Returns {row: wav}, or {} when the voices cannot share a batch
         (VoiceBatchError: the caller runs the chunks one by one).
 
-        CHATTERBOX_CONTINUOUS=1 asks for the JAX package's slot-refill
-        engine, which the port does not have yet (ROADMAP item 18): it
-        raises NotImplementedError rather than run another route."""
+        CHATTERBOX_CONTINUOUS=1 (read at call time) runs the pass on the
+        slot-refill engine (`_continuous_first_pass`) when there is more
+        than one chunk; the lock-step batch serves when the engine refuses
+        a chunk before decoding (`ValueError` from its submit)."""
         if _env_bool("CHATTERBOX_CONTINUOUS", False) and len(texts) > 1:
-            raise NotImplementedError(
-                "CHATTERBOX_CONTINUOUS=1: the continuous engine (models/t3_engine.py, "
-                "serving/continuous.py) is not ported yet (ROADMAP item 18)")
+            first = self._continuous_first_pass(texts, per_chunk, conds, max_new_tokens,
+                                                seed, make_draws)
+            if first is not None:
+                return first
         try:
             wavs = self.generate_batch(
                 texts,
@@ -1029,6 +1039,48 @@ class ChatterboxTTS:
             logger.exception("the chunks' voices cannot share a batch; one by one")
             return {}
         return dict(enumerate(wavs))
+
+    def _continuous_first_pass(self, texts: List[str], per_chunk: List[Dict[str, float]],
+                               conds, max_new_tokens: int, seed: int,
+                               make_draws=None) -> Optional[Dict[int, np.ndarray]]:
+        """The pooled first pass on the slot-refill engine
+        (serving/continuous.py): rows decode at their own depths and freed
+        slots take the rest of the queue. Row r samples from make_draws(seed
+        + r). Returns {row: wav} (a row whose decode came out too short is
+        missing: the caller's retry pyramid runs it), or None when the
+        engine refuses a chunk at submit (a cond without prompt tokens, a
+        text over the bucket), before any decode. Every other error
+        propagates (the JAX package falls back on any)."""
+        from .models.t3_engine import engine_geometry
+        from .serving.continuous import ContinuousServer
+        conds_list = (list(conds) if isinstance(conds, (list, tuple))
+                      else [conds] * len(texts))
+        tok_lens = [len(self.tokenizer.text_to_tokens(t)[0]) + 2 for t in texts]
+        bucket = t3_mod._bucket(max(tok_lens))
+        cap = min(max_new_tokens, 1000)
+        _, capacity = engine_geometry(self.cfg.t3, bucket,
+                                      2 + self.cfg.t3.perceiver_num_queries, cap)
+        slots = min(len(texts), 16, t3_mod.max_decode_utterances(
+            capacity, cfg=self.cfg.t3, dtype=self.dtype,
+            free_bytes=t3_mod.free_device_bytes(self.device)))
+        srv = ContinuousServer(
+            self, slots=slots, text_bucket=bucket, max_new_tokens=cap, block=64,
+            vocode_batch=max(4, slots // 2),
+            use_top_p=bool(np.any([p["top_p"] < 1.0 for p in per_chunk])), retries=0,
+            make_draws=make_draws)
+        rid_to_row = {}
+        try:
+            for row, (text, p, c) in enumerate(zip(texts, per_chunk, conds_list)):
+                rid = srv.submit(text, c, temperature=p["temperature"],
+                                 cfg_weight=p["cfg_weight"],
+                                 repetition_penalty=p["repetition_penalty"], min_p=p["min_p"],
+                                 top_p=p["top_p"], exaggeration=p.get("exaggeration"),
+                                 seed=seed + row, max_new_tokens=max_new_tokens)
+                rid_to_row[rid] = row
+        except ValueError:
+            logger.exception("the continuous engine refused a chunk; lock-step batch")
+            return None
+        return {rid_to_row[rid]: w for rid, w in srv.drain().items()}
 
     def _accept_or_retry(self, info: ChunkInfo, params: Dict[str, float],
                          wav0: Optional[np.ndarray], conds: Conditionals,
@@ -1324,6 +1376,21 @@ class ChatterboxTTS:
         """The chunks in parallel: generate_chunks, whose pooled first pass
         is the lock-step batch (the JAX package's alias)."""
         return self.generate_chunks(chunk_infos, **kw)
+
+    # ------------------------------------------------------------------
+    # serving jobs
+    # ------------------------------------------------------------------
+
+    def upload_to_storage(self, data: bytes, dest_path: str, bucket: Optional[str] = None):
+        """R2 upload (serving/storage.py; the local-storage emulation
+        without boto3)."""
+        from .serving.storage import upload_to_r2
+        return upload_to_r2(data, dest_path, bucket)
+
+    def generate_tts_story(self, *args, **kwargs):
+        """The full serving job: serving/jobs.py:generate_tts_story."""
+        from .serving.jobs import generate_tts_story
+        return generate_tts_story(self, *args, **kwargs)
 
 
 def _build_serving_kernels() -> None:

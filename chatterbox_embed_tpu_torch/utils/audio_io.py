@@ -78,3 +78,31 @@ def load_audio(path: str, sr: Optional[int] = None, device=None) -> Tuple[np.nda
 
 def save_audio(path: str, wav: np.ndarray, sr: int):
     write_wav(path, np.asarray(wav, np.float32).reshape(-1), sr)
+
+
+def wav_to_mp3_bytes(wav: np.ndarray, sr: int, bitrate: str = "96k",
+                     headroom_db: float = -0.3) -> bytes:
+    """tensor -> MP3 bytes with clipping headroom (reference:
+    audio/conversion.py:16-131). Requires ffmpeg; falls back to WAV bytes."""
+    wav = np.clip(np.asarray(wav, np.float32).reshape(-1), -1.0, 1.0)
+    peak = np.abs(wav).max()
+    target = 10.0 ** (headroom_db / 20.0)
+    if peak > target:
+        wav = wav * (target / peak)
+    with tempfile.NamedTemporaryFile(suffix=".wav", delete=False) as f:
+        tmp_wav = f.name
+    write_wav(tmp_wav, wav, sr)
+    try:
+        if not ffmpeg_available():
+            with open(tmp_wav, "rb") as f:
+                return f.read()
+        tmp_mp3 = tmp_wav[:-4] + ".mp3"
+        subprocess.run(["ffmpeg", "-y", "-i", tmp_wav, "-b:a", bitrate, tmp_mp3],
+                       check=True, capture_output=True)
+        try:
+            with open(tmp_mp3, "rb") as f:
+                return f.read()
+        finally:
+            os.unlink(tmp_mp3)
+    finally:
+        os.unlink(tmp_wav)

@@ -1,8 +1,8 @@
 """ChatterboxVC: voice conversion and profile-based TTS, the PyTorch
 counterpart of `chatterbox_embed_tpu/vc.py` (set_target_voice / generate /
-tts / inference_from_text / clean_audio / voice profiles). The voice-clone
-production pipeline of that module (create_voice_clone, clone_voice, the
-signed callback) needs the storage layer and is not part of this port yet.
+tts / inference_from_text / clean_audio / voice profiles), and the
+voice-clone production pipeline (create_voice_clone, clone_voice, the
+signed callback) over the port's serving/storage.py.
 
 The models run on `device` (the card unless the caller names another): the
 flow and vocoder with the compute `dtype`, the conditioning encoders
@@ -10,7 +10,14 @@ flow and vocoder with the compute `dtype`, the conditioning encoders
 """
 from __future__ import annotations
 
+import base64
+import hashlib
+import hmac
+import json
+import logging
 import os
+import tempfile
+import time
 from pathlib import Path
 from typing import Any, Dict, Optional
 
@@ -30,11 +37,14 @@ from .models.s3gen import VoiceProfile
 from .models.t3 import T3Cond
 from .models.tokenizer import EnTokenizer, FallbackTokenizer
 from .ops.sampling import Draws
+from .serving import storage
 from .text import punc_norm
 from .utils import audio_io
 from .utils import weights as weights_mod
 from .utils.watermark import get_watermarker
 from .weights import FP32_S3GEN, convert_tree, place
+
+logger = logging.getLogger(__name__)
 
 _TOKEN_BUCKETS = (128, 256, 512, 1024)
 
@@ -303,6 +313,178 @@ class ChatterboxVC:
         if profile.ve_embedding is not None:
             self.ve_embedding = np.asarray(profile.ve_embedding)
         return profile
+
+
+    # ------------------------------------------------------------------
+    # clone pipeline (reference: vc.py:817-1244)
+    # ------------------------------------------------------------------
+
+    def create_voice_clone(self, audio_path: str, voice_id: str, voice_name: str = "",
+                           user_id: str = "", language: str = "en",
+                           bucket: Optional[str] = None,
+                           callback_url: Optional[str] = None,
+                           sample_text: Optional[str] = None,
+                           metadata: Optional[Dict[str, Any]] = None,
+                           is_kids_voice: bool = False) -> Dict[str, Any]:
+        """clean -> save profile -> set -> TTS sample -> MP3 -> upload ->
+        Firestore upsert -> HMAC callback (reference: vc.py:817-1244).
+
+        `metadata` follows the reference contract: may carry language,
+        is_kids_voice, callback_url, storage_metadata (user_id/voice_name),
+        model_type and explicit profile_filename / sample_filename /
+        recorded_path; when filenames are present the reference's
+        `audio/voices/{language}[/kids]/...` storage layout is used.
+        BOTH outcomes fire the signed callback: success payloads and error
+        payloads (status, error) — the round-1 build only signed success.
+        """
+        t0 = time.time()
+        metadata = metadata or {}
+        language = metadata.get("language", language)
+        is_kids_voice = bool(metadata.get("is_kids_voice", is_kids_voice))
+        callback_url = metadata.get("callback_url", callback_url)
+        storage_meta = metadata.get("storage_metadata") or {}
+        user_id = storage_meta.get("user_id", user_id)
+        voice_name = storage_meta.get("voice_name", voice_name)
+        model_type = metadata.get("model_type", "chatterbox")
+        base_path = (f"audio/voices/{language}/kids" if is_kids_voice
+                     else f"audio/voices/{language}")
+        profile_fn = metadata.get("profile_filename")
+        sample_fn = metadata.get("sample_filename")
+        recorded_path = (metadata.get("recorded_path")
+                         or metadata.get("recorded_filename") or "")
+        profile_key = (f"{base_path}/profiles/{profile_fn}" if profile_fn
+                       else f"private/users/{user_id}/voices/profiles/{voice_id}.npy")
+        sample_key = (f"{base_path}/samples/{sample_fn}" if sample_fn
+                      else f"private/users/{user_id}/voices/samples/{voice_id}.mp3")
+
+        def cb_payload(status: str, **extra) -> Dict[str, Any]:
+            p = {"status": status, "user_id": user_id, "voice_id": voice_id,
+                 "voice_name": voice_name, "language": language,
+                 "is_kids_voice": is_kids_voice, "model_type": model_type,
+                 "profile_path": profile_key, "sample_path": sample_key,
+                 "recorded_path": recorded_path}
+            p.update(extra)
+            return p
+
+        clean_path = profile_path = None
+        result: Dict[str, Any] = {"voice_id": voice_id, "voice_name": voice_name}
+        try:
+            clean_path = self.clean_audio(audio_path)
+            with tempfile.NamedTemporaryFile(suffix=".npy", delete=False) as f:
+                profile_path = f.name
+            self.save_voice_profile(clean_path, profile_path)
+            self.set_voice_profile(profile_path)
+
+            # profile upload
+            with open(profile_path, "rb") as fh:
+                profile_bytes = fh.read()
+            result["profile_url"] = storage.upload_to_r2(
+                profile_bytes, profile_key, bucket)
+            result["profile_key"] = profile_key
+
+            # sample synthesis; without a T3 path (no T3, tokenizer or speaker
+            # embedding) the cleaned reference audio itself (reference:
+            # vc.py:926-939). The JAX package also takes the reference audio
+            # when the synthesis raises; here a failed kernel propagates.
+            sample_text = sample_text or "Hello! This is a preview of your cloned voice."
+            if (self.t3_params is not None and self.tokenizer is not None
+                    and self.ve_embedding is not None):
+                sample_wav = self.tts(sample_text).reshape(-1)
+            else:
+                logger.warning("no T3 path for the sample; using reference audio")
+                sample_wav, _ = audio_io.load_audio(clean_path, sr=self.sr,
+                                                     device=self.device)
+            mp3 = audio_io.wav_to_mp3_bytes(sample_wav, self.sr)
+            result["sample_url"] = storage.upload_to_r2(mp3, sample_key, bucket,
+                                                        content_type="audio/mpeg")
+            result["sample_key"] = sample_key
+
+            # Firestore upsert (reference: vc.py voice_profiles/{voice_id})
+            try:
+                client = storage.init_firestore_client()
+                client.collection("voice_profiles").document(voice_id).set({
+                    "voice_id": voice_id, "name": voice_name, "user_id": user_id,
+                    "language": language, "profile_key": profile_key,
+                    "sample_key": sample_key, "created_at": time.time(),
+                }, merge=True)
+                result["firestore_updated"] = True
+            except Exception as e:  # noqa: BLE001
+                logger.warning("firestore upsert failed: %s", e)
+                result["firestore_updated"] = False
+
+            result["status"] = "success"
+            result["elapsed_s"] = time.time() - t0
+            if callback_url:
+                _signed_callback(callback_url, cb_payload("success"))
+            return result
+        except Exception as e:  # noqa: BLE001
+            # error-path callback (reference: vc.py:1177-1237)
+            logger.error("create_voice_clone failed: %s", e)
+            if callback_url:
+                try:
+                    _signed_callback(callback_url, cb_payload("error", error=str(e)))
+                except Exception as cb_e:  # noqa: BLE001
+                    logger.warning("error callback failed: %s", cb_e)
+            return {"status": "error", "voice_id": voice_id, "error": str(e),
+                    "generation_time": time.time() - t0}
+        finally:
+            for p in (profile_path, clean_path):
+                if p is None:
+                    continue
+                try:
+                    os.unlink(p)
+                except OSError:
+                    pass
+
+
+def _signed_callback(url: str, payload: Dict[str, Any]):
+    """HMAC-SHA256 signed POST using the reference wire protocol
+    (reference: vc.py:1147-1166): signature over "POST\\n{path}\\n{ts}\\n"+body
+    in X-Minstraly-Signature with X-Minstraly-Timestamp; unsigned when no
+    shared secret is configured."""
+    import urllib.request
+    from urllib.parse import urlparse
+    secret = os.getenv("MINSTRALY_API_SHARED_SECRET", "")
+    body = json.dumps(payload, default=str).encode()
+    headers = {"Content-Type": "application/json"}
+    if secret:
+        path = urlparse(url).path or "/api/voice-clone/callback"
+        ts = str(int(time.time() * 1000))
+        prefix = f"POST\n{path}\n{ts}\n".encode()
+        sig = hmac.new(secret.encode(), prefix + body, hashlib.sha256).hexdigest()
+        headers.update({"X-Minstraly-Timestamp": ts, "X-Minstraly-Signature": sig})
+    req = urllib.request.Request(url, data=body, method="POST", headers=headers)
+    try:
+        urllib.request.urlopen(req, timeout=15)
+    except Exception as e:  # noqa: BLE001
+        logger.warning("callback to %s failed: %s", url, e)
+
+
+def clone_voice(vc: ChatterboxVC, *, voice_id: str, voice_name: str = "",
+                user_id: str = "", language: str = "en",
+                audio_b64: Optional[str] = None, audio_r2_key: Optional[str] = None,
+                bucket: Optional[str] = None,
+                metadata: Optional[Dict[str, Any]] = None) -> Dict[str, Any]:
+    """Worker entry: bytes -> temp file -> create_voice_clone
+    (reference: vc.py:1284-1364; the reference's worker passes an unsupported
+    `profile_id` kwarg — a live bug we do not replicate)."""
+    if audio_b64:
+        data = base64.b64decode(audio_b64)
+    elif audio_r2_key:
+        data = storage.download_from_r2(audio_r2_key, bucket)
+    else:
+        raise ValueError("need audio_b64 or audio_r2_key")
+    with tempfile.NamedTemporaryFile(suffix=".wav", delete=False) as f:
+        f.write(data)
+        path = f.name
+    try:
+        return vc.create_voice_clone(path, voice_id, voice_name, user_id, language,
+                                     bucket, metadata=metadata)
+    finally:
+        try:
+            os.unlink(path)
+        except OSError:
+            pass
 
 
 def _spectral_gate_nonstationary(wav: np.ndarray, sr: int, n_fft: int = 1024,

@@ -20,6 +20,12 @@ Phases, one or more lines each, then the result line:
                            that starts inside a row's hole (splits empty at
                            both ends); timed beside the library's call at
                            both capacities
+       K1 with per-row spans (the continuous engine's step): 16 slots (32
+                           rows, Lc 1292) and 4 slots (Lc 420); rows
+                           unwrapped, wrapped, with an empty hole, a full
+                           ring, free rows (their output exactly 0),
+                           one-slot spans and a random mix; the 16-slot
+                           call timed beside SDPA with a boolean mask
        K1s flash_decode_deferred
                            its deferred-insert entry (the stacked cache with a
                            layer index, the current row folded in): B=2 and
@@ -100,7 +106,22 @@ Phases, one or more lines each, then the result line:
      plain attention), K4 0, each wav 2 * tokens * 480 samples, and the
      rows the guard stopped before the cap printed. rtf and audio_ratio
      of each job.
- 10. a JSON line describing each kernel, then the last line
+ 10. engine: a ContinuousServer of 4 slots (block 32, bucket 128, 256
+     tokens a slot) serves 10 requests with limits of 24-200 tokens, two
+     voices, one streamed; checks K1 30 x engine steps, K4 0, every wav
+     finite and 2 * tokens * 480 samples, the streamed chunks joining to
+     its wav, and two requests re-run alone in a new engine of the same
+     geometry giving equal tokens; prints steps a second, occupancy and the
+     refill, decode and vocode seconds, then the lock-step generate_batch's
+     seconds on the same requests.
+ 11. worker: three story jobs with two voices (base64 .npy profiles)
+     through RedisWorker.run_continuous on the in-memory streams and the
+     local storage emulation (a temporary CHATTERBOX_LOCAL_STORAGE,
+     WORKER_MAX_NEW_TOKENS 150); checks every job done, the DLQ empty, the
+     audio stored, the metadata `continuous`, K1 30 x engine steps; then
+     clone_voice through a ChatterboxVC on the same weights into the same
+     storage (its sample through the fused step).
+ 12. a JSON line describing each kernel, then the last line
      {"ok": true, "device": {...}}.
 
 Any failure raises and the script exits non-zero with no result line. It
@@ -108,6 +129,7 @@ needs CUDA: without a card it fails at once.
 """
 from __future__ import annotations
 
+import base64
 import contextlib
 import json
 import os
@@ -270,6 +292,40 @@ LONG_STORIES = [
 LONG_CHUNKS = 4
 LONG_NEW_TOKENS = 150
 LONG_KW = dict(target_chars=120, max_chars=180, max_new_tokens=LONG_NEW_TOKENS, seed=0)
+# K1 with per-row spans (the continuous engine's step): (slots, text
+# bucket, ring R). The worker's default engine: 16 slots = 32 CFG rows,
+# bucket 256, cond width 34, p_len 292, R 1000, Lc 1292; and the engine
+# phase's: 4 slots, bucket 128, p_len 164, R 256, Lc 420. The limits are
+# K1's (TOL): the span changes which keys a row walks, not the arithmetic.
+SPAN_GEOMETRIES = ((16, 256, 1000), (4, 128, 256))
+SPAN_COND_W = 34
+# the continuous engine at full width: a ContinuousServer of 4 slots,
+# 32-step blocks, bucket 128, 256 tokens a slot; 10 requests (the batch's 8
+# texts and two more), two voices, limits skewed from 24 to 200 tokens
+# (random weights emit no EOS: the limits set the lengths), the third one
+# streamed. Two requests run again alone in an engine of the same geometry
+# and must give the same tokens (bf16: the same GEMM shapes, each row's own
+# K1 range). The same requests then go through the lock-step
+# generate_batch at the largest limit, for its seconds only.
+ENGINE_GEO = dict(slots=4, text_bucket=128, max_new_tokens=256, block=32, vocode_batch=4)
+ENGINE_TEXTS = TEXTS + [TEXT, "The harbour was quiet before the fishing boats came home "
+                              "with the morning tide."]
+ENGINE_LIMITS = [24, 200, 40, 160, 60, 120, 30, 180, 80, 100]
+ENGINE_STREAMED = 2
+ENGINE_ALONE = (0, 5)
+# the Redis worker at full width: three story jobs (one or two chunks of
+# under 250 characters each, inside the engine's 256-token bucket), two
+# voices as base64 `.npy` profiles, through run_continuous on the in-memory
+# stream backend and the local storage emulation; WORKER_MAX_NEW_TOKENS 150
+# so that random weights end. Then one voice clone into the same storage.
+WORKER_STORIES = [
+    "The knight rode out of the castle at dawn, past the sleeping village and the mill. "
+    "\u2042 In a cave beyond the pass a green dragon lay asleep on a bed of old gold.",
+    "The harbour was quiet before the fishing boats came home with the morning tide.",
+    "By noon the market was full of voices and baskets of silver fish. \u2042 "
+    "Nobody noticed the small ship with red sails tied up at the end of the pier.",
+]
+WORKER_NEW_TOKENS = 150
 
 
 def log(phase: str, **kw) -> None:
@@ -510,9 +566,121 @@ def phase_kernel_check(card: str, deferred: bool = False) -> dict:
                     _log_time(name, t, card, b=b, lc=lc, start=start, pos=pos,
                               hole=hole is not None)
     # the JSON line reports each path's shape at Lc 512: K1 on the batched
-    # path (8 utterances), K1s on the deferred one-utterance path
+    # path (8 utterances), K1s on the deferred one-utterance path; K1 also
+    # its per-row span cases, timed at the worker's engine
+    out = {"max_abs_err": worst[torch.bfloat16], "max_abs_err_fp32": worst[torch.float32],
+           "timing": timing[(KERNEL_B if deferred else KERNEL_B_BATCH, KERNEL_LC[0])]}
+    if not deferred:
+        span = phase_span_check(card)
+        out["timing"].update(ms_span=span["timing"]["ms"],
+                             plain_ms_span=span["timing"]["plain_ms"],
+                             bound_ms_span=span["timing"]["bound_ms"],
+                             library_ms_span=span["timing"]["library_ms"])
+        out.update(max_abs_err_span=span["max_abs_err"],
+                   max_abs_err_span_fp32=span["max_abs_err_fp32"])
+        log("flash_decode_span_beside_scalar", span_ms=f"{span['timing']['ms']:.5f}",
+            scalar_ms=f"{out['timing']['ms']:.5f}", scalar_b=KERNEL_B_BATCH,
+            scalar_lc=KERNEL_LC[0], card=repr(card))
+    return out
+
+
+def _span_case(slots: int, p_len: int, ring: int, g: int, ages, pads, dead):
+    """K1's span and hole for `slots` engine slots at step g (the engine's
+    own engine_spans): each slot joined `ages` steps ago (g - gs)."""
+    from chatterbox_embed_tpu_torch.models.t3_engine import engine_spans
+
+    def cuda(x, dt=torch.int64):
+        return torch.tensor(np.asarray(x), dtype=dt, device="cuda")
+    return engine_spans(cuda(pads), cuda(g - np.asarray(ages)), cuda(dead, torch.bool), g,
+                        p_len, ring)
+
+
+def _span_keys(span, hole) -> int:
+    """Live keys over the rows of (span, hole): each span minus its hole."""
+    n = 0
+    for (lo, hi), (hlo, hhi) in zip(span.tolist(), hole.tolist()):
+        if hi >= lo:
+            n += hi - lo + 1 - max(0, min(hhi, hi + 1) - max(hlo, lo))
+    return n
+
+
+def phase_span_check(card: str) -> dict:
+    """K1 with per-row spans against its plain version at SPAN_GEOMETRIES:
+    rows unwrapped, wrapped, with an empty hole (a = 0), a full ring, free
+    rows (whose output must be exactly 0), one-slot spans and a random mix;
+    fp32 and bf16. The worker's geometry is timed in bf16 with every slot
+    live at random depths, beside SDPA with a boolean mask over the same
+    keys; the bound is the live rows' bytes."""
+    from chatterbox_embed_tpu_torch.kernels import flash_decode as fd
+    rng = np.random.default_rng(77)
+    g = torch.Generator(device="cuda").manual_seed(77)
+    h, d = KERNEL_H, KERNEL_D
+    worst = {torch.float32: 0.0, torch.bfloat16: 0.0}
+    timing = None
+    for slots, bucket, ring in SPAN_GEOMETRIES:
+        p_len = bucket + SPAN_COND_W + 2
+        lc, b = p_len + ring, 2 * slots
+        step = 3 * ring + 7                      # the ring has wrapped three times
+        c = step % ring
+        pads = rng.integers(0, bucket, slots)
+        live = np.zeros(slots, bool)
+        cases = {
+            "no_wrap": _span_case(slots, p_len, ring, step, rng.integers(0, c + 1, slots),
+                                  pads, live),
+            "wrap": _span_case(slots, p_len, ring, step, rng.integers(c + 1, ring, slots),
+                               pads, live),
+            "empty_hole": _span_case(slots, p_len, ring, step, np.full(slots, c), pads, live),
+            "full_ring": _span_case(slots, p_len, ring, step, np.full(slots, ring - 1), pads,
+                                    live),
+            "free_rows": _span_case(slots, p_len, ring, step, rng.integers(0, ring, slots),
+                                    pads, np.arange(slots) % 2 == 1),
+            "mixed": _span_case(slots, p_len, ring, step, rng.integers(0, ring, slots), pads,
+                                rng.random(slots) < 0.25),
+        }
+        one = torch.tensor(rng.integers(0, lc, b), dtype=torch.int32, device="cuda")
+        cases["one_slot"] = (torch.stack([one, one], 1).contiguous(),
+                             torch.zeros((b, 2), dtype=torch.int32, device="cuda"))
+        timed = _span_case(slots, p_len, ring, step, rng.integers(0, ring, slots), pads, live)
+        for dtype in (torch.float32, torch.bfloat16):
+            q = torch.randn((b, h, d), generator=g, device="cuda").to(dtype)
+            k, v = (torch.randn((lc, b, h, d), generator=g, device="cuda").to(dtype)
+                    for _ in range(2))
+            for name, (span, hole) in cases.items():
+                out = fd.decode_attention(q, k, v, p_len + c, span=span, hole=hole)
+                ref = fd.decode_attention_reference(q, k, v, p_len + c, span=span, hole=hole)
+                err = _check_err("flash_decode_span", out, ref, TOL[dtype], slots=slots, lc=lc,
+                                 dtype=str(dtype)[6:], case=name)
+                empty = (span[:, 0] > span[:, 1]).nonzero().flatten()
+                if empty.numel() and out[empty].abs().max().item() != 0.0:
+                    raise AssertionError(f"flash_decode_span {name}: a free row is not 0")
+                worst[dtype] = max(worst[dtype], err)
+            if dtype == torch.bfloat16 and slots == SPAN_GEOMETRIES[0][0]:
+                span, hole = timed
+                t = _timing(lambda: fd.decode_attention(q, k, v, p_len + c, span=span,
+                                                        hole=hole),
+                            lambda: fd.decode_attention_reference(q, k, v, p_len + c, span=span,
+                                                                  hole=hole))
+                keys = _span_keys(span, hole)
+                t.update(_bound(2 * h * d * (2 * keys + 2 * b), 4 * keys * h * d))
+                idx = torch.arange(lc, device="cuda")[None, :]
+                mask = ((idx >= span[:, :1]) & (idx <= span[:, 1:])
+                        & ~((idx >= hole[:, :1]) & (idx < hole[:, 1:])))
+                sq, sk, sv = q[:, :, None, :], k.permute(1, 2, 0, 3), v.permute(1, 2, 0, 3)
+                smask = mask[:, None, None, :]
+
+                def sdpa():
+                    return torch.nn.functional.scaled_dot_product_attention(
+                        sq, sk, sv, attn_mask=smask)
+                _check_err("flash_decode_span_library", sdpa()[:, :, 0],
+                           fd.decode_attention(q, k, v, p_len + c, span=span, hole=hole),
+                           TOL[dtype], slots=slots, lc=lc, call="sdpa")
+                t["library_ms"] = _library("flash_decode_span", sdpa, card, slots=slots,
+                                           lc=lc, call="sdpa_bool_mask")
+                timing = t
+                _log_time("flash_decode_span", t, card, slots=slots, rows=b, lc=lc,
+                          live_keys=keys, bound_ms=f"{t['bound_ms']:.5f}")
     return {"max_abs_err": worst[torch.bfloat16], "max_abs_err_fp32": worst[torch.float32],
-            "timing": timing[(KERNEL_B if deferred else KERNEL_B_BATCH, KERNEL_LC[0])]}
+            "timing": timing}
 
 
 def _fused_chain(fused, cfg, lc: int, dtype, g, fused32=None, b: int = KERNEL_B,
@@ -1720,6 +1888,229 @@ def phase_long_text(card: str, tts) -> dict:
     return launches
 
 
+def _serve_engine(tts, requests, geo: dict, start_step: int = 0) -> dict:
+    """Run `requests` (dicts of ContinuousServer.submit's arguments, the
+    text under "text") through a new ContinuousServer of geometry `geo`
+    until it idles, its step counter starting at `start_step`. Returns the
+    engine's completions (rid: tokens), each request's join step and slot,
+    the wavs,
+    the streamed chunks by rid, the decoder and the seconds: the wall, the
+    vocode dispatches'."""
+    from chatterbox_embed_tpu_torch.serving.continuous import ContinuousServer
+    srv = ContinuousServer(tts, **geo)
+    srv.decoder.state.g = start_step
+    completions, joined, vocode_s = {}, {}, [0.0]
+    step, vocode = srv.decoder.step, tts._vocode_batch
+
+    def recording_step():
+        out = step()
+        completions.update(out)
+        return out
+
+    refill = srv.decoder._refill
+
+    def recording_refill():
+        refill()
+        for i, sl in enumerate(srv.decoder._slots):
+            if sl.rid is not None:
+                joined.setdefault(sl.rid, (srv.decoder.state.g_start_host[i], i))
+
+    def timed_vocode(*a, **kw):
+        t0 = time.time()
+        out = vocode(*a, **kw)                   # ends in a copy to the host
+        vocode_s[0] += time.time() - t0
+        return out
+
+    srv.decoder.step = recording_step
+    srv.decoder._refill = recording_refill
+    tts._vocode_batch = timed_vocode
+    try:
+        t0 = time.time()
+        rids = [srv.submit(**r) for r in requests]
+        streamed = [rid for rid, r in zip(rids, requests) if r.get("stream")]
+        # a consumer that takes its stream from the start keeps its chunks
+        wavs, chunks = {}, {rid: srv.take_stream(rid) for rid in streamed}
+        while not srv.idle:
+            wavs.update(srv.pump())
+            for rid in streamed:
+                chunks[rid].extend(srv.take_stream(rid))
+        for rid in streamed:
+            chunks[rid].extend(srv.take_stream(rid))
+        torch.cuda.synchronize()
+        wall = time.time() - t0
+    finally:
+        del tts._vocode_batch
+    if srv.failed:
+        raise AssertionError(f"engine: failed requests {srv.failed}")
+    return dict(rids=rids, completions=completions, joined=joined, wavs=wavs, chunks=chunks,
+                decoder=srv.decoder, wall_s=wall, vocode_s=vocode_s[0])
+
+
+def phase_engine(card: str, tts) -> dict:
+    """The continuous engine at full width (ENGINE_GEO): 10 requests with
+    skewed limits through 4 slots, refills mid-decode, two voices, one
+    streamed. Checks K1 = 30 x steps and K4 = 0, every wav finite and 2 *
+    tokens * 480 samples, each request's tokens within its limit, the
+    streamed chunks joining to its wav, and two requests alone in a new
+    engine of the same geometry giving the same tokens. Prints steps a
+    second, occupancy (live slot-steps over slots x steps), and the refill,
+    decode and vocode seconds; then the lock-step generate_batch's seconds
+    on the same requests. Returns the launches."""
+    from chatterbox_embed_tpu_torch.config import SPEECH_VOCAB_SIZE
+    cfg = tts.cfg
+    n_layers = cfg.t3.llama.num_layers
+    voices = [_random_conds(cfg, "cuda", n, seed) for n, seed in ((150, 5), (110, 6))]
+    requests = [dict(text=t, conds=voices[i % 2], seed=i, temperature=0.8, cfg_weight=0.5,
+                     max_new_tokens=lim, stream=i == ENGINE_STREAMED)
+                for i, (t, lim) in enumerate(zip(ENGINE_TEXTS, ENGINE_LIMITS))]
+    _reset_counts()
+    run = _serve_engine(tts, requests, ENGINE_GEO)
+    counts = _counts()
+    dec = run["decoder"]
+    steps = dec.steps_run
+    want = dict(counts, flash_decode=n_layers * steps, flash_decode_deferred=0, fused_decode=0,
+                weight_stream=0, decode_anatomy=0)
+    if counts != want or steps == 0:
+        raise AssertionError(f"engine: launches {counts}, want K1 {n_layers} x {steps}, no K4")
+    tokens = {}
+    for rid, req in zip(run["rids"], requests):
+        toks = run["completions"][rid]
+        n = int((toks < SPEECH_VOCAB_SIZE).sum())
+        w = run["wavs"][rid]
+        if (len(toks) > req["max_new_tokens"] or n == 0 or w.shape != (2 * n * 480,)
+                or not np.isfinite(w).all()):
+            raise AssertionError(f"engine request {rid}: {len(toks)} tokens (limit "
+                                 f"{req['max_new_tokens']}), wav {w.shape}")
+        tokens[rid] = toks
+    srid = run["rids"][ENGINE_STREAMED]
+    if not np.array_equal(np.concatenate(run["chunks"][srid]), run["wavs"][srid]):
+        raise AssertionError("engine: the streamed chunks do not join to the streamed wav")
+    live = sum(len(t) for t in tokens.values())
+    occupancy = live / (dec.slots * steps)
+    log("engine", requests=len(requests), slots=dec.slots, block=dec.block, steps=steps,
+        blocks=dec.blocks_run, live_slot_steps=live, occupancy=f"{occupancy:.4f}",
+        steps_per_s=f"{steps / dec.t_decode:.2f}", ms_per_step=f"{1e3 * dec.t_decode / steps:.3f}",
+        refill_s=f"{dec.t_refill:.4f}", decode_s=f"{dec.t_decode:.4f}",
+        vocode_s=f"{run['vocode_s']:.4f}", wall_s=f"{run['wall_s']:.4f}",
+        tokens=",".join(str(len(tokens[r])) for r in run["rids"]),
+        stream_chunks=len(run["chunks"][srid]),
+        launches=json.dumps({k: v for k, v in counts.items() if v}).replace(" ", ""),
+        card=repr(card))
+    for i in ENGINE_ALONE:
+        # alone in slot 0, joining at the step it joined in traffic: K1 cuts
+        # a row's span, its ring hole included, into splits, so the split
+        # edges (and the fp32 sums' order) follow where the ring range starts
+        rid = run["rids"][i]
+        step0, slot = run["joined"][rid]
+        alone = _serve_engine(tts, [requests[i]], ENGINE_GEO, start_step=step0)
+        got, want = alone["completions"][alone["rids"][0]], tokens[rid]
+        if not np.array_equal(got, want):
+            n = min(len(got), len(want))
+            first = int(np.nonzero(got[:n] != want[:n])[0][0]) if (got[:n] != want[:n]).any() \
+                else n
+            raise AssertionError(f"engine: request {i} alone gives other tokens from token "
+                                 f"{first} ({len(got)} against {len(want)} tokens)")
+        log("engine_isolation", request=i, tokens=len(got), joined_at=step0,
+            slot_in_traffic=slot, slot_alone=0, equal=True, dtype="bfloat16")
+    t0 = time.time()
+    wavs = tts.generate_batch(ENGINE_TEXTS, conds=[voices[i % 2] for i in range(len(requests))],
+                              max_new_tokens=max(ENGINE_LIMITS), temperature=0.8,
+                              cfg_weight=0.5, seed=0)
+    perf = dict(tts.perf)
+    log("engine_lockstep", requests=len(wavs), max_new_tokens=max(ENGINE_LIMITS),
+        decode_steps=perf["decode_steps"], t3_s=f"{perf['t3_s']:.4f}",
+        s3gen_s=f"{perf['s3gen_s']:.4f}", wall_s=f"{time.time() - t0:.4f}",
+        engine_wall_s=f"{run['wall_s']:.4f}", card=repr(card))
+    return counts
+
+
+def phase_worker(card: str, tts) -> dict:
+    """The Redis worker at full width (WORKER_STORIES): run_continuous on
+    the in-memory streams and the local storage emulation. Checks every
+    job `done`, the DLQ empty, each job's audio stored and its metadata
+    `continuous`, the engine's steps > 0 and K1 = 30 x steps, K4 = 0. Then
+    clone_voice through a ChatterboxVC on the same weights (its sample's
+    1000 tokens through the fused step) into the same storage. Returns
+    the worker's launches."""
+    from chatterbox_embed_tpu_torch.serving.worker import (DLQ_STREAM, STREAM_TTS,
+                                                           InMemoryStreams, RedisWorker)
+    from chatterbox_embed_tpu_torch.utils import audio_io
+    from chatterbox_embed_tpu_torch.vc import ChatterboxVC, clone_voice
+    cfg = tts.cfg
+    n_layers = cfg.t3.llama.num_layers
+    tmp = tempfile.mkdtemp(prefix="cbx_smoke_worker_")
+    try:
+        store = os.path.join(tmp, "store")
+        b64 = []
+        for seed in (7, 8):
+            ref, prof = (os.path.join(tmp, f"{n}{seed}.{ext}")
+                         for n, ext in (("ref", "wav"), ("voice", "npy")))
+            audio_io.write_wav(ref, _voice(seed, COND_REF_S, 24_000), 24_000)
+            tts.save_voice_profile(ref, prof)
+            with open(prof, "rb") as f:
+                b64.append(base64.b64encode(f.read()).decode())
+        env = {"CHATTERBOX_LOCAL_STORAGE": store, "WORKER_CONTINUOUS": "1",
+               "WORKER_MAX_NEW_TOKENS": str(WORKER_NEW_TOKENS)}
+        with _env(env):
+            client = InMemoryStreams()
+            worker = RedisWorker(mode="tts", client=client, tts_factory=lambda: tts)
+            for i, text in enumerate(WORKER_STORIES):
+                client.xadd(STREAM_TTS, {"payload": json.dumps({
+                    "job_id": f"job{i}", "type": "tts", "story_id": f"story{i}",
+                    "user_id": "smoke", "text": text, "voice_profile_b64": b64[i % 2]})})
+            _reset_counts()
+            t0 = time.time()
+            handled = worker.run_continuous(stop_when_drained=True)
+            torch.cuda.synchronize()
+            wall = time.time() - t0
+            counts = _counts()
+            steps, audio_s = 0, 0.0
+            for i in range(len(WORKER_STORIES)):
+                status = client.hgetall(f"runpod:job:job{i}")
+                if status.get("status") != "done":
+                    raise AssertionError(f"worker job{i}: {status}")
+                result = json.loads(status["result"])
+                meta = result["metadata"]
+                if (not os.path.exists(result["storage_url"]) or result["duration"] <= 0
+                        or meta["chunk_stats"].get("continuous") is not True):
+                    raise AssertionError(f"worker job{i}: {result['storage_url']}, "
+                                         f"duration {result['duration']}")
+                steps = max(steps, meta["engine"]["steps_run"])
+                audio_s += result["duration"]
+            if handled != len(WORKER_STORIES) or client.streams.get(DLQ_STREAM):
+                raise AssertionError(f"worker: handled {handled}, DLQ "
+                                     f"{client.streams.get(DLQ_STREAM)}")
+            if steps == 0 or counts["flash_decode"] != n_layers * steps or \
+                    counts["fused_decode"] or counts["flash_decode_deferred"]:
+                raise AssertionError(f"worker: launches {counts}, want K1 {n_layers} x {steps}")
+            log("worker", jobs=handled, engine_steps=steps, audio_s=f"{audio_s:.3f}",
+                wall_s=f"{wall:.4f}", audio_ratio=f"{audio_s / wall:.4f}",
+                launches=json.dumps({k: v for k, v in counts.items() if v}).replace(" ", ""),
+                card=repr(card))
+
+            vc = ChatterboxVC(tts.s3gen_params, tts.t3_params, tts.ve_params, tts.tokenizer,
+                              config=cfg, dtype=tts.dtype, device=tts.device)
+            with open(os.path.join(tmp, "ref7.wav"), "rb") as f:
+                audio = base64.b64encode(f.read()).decode()
+            t0 = time.time()
+            with _env({"CHATTERBOX_FUSED_STEP": "1"}):
+                res = clone_voice(vc, voice_id="smoke_voice", voice_name="Smoke Voice",
+                                  user_id="smoke", audio_b64=audio)
+            doc = os.path.join(store, "firestore", "voice_profiles", "smoke_voice.json")
+            if (res.get("status") != "success" or not os.path.exists(res["profile_url"])
+                    or not os.path.exists(res["sample_url"]) or not os.path.exists(doc)):
+                raise AssertionError(f"clone_voice: {res}")
+            log("clone_voice", seconds=f"{time.time() - t0:.4f}",
+                profile_bytes=os.path.getsize(res["profile_url"]),
+                sample_bytes=os.path.getsize(res["sample_url"]), card=repr(card))
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    tts.conds = None
+    tts.clear_conditional_cache()
+    torch.cuda.empty_cache()
+    return counts
+
+
 # the path whose launch count each kernel's JSON entry reports: the
 # streamed request for K1 and K4, the paths that run the others, and for the
 # two probe kernels their probe's entry point
@@ -1801,6 +2192,10 @@ if __name__ == "__main__":
     phase_done("conditioning")
     launches.update(phase_long_text(card, tts))
     phase_done("long_text")
+    launches["engine"] = phase_engine(card, tts)
+    phase_done("engine")
+    launches["worker"] = phase_worker(card, tts)
+    phase_done("worker")
     for name, path in MAIN_PATH.items():
         if launches[path][name] == 0:
             raise AssertionError(f"{name} was not launched on its path {path}")
@@ -1814,6 +2209,7 @@ if __name__ == "__main__":
         "launches_by_path": {p: c[name] for p, c in launches.items()},
         "max_abs_err": check[name]["max_abs_err"],
         "max_abs_err_fp32": check[name].get("max_abs_err_fp32"),
+        **{key: val for key, val in check[name].items() if key.startswith("max_abs_err_span")},
         "ms": check[name]["timing"]["ms"], "plain_ms": check[name]["timing"]["plain_ms"],
         "bound_ms": check[name]["timing"]["bound_ms"],
         "bound_by": check[name]["timing"]["bound_by"],
@@ -1825,7 +2221,7 @@ if __name__ == "__main__":
         "plain_call_ms": check[name]["timing"]["plain_call_ms"],
         # K2 and K3: the all-valid mask, both block heights, the fp32 kernel
         **{key: val for key, val in check[name]["timing"].items()
-           if key.startswith(("ms_", "library_ms_", "bound_ms_"))}}
+           if key.startswith(("ms_", "plain_ms_", "library_ms_", "bound_ms_"))}}
         for name, (m, _, _, _) in _kernels().items()]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -43,7 +43,7 @@ def _run(code):
 def test_port_imports_with_jax_blocked():
     res = _run(BLOCKED_IMPORT)
     assert res.returncode == 0, res.stderr
-    assert int(res.stdout.split()[-1]) >= 56, res.stdout
+    assert int(res.stdout.split()[-1]) >= 63, res.stdout
 
 
 @pytest.mark.parametrize("module", ["chatterbox_embed_tpu.models.llama",
@@ -79,7 +79,13 @@ def test_blocker_refuses_jax_free_modules_of_the_jax_package_too(module):
                                     "chatterbox_embed_tpu_torch.quality.analyzer",
                                     "chatterbox_embed_tpu_torch.stitching.stitcher",
                                     "chatterbox_embed_tpu_torch.models.alignment",
-                                    "chatterbox_embed_tpu_torch.tts"])
+                                    "chatterbox_embed_tpu_torch.tts",
+                                    "chatterbox_embed_tpu_torch.models.t3_engine",
+                                    "chatterbox_embed_tpu_torch.serving.continuous",
+                                    "chatterbox_embed_tpu_torch.serving.jobs",
+                                    "chatterbox_embed_tpu_torch.serving.storage",
+                                    "chatterbox_embed_tpu_torch.serving.worker",
+                                    "chatterbox_embed_tpu_torch.utils.misc"])
 def test_streaming_and_fused_step_import_with_jax_blocked(module):
     """The streaming path, the fused decode step, voice conversion, the
     probes, and the long-text helpers and pipeline with the alignment
@@ -162,6 +168,10 @@ ENTRY_POINTS = [
     "next(t3.generate_stream(None, None, np.zeros((1, 4), np.int32), cfg=TINY.t3))",
     "audio_io.load_audio(WAV, sr=16_000)",
     "default_device()",
+    "t3_engine.engine_init(TINY.t3, slots=1, text_bucket=8, cond_w=34, max_new_tokens=4)",
+    "t3_engine.prefill_request(None, None, np.zeros((1, 4), np.int32), text_bucket=8, "
+    "p_len=44, cfg=TINY.t3)",
+    "t3_engine.ContinuousDecoder(None, TINY.t3, slots=1)",
 ]
 
 
@@ -176,7 +186,7 @@ def test_entry_points_need_the_card_unless_asked_for_the_cpu(call, monkeypatch, 
     from chatterbox_embed_tpu_torch.conditionals import Conditionals     # noqa: F401
     from chatterbox_embed_tpu_torch.device import default_device         # noqa: F401
     from chatterbox_embed_tpu_torch.models import layers as L            # noqa: F401
-    from chatterbox_embed_tpu_torch.models import llama, t3               # noqa: F401
+    from chatterbox_embed_tpu_torch.models import llama, t3, t3_engine    # noqa: F401
     from chatterbox_embed_tpu_torch.ops.sampling import Draws, sampling_param   # noqa: F401
     from chatterbox_embed_tpu_torch.utils import audio_io
     from torch_parity import tiny_pipeline_config
@@ -198,7 +208,7 @@ def test_device_cpu_runs_and_no_default_names_the_cpu():
     from chatterbox_embed_tpu_torch.conditionals import Conditionals
     from chatterbox_embed_tpu_torch.device import resolve_device
     from chatterbox_embed_tpu_torch.models import layers as L
-    from chatterbox_embed_tpu_torch.models import llama, t3
+    from chatterbox_embed_tpu_torch.models import llama, t3, t3_engine
     from chatterbox_embed_tpu_torch.ops import sampling
     from chatterbox_embed_tpu_torch.utils import audio_io
     from torch_parity import tiny_pipeline_config
@@ -212,7 +222,9 @@ def test_device_cpu_runs_and_no_default_names_the_cpu():
                ChatterboxVC.__init__, ChatterboxVC.from_random, ChatterboxVC.from_local,
                Conditionals.load, L.Init.__init__, sampling.Draws.__init__,
                sampling.sampling_param, llama.init_cache, t3.generate, t3.generate_batch,
-               t3.generate_stream, t3.start_generation, audio_io.load_audio):
+               t3.generate_stream, t3.start_generation, audio_io.load_audio,
+               t3_engine.engine_init, t3_engine.prefill_request,
+               t3_engine.ContinuousDecoder.__init__):
         assert inspect.signature(fn).parameters["device"].default is None, fn
     # and nothing else in the package: every function or method that takes a
     # `device` either requires it or defaults to None (the card)

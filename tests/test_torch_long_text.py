@@ -11,7 +11,7 @@ Exact: chunk lists (story breaks included), per-chunk parameters, attempt
 counts, stats keys and every segment's length (2 * tokens * 480, so the
 tokens per chunk). Within 1e-3 absolute (the HiFT bound of
 tests/test_torch_tts.py): every segment, the stitched wav and the
-watermarked one. Also: the kill switch, the continuous engine's refusal,
+watermarked one. Also: the kill switch, a fault in the continuous engine,
 that a CUDA or kernel error propagates instead of becoming silence, and
 that warmup restores the conditional state."""
 import dataclasses
@@ -268,9 +268,19 @@ def test_batch_chunks_zero_runs_sequentially(pair, monkeypatch):
 
 
 def test_continuous_first_pass_raises(pair, monkeypatch):
+    """CHATTERBOX_CONTINUOUS=1 runs the pooled pass on the continuous engine
+    (tests/test_torch_continuous.py holds it to the JAX package's): an
+    error inside the engine's decode raises, where the JAX package would
+    fall back to the lock-step batch."""
+    from chatterbox_embed_tpu_torch.models import t3_engine
     _, port, (voice, _) = pair
     monkeypatch.setenv("CHATTERBOX_CONTINUOUS", "1")
-    with pytest.raises(NotImplementedError, match="ROADMAP item 18"):
+
+    def fault(*a, **k):
+        raise RuntimeError("flash_decode kernel launch failed: cudaError 700")
+
+    monkeypatch.setattr(t3_engine, "engine_decode_block", fault)
+    with pytest.raises(RuntimeError, match="cudaError 700"):
         port.generate_long_text(STORY, voice_profile_path=voice, make_draws=JaxDraws, **GEN)
 
 
