@@ -101,12 +101,13 @@ def build(source: Path) -> Path:
 
 def load(source: Path, entry: str, argtypes) -> ctypes.CDLL:
     """The library of `source` (built on first use), with the C entry
-    `entry` declared to return int and take `argtypes`."""
-    lib = _loaded.get(source)
+    `entry` declared to return int and take `argtypes` (a source may have
+    several entries; each is declared on its first load)."""
+    lib = _loaded.get((source, entry))
     if lib is None:
-        lib = ctypes.CDLL(str(build(source)))
+        lib = _loaded.get(source) or ctypes.CDLL(str(build(source)))
         fn = getattr(lib, entry)
         fn.restype = ctypes.c_int
         fn.argtypes = list(argtypes)
-        _loaded[source] = lib
+        _loaded[source] = _loaded[(source, entry)] = lib
     return lib

@@ -13,6 +13,13 @@ tensor it launches the hand-written kernel of `csrc/flash_attention.cu`
 cores, `csrc/masked_attention.cuh`); on a CPU tensor it runs
 `flash_attention_reference`, which is `layers.mha` with a key mask. A CUDA
 call the kernel cannot take raises.
+
+With grad enabled and an input that requires it, the call goes through a
+`torch.autograd.Function` whose forward is the same launch and whose
+backward is K3b (`kernels/flash_attention_bwd.py`: two hand-written kernels
+on the card, their plain version on the CPU); it saves q, k, v, key_valid
+and the output. Every other call (the serving paths run under `no_grad`)
+launches the forward alone and saves nothing.
 """
 from __future__ import annotations
 
@@ -67,10 +74,35 @@ def _check(q, k, v, key_valid):
 
 def flash_attention(q, k, v, key_valid):
     """softmax(q.k^T / sqrt(D)) . v over each row's valid keys. q, k, v
-    (B, T, H, D); key_valid (B, T) bool. Returns (B, T, H, D) in v's dtype.
+    (B, T, H, D); key_valid (B, T) bool. Returns (B, T, H, D) in v's dtype,
+    differentiable in q, k and v (through K3b) when grad is enabled.
 
     CPU tensors take the plain version; CUDA tensors launch the kernel (and
     count the launch in `flash_attention.launches`) or raise."""
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad):
+        return _FlashAttention.apply(q, k, v, key_valid)
+    return _forward(q, k, v, key_valid)
+
+
+class _FlashAttention(torch.autograd.Function):
+    """K3 forward, K3b backward."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, key_valid):
+        out = _forward(q, k, v, key_valid)
+        ctx.save_for_backward(q, k, v, key_valid, out)
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        from .flash_attention_bwd import flash_attention_backward   # it imports this module
+        q, k, v, key_valid, out = ctx.saved_tensors
+        dq, dk, dv = flash_attention_backward(q, k, v, key_valid, out, dout.contiguous())
+        return dq, dk, dv, None
+
+
+def _forward(q, k, v, key_valid):
+    """One K3 launch (or the plain version on the CPU), outside autograd."""
     if q.device.type == "cpu":
         return flash_attention_reference(q, k, v, key_valid)
     _check(q, k, v, key_valid)

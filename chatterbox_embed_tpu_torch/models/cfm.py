@@ -9,10 +9,14 @@ lax.cond over the reuse flags) whose body is one estimator call on a CFG
 batch of 2 rows (cond / uncond) per utterance. The ODE state stays fp32;
 the estimator runs in the compute dtype. The noise is the JAX package's fixed numpy Philox buffer,
 made by the same numpy code, so both packages start from the same bits.
+
+`compute_loss` is the flow-matching training loss; its time, noise and CFG
+keep draws come from a draw source (`ops/sampling.py:Draws.flow_train`).
 """
 from __future__ import annotations
 
 import functools
+import math
 
 import numpy as np
 import torch
@@ -128,3 +132,33 @@ def generate_mel_stream(params, mu, spks, cond, mask, prompt_frames: int, noise_
     z = np.concatenate([buf[:, :prompt_frames], buf[:, start:start + n_gen]], axis=1)
     z = torch.from_numpy(z).to(mu.device).expand(b, tlen, nf)
     return solve_euler(params, z, mu, spks, cond, mask, cfm, dec_cfg, dtype)
+
+
+def compute_loss(params, draws, x1, mu, spks, cond, mask,
+                 cfm: CFMConfig = CFMConfig(),
+                 dec_cfg: FlowDecoderConfig = FlowDecoderConfig(),
+                 dtype=torch.float32):
+    """Flow-matching training loss (the JAX package's cfm.compute_loss).
+
+    x1: (B, T, 80) target mel; mu, cond: (B, T, 80); spks: (B, 80); mask:
+    (B, T, 1). `draws.flow_train(B, x1.shape)` gives the time, the noise and
+    the CFG keep draw. Returns the masked mean squared error of the
+    estimator's velocity, a scalar fp32 tensor."""
+    b = x1.shape[0]
+    t, z, keep_u = (a.to(x1.device) for a in draws.flow_train(b, tuple(x1.shape)))
+    if cfm.t_scheduler == "cosine":
+        t = 1.0 - torch.cos(t * 0.5 * math.pi)
+    t_b = t[:, None, None]
+    y = (1.0 - (1.0 - cfm.sigma_min) * t_b) * z + t_b * x1
+    u = x1 - (1.0 - cfm.sigma_min) * z
+
+    if cfm.training_cfg_rate > 0:
+        keepf = (keep_u > cfm.training_cfg_rate).float()
+        mu = mu * keepf[:, None, None]
+        spks = spks * keepf[:, None]
+        cond = cond * keepf[:, None, None]
+
+    pred = flow_decoder.forward(params, y, mu, t, spks, cond, mask, dec_cfg, dtype)
+    num = torch.sum(torch.square((pred - u) * mask))
+    den = torch.sum(mask) * u.shape[-1]
+    return num / torch.clamp(den, min=1.0)

@@ -15,6 +15,9 @@
   current k/v row folded in) and all layers' rows land in one stacked write
   after the loop. Only the JAX package's flash branch of that path applies:
   the port has no int8 cache or phased reads;
+- without a cache (the teacher-forced training forward) every layer runs
+  plain attention under the given mask, each under torch.utils.checkpoint
+  with `remat`;
 - the alignment spy (`collect_attn_layer`): at a decode step that one
   layer runs plain attention (a matmul and a softmax, as the JAX package's
   XLA spy path does) and also returns its head-mean probability row over
@@ -29,6 +32,7 @@ from typing import NamedTuple, Optional
 import numpy as np
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from ..config import LlamaConfig
 from ..device import resolve_device
@@ -114,13 +118,37 @@ def _defer_kv_enabled() -> bool:
     return os.getenv("CHATTERBOX_DEFER_KV", "") == "1"
 
 
+def _qkv(lp, h, cos, sin, cfg: LlamaConfig, dtype):
+    """A layer's RMSNorm and q, k, v projections, RoPE on q and k."""
+    hin = L.rms_norm(lp["ln1"], h, cfg.rms_norm_eps)
+    q = L.split_heads(L.linear(lp["q"], hin, dtype), cfg.num_heads)
+    k = L.split_heads(L.linear(lp["k"], hin, dtype), cfg.num_kv_heads)
+    v = L.split_heads(L.linear(lp["v"], hin, dtype), cfg.num_kv_heads)
+    return apply_rope(q, cos, sin), apply_rope(k, cos, sin), v
+
+
+def _mlp(lp, h, cfg: LlamaConfig, dtype):
+    """A layer's second half: RMSNorm, SwiGLU MLP, residual."""
+    hin = L.rms_norm(lp["ln2"], h, cfg.rms_norm_eps)
+    return h + L.linear(lp["down"],
+                        F.silu(L.linear(lp["gate"], hin, dtype)) * L.linear(lp["up"], hin, dtype),
+                        dtype)
+
+
+def _layer(lp, h, cos, sin, mask4, cfg: LlamaConfig, dtype):
+    """One layer over a whole block without a cache (plain attention)."""
+    q, k, v = _qkv(lp, h, cos, sin, cfg, dtype)
+    h = h + L.linear(lp["o"], L.merge_heads(L.mha(q, k, v, mask=mask4)), dtype)
+    return _mlp(lp, h, cfg, dtype)
+
+
 def forward(params, x: torch.Tensor, pos_ids: torch.Tensor,
             attn_mask: Optional[torch.Tensor] = None,
             cache: Optional[KVCache] = None, cache_pos: int = 0,
             cfg: LlamaConfig = LlamaConfig(), dtype=torch.float32,
             flash_start: int = 0, flash_hole: Optional[torch.Tensor] = None,
             collect_attn_layer: Optional[int] = None,
-            flash_span: Optional[torch.Tensor] = None):
+            flash_span: Optional[torch.Tensor] = None, remat: bool = False):
     """Run the transformer over a block of embeddings.
 
     Args:
@@ -139,6 +167,9 @@ def forward(params, x: torch.Tensor, pos_ids: torch.Tensor,
       collect_attn_layer: at a decode step, the layer whose attention runs
         plain (`_spy_attention`) and whose head-mean probability row over
         the cache is returned as well (the alignment spy).
+      remat: without a cache (the training forward), run each layer under
+        torch.utils.checkpoint (use_reentrant=False): its activations are
+        recomputed in the backward instead of kept. The gradients are equal.
     Returns (hidden (B, T, D) after the final norm, cache[, attn_row (B, Lc)
     fp32]).
     """
@@ -164,15 +195,19 @@ def forward(params, x: torch.Tensor, pos_ids: torch.Tensor,
             attn_mask = (idx <= q_idx)[None]                     # (1, T, L)
     mask4 = None if decode else attn_mask[:, None]
 
-    for i, lp in enumerate(params["layers"]):
-        hin = L.rms_norm(lp["ln1"], h, cfg.rms_norm_eps)
-        q = L.split_heads(L.linear(lp["q"], hin, dtype), cfg.num_heads)
-        k = L.split_heads(L.linear(lp["k"], hin, dtype), cfg.num_kv_heads)
-        v = L.split_heads(L.linear(lp["v"], hin, dtype), cfg.num_kv_heads)
-        q = apply_rope(q, cos, sin)
-        k = apply_rope(k, cos, sin)
+    if cache is None:
+        for lp in params["layers"]:
+            if remat:
+                h = checkpoint(_layer, lp, h, cos, sin, mask4, cfg, dtype,
+                               use_reentrant=False)
+            else:
+                h = _layer(lp, h, cos, sin, mask4, cfg, dtype)
+        return L.rms_norm(params["norm"], h, cfg.rms_norm_eps), None
 
-        if cache is not None and not defer:
+    for i, lp in enumerate(params["layers"]):
+        q, k, v = _qkv(lp, h, cos, sin, cfg, dtype)
+
+        if not defer:
             # insert-first, in place: slots [cache_pos, cache_pos + T) of
             # layer i take this block's rows
             cache.k[i, cache_pos:cache_pos + t] = k.transpose(0, 1).to(cache.k.dtype)
@@ -198,19 +233,11 @@ def forward(params, x: torch.Tensor, pos_ids: torch.Tensor,
                                    start=flash_start, hole=flash_hole,
                                    span=flash_span)[:, None]
         else:
-            if cache is not None:
-                k_att = cache.k[i].transpose(0, 1).to(dtype)     # (B, L, H, D)
-                v_att = cache.v[i].transpose(0, 1).to(dtype)
-            else:
-                k_att, v_att = k, v
+            k_att = cache.k[i].transpose(0, 1).to(dtype)         # (B, L, H, D)
+            v_att = cache.v[i].transpose(0, 1).to(dtype)
             att = L.mha(q, k_att, v_att, mask=mask4)
         h = h + L.linear(lp["o"], L.merge_heads(att), dtype)
-
-        hin = L.rms_norm(lp["ln2"], h, cfg.rms_norm_eps)
-        mlp = L.linear(lp["down"],
-                       F.silu(L.linear(lp["gate"], hin, dtype)) * L.linear(lp["up"], hin, dtype),
-                       dtype)
-        h = h + mlp
+        h = _mlp(lp, h, cfg, dtype)
 
     if defer:
         # one stacked write of all layers' rows at slot cache_pos

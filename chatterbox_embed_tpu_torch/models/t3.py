@@ -31,6 +31,10 @@ counterpart of `chatterbox_embed_tpu/models/t3.py`: one utterance
   suppresses EOS until attention reaches the text's tail and forces it on a
   long dwell there or on repeated backward jumps. Every other layer keeps
   K1 (K1s); the fused step is off under the guard.
+- Training: `forward` runs [cond; text; speech] teacher-forced through
+  plain attention under a causal, key-valid mask, and `loss` is the masked
+  cross-entropy with the JAX package's next-token shift; neither runs under
+  no_grad (the generation functions do).
 """
 from __future__ import annotations
 
@@ -172,6 +176,65 @@ def _build_context(params, cond: T3Cond, text_tokens: torch.Tensor,
     base = torch.cat(parts, dim=1)                           # (B, W + T + nb, D)
     base[:, pad:pad + w] = ce.to(base.dtype)
     return base
+
+
+# ---------------------------------------------------------------------------
+# training forward / loss (the JAX package's t3.forward and t3.loss)
+# ---------------------------------------------------------------------------
+
+def forward(params, cond: T3Cond, text_tokens, text_lens, speech_tokens, speech_lens,
+            cfg: T3Config = T3Config(), dtype=torch.float32, remat: bool = False):
+    """Teacher-forced forward over [cond; text; speech] (B rows), causal and
+    key-valid: a row's text keys past text_lens and speech keys past
+    speech_lens are masked. Plain attention (llama.forward without a cache;
+    `remat` checkpoints each layer). Returns (text_logits (B, Lt, V_text),
+    speech_logits (B, Ls, V_speech)), where position t predicts token t from
+    the position before it."""
+    ce = cond_embeds(params, cond, cfg)
+    text_tokens, speech_tokens = text_tokens.long(), speech_tokens.long()
+    b, lt = text_tokens.shape
+    ls = speech_tokens.shape[1]
+    dev = text_tokens.device
+    te = L.embedding(params["text_emb"], text_tokens) + params["text_pos_emb"]["w"][:lt][None]
+    se = (L.embedding(params["speech_emb"], speech_tokens)
+          + params["speech_pos_emb"]["w"][:ls][None])
+    x = torch.cat([ce.expand((b,) + ce.shape[1:]), te, se], dim=1)
+    t = x.shape[1]
+    lc = ce.shape[1]
+    pos = torch.arange(t, device=dev)[None].expand(b, t)
+    idx = torch.arange(t, device=dev)[None]
+    causal = idx <= idx.T
+    text_valid = (idx < lc) | (idx < lc + text_lens.to(dev)[:, None]) | (idx >= lc + lt)
+    speech_valid = idx < lc + lt + speech_lens.to(dev)[:, None]
+    key_valid = text_valid & speech_valid                          # (B, T)
+    mask = causal[None] & key_valid[:, None, :]
+    h, _ = llama.forward(params["llama"], x, pos, mask, cfg=cfg.llama, dtype=dtype,
+                         remat=remat)
+    text_logits = L.linear(params["text_head"], h[:, lc - 1: lc - 1 + lt], dtype)
+    speech_logits = L.linear(params["speech_head"], h[:, lc + lt - 1: lc + lt - 1 + ls], dtype)
+    return text_logits, speech_logits
+
+
+def loss(params, cond: T3Cond, text_tokens, text_lens, speech_tokens, speech_lens,
+         cfg: T3Config = T3Config(), dtype=torch.float32, remat: bool = False):
+    """Masked cross-entropy over the text and speech streams: (loss_text,
+    loss_speech), scalar fp32 tensors.
+
+    The JAX package's objective, which departs from the reference: the
+    reference computes logits at the token's own position (an off-by-one it
+    inherited); this is the standard next-token shift of `forward`."""
+    text_logits, speech_logits = forward(params, cond, text_tokens, text_lens,
+                                         speech_tokens, speech_lens, cfg, dtype, remat)
+
+    def masked_ce(logits, targets, lens):
+        lsm = torch.log_softmax(logits.float(), dim=-1)
+        ll = torch.gather(lsm, -1, targets.long()[..., None])[..., 0]
+        m = (torch.arange(targets.shape[1], device=ll.device)[None]
+             < lens.to(ll.device)[:, None]).float()
+        return -torch.sum(ll * m) / torch.clamp(torch.sum(m), min=1.0)
+
+    return (masked_ce(text_logits, text_tokens, text_lens),
+            masked_ce(speech_logits, speech_tokens, speech_lens))
 
 
 # ---------------------------------------------------------------------------

@@ -30,8 +30,13 @@ class Draws:
                                 the same in every window
     window_noise(window, shape) the source noise of streamed window
                                 `window`, standard normal
+    flow_train(rows, shape)     a flow-matching training step's draws: the
+                                time (rows,) uniform in [0, 1), the noise
+                                `shape` standard normal, the CFG keep draw
+                                (rows,) uniform in [0, 1)
 
-    The first three draw in call order from the one generator. The two
+    The first three and flow_train draw in call order from the one
+    generator. The two
     streaming draws come from generators seeded from (seed, stream), so
     they neither consume nor depend on the others, and a window's noise
     depends on its index alone.
@@ -64,6 +69,12 @@ class Draws:
 
     def window_noise(self, window: int, shape) -> torch.Tensor:
         return torch.randn(shape, generator=self._derived(1 + int(window)), device=self.device)
+
+    def flow_train(self, rows: int, shape):
+        t = torch.rand((rows,), generator=self.gen, device=self.device)
+        z = torch.randn(shape, generator=self.gen, device=self.device)
+        keep = torch.rand((rows,), generator=self.gen, device=self.device)
+        return t, z, keep
 
 
 def vocab_mask_logits(logits, valid_size: int, eos_id: int):

@@ -1,0 +1,7 @@
+"""Training steps of the port's two trainable model families (T3 and the
+flow-matching estimator), on one device."""
+from .train_step import (TrainState, init_flow_train_state, init_t3_train_state,
+                         make_flow_train_step, make_t3_train_step)
+
+__all__ = ["TrainState", "init_flow_train_state", "init_t3_train_state",
+           "make_flow_train_step", "make_t3_train_step"]

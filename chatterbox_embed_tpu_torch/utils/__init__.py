@@ -1,2 +1,2 @@
-"""Host-side helpers of the port: audio I/O, checkpoint conversion,
-watermarking (numpy only, apart from audio_io's resampling)."""
+"""Host-side helpers of the port: audio I/O, checkpoint conversion and
+safetensors checkpoints, watermarking, stage timers and profiler traces."""

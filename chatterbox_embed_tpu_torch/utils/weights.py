@@ -10,7 +10,8 @@ torch's (out, in) to (in, out), since the port computes x @ w. Weight-norm
 parametrizations (HiFT, f0 predictor) are folded into plain kernels, and
 batch-norm running stats are kept for the eval-form batch norm.
 
-Pure numpy. Each converter takes {name: np.ndarray} and returns the matching
+Pure numpy, the safetensors reader (`load_safetensors`) included. Each
+converter takes {name: np.ndarray} and returns the matching
 tree of arrays; `weights.from_arrays` checks every leaf's shape against the
 port's expected tree and makes the tensors, so a mismatched checkpoint fails
 at load time. tests/test_torch_weights.py holds these converters against the
@@ -18,6 +19,8 @@ JAX package's converters followed by `weights.from_jax_params`.
 """
 from __future__ import annotations
 
+import json
+import struct
 from typing import Dict
 
 import numpy as np
@@ -457,7 +460,38 @@ def convert_s3gen(sd: StateDict, validate: bool = True, cfg=None) -> dict:
     return _convert_validated(build, sd, ignore=S3GEN_IGNORED_KEYS)
 
 
+# safetensors dtype codes -> numpy; BF16, which numpy lacks, is read as its
+# uint16 bit patterns
+_SAFETENSORS_DTYPES = {"F64": np.float64, "F32": np.float32, "F16": np.float16,
+                       "BF16": np.uint16, "I64": np.int64, "I32": np.int32, "I16": np.int16,
+                       "I8": np.int8, "U8": np.uint8, "BOOL": np.bool_}
+
+
+def read_safetensors(path: str):
+    """One safetensors file (an 8-byte little-endian header length, a JSON
+    header, the raw little-endian data) -> ({name: array}, {name: dtype
+    code}, metadata). BF16 arrays hold their uint16 bit patterns."""
+    with open(path, "rb") as f:
+        (n,) = struct.unpack("<Q", f.read(8))
+        header = json.loads(f.read(n))
+        data = bytearray(f.read())
+    metadata = header.pop("__metadata__", None) or {}
+    arrays, codes = {}, {}
+    for name, info in header.items():
+        if info["dtype"] not in _SAFETENSORS_DTYPES:
+            raise ValueError(f"read_safetensors: {name} has dtype {info['dtype']}")
+        dtype = np.dtype(_SAFETENSORS_DTYPES[info["dtype"]])
+        lo, hi = info["data_offsets"]
+        arrays[name] = np.frombuffer(data, dtype=dtype, count=(hi - lo) // dtype.itemsize,
+                                     offset=lo).reshape(info["shape"])
+        codes[name] = info["dtype"]
+    return arrays, codes, metadata
+
+
 def load_safetensors(path: str) -> StateDict:
-    """Read a safetensors file into numpy without torch."""
-    from safetensors.numpy import load_file
-    return load_file(path)
+    """Read a safetensors file into numpy, without torch or the safetensors
+    package. BF16 tensors are widened to float32 (exactly); every other
+    dtype is kept."""
+    arrays, codes, _ = read_safetensors(path)
+    return {name: (a.astype(np.uint32) << 16).view(np.float32) if codes[name] == "BF16" else a
+            for name, a in arrays.items()}

@@ -1,8 +1,13 @@
 """Smoke run of the PyTorch port on one CUDA card (an H100).
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [--phases name,...]
 
-Phases, one or more lines each, then the result line:
+With no argument every phase runs (the device and build phases always
+run); `--phases` names the ones to run (PHASES below: kernel_check,
+attention_check, probe_check, probes, fused_check, consistency, generate,
+generate_batch, stream_generate, conditioning, long_text, engine, worker,
+train), and the kernel line then lists the kernels whose check and main
+path ran. Phases, one or more lines each, then the result line:
   1. device: the card's name and power limit (nvidia-smi), torch and CUDA
      versions; TF32 switched off for matmuls and convolutions.
   2. build: compiles every kernel of the port from the sources in the
@@ -36,6 +41,15 @@ Phases, one or more lines each, then the result line:
        K3 flash_attention  CFM estimator self-attention: B 8/16/32, T 812 and
                            2348, ragged masks with an all-valid row and a
                            single-valid-key row
+       K3b flash_attention_bwd
+                           K3's backward, K3b-dq then K3b-dkv: B=4 fp32 and
+                           B=16 bf16, T=812, ragged (a row with no valid key
+                           gets zero gradients) and all-valid; through
+                           autograd K3's output equals its no-grad launch
+                           and the gradients equal the direct call; each
+                           kernel timed beside its plain pass, and the pair
+                           beside the plain backward and the backward of
+                           scaled_dot_product_attention
                            K2 and K3 run fp32 on their SIMT kernel and bf16 on
                            their tensor-core kernel, the latter also on
                            one-hot rows, on masks with dead 64-key tiles (at
@@ -121,7 +135,14 @@ Phases, one or more lines each, then the result line:
      audio stored, the metadata `continuous`, K1 30 x engine steps; then
      clone_voice through a ChatterboxVC on the same weights into the same
      storage (its sample through the fused step).
- 12. a JSON line describing each kernel, then the last line
+ 12. train: at full width in fp32 with random weights, T3 (30 layers) takes
+     3 AdamW steps with remat on a batch of 2 (150 prompt tokens, text 64
+     and 48, speech 256 and 200): losses finite and falling, ms a step and
+     peak memory; the flow estimator takes 3 steps on 4 rows of 812, 812,
+     700 and 560 frames, each with 56 launches of K3, K3b-dq and K3b-dkv;
+     then one step's loss and gradients at 256 frames on the card against
+     the CPU (written-out attention) on the same params, batch and draws.
+ 13. a JSON line describing each kernel, then the last line
      {"ok": true, "device": {...}}.
 
 Any failure raises and the script exits non-zero with no result line. It
@@ -170,6 +191,19 @@ FLASH_TIMED = ((16, 812),)
 # valid key a tile, random), among them one key tile alone (T = 40)
 ATT_SMALL_T = 40
 ATT_DEAD_SHAPES = ((8, 812), (8, 406), (8, ATT_SMALL_T), (8, 64), (8, 65))
+# K3b (K3's backward: K3b-dq, then K3b-dkv) at the flow train step's
+# shapes: B=4 in fp32 (the step's dtype) and B=16 in bf16, T=812, on a ragged
+# mask (an all-valid row, a single-valid-key row, a row with no valid key,
+# which must get zero gradients) and on an all-valid one. Kernel and plain
+# backward read the same inputs and sum in fp32 in another order. fp32: the
+# terms of each sum are O(1) (unit-normal q, k, v, dO), so each error is
+# divided by max(1, |ref|) and held to ATT_TOL. bf16: both versions round
+# the same fp32 sums to bf16, so they differ by at most one step (2^-7
+# relative at most); the gradients are ~0.05 typical, so each error is
+# divided by max(|ref|, rms(ref)) and held to two steps, BWD_TOL_BF16 (a
+# fault of a few percent, such as a dropped di term, is ~10x over it).
+BWD_CASES = ((4, 812, torch.float32), (16, 812, torch.bfloat16))
+BWD_TOL_BF16 = 2 * 2.0 ** -7
 # fp32 batch against solo at full width: the outputs are unit-scale
 # (after the conformer's final LayerNorm; the estimator's velocity); the
 # two runs differ in summation order only (kernel against factored or
@@ -235,10 +269,12 @@ GEN_PATHS = {"default": {}, "fused": {"CHATTERBOX_FUSED_STEP": "1"},
 STREAM_KW = dict(block_tokens=25, max_new_tokens=250, cfg_weight=0.5, temperature=0.7, seed=0)
 # bounds: the card's published rates (H100 SXM data sheet): device memory
 # 3.35 TB/s; dense tensor-core peaks 989 TFLOP/s in bf16 and 1,979 TOP/s in
-# int8. Every timed call of the JSON line runs on bf16 (K5 also on int8)
-# inputs, so its operations are held to the tensor-core peak of that type.
+# int8; 67 TFLOP/s in fp32 outside the tensor cores. The serving kernels'
+# timed calls run on bf16 (K5 also on int8) inputs, so their operations are
+# held to the tensor-core peak of that type; K3b's main-path call is fp32
+# (the train step's dtype), held to the fp32 peak.
 HBM_BYTES_PER_S = 3.35e12
-PEAK_OPS_PER_S = {"bf16_tensor": 989e12, "int8_tensor": 1979e12}
+PEAK_OPS_PER_S = {"bf16_tensor": 989e12, "int8_tensor": 1979e12, "fp32": 67e12}
 # K5 on a 64 MB wall against its plain version in fp32: each of the 8 x 128
 # sums adds n = 262,144 products (256 rows x 1024) of a unit-normal bf16
 # activation and a weight uniform in [-1, 1), rms ~0.6. The products are
@@ -326,6 +362,24 @@ WORKER_STORIES = [
     "Nobody noticed the small ship with red sails tied up at the end of the pier.",
 ]
 WORKER_NEW_TOKENS = 150
+# train: T3 at full width (ChatterboxConfig().t3, fp32) on a batch of 2 with
+# 150 prompt tokens, text 64 and 48, speech 256 and 200; the flow estimator
+# at full width (FlowDecoderConfig(), fp32) on 4 rows (K3's gate) of these
+# frames; TRAIN_STEPS AdamW steps each (lr 1e-4)
+TRAIN_T3_TEXT = (64, 48)
+TRAIN_T3_SPEECH = (256, 200)
+TRAIN_FLOW_FRAMES = (812, 812, 700, 560)
+TRAIN_STEPS = 3
+# one flow step's loss and gradients on the card (K3 and K3b) against the
+# CPU (written-out attention under autograd) on the same params, batch and
+# draws, fp32, TF32 off: the two differ in summation order through 56
+# transformer blocks and 16 resnets forward and back. The loss within 1e-4
+# relative; each leaf's max |g_card - g_cpu| within 1e-3 of the CPU leaf's
+# norm (plus 1e-7 for leaves whose gradient is rounding noise): ten times
+# the CPU tests' 1e-4 between packages on a 2-block estimator.
+TRAIN_CHECK_FRAMES = (256, 256, 220, 180)
+TRAIN_LOSS_TOL = 1e-4
+TRAIN_GRAD_TOL = 1e-3
 
 
 def log(phase: str, **kw) -> None:
@@ -350,9 +404,10 @@ def phase_device() -> str:
 def _kernels() -> dict:
     """name -> (kernel module, the wrapper that counts its launches, the
     counter's attribute, its C entry). K1 and K1s are two entries of one
-    kernel source with a counter each."""
+    kernel source with a counter each, and so are K3b-dq and K3b-dkv."""
     from chatterbox_embed_tpu_torch.kernels import decode_anatomy as da
     from chatterbox_embed_tpu_torch.kernels import flash_attention as fa
+    from chatterbox_embed_tpu_torch.kernels import flash_attention_bwd as fb
     from chatterbox_embed_tpu_torch.kernels import flash_decode as fd
     from chatterbox_embed_tpu_torch.kernels import fused_decode as fu
     from chatterbox_embed_tpu_torch.kernels import rel_attention as ra
@@ -362,6 +417,10 @@ def _kernels() -> dict:
                                       "cbx_flash_decode"),
             "rel_attention": (ra, ra.rel_attention, "launches", "cbx_rel_attention"),
             "flash_attention": (fa, fa.flash_attention, "launches", "cbx_flash_attention"),
+            "flash_attention_bwd_dq": (fb, fb.flash_attention_backward, "launches_dq",
+                                       "cbx_flash_attention_bwd_dq"),
+            "flash_attention_bwd_dkv": (fb, fb.flash_attention_backward, "launches_dkv",
+                                        "cbx_flash_attention_bwd_dkv"),
             "fused_decode": (fu, fu.fused_decode_step, "launches", "cbx_fused_decode"),
             "weight_stream": (ws, ws.stream_once, "launches", "cbx_weight_stream"),
             "decode_anatomy": (da, da.attn, "launches", "cbx_decode_anatomy")}
@@ -413,7 +472,8 @@ def _bound(nbytes: float, ops: float, peak: str = "bf16_tensor") -> dict:
             "bound_bytes": int(nbytes), "bound_ops": int(ops), "bound_peak": peak}
 
 
-def _library(name: str, fn, card: str, iters: int = 20, **shape) -> float:
+def _library(name: str, fn, card: str, iters: int = 20, dtype: str = "bfloat16",
+             **shape) -> float:
     """Device time per call of the one PyTorch call `fn` that computes a
     kernel's function, and the device kernel it spent most time in (which
     tells the backend that ran). Measured only: no path of the port calls
@@ -426,7 +486,7 @@ def _library(name: str, fn, card: str, iters: int = 20, **shape) -> float:
         torch.cuda.synchronize()
     events = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
     top = max(events, key=lambda e: e.self_device_time_total).key if events else "none"
-    log("library_time", name=name, **shape, dtype="bfloat16", device_ms=f"{ms:.5f}",
+    log("library_time", name=name, **shape, dtype=dtype, device_ms=f"{ms:.5f}",
         top_kernel=repr(top[:100]), card=repr(card))
     return ms
 
@@ -465,18 +525,23 @@ def _log_time(name: str, timing: dict, card: str, **shape) -> None:
         plain_call_ms=f"{timing['plain_call_ms']:.5f}", card=repr(card))
 
 
-def _check_err(name: str, out, ref, limit: float, relative: bool = False, **case) -> float:
+def _check_err(name: str, out, ref, limit: float, relative: bool = False,
+               rms_floor: bool = False, **case) -> float:
     """max |out - ref| against `limit`; with `relative`, each element's
     error is first divided by max(1, |ref|) (one bf16 step grows with the
-    output's magnitude). Returns the max absolute error."""
+    output's magnitude), with `rms_floor` by max(|ref|, rms(ref)) instead.
+    Returns the max absolute error."""
     torch.cuda.synchronize()
     diff = (out.float() - ref.float()).abs()
     err = diff.max().item()
-    bound = (diff / ref.float().abs().clamp_min(1.0)).max().item() if relative else err
+    floor = ref.float().pow(2).mean().sqrt().item() if rms_floor else 1.0
+    relative = relative or rms_floor
+    bound = (diff / ref.float().abs().clamp_min(floor)).max().item() if relative else err
     if not np.isfinite(err) or bound > limit:
         raise AssertionError(f"{name} {case}: max|err|={err} (checked {bound}) > {limit}")
-    log("kernel", name=name, **case, max_abs_err=f"{err:.3e}",
-        **({"max_err_over_max1_ref": f"{bound:.3e}"} if relative else {}), limit=limit)
+    checked = ({"max_err_over_max_rms_ref": f"{bound:.3e}", "rms_ref": f"{floor:.3e}"}
+               if rms_floor else {"max_err_over_max1_ref": f"{bound:.3e}"} if relative else {})
+    log("kernel", name=name, **case, max_abs_err=f"{err:.3e}", **checked, limit=limit)
     return err
 
 
@@ -963,7 +1028,8 @@ def phase_attention_check(card: str) -> dict:
     """K2 and K3 against their plain versions on the card: fp32 (the SIMT
     kernel) and bf16 (the tensor-core kernel) on ragged prefix masks, bf16 on masks with dead 64-key tiles, at T = 40 and
     on one-hot rows; then the times of the kernel and of the library's call
-    on the ragged mask and on an all-valid one."""
+    on the ragged mask and on an all-valid one. Then K3b, K3's backward
+    (`_attention_bwd_check`)."""
     from chatterbox_embed_tpu_torch.kernels import flash_attention as fa
     from chatterbox_embed_tpu_torch.kernels import masked_attention as ma
     from chatterbox_embed_tpu_torch.kernels import rel_attention as ra
@@ -1064,7 +1130,135 @@ def phase_attention_check(card: str) -> dict:
         result[name] = {"max_abs_err": worst[bf16],
                         "max_abs_err_fp32": worst[torch.float32],
                         "timing": timing[timed[0]]}
+    result.update(_attention_bwd_check(card))
     return result
+
+
+def _bwd_work(q, valid, dtype) -> dict:
+    """Bounds of K3b on these inputs: (query, key) pairs with work are every
+    query row of a head against its row's valid keys, and k and v are read
+    at the valid keys only (an invalid key adds nothing, and its dk, dv are
+    written as zeros). K3b-dq reads q, O, dO, the valid k, v and writes dq
+    (and lse, di: 8 bytes a query row and head), three products a pair
+    (q.k, dO.v, dS.k); K3b-dkv reads q, dO, lse, di, the valid k, v and
+    writes dk, dv, four products (q.k, dO.v, P.dO, dS.q); the pair as one
+    function reads q, O, dO, the valid k, v, writes dq, dk, dv, and does
+    five: 10 B H T^2 D operations on an all-valid mask."""
+    b, t, h, d = q.shape
+    pairs = h * t * int(valid.sum())
+    one = q.numel() * q.element_size()
+    kv = 2 * one * valid.float().mean().item()
+    scratch = 8 * b * h * t
+    peak = "fp32" if dtype == torch.float32 else "bf16_tensor"
+    return {"dq": _bound(4 * one + kv + scratch, 2 * 3 * pairs * d, peak),
+            "dkv": _bound(4 * one + kv + scratch, 2 * 4 * pairs * d, peak),
+            "pair": _bound(6 * one + kv, 2 * 5 * pairs * d, peak)}
+
+
+def _attention_bwd_check(card: str) -> dict:
+    """K3b against its plain backward on the card at BWD_CASES, ragged (one
+    row without a valid key: zero gradients) and all-valid; through
+    autograd, K3's forward output equals its no-grad launch and the
+    gradients equal K3b's direct call; then each kernel's device time and
+    its plain version's (`reference_dq`, `reference_dkv`), and the pair's
+    beside the whole plain backward's and the library's (the backward alone
+    of scaled_dot_product_attention with a boolean key mask, which gives dq,
+    dk and dv in one call: no PyTorch call gives one kernel's part alone, so
+    each kernel's own `library_ms` is null)."""
+    from chatterbox_embed_tpu_torch.kernels import flash_attention as fa
+    from chatterbox_embed_tpu_torch.kernels import flash_attention_bwd as fb
+    from chatterbox_embed_tpu_torch.probes import timing as tmg
+    g = torch.Generator(device="cuda").manual_seed(8765)
+    scale = 1.0 / ATT_D ** 0.5
+    worst = {torch.float32: 0.0, torch.bfloat16: 0.0}
+    times = {"dq": {}, "dkv": {}}
+    for b, t, dtype in BWD_CASES:
+        ragged = _ragged_valid(b, t, g, empty_row=True)
+        for mask, valid in (("ragged", ragged), ("all_valid", torch.ones_like(ragged))):
+            q, k, v, dout = (torch.randn((b, t, ATT_H, ATT_D), generator=g, device="cuda")
+                             .to(dtype) for _ in range(4))
+            case = dict(b=b, t=t, dtype=str(dtype)[6:], mask=mask)
+            out = fa.flash_attention(q, k, v, valid)
+            ref = fb.flash_attention_backward_reference(q, k, v, valid, out, dout)
+            got = fb.flash_attention_backward(q, k, v, valid, out, dout)
+            for grad, x, r in zip(("dq", "dk", "dv"), got, ref):
+                if dtype == torch.bfloat16:
+                    err = _check_err("flash_attention_bwd", x, r, BWD_TOL_BF16, rms_floor=True,
+                                     grad=grad, **case)
+                else:
+                    err = _check_err("flash_attention_bwd", x, r, ATT_TOL[dtype], True,
+                                     grad=grad, **case)
+                worst[dtype] = max(worst[dtype], err)
+                if mask == "ragged" and x[2].abs().max().item() != 0.0:
+                    raise AssertionError(f"K3b {grad} {case}: the row without a valid key "
+                                         f"has a non-zero gradient")
+            leaves = [x.clone().requires_grad_(True) for x in (q, k, v)]
+            out_g = fa.flash_attention(*leaves, valid)
+            if not torch.equal(out_g.detach(), out):
+                raise AssertionError(f"K3 {case}: the forward under autograd differs from "
+                                     f"its no-grad launch")
+            out_g.backward(dout)
+            for grad, x, leaf in zip(("dq", "dk", "dv"), got, leaves):
+                if not torch.equal(x, leaf.grad):
+                    raise AssertionError(f"K3b {grad} {case}: autograd's gradient differs "
+                                         f"from the direct call")
+            log("kernel", name="flash_attention_autograd", **case, forward_equal=True,
+                backward_equal=True)
+
+            def kernels():
+                return fb.flash_attention_backward(q, k, v, valid, out, dout)
+
+            def plain():
+                return fb.flash_attention_backward_reference(q, k, v, valid, out, dout)
+
+            lse, di = fb.reference_dq(q, k, v, valid, out, dout)[1:]
+            plains = {"dq": lambda: fb.reference_dq(q, k, v, valid, out, dout),
+                      "dkv": lambda: fb.reference_dkv(q, k, v, valid, dout, lse, di)}
+            sq, sk, sv = (x.detach().permute(0, 2, 1, 3).requires_grad_(True)
+                          for x in (q, k, v))
+            sout = torch.nn.functional.scaled_dot_product_attention(
+                sq, sk, sv, attn_mask=valid[:, None, None, :], scale=scale)
+            sgrad = dout.permute(0, 2, 1, 3)
+            work = _bwd_work(q, valid, dtype)
+            key = "" if (b, dtype, mask) == (4, torch.float32, "ragged") else \
+                f"_{str(dtype)[6:]}_b{b}_{mask}"
+            plain_ms_pair = _device_ms(plain, 5)
+            library_ms = _library("flash_attention_bwd", lambda: torch.autograd.grad(
+                sout, (sq, sk, sv), sgrad, retain_graph=True), card, iters=10,
+                dtype=str(dtype)[6:], b=b, t=t, mask=mask, call="sdpa_backward")
+            call_ms = _time_ms(kernels, 20)
+            names = {"dq": "attention_bwd_dq", "dkv": "attention_bwd_dkv"}
+            ms = {part: tmg.device_ms(kernels, 10, only=(name,)) for part, name in names.items()}
+            ms_pair = ms["dq"] + ms["dkv"]
+            for part in names:
+                plain_ms = _device_ms(plains[part], 5)
+                tm = times[part]
+                tm["ms" + key] = ms[part]
+                tm["plain_ms" + key] = plain_ms
+                tm["bound_ms" + key] = work[part]["bound_ms"]
+                tm["ms_pair" + key] = ms_pair
+                tm["plain_ms_pair" + key] = plain_ms_pair
+                tm["library_ms_pair" + key] = library_ms
+                tm["bound_ms_pair" + key] = work["pair"]["bound_ms"]
+                if not key:
+                    tm.update({k_: v_ for k_, v_ in work[part].items() if k_ != "bound_ms"})
+                    tm.update(library_ms=None, call_ms=call_ms,
+                              plain_call_ms=_time_ms(plains[part], 5))
+                log("attention_bwd_time", kernel=part, **case, device_ms=f"{ms[part]:.5f}",
+                    plain_device_ms=f"{plain_ms:.5f}",
+                    bound_ms=f"{work[part]['bound_ms']:.5f}",
+                    bound_by=work[part]["bound_by"], device_ms_pair=f"{ms_pair:.5f}",
+                    bound_ms_pair=f"{work['pair']['bound_ms']:.5f}",
+                    bound_by_pair=work["pair"]["bound_by"],
+                    plain_device_ms_pair=f"{plain_ms_pair:.5f}",
+                    library_ms_pair=f"{library_ms:.5f}", call_ms_pair=f"{call_ms:.5f}",
+                    tflops=f"{work[part]['bound_ops'] / ms[part] / 1e9:.2f}", card=repr(card))
+            del q, k, v, dout, out, ref, got, leaves, out_g, sq, sk, sv, sout, lse, di
+            torch.cuda.empty_cache()
+    return {f"flash_attention_bwd_{part}": {"max_abs_err": worst[torch.bfloat16],
+                                            "max_abs_err_fp32": worst[torch.float32],
+                                            "timing": times[part]}
+            for part in ("dq", "dkv")}
 
 
 def phase_probe_check(card: str) -> dict:
@@ -2111,23 +2305,263 @@ def phase_worker(card: str, tts) -> dict:
     return counts
 
 
+def _flow_train_batch(frames, dec, seed: int, device) -> dict:
+    """A flow training batch of len(frames) rows, max(frames) frames: target
+    mel, encoder output and a speaker embedding from the seed, a prompt
+    conditioning over each row's first quarter, the mask of each row's
+    frames."""
+    rng = np.random.default_rng(seed)
+    b, t, n = len(frames), max(frames), dec.out_channels
+    mask = (np.arange(t)[None, :, None] < np.asarray(frames)[:, None, None]).astype(np.float32)
+    cond = rng.standard_normal((b, t, n)).astype(np.float32)
+    cond *= (np.arange(t)[None, :, None] < np.asarray(frames)[:, None, None] // 4)
+    batch = {"mel": rng.standard_normal((b, t, n)).astype(np.float32) * mask,
+             "mu": rng.standard_normal((b, t, n)).astype(np.float32),
+             "spks": rng.standard_normal((b, n)).astype(np.float32),
+             "cond": cond, "mask": mask}
+    return {k: torch.as_tensor(v, device=device) for k, v in batch.items()}
+
+
+class _FixedDraws:
+    """One flow training step's draws, made once and handed to both
+    devices (cfm.compute_loss moves them to the batch's device)."""
+
+    def __init__(self, draws):
+        self.draws = draws
+
+    def flow_train(self, rows, shape):
+        return self.draws
+
+
+@contextlib.contextmanager
+def _written_out_attention():
+    """The estimator's attention written out (layers.mha under autograd) at
+    every row count, for the CPU side of the card-against-CPU step."""
+    from chatterbox_embed_tpu_torch.models import layers as L
+    gate = L.use_flash_attention
+    L.use_flash_attention = lambda rows: False
+    try:
+        yield
+    finally:
+        L.use_flash_attention = gate
+
+
+def _train_log(name: str, losses, seconds, base: int, card: str, **extra) -> None:
+    """The run's losses and times; its peak memory is what it allocated
+    above `base`, the bytes allocated before its state was made (earlier
+    phases may leave some behind)."""
+    log(name, losses=",".join(f"{x:.6f}" for x in losses),
+        ms_per_step_after_first=f"{1e3 * float(np.mean(seconds[1:])):.3f}",
+        first_step_ms=f"{1e3 * seconds[0]:.3f}",
+        peak_memory_gb=f"{(torch.cuda.max_memory_allocated() - base) / 1e9:.3f}",
+        max_memory_allocated_gb=f"{torch.cuda.max_memory_allocated() / 1e9:.3f}",
+        **extra, card=repr(card))
+
+
+def _step_profile(name: str, fn, parts: dict, card: str) -> None:
+    """One profiled call of `fn`: the device's kernel time against the
+    wall, and the kernel time of each part (kernel names containing one of
+    its strings). The profiler slows the host, so the busy share is a lower
+    bound of the unprofiled step's; a capture may lose kernel records
+    (probes/timing.device_ms)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    t0 = time.time()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    wall_ms = 1e3 * (time.time() - t0)
+    events = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    device_ms = sum(e.self_device_time_total for e in events) / 1e3
+    shares = {}
+    for label, keys in parts.items():
+        us = sum(e.self_device_time_total for e in events if any(k in e.key for k in keys))
+        shares[f"{label}_ms"] = f"{us / 1e3:.3f}"
+    log("train_profile", name=name, device_ms=f"{device_ms:.3f}",
+        profiled_wall_ms=f"{wall_ms:.3f}", busy_share=f"{device_ms / wall_ms:.3f}",
+        kernels=sum(e.count for e in events), **shares, card=repr(card))
+
+
+def phase_train(card: str) -> dict:
+    """Training at full width on the card (fp32, random weights from a seed):
+    T3 (ChatterboxConfig().t3, 30 layers) takes TRAIN_STEPS AdamW steps with
+    remat on one batch, and its losses must be finite and fall; the flow
+    estimator (FlowDecoderConfig(), 56 transformer blocks) takes TRAIN_STEPS
+    steps on 4 rows, each through K3 forward and K3b-dq / K3b-dkv 56 times
+    (written-out attention nowhere); then one flow step's loss and every
+    gradient leaf on the card against the CPU on the same params, batch and
+    draws at 256 frames. Returns the launches of each run."""
+    from chatterbox_embed_tpu_torch import training
+    from chatterbox_embed_tpu_torch.config import CFMConfig, ChatterboxConfig, FlowDecoderConfig
+    from chatterbox_embed_tpu_torch.models import flow_decoder, t3
+    from chatterbox_embed_tpu_torch.models import layers as L
+    from chatterbox_embed_tpu_torch.ops.sampling import Draws
+    from chatterbox_embed_tpu_torch.weights import _leaves
+    launches = {}
+    cfg = ChatterboxConfig().t3
+    rng = np.random.default_rng(0)
+    b, lt, ls = 2, max(TRAIN_T3_TEXT), max(TRAIN_T3_SPEECH)
+    batch = {"speaker_emb": rng.standard_normal((b, cfg.speaker_embed_size)).astype(np.float32),
+             "cond_prompt_tokens": rng.integers(0, 6561, (b, cfg.speech_cond_prompt_len)
+                                                ).astype(np.int32),
+             "emotion_adv": np.full((b, 1, 1), 0.5, np.float32),
+             "text_tokens": rng.integers(0, cfg.text_tokens_dict_size, (b, lt)).astype(np.int32),
+             "text_lens": np.asarray(TRAIN_T3_TEXT, np.int32),
+             "speech_tokens": rng.integers(0, 6561, (b, ls)).astype(np.int32),
+             "speech_lens": np.asarray(TRAIN_T3_SPEECH, np.int32)}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    state = training.init_t3_train_state(t3.init(L.Init(0), cfg))       # the card
+    step = training.make_t3_train_step(None, cfg, remat=True)
+    losses, seconds = [], []
+    _reset_counts()
+    for _ in range(TRAIN_STEPS):
+        t0 = time.time()
+        state, metrics = step(state, batch)
+        torch.cuda.synchronize()
+        seconds.append(time.time() - t0)
+        losses.append(float(metrics["loss"]))
+    launches["train_t3"] = _counts()
+    _step_profile("train_t3", lambda: step(state, batch), {}, card)
+    _train_log("train_t3", losses, seconds, base, card, layers=cfg.llama.num_layers,
+               d=cfg.llama.hidden_size, rows=b, prompt=cfg.speech_cond_prompt_len,
+               text=TRAIN_T3_TEXT, speech=TRAIN_T3_SPEECH, remat=True, dtype="float32",
+               steps=state.step)
+    if not np.isfinite(losses).all() or not losses[-1] < losses[0]:
+        raise AssertionError(f"T3 training: losses {losses} are not finite and falling")
+    if launches["train_t3"] != _want():
+        raise AssertionError(f"T3 training launched kernels: {launches['train_t3']}")
+    del state, step
+    torch.cuda.empty_cache()
+
+    dec, cfm = FlowDecoderConfig(), CFMConfig()
+    n_tblocks = (2 + dec.num_mid_blocks) * dec.n_blocks
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    state = training.init_flow_train_state(flow_decoder.init(L.Init(1), dec))
+    step = training.make_flow_train_step(None, cfm, dec)
+    fbatch = _flow_train_batch(TRAIN_FLOW_FRAMES, dec, 0, "cuda")
+    losses, seconds = [], []
+    _reset_counts()
+    before = _counts()
+    for i in range(TRAIN_STEPS):
+        t0 = time.time()
+        state, metrics = step(state, Draws(i), fbatch)
+        torch.cuda.synchronize()
+        seconds.append(time.time() - t0)
+        losses.append(float(metrics["loss"]))
+        now = _counts()
+        delta = {k: now[k] - before[k] for k in now}
+        want = _want(flash_attention=n_tblocks, flash_attention_bwd_dq=n_tblocks,
+                     flash_attention_bwd_dkv=n_tblocks)
+        if delta != want:
+            raise AssertionError(f"flow step {i}: launches {delta}, want {want}")
+        before = now
+    launches["train_flow"] = _counts()
+    _step_profile("train_flow", lambda: step(state, Draws(TRAIN_STEPS), fbatch),
+                  {"k3": ("masked_attention",), "k3b_dq": ("attention_bwd_dq",),
+                   "k3b_dkv": ("attention_bwd_dkv",)}, card)
+    _train_log("train_flow", losses, seconds, base, card, rows=len(TRAIN_FLOW_FRAMES),
+               frames=TRAIN_FLOW_FRAMES, channels=dec.channels, tblocks=n_tblocks,
+               dtype="float32", steps=state.step,
+               launches_per_step=f"K3 {n_tblocks}, K3b-dq {n_tblocks}, K3b-dkv {n_tblocks}")
+    if not np.isfinite(losses).all():
+        raise AssertionError(f"flow training: losses {losses} are not finite")
+    del state, step, fbatch
+    torch.cuda.empty_cache()
+
+    # one step's loss and gradients, card (K3 + K3b) against CPU (autograd
+    # through the written-out attention): same params, batch and draws
+    from chatterbox_embed_tpu_torch.training.train_step import flow_loss_fn
+    params0 = flow_decoder.init(L.Init(2, device="cpu"), dec)
+    rows, frames = len(TRAIN_CHECK_FRAMES), max(TRAIN_CHECK_FRAMES)
+    draws = _FixedDraws(Draws(5, "cpu").flow_train(rows, (rows, frames, dec.out_channels)))
+    result = {}
+    for device in ("cuda", "cpu"):
+        params = training.init_flow_train_state(params0, device=device).params
+        sbatch = _flow_train_batch(TRAIN_CHECK_FRAMES, dec, 1, device)
+        t0 = time.time()
+        _reset_counts()
+        with _written_out_attention() if device == "cpu" else contextlib.nullcontext():
+            loss, _ = flow_loss_fn(params, draws, sbatch, cfm, dec, torch.float32)
+            loss.backward()
+        result[device] = (loss.item(), {path: x.grad.cpu() for path, x in _leaves(params)})
+        counts = _counts()
+        want = _want(flash_attention=n_tblocks, flash_attention_bwd_dq=n_tblocks,
+                     flash_attention_bwd_dkv=n_tblocks) if device == "cuda" else _want()
+        if counts != want:
+            raise AssertionError(f"flow step on {device}: launches {counts}, want {want}")
+        log("train_flow_step", device=device, frames=TRAIN_CHECK_FRAMES, loss=f"{loss.item():.8f}",
+            seconds=f"{time.time() - t0:.2f}")
+    (loss_gpu, g_gpu), (loss_cpu, g_cpu) = result["cuda"], result["cpu"]
+    loss_err = abs(loss_gpu - loss_cpu) / abs(loss_cpu)
+    worst, worst_path = 0.0, ""
+    for path, gc in g_cpu.items():
+        ratio = (g_gpu[path] - gc).abs().max().item() / (gc.norm().item() + 1e-7 / TRAIN_GRAD_TOL)
+        if not np.isfinite(ratio) or ratio > TRAIN_GRAD_TOL:
+            raise AssertionError(f"flow step gradient {path}: card against CPU "
+                                 f"max|diff| / ||g|| = {ratio:.3e} > {TRAIN_GRAD_TOL}")
+        if ratio > worst:
+            worst, worst_path = ratio, path
+    if not loss_err <= TRAIN_LOSS_TOL:
+        raise AssertionError(f"flow step loss: card {loss_gpu} against CPU {loss_cpu}")
+    log("train_flow_check", frames=TRAIN_CHECK_FRAMES, loss_rel_err=f"{loss_err:.3e}",
+        loss_limit=TRAIN_LOSS_TOL, leaves=len(g_cpu), worst_grad_err_over_norm=f"{worst:.3e}",
+        worst_leaf=worst_path, grad_limit=TRAIN_GRAD_TOL, matmul_tf32=False, cudnn_tf32=False)
+    torch.cuda.empty_cache()
+    return launches
+
+
 # the path whose launch count each kernel's JSON entry reports: the
 # streamed request for K1 and K4, the paths that run the others, and for the
 # two probe kernels their probe's entry point
 MAIN_PATH = {"flash_decode": "stream_generate", "flash_decode_deferred": "generate_defer",
              "rel_attention": "generate_batch", "flash_attention": "generate_batch",
+             "flash_attention_bwd_dq": "train_flow", "flash_attention_bwd_dkv": "train_flow",
              "fused_decode": "stream_generate_fused_step",
              "weight_stream": "probe_weight_stream", "decode_anatomy": "probe_decode_anatomy"}
 REPLACES = {"flash_decode": "chatterbox_embed_tpu/kernels/flash_decode.py:85",
             "flash_decode_deferred": "chatterbox_embed_tpu/kernels/flash_decode.py:169",
             "rel_attention": "chatterbox_embed_tpu/kernels/rel_attention.py:45",
             "flash_attention": "chatterbox_embed_tpu/models/layers.py:395",
+            # the stock op's backward, jax 0.9.0 (site-packages)
+            "flash_attention_bwd_dq": "jax/experimental/pallas/ops/tpu/flash_attention.py:1287",
+            "flash_attention_bwd_dkv": "jax/experimental/pallas/ops/tpu/flash_attention.py:941",
             "fused_decode": "chatterbox_embed_tpu/kernels/fused_decode.py:111",
             "weight_stream": "scripts/microbench_weight_stream.py:39",
             "decode_anatomy": "scripts/microbench_decode_anatomy.py:40"}
 
 
-if __name__ == "__main__":
+# the phases `--phases` selects among, in the order they run (the device
+# and build phases always run; every phase runs when none is named)
+PHASES = ("kernel_check", "attention_check", "probe_check", "probes", "fused_check",
+          "consistency", "generate", "generate_batch", "stream_generate", "conditioning",
+          "long_text", "engine", "worker", "train")
+MODEL_PHASES = ("fused_check", "consistency", "generate", "generate_batch",
+                "stream_generate", "conditioning", "long_text", "engine", "worker")
+
+
+def _selected(argv) -> set:
+    import argparse
+    ap = argparse.ArgumentParser(description="Smoke run of the PyTorch port on one card.")
+    ap.add_argument("--phases", default=None,
+                    help="comma-separated phases to run (default: all): " + ",".join(PHASES))
+    args = ap.parse_args(argv)
+    if args.phases is None:
+        return set(PHASES)
+    chosen = {p.strip() for p in args.phases.split(",") if p.strip()}
+    unknown = sorted(chosen - set(PHASES))
+    if unknown or not chosen:
+        ap.error(f"unknown phases {unknown}; choose from {','.join(PHASES)}")
+    return chosen
+
+
+def main(argv=None) -> None:
+    import sys
+    selected = _selected(sys.argv[1:] if argv is None else argv)
     started = [time.time(), time.time()]
 
     def phase_done(name: str) -> None:
@@ -2141,69 +2575,95 @@ if __name__ == "__main__":
     card = phase_device()
     phase_build()
     phase_done("build")
-    check = {"flash_decode": phase_kernel_check(card),
-             "flash_decode_deferred": phase_kernel_check(card, deferred=True)}
-    phase_done("kernel_check_k1_k1s")
-    check.update(phase_attention_check(card))
-    phase_done("kernel_check_k2_k3")
-    check.update(phase_probe_check(card))
-    phase_done("kernel_check_k5_k6")
-    launches = phase_probes(card)
-    phase_done("probes")
+    check, launches = {}, {}
+    if "kernel_check" in selected:
+        check = {"flash_decode": phase_kernel_check(card),
+                 "flash_decode_deferred": phase_kernel_check(card, deferred=True)}
+        phase_done("kernel_check_k1_k1s")
+    if "attention_check" in selected:
+        check.update(phase_attention_check(card))
+        phase_done("kernel_check_k2_k3_k3b")
+    if "probe_check" in selected:
+        check.update(phase_probe_check(card))
+        phase_done("kernel_check_k5_k6")
+    if "probes" in selected:
+        launches.update(phase_probes(card))
+        phase_done("probes")
 
-    from chatterbox_embed_tpu_torch.config import ChatterboxConfig
-    from chatterbox_embed_tpu_torch.tts import ChatterboxTTS
-    cfg = ChatterboxConfig()
-    t0 = time.time()
-    tts = ChatterboxTTS.from_random(seed=0, config=cfg, dtype=torch.bfloat16)   # the card
-    if tts.device.type != "cuda":
-        raise AssertionError(f"from_random without a device landed on {tts.device}")
-    tts.conds = _random_conds(cfg, "cuda")
-    torch.cuda.synchronize()
-    log("model", config="ChatterboxConfig()", dtype="bfloat16",
-        t3_layers=cfg.t3.llama.num_layers, d=cfg.t3.llama.hidden_size,
-        init_s=f"{time.time() - t0:.2f}", text_chars=len(TEXT))
-    check["fused_decode"] = phase_fused_check(card, tts)
-    phase_done("model_and_kernel_check_k4")
-    phase_decode_consistency(tts)
-    phase_batch_consistency(tts)
-    phase_done("consistency")
-    perfs = {}
-    for path in GEN_PATHS:
-        # the deferred insert runs one pass (no warm-up): its step is the
-        # default path's, host-bound, and the pass is there for its launches
-        launches[f"generate_{path}"], perfs[path] = phase_generate(
-            card, tts, path, ("timed",) if path == "defer" else ("warmup", "timed"))
-    log("decode_step", card=repr(card), **{
-        f"{path}_ms_per_step": f"{1e3 * p['t3_s'] / p['decode_steps']:.3f}"
-        for path, p in perfs.items()})
-    phase_done("generate")
-    launches["generate_batch"] = phase_generate_batch(card, tts, None, "one")
-    voices = [_random_conds(cfg, "cuda", n, seed) for n, seed in ((150, 1), (110, 2))]
-    launches["generate_batch_multi_voice"] = phase_generate_batch(
-        card, tts, [voices[i % 2] for i in range(len(TEXTS))], "two", ("timed",))
-    phase_done("generate_batch")
-    launches["stream_generate_fused_step"], _ = phase_stream(card, tts, True)
-    # the default step streams one pass: the fused passes before it warmed
-    # the flow windows and the vocoder, and generate warmed the K1 step
-    launches["stream_generate"], _ = phase_stream(card, tts, False, ("timed",))
-    phase_done("stream_generate")
-    launches["generate_audio_prompt"] = phase_conditioning(card, tts)
-    phase_done("conditioning")
-    launches.update(phase_long_text(card, tts))
-    phase_done("long_text")
-    launches["engine"] = phase_engine(card, tts)
-    phase_done("engine")
-    launches["worker"] = phase_worker(card, tts)
-    phase_done("worker")
+    if selected & set(MODEL_PHASES):
+        from chatterbox_embed_tpu_torch.config import ChatterboxConfig
+        from chatterbox_embed_tpu_torch.tts import ChatterboxTTS
+        cfg = ChatterboxConfig()
+        t0 = time.time()
+        tts = ChatterboxTTS.from_random(seed=0, config=cfg, dtype=torch.bfloat16)   # the card
+        if tts.device.type != "cuda":
+            raise AssertionError(f"from_random without a device landed on {tts.device}")
+        tts.conds = _random_conds(cfg, "cuda")
+        torch.cuda.synchronize()
+        log("model", config="ChatterboxConfig()", dtype="bfloat16",
+            t3_layers=cfg.t3.llama.num_layers, d=cfg.t3.llama.hidden_size,
+            init_s=f"{time.time() - t0:.2f}", text_chars=len(TEXT))
+        if "fused_check" in selected:
+            check["fused_decode"] = phase_fused_check(card, tts)
+        phase_done("model_and_kernel_check_k4")
+    if "consistency" in selected:
+        phase_decode_consistency(tts)
+        phase_batch_consistency(tts)
+        phase_done("consistency")
+    if "generate" in selected:
+        perfs = {}
+        for path in GEN_PATHS:
+            # the deferred insert runs one pass (no warm-up): its step is the
+            # default path's, host-bound, and the pass is there for its launches
+            launches[f"generate_{path}"], perfs[path] = phase_generate(
+                card, tts, path, ("timed",) if path == "defer" else ("warmup", "timed"))
+        log("decode_step", card=repr(card), **{
+            f"{path}_ms_per_step": f"{1e3 * p['t3_s'] / p['decode_steps']:.3f}"
+            for path, p in perfs.items()})
+        phase_done("generate")
+    if "generate_batch" in selected:
+        launches["generate_batch"] = phase_generate_batch(card, tts, None, "one")
+        voices = [_random_conds(cfg, "cuda", n, seed) for n, seed in ((150, 1), (110, 2))]
+        launches["generate_batch_multi_voice"] = phase_generate_batch(
+            card, tts, [voices[i % 2] for i in range(len(TEXTS))], "two", ("timed",))
+        phase_done("generate_batch")
+    if "stream_generate" in selected:
+        launches["stream_generate_fused_step"], _ = phase_stream(card, tts, True)
+        # the default step streams one pass: the fused passes before it warmed
+        # the flow windows and the vocoder, and generate warmed the K1 step
+        launches["stream_generate"], _ = phase_stream(card, tts, False, ("timed",))
+        phase_done("stream_generate")
+    if "conditioning" in selected:
+        launches["generate_audio_prompt"] = phase_conditioning(card, tts)
+        phase_done("conditioning")
+    if "long_text" in selected:
+        launches.update(phase_long_text(card, tts))
+        phase_done("long_text")
+    if "engine" in selected:
+        launches["engine"] = phase_engine(card, tts)
+        phase_done("engine")
+    if "worker" in selected:
+        launches["worker"] = phase_worker(card, tts)
+        phase_done("worker")
+    if selected & set(MODEL_PHASES):
+        del tts
+        torch.cuda.empty_cache()
+    if "train" in selected:
+        launches.update(phase_train(card))
+        phase_done("train")
     for name, path in MAIN_PATH.items():
-        if launches[path][name] == 0:
+        if path in launches and launches[path][name] == 0:
             raise AssertionError(f"{name} was not launched on its path {path}")
 
+    # every kernel whose check and main path ran (all of them without --phases)
     from chatterbox_embed_tpu_torch.kernels import _build
+    reported = [name for name in _kernels() if name in check and MAIN_PATH[name] in launches]
+    if selected == set(PHASES) and len(reported) != len(_kernels()):
+        raise AssertionError(f"kernels without a check or a main-path run: "
+                             f"{sorted(set(_kernels()) - set(reported))}")
     print(json.dumps({"kernels": [{
         "name": name, "route": "cuda",
-        "source": str(m.SOURCE.relative_to(_build.PKG.parent)),
+        "source": str(_kernels()[name][0].SOURCE.relative_to(_build.PKG.parent)),
         "replaces": REPLACES[name],
         "launches": launches[MAIN_PATH[name]][name],
         "launches_by_path": {p: c[name] for p, c in launches.items()},
@@ -2219,10 +2679,15 @@ if __name__ == "__main__":
         "bound_peak": check[name]["timing"]["bound_peak"],
         "call_ms": check[name]["timing"]["call_ms"],
         "plain_call_ms": check[name]["timing"]["plain_call_ms"],
-        # K2 and K3: the all-valid mask, both block heights, the fp32 kernel
+        # K2, K3 and K3b: the all-valid mask, both block heights or dtypes,
+        # the fp32 kernel
         **{key: val for key, val in check[name]["timing"].items()
            if key.startswith(("ms_", "plain_ms_", "library_ms_", "bound_ms_"))}}
-        for name, (m, _, _, _) in _kernels().items()]}), flush=True)
+        for name in reported]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)
+
+
+if __name__ == "__main__":
+    main()

@@ -172,6 +172,8 @@ ENTRY_POINTS = [
     "t3_engine.prefill_request(None, None, np.zeros((1, 4), np.int32), text_bucket=8, "
     "p_len=44, cfg=TINY.t3)",
     "t3_engine.ContinuousDecoder(None, TINY.t3, slots=1)",
+    "training.init_t3_train_state(None)",
+    "training.init_flow_train_state(None)",
 ]
 
 
@@ -188,6 +190,7 @@ def test_entry_points_need_the_card_unless_asked_for_the_cpu(call, monkeypatch, 
     from chatterbox_embed_tpu_torch.models import layers as L            # noqa: F401
     from chatterbox_embed_tpu_torch.models import llama, t3, t3_engine    # noqa: F401
     from chatterbox_embed_tpu_torch.ops.sampling import Draws, sampling_param   # noqa: F401
+    from chatterbox_embed_tpu_torch import training                       # noqa: F401
     from chatterbox_embed_tpu_torch.utils import audio_io
     from torch_parity import tiny_pipeline_config
     TINY = tiny_pipeline_config()                          # noqa: F841, N806
@@ -210,6 +213,7 @@ def test_device_cpu_runs_and_no_default_names_the_cpu():
     from chatterbox_embed_tpu_torch.models import layers as L
     from chatterbox_embed_tpu_torch.models import llama, t3, t3_engine
     from chatterbox_embed_tpu_torch.ops import sampling
+    from chatterbox_embed_tpu_torch import training
     from chatterbox_embed_tpu_torch.utils import audio_io
     from torch_parity import tiny_pipeline_config
     tiny = tiny_pipeline_config()
@@ -224,7 +228,8 @@ def test_device_cpu_runs_and_no_default_names_the_cpu():
                sampling.sampling_param, llama.init_cache, t3.generate, t3.generate_batch,
                t3.generate_stream, t3.start_generation, audio_io.load_audio,
                t3_engine.engine_init, t3_engine.prefill_request,
-               t3_engine.ContinuousDecoder.__init__):
+               t3_engine.ContinuousDecoder.__init__, training.init_t3_train_state,
+               training.init_flow_train_state):
         assert inspect.signature(fn).parameters["device"].default is None, fn
     # and nothing else in the package: every function or method that takes a
     # `device` either requires it or defaults to None (the card)

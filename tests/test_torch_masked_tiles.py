@@ -193,6 +193,7 @@ class _OnCard:
         self._m = torch.empty(shape, dtype=dtype, device="meta")
         self.device = torch.device("cuda", 0)
         self.dtype, self.shape = dtype, self._m.shape
+        self.requires_grad = False
 
     def dim(self):
         return self._m.dim()

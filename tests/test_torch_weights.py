@@ -189,12 +189,30 @@ WIRING = ["_convert_validated", "convert_llama", "convert_voice_encoder", "conve
 
 
 @pytest.mark.parametrize("name", WIRING)
-def test_converter_wiring_is_the_jax_packages(name):
+def test_converter_wiring_is_the_jax_packages(name, tmp_path):
     """The port's copy changes the layer helpers only: the functions that
     map checkpoint names onto the tree are the JAX package's, line for
     line, so with the helpers (above) the two converters build the same
-    trees."""
+    trees. The reader is the port's own (no safetensors package): it gives
+    what the JAX package's reader gives, dtype for dtype."""
     import inspect
+    if name == "load_safetensors":
+        from safetensors.numpy import save_file
+        rng = np.random.default_rng(3)
+        sd = {"f32": rng.standard_normal((3, 5)).astype(np.float32),
+              "f16": rng.standard_normal(7).astype(np.float16),
+              "f64": rng.standard_normal((2, 2, 2)),
+              "i64": rng.integers(-9, 9, (4,)), "i8": rng.integers(-9, 9, (2, 3)).astype(np.int8),
+              "u8": rng.integers(0, 255, (5,)).astype(np.uint8),
+              "bool": rng.random(6) > 0.5, "empty": np.zeros((0, 4), np.float32)}
+        path = str(tmp_path / "ref.safetensors")
+        save_file(sd, path)
+        got, want = tw.load_safetensors(path), jw.load_safetensors(path)
+        assert sorted(got) == sorted(want)
+        for key in want:
+            assert got[key].dtype == want[key].dtype and got[key].shape == want[key].shape, key
+            np.testing.assert_array_equal(got[key], want[key], err_msg=key)
+        return
     assert inspect.getsource(getattr(tw, name)) == inspect.getsource(getattr(jw, name))
     if name == "convert_s3gen":
         for const in ("S3GEN_IGNORED_KEYS", "T3_IGNORED_KEYS", "VE_IGNORED_KEYS"):

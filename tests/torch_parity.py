@@ -16,7 +16,8 @@ class JaxDraws:
     draw-source interface (chatterbox_embed_tpu_torch.ops.sampling.Draws):
     T3 step i samples with fold_in(key, i) (t3.py decode_block), the HiFT
     source splits the key in 3 for phase and noise (hifigan.sine_source),
-    and a streamed window draws as hifigan._stream_impl does."""
+    a streamed window draws as hifigan._stream_impl does, and a flow
+    training step as cfm.compute_loss does."""
 
     def __init__(self, seed: int = 0):
         self.key = jax.random.PRNGKey(seed)
@@ -45,6 +46,15 @@ class JaxDraws:
         (streaming.WindowedSynth, first_chunk)."""
         k = jax.random.fold_in(self.key, window)
         return torch.from_numpy(np.array(jax.random.normal(k, shape, jnp.float32)))
+
+    def flow_train(self, rows, shape):
+        """A flow-matching training step: split(key, 3) for the time, the
+        noise and the CFG keep draw (cfm.compute_loss)."""
+        k_t, k_z, k_cfg = jax.random.split(self.key, 3)
+        return tuple(torch.from_numpy(np.array(a)) for a in (
+            jax.random.uniform(k_t, (rows,), jnp.float32),
+            jax.random.normal(k_z, shape, jnp.float32),
+            jax.random.uniform(k_cfg, (rows,))))
 
 
 def port_params(init_fn, cfg, jax_params, name="module"):
