@@ -23,15 +23,18 @@
 #include "masked_attention_tc.cuh"
 
 // Plain C entry for ctypes. dtype: 0 = float32, 1 = bfloat16. head_dim
-// must be 64. Returns the cudaError_t of the launch (0 on success); it never
-// synchronises and allocates nothing.
+// must be 64. `lse` is null (serving) or a (B, H, T) fp32 buffer that gets
+// each query row's log-sum-exp over its valid keys, natural log, +inf for a
+// row without one: what the stock TPU op saves as its residuals l and m
+// (flash_attention.py:246-251, jax 0.9.0), for K3b. Returns the cudaError_t
+// of the launch (0 on success); it never synchronises and allocates nothing.
 extern "C" int cbx_flash_attention(const void* q, const void* k, const void* v,
-                                   const void* key_valid, void* out, int batch,
-                                   int seq, int heads, int head_dim, int dtype,
-                                   void* stream) {
+                                   const void* key_valid, void* out, void* lse,
+                                   int batch, int seq, int heads, int head_dim,
+                                   int dtype, void* stream) {
   if (head_dim != cbx::kDV) return (int)cudaErrorInvalidValue;
   const float scale = 1.0f / sqrtf((float)head_dim);
-  return cbx::dispatch_masked_attention<true>(q, k, v, key_valid, out, batch,
-                                              seq, heads, head_dim, scale, dtype,
-                                              stream);
+  return cbx::dispatch_masked_attention<true>(q, k, v, key_valid, out,
+                                              static_cast<float*>(lse), batch, seq,
+                                              heads, head_dim, scale, dtype, stream);
 }

@@ -69,8 +69,8 @@ __global__ void __launch_bounds__(kThreads)
 masked_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
                         const T* __restrict__ v,
                         const unsigned char* __restrict__ key_valid,
-                        T* __restrict__ out, int seq, int heads, int da,
-                        float scale) {
+                        T* __restrict__ out, float* __restrict__ lse, int seq,
+                        int heads, int da, float scale) {
   extern __shared__ float smem[];
   float* qs = smem;                      // [kBQ][kPad]
   float* ks = qs + kBQ * kPad;           // [kBK][kPad]
@@ -196,6 +196,9 @@ masked_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
   for (int i = 0; i < 4; ++i) {
     const int t = q0 + ty + 16 * i;
     if (t >= seq) continue;
+    // the row's log-sum-exp, +inf without a valid key (exp(s - lse) = 0)
+    if (lse != nullptr && tx == 0)
+      lse[(size_t)blockIdx.y * seq + t] = l[i] > 0.f ? m[i] + logf(l[i]) : INFINITY;
     const float inv = l[i] > 0.f ? 1.f / l[i] : 0.f;   // no valid key: 0
     T* o = out + ((size_t)b * seq + t) * v_stride + (size_t)h * kDV;
 #pragma unroll
@@ -207,7 +210,7 @@ masked_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
 // cudaError_t of the launch (0 on success).
 template <typename T>
 int launch_masked_attention(const void* q, const void* k, const void* v,
-                            const void* key_valid, void* out, int batch,
+                            const void* key_valid, void* out, float* lse, int batch,
                             int seq, int heads, int da, float scale,
                             cudaStream_t stream) {
   static bool smem_raised = false;
@@ -222,25 +225,27 @@ int launch_masked_attention(const void* q, const void* k, const void* v,
   masked_attention_kernel<T><<<grid, kThreads, kSmemBytes, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<const unsigned char*>(key_valid),
-      static_cast<T*>(out), seq, heads, da, scale);
+      static_cast<T*>(out), lse, seq, heads, da, scale);
   return (int)cudaGetLastError();
 }
 
 // dtype: 0 = float32 (this header's kernel), 1 = bfloat16 (the tensor-core
-// kernel of masked_attention_tc.cuh; kNarrowOnly is its).
+// kernel of masked_attention_tc.cuh; kNarrowOnly is its). `lse` null, or
+// (B, H, T) fp32 for each query row's log-sum-exp (natural log, +inf for a
+// row without a valid key): K3 under autograd, for K3b.
 template <bool kNarrowOnly>
 int dispatch_masked_attention(const void* q, const void* k, const void* v,
-                              const void* key_valid, void* out, int batch, int seq,
-                              int heads, int da, float scale, int dtype,
+                              const void* key_valid, void* out, float* lse, int batch,
+                              int seq, int heads, int da, float scale, int dtype,
                               void* stream) {
   if (batch < 1 || seq < 1 || heads < 1 || da < kDC || da % kDC != 0)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
-    return launch_masked_attention<float>(q, k, v, key_valid, out, batch, seq,
+    return launch_masked_attention<float>(q, k, v, key_valid, out, lse, batch, seq,
                                           heads, da, scale, s);
   if (dtype == 1)
-    return dispatch_masked_attention_tc<kNarrowOnly>(q, k, v, key_valid, out, batch,
+    return dispatch_masked_attention_tc<kNarrowOnly>(q, k, v, key_valid, out, lse, batch,
                                                      seq, heads, da, scale, s);
   return (int)cudaErrorInvalidValue;
 }

@@ -13,6 +13,11 @@
 // with scores, softmax, the denominator (summed from the unrounded p) and the
 // output sum in fp32, and p rounded to bf16 only as the operand of p.v. A
 // row with no valid key writes 0; invalid queries attend the valid keys.
+// Given an `lse` buffer (K3 under autograd), it also writes each query
+// row's log-sum-exp (natural log; +inf for a row with no valid key), which
+// K3b (flash_attention_bwd.cu) reads; K2 and serving pass none. K3b builds
+// its bf16 kernels from the primitives below (cp.async, the swizzled tile
+// descriptor, the ss and rs products, the live-tile bitmap).
 //
 // What bounds it on an H100: operations. K2 at (8, 812) is 5.4e10 FLOP against
 // 133 MB of operands, K3 at (16, 812) 2.2e10 against 53 MB; both are far
@@ -77,6 +82,7 @@ constexpr int kTcStagesNarrow = 6;
 constexpr int kTcStagesWide = 5;
 constexpr int kTcBlocksNarrow = 4;
 constexpr int kTcBlocksWide = 2;
+constexpr float kTcLn2 = 0.6931471805599453f;
 
 __device__ __forceinline__ uint32_t tc_smem_u32(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
@@ -122,6 +128,45 @@ __device__ __forceinline__ float tc_exp2(float x) {
 __device__ __forceinline__ uint32_t tc_pack(float lo, float hi) {
   const __nv_bfloat162 p = __floats2bfloat162_rn(lo, hi);     // lo in the low half
   return *reinterpret_cast<const uint32_t*>(&p);
+}
+
+// 4 bytes global -> shared (through L1); `live` false writes 4 zero bytes
+__device__ __forceinline__ void tc_cp_async4(uint32_t dst, const void* src, bool live) {
+  const int n = live ? 4 : 0;
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n"
+               :: "r"(dst), "l"(src), "r"(n) : "memory");
+}
+
+// Bitmap of the live 64-key tiles among tiles [base, base + 64): bit u is
+// set when tile base + u holds a valid key of key_valid row `mb`. Every warp
+// ballots the same bytes, so all threads of a block get the same map without
+// a barrier.
+__device__ __forceinline__ uint64_t tc_live_tiles(const unsigned char* __restrict__ mb, int seq,
+                                                  int base, int n_tiles, int lane) {
+  uint64_t live = 0;
+  const int nt = min(64, n_tiles - base);
+  for (int j0 = 0; j0 < nt; j0 += 8) {       // 8 tiles' loads in flight together
+    unsigned any[8];
+#pragma unroll
+    for (int u = 0; u < 8; ++u) {
+      const int key = (base + j0 + u) * kTcTile + 2 * lane;
+      any[u] = (key < seq ? __ldg(mb + key) : 0) | (key + 1 < seq ? __ldg(mb + key + 1) : 0);
+    }
+#pragma unroll
+    for (int u = 0; u < 8; ++u)
+      if (__any_sync(0xffffffffu, any[u] != 0)) live |= uint64_t{1} << (j0 + u);
+  }
+  return live;
+}
+
+// The valid keys of tile [k0, k0 + 64) as a 64-bit map (bit j: key k0 + j;
+// keys past T are not valid). Every lane of the warp gets the map.
+__device__ __forceinline__ uint64_t tc_tile_keys(const unsigned char* __restrict__ mb, int seq,
+                                                 int k0, int lane) {
+  const int a = k0 + lane, b = a + 32;
+  const unsigned lo = __ballot_sync(0xffffffffu, a < seq && __ldg(mb + a) != 0);
+  const unsigned hi = __ballot_sync(0xffffffffu, b < seq && __ldg(mb + b) != 0);
+  return (uint64_t{hi} << 32) | lo;
 }
 
 // wgmma descriptor of a shared-memory tile whose rows are 128 bytes under the
@@ -176,8 +221,8 @@ masked_attention_tc_kernel(const __nv_bfloat16* __restrict__ q,
                            const __nv_bfloat16* __restrict__ k,
                            const __nv_bfloat16* __restrict__ v,
                            const unsigned char* __restrict__ key_valid,
-                           __nv_bfloat16* __restrict__ out, int seq, int heads,
-                           int da, float scale_log2) {
+                           __nv_bfloat16* __restrict__ out, float* __restrict__ lse,
+                           int seq, int heads, int da, float scale_log2) {
   extern __shared__ __align__(1024) unsigned char tc_smem[];
   constexpr int kAhead = kStages - 2;        // stages in flight ahead of the products
   constexpr int kRowStep = kTcThreads / 8;   // rows between a thread's copies
@@ -234,19 +279,7 @@ masked_attention_tc_kernel(const __nv_bfloat16* __restrict__ q,
   for (int base = 0; base < n_tiles; base += 64) {
     // bitmap of the live key tiles among the next 64: every warp ballots the
     // same bytes, so all threads of the block walk the same list
-    uint64_t live = 0;
-    const int nt = min(64, n_tiles - base);
-    for (int j0 = 0; j0 < nt; j0 += 8) {     // 8 tiles' loads in flight together
-      unsigned any[8];
-#pragma unroll
-      for (int u = 0; u < 8; ++u) {
-        const int key = (base + j0 + u) * kTcTile + 2 * lane;
-        any[u] = (key < seq ? __ldg(mb + key) : 0) | (key + 1 < seq ? __ldg(mb + key + 1) : 0);
-      }
-#pragma unroll
-      for (int u = 0; u < 8; ++u)
-        if (__any_sync(0xffffffffu, any[u] != 0)) live |= uint64_t{1} << (j0 + u);
-    }
+    const uint64_t live = tc_live_tiles(mb, seq, base, n_tiles, lane);
     if (live == 0) continue;
 
     // the loads' cursor: tile (lowest bit of ld_rem), slice ld_s (ns = the V
@@ -399,6 +432,13 @@ masked_attention_tc_kernel(const __nv_bfloat16* __restrict__ q,
   const float inv1 = l1 > 0.f ? 1.f / l1 : 0.f;
   const int t0 = q0 + warp * 16 + (lane >> 2);
   const int t1 = t0 + 8;
+  if (lse != nullptr && quad == 0) {
+    // natural-log units from the exp2 domain; +inf for a row without a
+    // valid key, so that exp(s - lse) is exactly 0 for every finite s
+    float* lb = lse + (size_t)blockIdx.y * seq;
+    if (t0 < seq) lb[t0] = l0 > 0.f ? (m0 + log2f(l0)) * kTcLn2 : INFINITY;
+    if (t1 < seq) lb[t1] = l1 > 0.f ? (m1 + log2f(l1)) * kTcLn2 : INFINITY;
+  }
   __nv_bfloat16* ob = out + (size_t)b * seq * v_stride + (size_t)h * kTcTile + 2 * quad;
 #pragma unroll
   for (int j = 0; j < 8; ++j) {
@@ -419,8 +459,8 @@ masked_attention_tc_kernel(const __nv_bfloat16* __restrict__ q,
 // limit is raised once to that.
 template <int kStages, int kMinBlocks>
 int launch_masked_attention_tc(const void* q, const void* k, const void* v,
-                               const void* key_valid, void* out, int batch, int seq,
-                               int heads, int da, float scale, int max_ns,
+                               const void* key_valid, void* out, float* lse, int batch,
+                               int seq, int heads, int da, float scale, int max_ns,
                                cudaStream_t stream) {
   static_assert((kTcMaxDa / kTcTile + kStages) * kTcStageBytes <= kTcSmemLimit,
                 "the resident Q and the ring must fit a block's shared memory");
@@ -442,7 +482,7 @@ int launch_masked_attention_tc(const void* q, const void* k, const void* v,
   kernel<<<grid, kTcThreads, smem, stream>>>(
       static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
       static_cast<const __nv_bfloat16*>(v), static_cast<const unsigned char*>(key_valid),
-      static_cast<__nv_bfloat16*>(out), seq, heads, da, scale_log2);
+      static_cast<__nv_bfloat16*>(out), lse, seq, heads, da, scale_log2);
   return (int)cudaGetLastError();
 }
 
@@ -450,18 +490,20 @@ int launch_masked_attention_tc(const void* q, const void* k, const void* v,
 // entry only ever passes a q.k width of 64.
 template <bool kNarrowOnly>
 int dispatch_masked_attention_tc(const void* q, const void* k, const void* v,
-                                 const void* key_valid, void* out, int batch, int seq,
-                                 int heads, int da, float scale, cudaStream_t stream) {
+                                 const void* key_valid, void* out, float* lse, int batch,
+                                 int seq, int heads, int da, float scale,
+                                 cudaStream_t stream) {
   if (da < kTcTile || da % kTcTile != 0 || da > kTcMaxDa || !(scale > 0.f))
     return (int)cudaErrorInvalidValue;
   if (da == kTcTile)
     return launch_masked_attention_tc<kTcStagesNarrow, kTcBlocksNarrow>(
-        q, k, v, key_valid, out, batch, seq, heads, da, scale, 1, stream);
+        q, k, v, key_valid, out, lse, batch, seq, heads, da, scale, 1, stream);
   if constexpr (kNarrowOnly) {
     return (int)cudaErrorInvalidValue;
   } else {
     return launch_masked_attention_tc<kTcStagesWide, kTcBlocksWide>(
-        q, k, v, key_valid, out, batch, seq, heads, da, scale, kTcMaxDa / kTcTile, stream);
+        q, k, v, key_valid, out, lse, batch, seq, heads, da, scale, kTcMaxDa / kTcTile,
+        stream);
   }
 }
 

@@ -32,6 +32,6 @@ extern "C" int cbx_rel_attention(const void* q_aug, const void* k_aug,
                                  void* stream) {
   if (dv != cbx::kDV) return (int)cudaErrorInvalidValue;
   return cbx::dispatch_masked_attention<false>(q_aug, k_aug, v, key_valid, out,
-                                               batch, seq, heads, da, scale,
-                                               dtype, stream);
+                                               nullptr, batch, seq, heads, da,
+                                               scale, dtype, stream);
 }

@@ -17,13 +17,17 @@ call the kernel cannot take raises.
 With grad enabled and an input that requires it, the call goes through a
 `torch.autograd.Function` whose forward is the same launch and whose
 backward is K3b (`kernels/flash_attention_bwd.py`: two hand-written kernels
-on the card, their plain version on the CPU); it saves q, k, v, key_valid
-and the output. Every other call (the serving paths run under `no_grad`)
-launches the forward alone and saves nothing.
+on the card, their plain version on the CPU); there the forward also writes
+each query row's log-sum-exp (lse, as the stock TPU op saves its residuals
+l and m), and it saves q, k, v, key_valid, the output and lse. Every other
+call (the serving paths run under `no_grad`) launches the forward alone,
+without the lse, and saves nothing. `flash_attention_with_lse` gives both
+outside autograd; `lse_reference` is the plain lse.
 """
 from __future__ import annotations
 
 import ctypes
+import math
 
 import torch
 
@@ -32,7 +36,7 @@ from . import _build
 SOURCE = _build.CSRC / "flash_attention.cu"
 HEAD_DIM = 64           # the kernel's compiled head width
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
-_ARGTYPES = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+_ARGTYPES = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
 
 
 def flash_attention_reference(q, k, v, key_valid):
@@ -40,6 +44,19 @@ def flash_attention_reference(q, k, v, key_valid):
     masked keys at -1e10, fp32 softmax). Returns (B, T, H, D) in v's dtype."""
     from ..models.layers import mha      # layers imports this module
     return mha(q, k, v, mask=key_valid[:, None, None, :])
+
+
+def lse_reference(q, k, key_valid):
+    """Plain PyTorch version of K3's lse: each query row's log-sum-exp of
+    q.k^T / sqrt(D) over its row's valid keys, in fp32 (B, H, T). A row
+    with no valid key gets +inf, so that exp(s - lse) is exactly 0 there for
+    every finite score s (K3 writes 0 for such a row, K3b gives it zero
+    gradients)."""
+    scale = 1.0 / math.sqrt(q.shape[-1])
+    s = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) * scale
+    s = s.masked_fill(~key_valid[:, None, None, :], -math.inf)
+    lse = torch.logsumexp(s, dim=-1)
+    return torch.where(torch.isneginf(lse), torch.full_like(lse, math.inf), lse)
 
 
 def _check(q, k, v, key_valid):
@@ -81,42 +98,53 @@ def flash_attention(q, k, v, key_valid):
     count the launch in `flash_attention.launches`) or raise."""
     if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad):
         return _FlashAttention.apply(q, k, v, key_valid)
-    return _forward(q, k, v, key_valid)
+    return _forward(q, k, v, key_valid, False)[0]
+
+
+def flash_attention_with_lse(q, k, v, key_valid):
+    """(out, lse) of one K3 call outside autograd: the output as
+    `flash_attention` gives it and each query row's log-sum-exp, (B, H, T)
+    fp32 (`lse_reference` on the CPU). A CUDA call counts one launch."""
+    return _forward(q, k, v, key_valid, True)
 
 
 class _FlashAttention(torch.autograd.Function):
-    """K3 forward, K3b backward."""
+    """K3 forward (with the lse), K3b backward."""
 
     @staticmethod
     def forward(ctx, q, k, v, key_valid):
-        out = _forward(q, k, v, key_valid)
-        ctx.save_for_backward(q, k, v, key_valid, out)
+        out, lse = _forward(q, k, v, key_valid, True)
+        ctx.save_for_backward(q, k, v, key_valid, out, lse)
         return out
 
     @staticmethod
     def backward(ctx, dout):
         from .flash_attention_bwd import flash_attention_backward   # it imports this module
-        q, k, v, key_valid, out = ctx.saved_tensors
-        dq, dk, dv = flash_attention_backward(q, k, v, key_valid, out, dout.contiguous())
+        q, k, v, key_valid, out, lse = ctx.saved_tensors
+        dq, dk, dv = flash_attention_backward(q, k, v, key_valid, out, dout.contiguous(), lse)
         return dq, dk, dv, None
 
 
-def _forward(q, k, v, key_valid):
-    """One K3 launch (or the plain version on the CPU), outside autograd."""
+def _forward(q, k, v, key_valid, with_lse: bool):
+    """One K3 launch (or the plain version on the CPU), outside autograd:
+    (out, lse), lse None unless asked for."""
     if q.device.type == "cpu":
-        return flash_attention_reference(q, k, v, key_valid)
+        lse = lse_reference(q, k, key_valid) if with_lse else None
+        return flash_attention_reference(q, k, v, key_valid), lse
     _check(q, k, v, key_valid)
     b, t, h, d = q.shape
     lib = _build.load(SOURCE, "cbx_flash_attention", _ARGTYPES)
     out = torch.empty_like(v)
+    lse = torch.empty((b, h, t), dtype=torch.float32, device=q.device) if with_lse else None
     stream = torch.cuda.current_stream(q.device).cuda_stream
     rc = lib.cbx_flash_attention(q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                                 key_valid.data_ptr(), out.data_ptr(), b, t, h, d,
+                                 key_valid.data_ptr(), out.data_ptr(),
+                                 None if lse is None else lse.data_ptr(), b, t, h, d,
                                  _DTYPE_CODE[q.dtype], stream)
     if rc != 0:
         raise RuntimeError(f"flash_attention kernel launch failed: cudaError {rc}")
     flash_attention.launches += 1
-    return out
+    return out, lse
 
 
 flash_attention.launches = 0

@@ -198,10 +198,15 @@ ATT_DEAD_SHAPES = ((8, 812), (8, 406), (8, ATT_SMALL_T), (8, 64), (8, 65))
 # backward read the same inputs and sum in fp32 in another order. fp32: the
 # terms of each sum are O(1) (unit-normal q, k, v, dO), so each error is
 # divided by max(1, |ref|) and held to ATT_TOL. bf16: both versions round
-# the same fp32 sums to bf16, so they differ by at most one step (2^-7
-# relative at most); the gradients are ~0.05 typical, so each error is
-# divided by max(|ref|, rms(ref)) and held to two steps, BWD_TOL_BF16 (a
-# fault of a few percent, such as a dropped di term, is ~10x over it).
+# P and dS to bf16 as product operands (as the stock TPU op does) and the
+# same fp32 sums to bf16, so they differ by about one step (2^-7 relative
+# at most; tests/test_torch_attention_bwd.py holds that rounding to the
+# stock op's own backward, and each bf16 case also prints its error against
+# the exact, unrounded backward); the gradients are ~0.05 typical, so each
+# error is divided by max(|ref|, rms(ref)) and held to two steps,
+# BWD_TOL_BF16 (a fault of a few percent, such as a dropped di term, is
+# ~10x over it). The bf16 masks
+# with dead key tiles (ATT_DEAD_SHAPES) are checked at the same limit.
 BWD_CASES = ((4, 812, torch.float32), (16, 812, torch.bfloat16))
 BWD_TOL_BF16 = 2 * 2.0 ** -7
 # fp32 batch against solo at full width: the outputs are unit-scale
@@ -1155,16 +1160,72 @@ def _bwd_work(q, valid, dtype) -> dict:
             "pair": _bound(6 * one + kv, 2 * 5 * pairs * d, peak)}
 
 
+def _lse_check(q, k, v, valid, **case):
+    """K3's lse (with its output) against the plain lse: ATT_TOL, relative
+    to max(1, |lse|) in bf16; +inf exactly at the rows without a valid key.
+    Returns (out, lse) of the kernel."""
+    from chatterbox_embed_tpu_torch.kernels import flash_attention as fa
+    out, lse = fa.flash_attention_with_lse(q, k, v, valid)
+    ref = fa.lse_reference(q, k, valid)
+    torch.cuda.synchronize()
+    empty = torch.isposinf(ref)
+    if not torch.equal(torch.isposinf(lse), empty):
+        raise AssertionError(f"K3 lse {case}: +inf at other rows than the plain lse's")
+    _check_err("flash_attention_lse", lse[~empty], ref[~empty], ATT_TOL[q.dtype],
+               q.dtype == torch.bfloat16, **case)
+    return out, lse
+
+
+def _bwd_case(q, k, v, valid, dout, worst: dict, **case):
+    """K3b's direct call (with K3's lse) against the plain backward (with
+    the plain lse) at BWD_TOL_BF16 / ATT_TOL; the gradients of a row without
+    a valid key exactly 0. In bf16 also each gradient's error against the
+    exact backward (the plain one in fp32 on the same bf16 values, P and dS
+    not rounded), over max(|ref|, rms(ref)): a reading, held to no limit,
+    kept in `worst` under "exact_<grad>". Returns (out, lse, the gradients,
+    the plain ones)."""
+    from chatterbox_embed_tpu_torch.kernels import flash_attention_bwd as fb
+    dtype = q.dtype
+    out, lse = _lse_check(q, k, v, valid, **case)
+    ref = fb.flash_attention_backward_reference(q, k, v, valid, out, dout)
+    got = fb.flash_attention_backward(q, k, v, valid, out, dout, lse)
+    empty = ~valid.any(dim=1)
+    for grad, x, r in zip(("dq", "dk", "dv"), got, ref):
+        if dtype == torch.bfloat16:
+            err = _check_err("flash_attention_bwd", x, r, BWD_TOL_BF16, rms_floor=True,
+                             grad=grad, **case)
+        else:
+            err = _check_err("flash_attention_bwd", x, r, ATT_TOL[dtype], True,
+                             grad=grad, **case)
+        worst[dtype] = max(worst[dtype], err)
+        if empty.any() and x[empty].abs().max().item() != 0.0:
+            raise AssertionError(f"K3b {grad} {case}: the row without a valid key "
+                                 f"has a non-zero gradient")
+    if dtype == torch.bfloat16:
+        exact = fb.flash_attention_backward_reference(
+            *(x.float() for x in (q, k, v)), valid, out.float(), dout.float())
+        for grad, x, r in zip(("dq", "dk", "dv"), got, exact):
+            rms = r.pow(2).mean().sqrt().item()
+            err = ((x.float() - r).abs() / r.abs().clamp_min(rms)).max().item()
+            worst[f"exact_{grad}"] = max(worst.get(f"exact_{grad}", 0.0), err)
+            log("kernel", name="flash_attention_bwd_vs_exact", grad=grad, **case,
+                max_err_over_max_rms_ref=f"{err:.3e}", rms_ref=f"{rms:.3e}")
+        del exact
+    return out, lse, got, ref
+
+
 def _attention_bwd_check(card: str) -> dict:
-    """K3b against its plain backward on the card at BWD_CASES, ragged (one
-    row without a valid key: zero gradients) and all-valid; through
-    autograd, K3's forward output equals its no-grad launch and the
-    gradients equal K3b's direct call; then each kernel's device time and
-    its plain version's (`reference_dq`, `reference_dkv`), and the pair's
-    beside the whole plain backward's and the library's (the backward alone
-    of scaled_dot_product_attention with a boolean key mask, which gives dq,
-    dk and dv in one call: no PyTorch call gives one kernel's part alone, so
-    each kernel's own `library_ms` is null)."""
+    """K3's lse against the plain lse at FLASH_SHAPES (fp32 and bf16, ragged
+    masks). K3b against its plain backward on the card: bf16 on masks with
+    dead 64-key tiles (ATT_DEAD_SHAPES, a row without a valid key: zero
+    gradients), then at BWD_CASES, ragged (a row without a valid key) and
+    all-valid; through autograd, K3's forward output equals its no-grad
+    launch and the gradients equal K3b's direct call; then each kernel's
+    device time and its plain version's (`reference_dq`, `reference_dkv`),
+    and the pair's beside the whole plain backward's and the library's (the
+    backward alone of scaled_dot_product_attention with a boolean key mask,
+    which gives dq, dk and dv in one call: no PyTorch call gives one
+    kernel's part alone, so each kernel's own `library_ms` is null)."""
     from chatterbox_embed_tpu_torch.kernels import flash_attention as fa
     from chatterbox_embed_tpu_torch.kernels import flash_attention_bwd as fb
     from chatterbox_embed_tpu_torch.probes import timing as tmg
@@ -1172,26 +1233,25 @@ def _attention_bwd_check(card: str) -> dict:
     scale = 1.0 / ATT_D ** 0.5
     worst = {torch.float32: 0.0, torch.bfloat16: 0.0}
     times = {"dq": {}, "dkv": {}}
+    for b, t in FLASH_SHAPES:
+        valid = _ragged_valid(b, t, g, empty_row=True)
+        for dtype in (torch.float32, torch.bfloat16):
+            q, k, v = (torch.randn((b, t, ATT_H, ATT_D), generator=g, device="cuda").to(dtype)
+                       for _ in range(3))
+            _lse_check(q, k, v, valid, b=b, t=t, dtype=str(dtype)[6:], mask="ragged")
+            del q, k, v
+    for b, t in ATT_DEAD_SHAPES:
+        q, k, v, dout = (torch.randn((b, t, ATT_H, ATT_D), generator=g, device="cuda")
+                         .to(torch.bfloat16) for _ in range(4))
+        _bwd_case(q, k, v, _dead_tile_valid(b, t, g, empty_row=True), dout, worst, b=b, t=t,
+                  dtype="bfloat16", mask="dead_tiles")
     for b, t, dtype in BWD_CASES:
         ragged = _ragged_valid(b, t, g, empty_row=True)
         for mask, valid in (("ragged", ragged), ("all_valid", torch.ones_like(ragged))):
             q, k, v, dout = (torch.randn((b, t, ATT_H, ATT_D), generator=g, device="cuda")
                              .to(dtype) for _ in range(4))
             case = dict(b=b, t=t, dtype=str(dtype)[6:], mask=mask)
-            out = fa.flash_attention(q, k, v, valid)
-            ref = fb.flash_attention_backward_reference(q, k, v, valid, out, dout)
-            got = fb.flash_attention_backward(q, k, v, valid, out, dout)
-            for grad, x, r in zip(("dq", "dk", "dv"), got, ref):
-                if dtype == torch.bfloat16:
-                    err = _check_err("flash_attention_bwd", x, r, BWD_TOL_BF16, rms_floor=True,
-                                     grad=grad, **case)
-                else:
-                    err = _check_err("flash_attention_bwd", x, r, ATT_TOL[dtype], True,
-                                     grad=grad, **case)
-                worst[dtype] = max(worst[dtype], err)
-                if mask == "ragged" and x[2].abs().max().item() != 0.0:
-                    raise AssertionError(f"K3b {grad} {case}: the row without a valid key "
-                                         f"has a non-zero gradient")
+            out, lse, got, ref = _bwd_case(q, k, v, valid, dout, worst, **case)
             leaves = [x.clone().requires_grad_(True) for x in (q, k, v)]
             out_g = fa.flash_attention(*leaves, valid)
             if not torch.equal(out_g.detach(), out):
@@ -1206,13 +1266,13 @@ def _attention_bwd_check(card: str) -> dict:
                 backward_equal=True)
 
             def kernels():
-                return fb.flash_attention_backward(q, k, v, valid, out, dout)
+                return fb.flash_attention_backward(q, k, v, valid, out, dout, lse)
 
             def plain():
-                return fb.flash_attention_backward_reference(q, k, v, valid, out, dout)
+                return fb.flash_attention_backward_reference(q, k, v, valid, out, dout, lse)
 
-            lse, di = fb.reference_dq(q, k, v, valid, out, dout)[1:]
-            plains = {"dq": lambda: fb.reference_dq(q, k, v, valid, out, dout),
+            di = fb.reference_dq(q, k, v, valid, out, dout, lse)[1]
+            plains = {"dq": lambda: fb.reference_dq(q, k, v, valid, out, dout, lse),
                       "dkv": lambda: fb.reference_dkv(q, k, v, valid, dout, lse, di)}
             sq, sk, sv = (x.detach().permute(0, 2, 1, 3).requires_grad_(True)
                           for x in (q, k, v))
@@ -1255,10 +1315,11 @@ def _attention_bwd_check(card: str) -> dict:
                     tflops=f"{work[part]['bound_ops'] / ms[part] / 1e9:.2f}", card=repr(card))
             del q, k, v, dout, out, ref, got, leaves, out_g, sq, sk, sv, sout, lse, di
             torch.cuda.empty_cache()
-    return {f"flash_attention_bwd_{part}": {"max_abs_err": worst[torch.bfloat16],
-                                            "max_abs_err_fp32": worst[torch.float32],
-                                            "timing": times[part]}
-            for part in ("dq", "dkv")}
+    grads = {"dq": ("dq",), "dkv": ("dk", "dv")}
+    return {f"flash_attention_bwd_{part}": {
+        "max_abs_err": worst[torch.bfloat16], "max_abs_err_fp32": worst[torch.float32],
+        **{f"err_vs_exact_bf16_{gr}": worst[f"exact_{gr}"] for gr in grads[part]},
+        "timing": times[part]} for part in ("dq", "dkv")}
 
 
 def phase_probe_check(card: str) -> dict:
@@ -2389,9 +2450,10 @@ def phase_train(card: str) -> dict:
     remat on one batch, and its losses must be finite and fall; the flow
     estimator (FlowDecoderConfig(), 56 transformer blocks) takes TRAIN_STEPS
     steps on 4 rows, each through K3 forward and K3b-dq / K3b-dkv 56 times
-    (written-out attention nowhere); then one flow step's loss and every
-    gradient leaf on the card against the CPU on the same params, batch and
-    draws at 256 frames. Returns the launches of each run."""
+    (written-out attention nowhere), then two steps computing in bf16 (the
+    same launches); then one flow step's loss and every gradient leaf on the
+    card against the CPU on the same params, batch and draws at 256 frames.
+    Returns the launches of each run."""
     from chatterbox_embed_tpu_torch import training
     from chatterbox_embed_tpu_torch.config import CFMConfig, ChatterboxConfig, FlowDecoderConfig
     from chatterbox_embed_tpu_torch.models import flow_decoder, t3
@@ -2470,7 +2532,36 @@ def phase_train(card: str) -> dict:
                launches_per_step=f"K3 {n_tblocks}, K3b-dq {n_tblocks}, K3b-dkv {n_tblocks}")
     if not np.isfinite(losses).all():
         raise AssertionError(f"flow training: losses {losses} are not finite")
-    del state, step, fbatch
+
+    # the same estimator computing in bf16 (fp32 master weights): one warm
+    # step and one timed; the profile's kernel names tell K3 / K3b's dtype
+    # (masked_attention_tc, attention_bwd_*_tc: bf16 on the tensor cores)
+    step16 = training.make_flow_train_step(None, cfm, dec, dtype=torch.bfloat16)
+    losses, seconds = [], []
+    _reset_counts()
+    before = _counts()
+    for i in range(2):
+        t0 = time.time()
+        state, metrics = step16(state, Draws(10 + i), fbatch)
+        torch.cuda.synchronize()
+        seconds.append(time.time() - t0)
+        losses.append(float(metrics["loss"]))
+        now = _counts()
+        delta = {k: now[k] - before[k] for k in now}
+        if delta != want:
+            raise AssertionError(f"bf16 flow step {i}: launches {delta}, want {want}")
+        before = now
+    launches["train_flow_bf16"] = _counts()
+    _step_profile("train_flow_bf16", lambda: step16(state, Draws(12), fbatch),
+                  {"k3": ("masked_attention",), "k3_tc": ("masked_attention_tc",),
+                   "k3b_dq": ("attention_bwd_dq",), "k3b_dkv": ("attention_bwd_dkv",),
+                   "k3b_tc": ("attention_bwd_dq_tc", "attention_bwd_dkv_tc")}, card)
+    _train_log("train_flow_bf16", losses, seconds, base, card, rows=len(TRAIN_FLOW_FRAMES),
+               frames=TRAIN_FLOW_FRAMES, dtype="bfloat16", steps=state.step,
+               launches_per_step=f"K3 {n_tblocks}, K3b-dq {n_tblocks}, K3b-dkv {n_tblocks}")
+    if not np.isfinite(losses).all():
+        raise AssertionError(f"bf16 flow training: losses {losses} are not finite")
+    del state, step, step16, fbatch
     torch.cuda.empty_cache()
 
     # one step's loss and gradients, card (K3 + K3b) against CPU (autograd
@@ -2669,7 +2760,8 @@ def main(argv=None) -> None:
         "launches_by_path": {p: c[name] for p, c in launches.items()},
         "max_abs_err": check[name]["max_abs_err"],
         "max_abs_err_fp32": check[name].get("max_abs_err_fp32"),
-        **{key: val for key, val in check[name].items() if key.startswith("max_abs_err_span")},
+        **{key: val for key, val in check[name].items()
+           if key.startswith(("max_abs_err_span", "err_vs_exact"))},
         "ms": check[name]["timing"]["ms"], "plain_ms": check[name]["timing"]["plain_ms"],
         "bound_ms": check[name]["timing"]["bound_ms"],
         "bound_by": check[name]["timing"]["bound_by"],

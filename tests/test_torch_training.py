@@ -20,7 +20,8 @@ gradient) (the same sums in another order; the terms of a sum are O(1), so
 a gradient that is 0, as dq at one key, carries O(1e-7) of rounding);
 bf16 within 3e-2 of it
 (the plain bf16 paths round the weights and the products to bf16, K3b's
-algorithm keeps them in fp32: a few bf16 steps of 2^-8).
+algorithm rounds only P and dS, as the TPU op's operands, and sums in fp32:
+a few bf16 steps of 2^-8).
 """
 import os
 
@@ -388,12 +389,14 @@ def test_row_without_a_valid_key_gets_zero_gradients():
 
 def test_flash_attention_is_differentiable_and_saves_only_under_grad():
     """With grad, the wrapper's output has K3b as its backward (its plain
-    version on the CPU) and saves q, k, v, key_valid and the output; under
-    no_grad, or with no input that requires grad, it saves nothing."""
+    version on the CPU) and saves q, k, v, key_valid, the output and K3's
+    lse; under no_grad, or with no input that requires grad, it saves
+    nothing."""
     (q, k, v, g), valid = _attn_case(2, 2, 30, 2, [30, 17], torch.float32)
     leaves = [x.clone().requires_grad_(True) for x in (q, k, v)]
     out = tflash.flash_attention(*leaves, valid)
-    assert out.grad_fn is not None and len(out.grad_fn.saved_tensors) == 5
+    assert out.grad_fn is not None and len(out.grad_fn.saved_tensors) == 6
+    assert torch.equal(out.grad_fn.saved_tensors[5], tflash.lse_reference(q, k, valid))
     out.backward(g)
     ref = tbwd.flash_attention_backward_reference(q, k, v, valid, out.detach(), g)
     for mine, leaf in zip(ref, leaves):
@@ -409,7 +412,8 @@ def test_flash_attention_is_differentiable_and_saves_only_under_grad():
 def test_backward_wrapper_takes_the_plain_version_on_the_cpu():
     (q, k, v, g), valid = _attn_case(4, 2, 9, 1, [9, 4], torch.float32)
     out = tflash.flash_attention_reference(q, k, v, valid)
-    got = tbwd.flash_attention_backward(q, k, v, valid, out, g)
+    got = tbwd.flash_attention_backward(q, k, v, valid, out, g,
+                                        tflash.lse_reference(q, k, valid))
     want = tbwd.flash_attention_backward_reference(q, k, v, valid, out, g)
     for a, b in zip(got, want):
         assert torch.equal(a, b)
