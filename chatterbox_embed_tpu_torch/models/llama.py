@@ -22,7 +22,16 @@
   layer runs plain attention (a matmul and a softmax, as the JAX package's
   XLA spy path does) and also returns its head-mean probability row over
   cache coordinates; every other layer keeps K1 (K1s under the deferred
-  insert).
+  insert);
+- under a tp mesh (`mesh`, parallel/mesh.py) the params are this rank's
+  Megatron shard: q/k/v/gate/up hold its columns, so each rank attends
+  its H/tp heads (counted from the shard's width) and K1 walks them
+  unchanged; o/down hold its rows, and their products are summed over tp
+  before the residual add (the psum GSPMD inserts in the JAX package). The
+  spy's head mean is each rank's partial mean, weighted (H/tp)/H and
+  summed over tp;
+- the int8 cache of the JAX package (CHATTERBOX_INT8_KV=1|2) is ROADMAP
+  item 22: a cache is refused while that setting asks for it.
 """
 from __future__ import annotations
 
@@ -104,10 +113,34 @@ def apply_rope(x, cos, sin):
 # forward
 # ---------------------------------------------------------------------------
 
+def _kv_int8_mode() -> int:
+    """CHATTERBOX_INT8_KV, read where the JAX package reads it (at every
+    cache it makes): unset or 0 is the compute-dtype cache; 1 and 2, the
+    JAX package's int8 caches, raise until ROADMAP item 22 ports them. On a
+    GPU the port defaults to no int8 (the JAX default of 1 is a TPU's)."""
+    env = os.getenv("CHATTERBOX_INT8_KV")
+    if env is None or env.strip() == "0":
+        return 0
+    if env.strip() in ("1", "2"):
+        raise NotImplementedError(
+            f"CHATTERBOX_INT8_KV={env}: the int8 KV cache is not ported yet (ROADMAP "
+            "item 22); unset it or set 0")
+    raise ValueError(f"CHATTERBOX_INT8_KV={env!r}: want 0, 1 or 2")
+
+
+def kv_heads(params, cfg: LlamaConfig) -> int:
+    """K/V heads of a backbone's params: cfg.num_kv_heads, or this rank's
+    share of them for a tp shard (the k projection's width)."""
+    return params["layers"][0]["k"]["w"].shape[1] // cfg.head_dim
+
+
 def init_cache(cfg: LlamaConfig, batch: int, max_len: int, dtype=torch.float32,
-               device=None) -> KVCache:
+               device=None, heads: Optional[int] = None) -> KVCache:
+    """Zero (layers, max_len, batch, heads, D) k and v; heads defaults to
+    cfg.num_kv_heads (a tp rank passes its share, `kv_heads`)."""
+    _kv_int8_mode()
     device = resolve_device(device)
-    shape = (cfg.num_layers, max_len, batch, cfg.num_kv_heads, cfg.head_dim)
+    shape = (cfg.num_layers, max_len, batch, heads or cfg.num_kv_heads, cfg.head_dim)
     return KVCache(torch.zeros(shape, dtype=dtype, device=device),
                    torch.zeros(shape, dtype=dtype, device=device))
 
@@ -119,20 +152,25 @@ def _defer_kv_enabled() -> bool:
 
 
 def _qkv(lp, h, cos, sin, cfg: LlamaConfig, dtype):
-    """A layer's RMSNorm and q, k, v projections, RoPE on q and k."""
+    """A layer's RMSNorm and q, k, v projections, RoPE on q and k; the
+    heads are as many as the projections' widths hold (all of them, or a
+    tp rank's share)."""
     hin = L.rms_norm(lp["ln1"], h, cfg.rms_norm_eps)
-    q = L.split_heads(L.linear(lp["q"], hin, dtype), cfg.num_heads)
-    k = L.split_heads(L.linear(lp["k"], hin, dtype), cfg.num_kv_heads)
-    v = L.split_heads(L.linear(lp["v"], hin, dtype), cfg.num_kv_heads)
+    q, k, v = (L.linear(lp[n], hin, dtype) for n in ("q", "k", "v"))
+    q, k, v = (L.split_heads(x, x.shape[-1] // cfg.head_dim) for x in (q, k, v))
     return apply_rope(q, cos, sin), apply_rope(k, cos, sin), v
 
 
-def _mlp(lp, h, cfg: LlamaConfig, dtype):
+def _sum_tp(y, mesh):
+    """A row-parallel product summed over the mesh's tp ranks."""
+    return y if mesh is None else mesh.sum_tp(y)
+
+
+def _mlp(lp, h, cfg: LlamaConfig, dtype, mesh=None):
     """A layer's second half: RMSNorm, SwiGLU MLP, residual."""
     hin = L.rms_norm(lp["ln2"], h, cfg.rms_norm_eps)
-    return h + L.linear(lp["down"],
-                        F.silu(L.linear(lp["gate"], hin, dtype)) * L.linear(lp["up"], hin, dtype),
-                        dtype)
+    return h + _sum_tp(L.linear(lp["down"], F.silu(L.linear(lp["gate"], hin, dtype))
+                                * L.linear(lp["up"], hin, dtype), dtype), mesh)
 
 
 def _layer(lp, h, cos, sin, mask4, cfg: LlamaConfig, dtype):
@@ -148,7 +186,7 @@ def forward(params, x: torch.Tensor, pos_ids: torch.Tensor,
             cfg: LlamaConfig = LlamaConfig(), dtype=torch.float32,
             flash_start: int = 0, flash_hole: Optional[torch.Tensor] = None,
             collect_attn_layer: Optional[int] = None,
-            flash_span: Optional[torch.Tensor] = None, remat: bool = False):
+            flash_span: Optional[torch.Tensor] = None, remat: bool = False, mesh=None):
     """Run the transformer over a block of embeddings.
 
     Args:
@@ -170,11 +208,14 @@ def forward(params, x: torch.Tensor, pos_ids: torch.Tensor,
       remat: without a cache (the training forward), run each layer under
         torch.utils.checkpoint (use_reentrant=False): its activations are
         recomputed in the backward instead of kept. The gradients are equal.
+      mesh: with a cache, a mesh whose tp ranks hold the params' Megatron
+        shards (module docstring); None or tp 1 computes alone.
     Returns (hidden (B, T, D) after the final norm, cache[, attn_row (B, Lc)
     fp32]).
     """
     b, t, _ = x.shape
     h = x.to(dtype)
+    tp = mesh if mesh is not None and mesh.tp > 1 else None
     cos, sin = rope_cos_sin(pos_ids, cfg)
     decode = t == 1 and cache is not None
     defer = decode and _defer_kv_enabled() and flash_span is None
@@ -224,6 +265,8 @@ def forward(params, x: torch.Tensor, pos_ids: torch.Tensor,
                 q[:, 0], cache.k[i], cache.v[i], cache_pos, flash_start, flash_hole,
                 k_cur if defer else None, v_cur if defer else None)
             att = att[:, None]
+            if tp is not None:
+                attn_row = tp.sum_tp(attn_row * (q.shape[2] / cfg.num_heads))
         elif defer:
             att = decode_attention(q[:, 0].contiguous(), cache.k, cache.v, cache_pos,
                                    start=flash_start, hole=flash_hole, layer=i,
@@ -236,8 +279,8 @@ def forward(params, x: torch.Tensor, pos_ids: torch.Tensor,
             k_att = cache.k[i].transpose(0, 1).to(dtype)         # (B, L, H, D)
             v_att = cache.v[i].transpose(0, 1).to(dtype)
             att = L.mha(q, k_att, v_att, mask=mask4)
-        h = h + L.linear(lp["o"], L.merge_heads(att), dtype)
-        h = _mlp(lp, h, cfg, dtype)
+        h = h + _sum_tp(L.linear(lp["o"], L.merge_heads(att), dtype), tp)
+        h = _mlp(lp, h, cfg, dtype, tp)
 
     if defer:
         # one stacked write of all layers' rows at slot cache_pos

@@ -31,6 +31,17 @@ counterpart of `chatterbox_embed_tpu/models/t3.py`: one utterance
   suppresses EOS until attention reaches the text's tail and forces it on a
   long dwell there or on repeated backward jumps. Every other layer keeps
   K1 (K1s); the fused step is off under the guard.
+- On a mesh (`mesh=`, parallel/): every rank builds the whole context,
+  prefills and decodes its rows of the [cond; uncond] rows (split over dp
+  as the JAX package shards them) through its Megatron shard of the
+  backbone (tp), and the rows' logits are gathered over dp once a step, so
+  that every rank samples every utterance from the one seeded draw source
+  and holds the same tokens. A CFG pair's two rows may live on two ranks,
+  which is why the logits, not the tokens, are gathered. K4 is off under a
+  mesh, as in the JAX package, and so is the utterance fence: a mesh call
+  decodes its batch in one piece. `generate`, `generate_batch` and
+  `start_generation` called on the leader run on every rank
+  (`parallel.mesh.on_mesh`); `decode_block` runs inside such a call.
 - Training: `forward` runs [cond; text; speech] teacher-forced through
   plain attention under a causal, key-valid mask, and `loss` is the masked
   cross-entropy with the JAX package's next-token shift; neither runs under
@@ -38,6 +49,7 @@ counterpart of `chatterbox_embed_tpu/models/t3.py`: one utterance
 """
 from __future__ import annotations
 
+import functools
 import math
 import os
 from typing import Callable, NamedTuple, Optional, Union
@@ -49,6 +61,8 @@ from ..config import T3Config
 from ..device import resolve_device
 from ..kernels import fused_decode
 from ..ops import sampling
+from ..parallel.mesh import on_mesh
+from ..parallel.serve import shard_generation_inputs
 from . import layers as L
 from . import llama
 from .alignment import ALIGNMENT_LAYER
@@ -311,14 +325,18 @@ class DecodeState(NamedTuple):
 
 def prefill(params, context, cfg: T3Config, total: int, pad_len: int,
             cfg_on: bool = True, dtype=torch.float32,
-            key_valid: Optional[torch.Tensor] = None) -> DecodeState:
+            key_valid: Optional[torch.Tensor] = None, mesh=None,
+            n_utt: Optional[int] = None) -> DecodeState:
     """Full-context forward filling a static cache of capacity `total`;
     context (B, P, D) has `pad_len` masked junk slots on the LEFT.
     key_valid: optional (B, total) bool that also masks each row's
-    right-padded text keys."""
+    right-padded text keys. mesh: the tp mesh of the params' shards (the
+    rows are the caller's: this rank's, under dp). n_utt: utterances of
+    the counts and done flags (default B / 2 under CFG, else B)."""
     b, p_len, _ = context.shape
     dev = context.device
-    cache = llama.init_cache(cfg.llama, b, total, dtype, dev)
+    cache = llama.init_cache(cfg.llama, b, total, dtype, dev,
+                             heads=llama.kv_heads(params["llama"], cfg.llama))
     idx = torch.arange(p_len, device=dev)
     kidx = torch.arange(total, device=dev)
     causal = ((kidx[None, :] <= idx[:, None]) & (kidx[None, :] >= pad_len))[None]
@@ -326,9 +344,9 @@ def prefill(params, context, cfg: T3Config, total: int, pad_len: int,
         causal = causal & key_valid[:, None, :]
     pos = (idx - pad_len).clamp_min(0)[None].expand(b, p_len)
     h, cache = llama.forward(params["llama"], context, pos, causal, cache=cache,
-                             cache_pos=0, cfg=cfg.llama, dtype=dtype)
+                             cache_pos=0, cfg=cfg.llama, dtype=dtype, mesh=mesh)
     logits0 = L.linear(params["speech_head"], h[:, -1], torch.float32)
-    n_utt = b // 2 if cfg_on else b
+    n_utt = n_utt or (b // 2 if cfg_on else b)
     counts0 = torch.zeros((n_utt, cfg.speech_tokens_dict_size), dtype=torch.int32,
                           device=dev)
     counts0[:, cfg.start_speech_token] = 1
@@ -425,19 +443,39 @@ def _fused_params(params, cfg: T3Config, dtype):
     return ent[0]
 
 
+def _mesh_rows(params, cond, text_tokens, *, mesh, cfg_weight=0.0, **_):
+    """A mesh call's refusal on the leader: the CFG rows (2 per utterance,
+    1 without CFG) must divide dp."""
+    mesh.rows(np.atleast_2d(np.asarray(text_tokens)).shape[0] * (2 if _cfg_on(cfg_weight) else 1))
+
+
+# start_generation's decisions for the last decode (the JAX package's
+# LAST_GENERATION_INFO): p_len, cache_total, n_utt, alignment, use_fused,
+# and the mesh's shape (None without one)
+LAST_GENERATION_INFO: dict = {}
+
+
+@on_mesh(check=_mesh_rows)
 def start_generation(params, cond: T3Cond, text_tokens: np.ndarray, *,
                      cfg_weight, max_new_tokens: int,
                      text_lens: Optional[np.ndarray] = None, alignment: bool = False,
                      cfg: T3Config = T3Config(), dtype=torch.float32,
-                     device=None, free_bytes: Optional[int] = None):
+                     device=None, free_bytes: Optional[int] = None, mesh=None):
     """Left-pad the text (U, T) to its bucket, build the context and
     prefill. text_lens: per-row valid lengths of right-padded rows. Raises
     above max_decode_utterances, whose fence reads `free_bytes` (default:
     the device's free memory now); generate_batch sub-batches below it.
     Returns (state, info) with the decode's p_len, pad, cfg_on,
     cache_total, the K1 hole (or None), use_fused, the fused step's weights
-    (or None), and the guard's align_layer, text_start and per-row text_len
-    (None without `alignment`).
+    (or None), the guard's align_layer, text_start and per-row text_len
+    (None without `alignment`), the mesh and this rank's rows [r0, r1) of
+    the context.
+
+    mesh: the rows split over dp and the params are each rank's shard
+    (module docstring); no fence applies. Called on the leader, the prefill
+    runs on every rank and the leader's (state, info) comes back, its
+    logits those of every row: a decode that follows runs inside one mesh
+    call (generate, generate_batch).
 
     The fused step (K4) serves when CHATTERBOX_FUSED_STEP=1, at most
     FUSED_STEP_MAX_UTTERANCES utterances, a config `fused_decode.plan`
@@ -457,14 +495,16 @@ def start_generation(params, cond: T3Cond, text_tokens: np.ndarray, *,
                          f"{cfg.max_speech_seq_len} speech positions")
     cfg_on = _cfg_on(cfg_weight)
     pad, p_len, cap = _capacity(lt, cond, cfg, cfg_on, max_new_tokens)
-    if free_bytes is None:
-        free_bytes = free_device_bytes(device)
-    cap_utt = max_decode_utterances(cap, rows_per_utt=2 if cfg_on else 1, cfg=cfg,
-                                    dtype=dtype, free_bytes=free_bytes)
-    if u > cap_utt:
-        raise ValueError(f"{u} utterances > max_decode_utterances({cap})={cap_utt} for "
-                         f"one lock-step decode; generate_batch sub-batches")
-    use_fused = (_use_fused_step() and not alignment and u <= FUSED_STEP_MAX_UTTERANCES
+    if mesh is None:
+        if free_bytes is None:
+            free_bytes = free_device_bytes(device)
+        cap_utt = max_decode_utterances(cap, rows_per_utt=2 if cfg_on else 1, cfg=cfg,
+                                        dtype=dtype, free_bytes=free_bytes)
+        if u > cap_utt:
+            raise ValueError(f"{u} utterances > max_decode_utterances({cap})={cap_utt} for "
+                             f"one lock-step decode; generate_batch sub-batches")
+    use_fused = (mesh is None and _use_fused_step() and not alignment
+                 and u <= FUSED_STEP_MAX_UTTERANCES
                  and fused_decode.plan(cfg.llama, (2 if cfg_on else 1) * u) is not None)
     align_layer = text_start = text_len = None
     if alignment:
@@ -491,18 +531,31 @@ def start_generation(params, cond: T3Cond, text_tokens: np.ndarray, *,
                                dim=1).to(torch.int32).contiguous()
     tb = torch.from_numpy(np.pad(tt_np, ((0, 0), (pad, 0)))).to(device)
     context = _build_context(params, cond, tb, cfg, cfg_on, pad)
-    state = prefill(params, context, cfg, total, pad, cfg_on, dtype, key_valid)
+    rows = (0, context.shape[0])
+    if mesh is not None:
+        rows = mesh.rows(context.shape[0])
+        context, key_valid = shard_generation_inputs(mesh, context, key_valid)
+        hole = None if hole is None else hole[rows[0]:rows[1]].contiguous()
+    state = prefill(params, context, cfg, total, pad, cfg_on, dtype, key_valid, mesh=mesh,
+                    n_utt=u)
+    if mesh is not None:
+        state = state._replace(logits=mesh.gather_dp(state.logits))
     info = dict(p_len=p_len, pad=pad, cfg_on=cfg_on, cache_total=total, hole=hole,
                 use_fused=use_fused,
                 fused=_fused_params(params, cfg, dtype) if use_fused else None,
-                align_layer=align_layer, text_start=text_start, text_len=text_len)
+                align_layer=align_layer, text_start=text_start, text_len=text_len,
+                mesh=mesh, rows=rows)
+    LAST_GENERATION_INFO.clear()
+    LAST_GENERATION_INFO.update(p_len=p_len, cache_total=total, n_utt=u,
+                                alignment=align_layer is not None, use_fused=use_fused,
+                                mesh=None if mesh is None else dict(mesh.shape))
     return state, info
 
 
 @torch.no_grad()
 def decode_block(params, state: DecodeState, ginfo: dict, sp: sampling.SamplingParams,
                  draws, *, block: int, limit: int, use_top_p: bool, stop_on_eos: bool,
-                 cfg: T3Config, dtype):
+                 cfg: T3Config, dtype, mesh=None):
     """Decode up to `block` tokens after `state` (the JAX package's
     decode_block): a step runs while some row is not done, fewer than
     `block` steps ran and the global step state.i is below `limit`. Step i
@@ -517,13 +570,23 @@ def decode_block(params, state: DecodeState, ginfo: dict, sp: sampling.SamplingP
     guard's EOS surgery runs before each sample and its state takes the
     spy layer's row after each forward.
 
+    mesh: start_generation's. Each rank forwards its rows and the logits
+    (and the spy rows) are gathered over dp; every rank samples all rows.
+    It runs on every rank inside one mesh call: on the leader outside one
+    it raises.
+
     Returns (state, tokens (block, U) int32 numpy, zero past n_new, n_new).
     The state's cache, logits and counts are updated in place."""
+    if mesh is not ginfo["mesh"]:
+        raise ValueError("decode_block: pass the mesh that start_generation took")
+    if mesh is not None and mesh.leads():
+        raise ValueError("decode_block on a mesh runs inside a mesh call (t3.generate, "
+                         "t3.generate_batch), where every rank holds its state")
+    r0, r1 = ginfo["rows"]
     p_len, pad_len, cfg_on = ginfo["p_len"], ginfo["pad"], ginfo["cfg_on"]
     cache, logits, counts, i0, done0 = state.cache, state.logits, state.counts, state.i, state.done
     align_layer, align = ginfo["align_layer"], state.align
     n_utt = counts.shape[0]
-    b = logits.shape[0]
     eos = cfg.stop_speech_token
     dev = logits.device
     rows = torch.arange(n_utt, device=dev)
@@ -556,21 +619,25 @@ def decode_block(params, state: DecodeState, ginfo: dict, sp: sampling.SamplingP
         emb = L.embedding(params["speech_emb"], tok) + pos_emb[i + 1][None]
         if cfg_on:
             emb = torch.cat([emb, emb], dim=0)
+        emb = emb[r0:r1]
         if ginfo["use_fused"]:
             hh, _, _ = fused_decode.fused_decode_step(
                 ginfo["fused"], emb.to(dtype), cache.k, cache.v, p_len + i, pad_len,
                 cfg.llama, dtype)
         else:
-            pos_id = torch.full((b, 1), p_len - pad_len + i, dtype=torch.int64, device=dev)
+            pos_id = torch.full((r1 - r0, 1), p_len - pad_len + i, dtype=torch.int64,
+                                device=dev)
             out = llama.forward(params["llama"], emb[:, None, :].to(dtype), pos_id,
                                 cache=cache, cache_pos=p_len + i, cfg=cfg.llama,
                                 dtype=dtype, flash_start=pad_len, flash_hole=ginfo["hole"],
-                                collect_attn_layer=align_layer)
+                                collect_attn_layer=align_layer, mesh=mesh)
             hh, cache = out[0][:, -1], out[1]
             if align_layer is not None:
-                align = _align_update(align, out[2], ginfo["text_start"],
-                                      ginfo["text_len"], i)
+                arow = out[2] if mesh is None else mesh.gather_dp(out[2])
+                align = _align_update(align, arow, ginfo["text_start"], ginfo["text_len"], i)
         logits = L.linear(params["speech_head"], hh, torch.float32)
+        if mesh is not None:
+            logits = mesh.gather_dp(logits)
     steps = len(toks)
     tok_np = (torch.stack(toks).cpu().numpy().astype(np.int32) if steps
               else np.zeros((0, n_utt), np.int32))
@@ -589,7 +656,7 @@ def decode_block(params, state: DecodeState, ginfo: dict, sp: sampling.SamplingP
 def _stream_rows(params, cond: T3Cond, text_tokens, text_lens, draws, temperature,
                  cfg_weight, repetition_penalty, min_p, top_p, *, max_new_tokens: int,
                  stop_on_eos: bool, block: int, cfg: T3Config, dtype, device,
-                 free_bytes, info: Optional[dict], alignment: bool = False):
+                 free_bytes, info: Optional[dict], alignment: bool = False, mesh=None):
     """Prefill one lock-step batch of U rows and yield (n, U) int32 token
     blocks as they decode (the JAX package's generate_stream loop). `info`,
     if given, receives start_generation's info (without the weights) and
@@ -598,17 +665,19 @@ def _stream_rows(params, cond: T3Cond, text_tokens, text_lens, draws, temperatur
     state, ginfo = start_generation(params, cond, text_tokens, cfg_weight=cfg_weight,
                                     max_new_tokens=max_new_tokens, text_lens=text_lens,
                                     alignment=alignment, cfg=cfg, dtype=dtype, device=device,
-                                    free_bytes=free_bytes)
+                                    free_bytes=free_bytes, mesh=mesh)
     sp = sampling.SamplingParams(*(sampling.sampling_param(v, n_utt, device) for v in (
         temperature, cfg_weight, repetition_penalty, min_p, top_p)))
     use_top_p = bool(np.any(np.asarray(top_p, np.float32) < 1.0))
     if info is not None:
-        info.update({k: v for k, v in ginfo.items() if k != "fused"}, decode_steps=0)
+        info.update({k: v for k, v in ginfo.items() if k not in ("fused", "mesh")},
+                    decode_steps=0)
     produced = 0
     while produced < max_new_tokens:
         state, tokens, n = decode_block(params, state, ginfo, sp, draws, block=block,
                                         limit=max_new_tokens, use_top_p=use_top_p,
-                                        stop_on_eos=stop_on_eos, cfg=cfg, dtype=dtype)
+                                        stop_on_eos=stop_on_eos, cfg=cfg, dtype=dtype,
+                                        mesh=mesh)
         if info is not None:
             info["decode_steps"] = state.forwards
         if n > 0:
@@ -621,7 +690,7 @@ def _stream_rows(params, cond: T3Cond, text_tokens, text_lens, draws, temperatur
 def _generate_rows(params, cond: T3Cond, text_tokens, text_lens, draws, temperature,
                    cfg_weight, repetition_penalty, min_p, top_p, *, max_new_tokens: int,
                    stop_on_eos: bool, cfg: T3Config, dtype, device, free_bytes,
-                   alignment: bool = False):
+                   alignment: bool = False, mesh=None):
     """Prefill and decode one lock-step batch of U rows. Returns (tokens
     (steps, U) int32 numpy, info of start_generation plus decode_steps)."""
     info: dict = {}
@@ -629,7 +698,7 @@ def _generate_rows(params, cond: T3Cond, text_tokens, text_lens, draws, temperat
         params, cond, text_tokens, text_lens, draws, temperature, cfg_weight,
         repetition_penalty, min_p, top_p, max_new_tokens=max_new_tokens,
         stop_on_eos=stop_on_eos, block=DECODE_BLOCK, cfg=cfg, dtype=dtype, device=device,
-        free_bytes=free_bytes, info=info, alignment=alignment))
+        free_bytes=free_bytes, info=info, alignment=alignment, mesh=mesh))
     n_utt = np.atleast_2d(text_tokens).shape[0]
     tokens = np.concatenate(blocks) if blocks else np.zeros((0, n_utt), np.int32)
     return tokens, info
@@ -662,6 +731,7 @@ def generate_stream(params, cond: T3Cond, text_tokens: np.ndarray, *,
         yield blk[:, 0] if single else blk
 
 
+@on_mesh(check=_mesh_rows)
 @torch.no_grad()
 def generate(params, cond: T3Cond, text_tokens: np.ndarray, *,
              max_new_tokens: int = 1000, temperature: float = 0.8,
@@ -669,7 +739,7 @@ def generate(params, cond: T3Cond, text_tokens: np.ndarray, *,
              min_p: float = 0.05, top_p: float = 1.0, stop_on_eos: bool = True,
              seed: int = 0, draws=None, alignment: bool = False,
              cfg: T3Config = T3Config(), dtype=torch.float32, device=None,
-             info: Optional[dict] = None) -> np.ndarray:
+             info: Optional[dict] = None, mesh=None) -> np.ndarray:
     """Speech tokens for one utterance. text_tokens: (1, T) wrapped in
     SOT/EOT. Returns the generated ids INCLUDING the terminating EOS if one
     was produced.
@@ -677,7 +747,11 @@ def generate(params, cond: T3Cond, text_tokens: np.ndarray, *,
     draws: the Gumbel source (`sampling.Draws(seed, device)` by default).
     alignment: the alignment guard (module docstring).
     info: optional dict that receives p_len, pad, cache_total, use_fused and
-    decode_steps (the number of decode forwards run)."""
+    decode_steps (the number of decode forwards run); on a mesh, the
+    leader's.
+    mesh: the params are each rank's shard (parallel.serve.
+    shard_t3_for_serving); the CFG rows split over dp. Every rank draws
+    the same noise: `draws` goes to each of them as it is here."""
     if np.atleast_2d(text_tokens).shape[0] != 1:
         raise ValueError("generate decodes one utterance; generate_batch takes more")
     device = resolve_device(device)
@@ -686,7 +760,7 @@ def generate(params, cond: T3Cond, text_tokens: np.ndarray, *,
         params, cond, text_tokens, None, draws, temperature, cfg_weight,
         repetition_penalty, min_p, top_p, max_new_tokens=max_new_tokens,
         stop_on_eos=stop_on_eos, cfg=cfg, dtype=dtype, device=device, free_bytes=None,
-        alignment=alignment)
+        alignment=alignment, mesh=mesh)
     out = tokens[:, 0]
     eos_at = np.nonzero(out == cfg.stop_speech_token)[0]
     if stop_on_eos and eos_at.size:
@@ -716,6 +790,7 @@ def _slice_param(value, s0: int, s1: int):
     return value if a.ndim == 0 else a[s0:s1]
 
 
+@on_mesh(check=_mesh_rows)
 @torch.no_grad()
 def generate_batch(params, cond: T3Cond, text_tokens: np.ndarray, *,
                    max_new_tokens: int = 1000, temperature=0.8, cfg_weight=0.0,
@@ -725,7 +800,7 @@ def generate_batch(params, cond: T3Cond, text_tokens: np.ndarray, *,
                    make_draws: Optional[Callable[[int], object]] = None,
                    alignment: bool = False, cfg: T3Config = T3Config(),
                    dtype=torch.float32, device=None, free_bytes: Optional[int] = None,
-                   info: Optional[dict] = None) -> list:
+                   info: Optional[dict] = None, mesh=None) -> list:
     """Speech tokens for U utterances decoded in lock-step, with per-row
     sampling and EOS. text_tokens (U, T) are right-padded to a common width
     with valid lengths `text_lens`. Returns a list of U 1-D id arrays, each
@@ -741,17 +816,24 @@ def generate_batch(params, cond: T3Cond, text_tokens: np.ndarray, *,
     `free_bytes` (default: the device's free memory, read once).
     alignment: the alignment guard (module docstring), with each row's own
     text length. info: optional dict that receives decode_steps (summed
-    over sub-batches), sub_batches and sub_batch_utts."""
+    over sub-batches), sub_batches and sub_batch_utts.
+
+    mesh: as `generate`; the CFG rows (2U) split over dp and must divide
+    it, and the batch decodes in one piece (no fence, as the JAX package),
+    drawing from make_draws(seed) on every rank."""
     device = resolve_device(device)
     tt = np.atleast_2d(np.asarray(text_tokens, np.int32))
     n_utt, lt = tt.shape
-    make_draws = make_draws or (lambda s: sampling.Draws(s, device))
+    make_draws = make_draws or functools.partial(sampling.Draws, device=device)
     cfg_on = _cfg_on(cfg_weight)
-    if free_bytes is None:
-        free_bytes = free_device_bytes(device)
-    cap = _capacity(lt, cond, cfg, cfg_on, max_new_tokens)[2]
-    cap_utt = max_decode_utterances(cap, rows_per_utt=2 if cfg_on else 1, cfg=cfg,
-                                    dtype=dtype, free_bytes=free_bytes)
+    if mesh is not None:
+        cap_utt = n_utt
+    else:
+        if free_bytes is None:
+            free_bytes = free_device_bytes(device)
+        cap = _capacity(lt, cond, cfg, cfg_on, max_new_tokens)[2]
+        cap_utt = max_decode_utterances(cap, rows_per_utt=2 if cfg_on else 1, cfg=cfg,
+                                        dtype=dtype, free_bytes=free_bytes)
     outs, steps = [], 0
     for s0 in range(0, n_utt, cap_utt):
         s1 = min(n_utt, s0 + cap_utt)
@@ -762,7 +844,7 @@ def generate_batch(params, cond: T3Cond, text_tokens: np.ndarray, *,
             *(_slice_param(v, s0, s1) for v in (temperature, cfg_weight,
                                                 repetition_penalty, min_p, top_p)),
             max_new_tokens=max_new_tokens, stop_on_eos=stop_on_eos, cfg=cfg,
-            dtype=dtype, device=device, free_bytes=free_bytes, alignment=alignment)
+            dtype=dtype, device=device, free_bytes=free_bytes, alignment=alignment, mesh=mesh)
         steps += ginfo["decode_steps"]
         for col in range(s1 - s0):
             seq = tokens[:, col]

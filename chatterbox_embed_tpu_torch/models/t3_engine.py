@@ -27,12 +27,23 @@ layout [cond rows 0..S-1; uncond rows S..2S-1], as t3.decode_block.
   own source `make_draws(seed)`, so its tokens do not depend on its slot or
   on the traffic around it (the JAX engine's fold_in(PRNGKey(seed), i)).
 - The cache is bf16 or fp32 in the compute dtype; the JAX package's int8
-  cache (`kv_int8=True`) waits for ROADMAP item 22, the mesh for item 21.
+  cache (`kv_int8=True`) waits for ROADMAP item 22.
+- On a mesh (`mesh=`, parallel/): `engine_slots` is the JAX package's
+  engine_sharding rule. Under dp each rank owns S/dp slots, both CFG rows
+  of each, and holds their cache rows and logits; it prefills only the
+  requests that land in its slots. The host scheduler and the per-slot
+  bookkeeping (counts, steps, done flags, draws) run the same on every
+  rank: the rows' logits are gathered over dp once a step and every rank
+  samples every slot, so the tokens are the same everywhere. A tp-only
+  mesh replicates the slots; tp splits the backbone as in the lock-step
+  decode. The decoder is built on every rank (`Mesh.adopt`) and its
+  `submit`, `step` and `drain` called on the leader run on every rank.
 
 The engine state is updated in place (the JAX package donates it).
 """
 from __future__ import annotations
 
+import functools
 import time
 from dataclasses import dataclass, field
 from typing import Callable, Dict, List, Optional
@@ -43,6 +54,7 @@ import torch
 from ..config import T3Config
 from ..device import resolve_device
 from ..ops import sampling
+from ..parallel.mesh import on_mesh_method
 from . import layers as L
 from . import llama
 from . import t3
@@ -54,10 +66,13 @@ class EngineState:
     the ring-column cache, the rows' logits, each slot's repetition counts,
     tokens generated, done flag, left pad, join step, limit and sampling
     parameters. Host values: the global step `g`, each slot's join step
-    and draw source (None for a free slot)."""
-    cache: llama.KVCache          # (L, total, 2S, H, D) sequence-major
-    logits: torch.Tensor          # (2S, V) fp32
+    and draw source (None for a free slot), and the slots [s0, s1) whose
+    rows this rank holds (all of them off a dp mesh): the cache and the
+    logits hold rows [cond of s0..s1-1; uncond of s0..s1-1]."""
+    cache: llama.KVCache          # (L, total, 2S', H, D) sequence-major, S' = s1 - s0
+    logits: torch.Tensor          # (2S', V) fp32
     counts: torch.Tensor          # (S, V) int32
+    fresh_counts: torch.Tensor    # (V,) int32: a new request's counts (BOS once)
     i: torch.Tensor               # (S,) int64 tokens generated per slot
     done: torch.Tensor            # (S,) bool: free or finished
     pad: torch.Tensor             # (S,) int64 left pad of the slot's context
@@ -71,6 +86,23 @@ class EngineState:
     g: int = 0                    # global engine step
     g_start_host: List[int] = field(default_factory=list)
     draws: List[object] = field(default_factory=list)
+    own: tuple = (0, 0)
+
+
+def engine_slots(mesh, slots: int) -> tuple:
+    """The slots [s0, s1) this rank holds on `mesh` (the JAX package's
+    engine_sharding): S/dp of them under dp, all on a tp-only mesh or
+    without one. Slots that do not divide dp raise."""
+    dp = 1 if mesh is None else mesh.dp
+    if dp == 1:
+        return 0, slots
+    if slots % dp != 0:
+        raise ValueError(
+            f"{slots} engine slots do not divide the dp axis ({dp} "
+            "devices); pick WORKER_SLOTS / ContinuousServer slots as a "
+            "multiple of dp")
+    per = slots // dp
+    return mesh.dp_index * per, (mesh.dp_index + 1) * per
 
 
 def engine_geometry(cfg: T3Config, text_bucket: int, cond_w: int, max_new_tokens: int):
@@ -82,10 +114,12 @@ def engine_geometry(cfg: T3Config, text_bucket: int, cond_w: int, max_new_tokens
 
 
 def engine_init(cfg: T3Config, *, slots: int, text_bucket: int, cond_w: int,
-                max_new_tokens: int, dtype=torch.float32, device=None) -> EngineState:
+                max_new_tokens: int, dtype=torch.float32, device=None,
+                own: Optional[tuple] = None, heads: Optional[int] = None) -> EngineState:
     """All-free engine state on `device` (None: the card): every slot done,
     with pad = p_len. The cache has the compute dtype (no int8 cache yet,
-    ROADMAP item 22)."""
+    ROADMAP item 22). own: the slots [s0, s1) whose rows this rank holds
+    (default all); heads: its K/V heads (default all, llama.init_cache)."""
     device = resolve_device(device)
     p_len, total = engine_geometry(cfg, text_bucket, cond_w, max_new_tokens)
     if max_new_tokens + 2 > cfg.max_speech_seq_len:
@@ -94,14 +128,18 @@ def engine_init(cfg: T3Config, *, slots: int, text_bucket: int, cond_w: int,
         raise ValueError(f"max_new_tokens={max_new_tokens} needs more than the "
                          f"{cfg.max_speech_seq_len} speech positions")
     s, v = slots, cfg.speech_tokens_dict_size
+    own = own or (0, s)
+    mine = own[1] - own[0]
 
     def full(shape, value, dt):
         return torch.full(shape, value, dtype=dt, device=device)
 
     return EngineState(
-        cache=llama.init_cache(cfg.llama, 2 * s, total, dtype, device),
-        logits=full((2 * s, v), 0.0, torch.float32),
+        cache=llama.init_cache(cfg.llama, 2 * mine, total, dtype, device, heads=heads),
+        logits=full((2 * mine, v), 0.0, torch.float32),
         counts=full((s, v), 0, torch.int32),
+        fresh_counts=torch.nn.functional.one_hot(
+            torch.tensor(cfg.start_speech_token, device=device), v).to(torch.int32),
         i=full((s,), 0, torch.int64), done=full((s,), True, torch.bool),
         pad=full((s,), p_len, torch.int64), g_start=full((s,), 0, torch.int64),
         limit=full((s,), 0, torch.int64),
@@ -109,7 +147,7 @@ def engine_init(cfg: T3Config, *, slots: int, text_bucket: int, cond_w: int,
         cfg_weight=full((s, 1), 0.0, torch.float32),
         rep_penalty=full((s, 1), 1.0, torch.float32),
         min_p=full((s, 1), 0.0, torch.float32), top_p=full((s, 1), 1.0, torch.float32),
-        g=0, g_start_host=[0] * s, draws=[None] * s)
+        g=0, g_start_host=[0] * s, draws=[None] * s, own=own)
 
 
 def engine_spans(pad: torch.Tensor, g_start: torch.Tensor, dead: torch.Tensor, g: int,
@@ -140,10 +178,11 @@ def engine_spans(pad: torch.Tensor, g_start: torch.Tensor, dead: torch.Tensor, g
 
 @torch.no_grad()
 def prefill_request(params, cond: t3.T3Cond, text_tokens: np.ndarray, *, text_bucket: int,
-                    p_len: int, cfg: T3Config, dtype=torch.float32, device=None):
+                    p_len: int, cfg: T3Config, dtype=torch.float32, device=None, mesh=None):
     """Prefill ONE request's 2 CFG rows into a p_len-capacity DecodeState
     (t3._build_context and t3.prefill, left-padded to the engine's text
-    bucket). Returns (state, pad)."""
+    bucket; `mesh`: the tp ranks of the params' shards). Returns (state,
+    pad)."""
     device = resolve_device(device)
     tt = np.atleast_2d(np.asarray(text_tokens, np.int32))
     if tt.shape[0] != 1:
@@ -154,25 +193,27 @@ def prefill_request(params, cond: t3.T3Cond, text_tokens: np.ndarray, *, text_bu
     pad = text_bucket - lt
     tb = torch.from_numpy(np.pad(tt, ((0, 0), (pad, 0)))).to(device)
     context = t3._build_context(params, cond, tb, cfg, True, pad)
-    return t3.prefill(params, context, cfg, p_len, pad, True, dtype), pad
+    return t3.prefill(params, context, cfg, p_len, pad, True, dtype, mesh=mesh), pad
 
 
 @torch.no_grad()
 def engine_insert(state: EngineState, sub: t3.DecodeState, slot: int, draws,
                   meta: Dict[str, float]) -> None:
     """Put a prefilled request (prefill_request's state, capacity p_len)
-    into slot `slot`, in place: its cache columns [0, p_len) of rows slot
-    and S + slot, its logits, counts and sampling parameters, and its join
-    step g. meta: limit, pad, temperature, cfg_weight, repetition_penalty,
-    min_p, top_p. Every write takes a host scalar or a device tensor; no
-    copy waits for the device."""
-    s_slots = state.done.shape[0]
-    p_len = sub.cache.k.shape[1]
-    for half, row in enumerate((slot, s_slots + slot)):
-        state.cache.k[:, :p_len, row] = sub.cache.k[:, :, half]
-        state.cache.v[:, :p_len, row] = sub.cache.v[:, :, half]
-        state.logits[row] = sub.logits[half]
-    state.counts[slot] = sub.counts[0]
+    into slot `slot`, in place: its cache columns [0, p_len) of the slot's
+    cond and uncond rows, their logits, its counts and sampling parameters,
+    and its join step g. meta: limit, pad, temperature, cfg_weight,
+    repetition_penalty, min_p, top_p. Every write takes a host scalar or a
+    device tensor; no copy waits for the device. A rank that does not hold
+    the slot's rows passes sub None and keeps only the bookkeeping."""
+    s0, s1 = state.own
+    if sub is not None:
+        p_len = sub.cache.k.shape[1]
+        for half, row in enumerate((slot - s0, s1 - s0 + slot - s0)):
+            state.cache.k[:, :p_len, row] = sub.cache.k[:, :, half]
+            state.cache.v[:, :p_len, row] = sub.cache.v[:, :, half]
+            state.logits[row] = sub.logits[half]
+    state.counts[slot] = state.fresh_counts           # prefill's counts: BOS once
     state.i[slot] = 0
     state.done[slot] = False
     state.pad[slot] = int(meta["pad"])
@@ -186,7 +227,7 @@ def engine_insert(state: EngineState, sub: t3.DecodeState, slot: int, draws,
 
 @torch.no_grad()
 def engine_decode_block(params, state: EngineState, cfg: T3Config, block: int, p_len: int,
-                        use_top_p: bool, dtype=torch.float32):
+                        use_top_p: bool, dtype=torch.float32, mesh=None):
     """Decode up to `block` tokens on every live slot, in place; stops
     before a step when every slot is done (the JAX while-loop's condition,
     read with one `done.all()` a step). Returns (tokens (block, S) int32
@@ -197,8 +238,20 @@ def engine_decode_block(params, state: EngineState, cfg: T3Config, block: int, p
     draw source at its own step g - gs (zeros for a free slot); a finished
     slot emits EOS and stops advancing; one forward of all 2S rows at their
     own RoPE positions p_len - pad + i, inserting at the shared ring column
-    and attending through K1 with `engine_spans`."""
+    and attending through K1 with `engine_spans`.
+
+    mesh: each rank forwards the rows of its slots (state.own) and the
+    logits are gathered over dp before each step's sampling."""
     s_slots = state.done.shape[0]
+    s0, s1 = state.own
+    local = None                                      # this rank's rows of the 2S
+    if (s0, s1) != (0, s_slots):
+        mine = torch.arange(s0, s1, device=state.logits.device)
+        local = torch.cat([mine, s_slots + mine])
+
+    def ours(x):
+        return x if local is None else x[local].contiguous()
+
     dev = state.logits.device
     eos = cfg.stop_speech_token
     v = cfg.speech_tokens_dict_size
@@ -211,7 +264,12 @@ def engine_decode_block(params, state: EngineState, cfg: T3Config, block: int, p
     for _ in range(block):
         if bool(state.done.all()):
             break
-        lc, lu = state.logits[:s_slots], state.logits[s_slots:]
+        logits = state.logits
+        if mesh is not None and mesh.dp > 1:
+            # (dp x [cond; uncond] of each rank's slots) -> [cond; uncond] of all
+            logits = mesh.gather_dp(logits).view(mesh.dp, 2, s1 - s0, v).transpose(0, 1)
+            logits = logits.reshape(2 * s_slots, v)
+        lc, lu = logits[:s_slots], logits[s_slots:]
         lg = sampling.process_logits(
             lc + state.cfg_weight * (lc - lu), state.counts,
             valid_size=cfg.start_speech_token, eos_id=eos, temperature=state.temperature,
@@ -226,12 +284,13 @@ def engine_decode_block(params, state: EngineState, cfg: T3Config, block: int, p
         state.counts[rows, tok] += 1
         done = state.done | (tok == eos) | (state.i + 1 >= state.limit)
         emb = L.embedding(params["speech_emb"], tok) + pos_emb[state.i + 1]
-        emb = torch.cat([emb, emb])[:, None]
+        emb = ours(torch.cat([emb, emb]))[:, None]
         pos_id = (p_len - state.pad + state.i)[:, None]
         span, hole = engine_spans(state.pad, state.g_start, done, state.g, p_len, ring)
-        hh, _ = llama.forward(params["llama"], emb.to(dtype), torch.cat([pos_id, pos_id]),
+        hh, _ = llama.forward(params["llama"], emb.to(dtype), ours(torch.cat([pos_id, pos_id])),
                               cache=state.cache, cache_pos=p_len + state.g % ring,
-                              cfg=cfg.llama, dtype=dtype, flash_hole=hole, flash_span=span)
+                              cfg=cfg.llama, dtype=dtype, flash_hole=ours(hole),
+                              flash_span=ours(span), mesh=mesh)
         state.logits = L.linear(params["speech_head"], hh[:, -1], torch.float32)
         state.i = torch.where(state.done, state.i, state.i + 1)
         state.done = done
@@ -261,18 +320,25 @@ class ContinuousDecoder:
     into the TTS pipeline.
 
     make_draws: the draw-source factory, called once a request with its
-    seed (default `sampling.Draws(seed, device)`).
+    seed (default `sampling.Draws(seed, device)`); on a mesh it must pickle
+    (a module-level function, a class, a functools.partial).
+    mesh: the params are each rank's shard (parallel.serve.
+    shard_t3_for_serving); the slots split over dp (`engine_slots`), and
+    the decoder is built on every rank (module docstring).
     """
 
     def __init__(self, params, cfg: T3Config = T3Config(), *, slots: int = 8,
                  text_bucket: int = 192, max_new_tokens: int = 512, block: int = 64,
                  dtype=torch.float32, kv_int8: Optional[bool] = None,
                  use_top_p: bool = False, retain_results: bool = True,
-                 make_draws: Optional[Callable[[int], object]] = None, device=None):
+                 make_draws: Optional[Callable[[int], object]] = None, device=None,
+                 mesh=None):
         if kv_int8:
             raise NotImplementedError(
                 "kv_int8=True: the int8 KV cache is not ported yet (ROADMAP item 22); the "
                 "engine keeps its cache in the compute dtype")
+        own = engine_slots(mesh, slots)
+        self.mesh = mesh
         self.device = resolve_device(device)
         self.params = params
         self.cfg = cfg
@@ -282,11 +348,12 @@ class ContinuousDecoder:
         self.block = block
         self.dtype = dtype
         self.use_top_p = use_top_p
-        self.make_draws = make_draws or (lambda s: sampling.Draws(s, self.device))
+        self.make_draws = make_draws or functools.partial(sampling.Draws, device=self.device)
         self.cond_w = 2 + cfg.perceiver_num_queries
         self.p_len, self.total = engine_geometry(cfg, text_bucket, self.cond_w, max_new_tokens)
         self.state = engine_init(cfg, slots=slots, text_bucket=text_bucket, cond_w=self.cond_w,
-                                 max_new_tokens=max_new_tokens, dtype=dtype, device=self.device)
+                                 max_new_tokens=max_new_tokens, dtype=dtype, device=self.device,
+                                 own=own, heads=llama.kv_heads(params["llama"], cfg.llama))
         self._queue: List[dict] = []
         self._slots = [_Slot() for _ in range(slots)]
         # retain_results=False for run-forever callers that consume step()'s
@@ -302,9 +369,15 @@ class ContinuousDecoder:
         # host clock: refill = prefill + insert, decode = the block and its fetch
         self.t_refill = 0.0
         self.t_decode = 0.0
+        if mesh is not None and mesh.leads():
+            mesh.adopt(self, ContinuousDecoder, params, cfg, slots=slots,
+                       text_bucket=text_bucket, max_new_tokens=max_new_tokens, block=block,
+                       dtype=dtype, use_top_p=use_top_p, retain_results=retain_results,
+                       make_draws=make_draws, device=device, mesh=mesh)
 
     # -- submission ---------------------------------------------------------
 
+    @on_mesh_method
     def submit(self, text_tokens: np.ndarray, cond: t3.T3Cond, *, temperature: float = 0.8,
                cfg_weight: float = 0.5, repetition_penalty: float = 1.2,
                min_p: float = 0.05, top_p: float = 1.0, seed: int = 0,
@@ -341,9 +414,13 @@ class ContinuousDecoder:
             if sl.rid is not None or not self._queue:
                 continue
             req = self._queue.pop(0)
-            sub, pad = prefill_request(self.params, req["cond"], req["text"],
-                                       text_bucket=self.text_bucket, p_len=self.p_len,
-                                       cfg=self.cfg, dtype=self.dtype, device=self.device)
+            pad = self.text_bucket - req["text"].shape[1]
+            sub = None
+            if self.state.own[0] <= s_idx < self.state.own[1]:
+                sub, pad = prefill_request(self.params, req["cond"], req["text"],
+                                           text_bucket=self.text_bucket, p_len=self.p_len,
+                                           cfg=self.cfg, dtype=self.dtype, device=self.device,
+                                           mesh=self.mesh)
             meta = dict(limit=req["max_new"], pad=pad, **{
                 k: req[k] for k in ("temperature", "cfg_weight", "rep_penalty", "min_p",
                                     "top_p")})
@@ -355,6 +432,7 @@ class ContinuousDecoder:
     def idle(self) -> bool:
         return not self._queue and all(s.rid is None for s in self._slots)
 
+    @on_mesh_method
     def step(self) -> Dict[int, np.ndarray]:
         """Refill free slots, decode one block, return {rid: ids} finished
         this block. An idle engine returns {} and clears last_block_tokens
@@ -366,7 +444,7 @@ class ContinuousDecoder:
             return {}
         t0 = time.time()
         tokens_h, nj = engine_decode_block(self.params, self.state, self.cfg, self.block,
-                                           self.p_len, self.use_top_p, self.dtype)
+                                           self.p_len, self.use_top_p, self.dtype, self.mesh)
         done_h = self.state.done.cpu().numpy()
         self.t_decode += time.time() - t0
         self.blocks_run += 1
@@ -397,6 +475,7 @@ class ContinuousDecoder:
                 self.last_block_tokens[sl.rid] = tokens_h[:nj, s_idx]
         return out
 
+    @on_mesh_method
     def drain(self) -> Dict[int, np.ndarray]:
         """Run until every queued and live request completes; returns all
         results retained so far (earlier step() completions included)."""

@@ -23,6 +23,7 @@ ids does not grow for ids never streamed; and the engine's idle step clears
 """
 from __future__ import annotations
 
+import functools
 import logging
 import os
 import time
@@ -58,7 +59,14 @@ class ContinuousServer:
         when the engine idles.
       retries: seed-drift retries of too-short decodes.
       kv_int8: None or False (the int8 cache is ROADMAP item 22).
-      make_draws: draw-source factory (module docstring).
+      make_draws: draw-source factory (module docstring); on a mesh it must
+        pickle.
+
+    On a mesh-enabled pipeline (`tts.enable_mesh`) the engine runs over
+    `tts.mesh`: the default slot count is dp times the one-card default
+    (each rank holds slots / dp of them), explicit slots must divide dp,
+    and streamed requests are refused (the windowed synthesis is one
+    card's, as `stream_generate`). S3Gen runs here, on the leader.
     """
 
     def __init__(self, tts, *, slots: Optional[int] = None, text_bucket: int = 192,
@@ -67,18 +75,23 @@ class ContinuousServer:
                  retain_wavs: bool = True,
                  make_draws: Optional[Callable[[int], object]] = None):
         self.tts = tts
-        self.make_draws = make_draws or (lambda s: Draws(s, tts.device))
+        self.make_draws = make_draws or functools.partial(Draws, device=tts.device)
+        mesh = getattr(tts, "mesh", None)
+        dp = 1 if mesh is None else mesh.dp
         if slots is None:
             _, capacity = t3_engine.engine_geometry(
                 tts.cfg.t3, text_bucket, 2 + tts.cfg.t3.perceiver_num_queries, max_new_tokens)
             slots = min(16, t3_mod.max_decode_utterances(
                 capacity, cfg=tts.cfg.t3, dtype=tts.dtype,
-                free_bytes=t3_mod.free_device_bytes(tts.device)))
+                free_bytes=t3_mod.free_device_bytes(tts.device))) * dp
+        elif slots % dp != 0:
+            raise ValueError(f"slots={slots} must be a multiple of the dp "
+                             f"axis ({dp}) — each chip hosts slots/dp slots")
         self.decoder = ContinuousDecoder(
             tts.t3_params, tts.cfg.t3, slots=slots, text_bucket=text_bucket,
             max_new_tokens=max_new_tokens, block=block, dtype=tts.dtype, kv_int8=kv_int8,
             use_top_p=use_top_p, retain_results=False, make_draws=self.make_draws,
-            device=tts.device)
+            device=tts.device, mesh=mesh)
         self.vocode_batch = vocode_batch
         self.retries = retries
         # a run-forever caller consumes results from pump()'s return value;
@@ -117,6 +130,12 @@ class ContinuousServer:
         conds = conds if conds is not None else self.tts.conds
         if conds is None:
             raise RuntimeError("prepare conditionals (or pass conds=)")
+        if stream and getattr(self.tts, "mesh", None) is not None:
+            raise ValueError(
+                "submit(stream=True) is not supported on a mesh-enabled "
+                "server — streaming synthesis is single-chip "
+                "(tts.stream_generate docstring); run streamed requests on "
+                "an unmeshed ContinuousServer")
         conds = conds.to(self.tts.device)
         sot = self.tts.cfg.t3.start_text_token
         eot = self.tts.cfg.t3.stop_text_token

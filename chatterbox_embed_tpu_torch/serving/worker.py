@@ -4,9 +4,12 @@ consumer groups, 5 s blocking reads, per-job status hash, dead-letter stream).
 
 Where the port differs: the model comes from `tts_factory` / `vc_factory`
 (the JAX package's default, `from_pretrained`, is a download the port does
-not have: without a factory the worker raises), and WORKER_MESH raises (the
-mesh is ROADMAP item 21; the JAX worker would skip it silently on a model
-without `enable_mesh`).
+not have: without a factory the worker raises). WORKER_MESH=dpxtp (e.g.
+"2x4") serves T3 over a dp x tp mesh (`tts.enable_mesh(n_devices=dp * tp,
+tp=tp)`, on the first dp * tp cards unless `mesh_device` names one device
+for every rank); the worker still reads its stream from this one process.
+A malformed value raises when the worker is built, and a model without
+`enable_mesh` raises, where the JAX worker would skip the mesh silently.
 
 redis-py is optional: when missing, an in-process queue backend with the same
 stream semantics lets the worker loop run in tests and hermetic environments.
@@ -86,17 +89,28 @@ def _connect_redis():
         return InMemoryStreams()
 
 
+def _mesh_spec(raw: Optional[str]) -> Optional[Tuple[int, int]]:
+    """WORKER_MESH "dpxtp" -> (dp, tp); unset or empty -> None; anything
+    else raises."""
+    if not raw:
+        return None
+    parts = raw.strip().lower().split("x")
+    if len(parts) != 2 or not all(p.isdigit() and int(p) > 0 for p in parts):
+        raise ValueError(f"WORKER_MESH={raw!r}: want dpxtp with two positive integers, "
+                         "e.g. 2x4")
+    return int(parts[0]), int(parts[1])
+
+
 class RedisWorker:
-    """Consume TTS / voice-clone jobs from a stream and run them."""
+    """Consume TTS / voice-clone jobs from a stream and run them.
+    mesh_device: where WORKER_MESH's ranks run (None: the cards)."""
 
     def __init__(self, mode: str = "tts", client=None,
                  tts_factory: Optional[Callable] = None,
-                 vc_factory: Optional[Callable] = None):
+                 vc_factory: Optional[Callable] = None, mesh_device=None):
         assert mode in ("tts", "vc")
-        if os.getenv("WORKER_MESH"):
-            raise NotImplementedError(
-                "WORKER_MESH: multi-card serving (tts.enable_mesh) is not ported yet "
-                "(ROADMAP item 21)")
+        self.mesh_spec = _mesh_spec(os.getenv("WORKER_MESH"))
+        self.mesh_device = mesh_device
         self.mode = mode
         self.stream = STREAM_TTS if mode == "tts" else STREAM_VC
         self.group = os.getenv("REDIS_CONSUMER_GROUP", "workers")
@@ -145,6 +159,9 @@ class RedisWorker:
                     batch_sizes=_ints("WORKER_WARMUP_BATCHES", (1,)),
                     token_buckets=_ints("WORKER_WARMUP_TOKEN_BUCKETS", (256,)),
                     stream=os.getenv("WORKER_WARMUP_STREAM", "0") == "1")
+            if self.mesh_spec is not None:
+                dp, tp = self.mesh_spec
+                self._tts.enable_mesh(n_devices=dp * tp, tp=tp, device=self.mesh_device)
         return self._tts
 
     def _get_vc(self):

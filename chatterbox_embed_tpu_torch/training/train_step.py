@@ -17,8 +17,9 @@ counterpart of `chatterbox_embed_tpu/training/train_step.py`.
   and its backward K3b (`kernels/flash_attention.py`); its draws (time,
   noise, CFG keep) come from a draw source (`ops/sampling.py:Draws`).
 - One device: `mesh` takes None only (the JAX package's steps shard over a
-  dp x tp mesh; the port has no torch.distributed path yet), and the step
-  makers return the step alone, with no batch shardings.
+  dp x tp mesh; the port serves on a mesh, parallel/, and trains on one
+  in ROADMAP item 21b), and the step makers return the step alone, with
+  no batch shardings.
 """
 from __future__ import annotations
 
@@ -66,7 +67,7 @@ def _adamw(params, lr: float = 1e-4, wd: float = 0.01) -> torch.optim.AdamW:
 def _no_mesh(mesh) -> None:
     if mesh is not None:
         raise ValueError("the port trains on one device: mesh must be None "
-                         "(no torch.distributed training path yet)")
+                         "(training on a mesh is ROADMAP item 21b)")
 
 
 def _trainable(params, device):

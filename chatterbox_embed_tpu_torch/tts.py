@@ -29,6 +29,16 @@ Host code tokenizes, pads to buckets and moves numpy at the edges; T3,
 S3Gen and the conditioning encoders run on `device` (the card unless the
 caller names another), T3 and S3Gen with the compute `dtype`, the
 conditioning encoders in fp32.
+
+`enable_mesh` serves T3 on a dp x tp mesh (parallel/): `generate`,
+`generate_batch`, long text and the continuous engine decode over it, while
+S3Gen, the conditioning and `stream_generate` stay on this process's card.
+
+The port runs no int8 (ROADMAP item 22): `from_local(int8=True)`,
+CHATTERBOX_INT8=1 and CHATTERBOX_INT8_S3GEN=1 raise where the JAX package
+reads them, and so does CHATTERBOX_INT8_KV=1|2 at every KV cache
+(models/llama.py). On a GPU the default is no int8; the JAX package's
+default of int8 weights is a TPU's.
 """
 from __future__ import annotations
 
@@ -203,6 +213,39 @@ class ChatterboxTTS:
         self._perf_acc: Dict[str, float] = self._fresh_perf_acc()
         # per-voice S3Gen prompt rows on the device (_gen_device_voice_row)
         self._gen_dev_rows: Dict = {}
+        # the serving mesh (enable_mesh); under it, the unsharded T3 too
+        self.mesh = None
+        self._t3_params_single = None
+
+    def enable_mesh(self, n_devices: Optional[int] = None, tp: Optional[int] = None,
+                    device=None):
+        """Serve T3 over a dp x tp mesh (parallel.serve.make_dp_tp_mesh): the
+        CFG rows split over dp, the backbone's Megatron layout over tp, one
+        process a rank, this one rank 0. `generate`, `generate_batch`, long
+        text and the continuous engine run their T3 over it; the CFG rows
+        (2 an utterance) must divide dp. S3Gen and the conditioning run
+        here, and `stream_generate` keeps the unsharded T3 on this card.
+
+        n_devices: ranks, one a card (None: every visible card); tp as
+        parallel.make_mesh. device: None for the cards; a device name puts
+        every rank on that one device (the CPU; two ranks sharing a card).
+        Rank 0 must run on this pipeline's device. Returns the mesh."""
+        from .parallel import make_dp_tp_mesh, shard_t3_for_serving
+        mesh = make_dp_tp_mesh(n_devices, tp=tp, device=device)
+        if mesh.device != self.device:
+            raise ValueError(f"the mesh's rank 0 runs on {mesh.device}, the pipeline on "
+                             f"{self.device}")
+        single = self._t3_single
+        self.t3_params = shard_t3_for_serving(mesh, single)
+        self.mesh, self._t3_params_single = mesh, single
+        logger.info("serving mesh enabled: dp=%d tp=%d", mesh.dp, mesh.tp)
+        return mesh
+
+    @property
+    def _t3_single(self):
+        """T3's unsharded params on this card: what `stream_generate` and
+        K4's wall read, on a mesh too."""
+        return self._t3_params_single if self.mesh is not None else self.t3_params
 
     @classmethod
     def from_random(cls, seed: int = 0, config: ChatterboxConfig = ChatterboxConfig(),
@@ -218,12 +261,23 @@ class ChatterboxTTS:
 
     @classmethod
     def from_local(cls, ckpt_dir, config: ChatterboxConfig = ChatterboxConfig(),
-                   dtype=torch.float32, device=None):
+                   dtype=torch.float32, device=None, int8: Optional[bool] = None):
         """Load reference checkpoints: ve.safetensors, t3_cfg.safetensors,
         s3gen.safetensors, tokenizer.json and (if present) conds.pt in
         `ckpt_dir`. The port's numpy converters (utils/weights.py) build
         trees in the port's layout, which `weights.from_arrays` checks leaf
-        by leaf and turns into tensors."""
+        by leaf and turns into tensors.
+
+        int8: None or False loads full-precision weights; True, like
+        CHATTERBOX_INT8=1 or CHATTERBOX_INT8_S3GEN=1, raises (int8 weights
+        are ROADMAP item 22)."""
+        if int8:
+            raise NotImplementedError("from_local(int8=True): int8 weights are not ported "
+                                      "yet (ROADMAP item 22); pass int8=None or False")
+        for key in ("CHATTERBOX_INT8", "CHATTERBOX_INT8_S3GEN"):
+            if _env_bool(key, False):
+                raise NotImplementedError(f"{key}={os.environ[key]}: int8 weights are not "
+                                          "ported yet (ROADMAP item 22); unset it or set 0")
         ckpt_dir = Path(ckpt_dir)
         device = resolve_device(device)
         ve_sd = weights_mod.load_safetensors(str(ckpt_dir / "ve.safetensors"))
@@ -315,7 +369,7 @@ class ChatterboxTTS:
             if (t3_mod._use_fused_step() and t3_mod.fused_decode.plan(
                     self.cfg.t3.llama, 2) is not None):
                 stage("fused_wall_s", lambda: t3_mod._fused_params(
-                    self.t3_params, self.cfg.t3, self.dtype))
+                    self._t3_single, self.cfg.t3, self.dtype))
         try:
             if self.conds is None:
                 fd, tmp = tempfile.mkstemp(suffix=".wav")
@@ -560,7 +614,7 @@ class ChatterboxTTS:
             temperature=temperature, cfg_weight=cfg_weight,
             repetition_penalty=repetition_penalty, min_p=min_p, top_p=top_p,
             seed=seed, draws=draws, alignment=_alignment_on(), cfg=self.cfg.t3,
-            dtype=self.dtype, device=self.device, info=info)
+            dtype=self.dtype, device=self.device, info=info, mesh=self.mesh)
         # generate stops at (and includes) the first EOS; drop it and every
         # other non-speech id
         return s3gen_mod.drop_invalid_tokens(speech)
@@ -678,7 +732,7 @@ class ChatterboxTTS:
         info: dict = {}
         tokens = []
         for block in t3_mod.generate_stream(
-                self.t3_params, self.conds.t3, text_tokens, max_new_tokens=max_new_tokens,
+                self._t3_single, self.conds.t3, text_tokens, max_new_tokens=max_new_tokens,
                 temperature=temperature, cfg_weight=cfg_weight,
                 repetition_penalty=repetition_penalty, min_p=min_p, top_p=top_p, seed=seed,
                 block=block_tokens, draws=draws, cfg=self.cfg.t3, dtype=self.dtype, device=dev,
@@ -767,7 +821,7 @@ class ChatterboxTTS:
             repetition_penalty=repetition_penalty, min_p=min_p, top_p=top_p,
             seed=seed, text_lens=text_lens, make_draws=make_draws,
             alignment=_alignment_on(), cfg=self.cfg.t3, dtype=self.dtype, device=dev,
-            info=info)
+            info=info, mesh=self.mesh)
         t3_s = time.time() - t0
         t0 = time.time()
         outs, lens, vinfo = self._vocode_batch(
@@ -1063,6 +1117,8 @@ class ChatterboxTTS:
         slots = min(len(texts), 16, t3_mod.max_decode_utterances(
             capacity, cfg=self.cfg.t3, dtype=self.dtype,
             free_bytes=t3_mod.free_device_bytes(self.device)))
+        if self.mesh is not None:
+            slots = -(-slots // self.mesh.dp) * self.mesh.dp      # the engine's slots over dp
         srv = ContinuousServer(
             self, slots=slots, text_bucket=bucket, max_new_tokens=cap, block=64,
             vocode_batch=max(4, slots // 2),

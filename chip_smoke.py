@@ -6,7 +6,7 @@ With no argument every phase runs (the device and build phases always
 run); `--phases` names the ones to run (PHASES below: kernel_check,
 attention_check, probe_check, probes, fused_check, consistency, generate,
 generate_batch, stream_generate, conditioning, long_text, engine, worker,
-train), and the kernel line then lists the kernels whose check and main
+mesh, train), and the kernel line then lists the kernels whose check and main
 path ran. Phases, one or more lines each, then the result line:
   1. device: the card's name and power limit (nvidia-smi), torch and CUDA
      versions; TF32 switched off for matmuls and convolutions.
@@ -135,14 +135,25 @@ path ran. Phases, one or more lines each, then the result line:
      audio stored, the metadata `continuous`, K1 30 x engine steps; then
      clone_voice through a ChatterboxVC on the same weights into the same
      storage (its sample through the fused step).
- 12. train: at full width in fp32 with random weights, T3 (30 layers) takes
+ 12. mesh: serving on a mesh (parallel/) at full width. (a) A world of 1
+     over NCCL: tts.enable_mesh(), T3's tokens for 4 texts equal the plain
+     path's, and tts.generate_batch of the 4 runs over the mesh (K1 30 x
+     steps; K2 and K3 in the leader's S3Gen). (b) Two ranks sharing the
+     card over gloo (NCCL refuses two ranks on one card), tp = 2 on a fp32
+     T3: prefill logits within atol = rtol = 2e-4 of one process's, one
+     generate to its 48-token cap with K1 30 x 48 on each rank, the step's
+     ms beside one process's, the weight broadcast's seconds. (c) The same
+     ranks at dp = 2: generate_batch of the 4 texts equals one process
+     token for token. (d) The engine at dp = 2 (4 slots, 6 requests): equal
+     tokens and steps, K1 30 x steps on each rank.
+ 13. train: at full width in fp32 with random weights, T3 (30 layers) takes
      3 AdamW steps with remat on a batch of 2 (150 prompt tokens, text 64
      and 48, speech 256 and 200): losses finite and falling, ms a step and
      peak memory; the flow estimator takes 3 steps on 4 rows of 812, 812,
      700 and 560 frames, each with 56 launches of K3, K3b-dq and K3b-dkv;
      then one step's loss and gradients at 256 frames on the card against
      the CPU (written-out attention) on the same params, batch and draws.
- 13. a JSON line describing each kernel, then the last line
+ 14. a JSON line describing each kernel, then the last line
      {"ok": true, "device": {...}}.
 
 Any failure raises and the script exits non-zero with no result line. It
@@ -164,10 +175,12 @@ import torch
 # main-path shapes of the flash-decode kernel: the CFG rows of the 16x64-head
 # T3 Llama, B=2 for one utterance and B=16 for a batch of 8; cache capacity
 # 512 at the smoke's 96-token text bucket and 250 new tokens, 1280 at the
-# default max_new_tokens=1000
+# default max_new_tokens=1000; and each rank's 8 heads of one utterance on
+# the mesh phase's tp = 2 (B * H = 16 gets a split plan of its own)
 KERNEL_B, KERNEL_H, KERNEL_D = 2, 16, 64
 KERNEL_B_BATCH = 16
 KERNEL_LC = (512, 1280)
+KERNEL_BH = ((KERNEL_B, KERNEL_H), (KERNEL_B, KERNEL_H // 2), (KERNEL_B_BATCH, KERNEL_H))
 # fp32: kernel and plain version differ only in summation order over a few
 # hundred unit-variance terms; 1e-5 is ~100x the fp32 rounding of outputs
 # of size ~0.1. bf16: both round the fp32 result to bf16 once, so they may
@@ -386,6 +399,19 @@ TRAIN_CHECK_FRAMES = (256, 256, 220, 180)
 TRAIN_LOSS_TOL = 1e-4
 TRAIN_GRAD_TOL = 1e-3
 
+# the mesh phase: 4 utterances of TEXTS, 48 tokens each; the tp prefill
+# logits held to one process's as tests/test_parallel.py holds the JAX
+# package's (fp32, atol and rtol 2e-4: the tp sums reassociate the o/down
+# products); the engine's 4 slots over dp = 2 with 6 requests
+MESH_TEXTS = 4
+MESH_NEW_TOKENS = 48
+MESH_LOGIT_TOL = 2e-4
+# tp = 2 decode steps (K1 on 8 heads a rank, the o/down sums) teacher-forced
+# on one process's tokens, each step's logits held to MESH_LOGIT_TOL
+MESH_FORCED_STEPS = 16
+MESH_ENGINE = dict(slots=4, text_bucket=128, max_new_tokens=64, block=16)
+MESH_ENGINE_LIMITS = (40, 12, 28, 20, 36, 16)
+
 
 def log(phase: str, **kw) -> None:
     print(f"[{phase}] " + " ".join(f"{k}={v}" for k, v in kw.items()), flush=True)
@@ -566,14 +592,15 @@ def _batch_holes(b: int) -> torch.Tensor:
 def phase_kernel_check(card: str, deferred: bool = False) -> dict:
     """K1 against decode_attention_reference on the card, or with
     `deferred` its deferred-insert entry K1s: a DEFER_LAYERS-layer stacked
-    cache with a layer index and the current row folded in."""
+    cache with a layer index and the current row folded in. Each (B, H) of
+    KERNEL_BH at each Lc of KERNEL_LC: T3's 16 heads and a tp = 2 rank's 8."""
     from chatterbox_embed_tpu_torch.kernels import flash_decode as fd
     name = "flash_decode_deferred" if deferred else "flash_decode"
     g = torch.Generator(device="cuda").manual_seed(4242 if deferred else 1234)
-    h, d = KERNEL_H, KERNEL_D
+    d = KERNEL_D
     worst = {torch.float32: 0.0, torch.bfloat16: 0.0}
     timing = {}
-    for b in (KERNEL_B, KERNEL_B_BATCH):
+    for b, h in KERNEL_BH:
         for lc in KERNEL_LC:
             # (start, cache_pos) pairs: inside one split, across split edges,
             # a start on an edge, the last slot, and the smoke's decode range;
@@ -602,12 +629,12 @@ def phase_kernel_check(card: str, deferred: bool = False) -> dict:
                         a, kw = args(start, pos, hole, layer)
                         out = fd.decode_attention(*a, **kw)
                         ref = fd.decode_attention_reference(*a, **kw)
-                        err = _check_err(name, out, ref, TOL[dtype], b=b, lc=lc,
+                        err = _check_err(name, out, ref, TOL[dtype], b=b, h=h, lc=lc,
                                          dtype=str(dtype)[6:], start=start, pos=pos,
                                          hole=hole is not None,
                                          **({"layer": layer} if deferred else {}))
                         worst[dtype] = max(worst[dtype], err)
-                if dtype == torch.bfloat16:
+                if dtype == torch.bfloat16 and h == KERNEL_H:
                     # time at the decode step's shape: the live range the main
                     # path reaches mid-generation
                     start, pos, hole = 4, min(lc - 1, 4 + (lc - 4) * 3 // 4), holes[-1]
@@ -2366,6 +2393,254 @@ def phase_worker(card: str, tts) -> dict:
     return counts
 
 
+def _text_rows(tts, texts):
+    """generate_batch's T3 rows for `texts`: (U, T) int32 wrapped in
+    SOT/EOT and right-padded with EOT, and each row's length."""
+    sot, eot = tts.cfg.t3.start_text_token, tts.cfg.t3.stop_text_token
+    rows = [np.concatenate([[sot], tts.tokenizer.text_to_tokens(t)[0], [eot]]) for t in texts]
+    tt = np.full((len(rows), max(len(r) for r in rows)), eot, np.int32)
+    for i, r in enumerate(rows):
+        tt[i, :len(r)] = r
+    return tt, np.asarray([len(r) for r in rows], np.int32)
+
+
+def _same_tokens(label: str, want, got) -> None:
+    for i, (a, b) in enumerate(zip(want, got, strict=True)):
+        if not np.array_equal(a, b):
+            n = min(len(a), len(b))
+            first = int(np.argmax(a[:n] != b[:n])) if (a[:n] != b[:n]).any() else n
+            raise AssertionError(f"{label}: row {i} differs from one process's at token "
+                                 f"{first} (lengths {len(a)}, {len(b)})")
+
+
+def _tp_sum_ms(mesh, width: int, iters: int = 200) -> float:
+    """Host ms of one tp sum (the all-reduce after a row-parallel product)
+    of a (2, 1, width) fp32 tensor on this rank's device, over `iters`."""
+    x = torch.zeros((2, 1, width), device=mesh.device)
+    for _ in range(10):
+        mesh.sum_tp(x)
+    torch.cuda.synchronize()
+    t0 = time.time()
+    for _ in range(iters):
+        mesh.sum_tp(x)
+    torch.cuda.synchronize()
+    return 1e3 * (time.time() - t0) / iters
+
+
+class _ForcedDraws:
+    """Draws that pick given tokens: step i's Gumbel tensor is 0 at
+    forced[i] and -inf elsewhere, so sampling returns forced[i] from any
+    logits finite there (min_p 0 and top_p 1 mask no valid id)."""
+
+    def __init__(self, forced):
+        self.forced = [int(x) for x in forced]
+
+    def gumbel(self, step: int, shape) -> torch.Tensor:
+        g = torch.full(shape, -float("inf"))
+        g[:, self.forced[step]] = 0.0
+        return g
+
+
+def _forced_logits(params, cond, tt, forced, cfg, mesh=None, device=None) -> torch.Tensor:
+    """(1 + steps, rows, V) fp32: the speech head's logits of every CFG row
+    after prefill and after each decode step fed `forced` (teacher forcing),
+    one decode_block of one step at a time; on `mesh` (called on each rank
+    through Mesh.call) or alone. Raises if a step took another token."""
+    from chatterbox_embed_tpu_torch.models import t3
+    from chatterbox_embed_tpu_torch.ops import sampling
+    n = len(forced)
+    state, ginfo = t3.start_generation(params, cond, tt, cfg_weight=0.5, max_new_tokens=n,
+                                       cfg=cfg, mesh=mesh, device=device)
+    sp = sampling.SamplingParams(1.0, 0.5, 1.2, 0.0, 1.0)
+    draws = _ForcedDraws(forced)
+    out = [state.logits.clone()]
+    for i in range(n):
+        state, toks, k = t3.decode_block(params, state, ginfo, sp, draws, block=1, limit=n,
+                                         use_top_p=False, stop_on_eos=False, cfg=cfg,
+                                         dtype=torch.float32, mesh=mesh)
+        if k != 1 or int(toks[0, 0]) != draws.forced[i]:
+            raise AssertionError(f"forced step {i}: took {toks[:k, 0]}, want {draws.forced[i]}")
+        out.append(state.logits.clone())
+    return torch.stack(out)
+
+
+def _logits_close(label: str, got, want) -> float:
+    """Max |got - want|; raises past atol = rtol = MESH_LOGIT_TOL."""
+    err = (got - want).abs()
+    if not bool((err <= MESH_LOGIT_TOL + MESH_LOGIT_TOL * want.abs()).all()):
+        raise AssertionError(f"{label}: max err {err.max().item():.3e} over atol = rtol = "
+                             f"{MESH_LOGIT_TOL}")
+    return err.max().item()
+
+
+def phase_mesh(card: str, tts) -> dict:
+    """Serving on a mesh at full width (parallel/, tts.enable_mesh).
+    (a) A world of 1 over NCCL: enable_mesh(), T3's tokens for 4 utterances
+    equal the plain path's, and tts.generate_batch runs over the mesh (K1
+    30 x steps, K2 and K3 in the leader's S3Gen). (b) Two ranks sharing the
+    card over gloo, tp = 2 (8 heads a rank), on a fp32 T3: prefill logits
+    within MESH_LOGIT_TOL of one process's, and so the logits of
+    MESH_FORCED_STEPS decode steps teacher-forced on one process's tokens
+    (K1 on 8 heads, the o/down sums); one generate to its cap with K1
+    30 x steps on each rank; the step's ms beside one process's, the ms of
+    one tp sum on each rank and the weight broadcast's seconds. (c) The same two ranks at dp = 2:
+    generate_batch of 4 utterances equals one process token for token. (d)
+    The engine at dp = 2 (4 slots, 6 requests) equals the one-process
+    engine, with K1 30 x steps on each rank. Returns each path's
+    launches."""
+    from chatterbox_embed_tpu_torch import parallel
+    from chatterbox_embed_tpu_torch.models import layers as L
+    from chatterbox_embed_tpu_torch.models import t3, t3_engine
+    cfg = tts.cfg
+    n_layers = cfg.t3.llama.num_layers
+    texts = TEXTS[:MESH_TEXTS]
+    tt, lens = _text_rows(tts, texts)
+    conds = _random_conds(cfg, "cuda")       # the phases before may leave none prepared
+    cond = conds.t3
+    kw = dict(max_new_tokens=MESH_NEW_TOKENS, cfg_weight=0.5, seed=0,
+              temperature=TEMPERATURES[:MESH_TEXTS], text_lens=lens, cfg=cfg.t3)
+    launches = {}
+
+    # (a) a world of 1 over NCCL, the bf16 pipeline
+    t0 = time.time()
+    plain = t3.generate_batch(tts.t3_params, cond, tt, dtype=tts.dtype, **kw)
+    mesh = tts.enable_mesh()
+    try:
+        backend = mesh._world.backend
+        if mesh.shape != {"dp": 1, "tp": 1} or "cuda:nccl" not in backend:
+            raise AssertionError(f"world of 1: mesh {mesh.shape}, backend {backend}")
+        _same_tokens("world of 1", plain, t3.generate_batch(
+            tts.t3_params, cond, tt, dtype=tts.dtype, mesh=mesh, **kw))
+        _reset_counts()
+        wavs = tts.generate_batch(texts, max_new_tokens=MESH_NEW_TOKENS, cfg_weight=0.5, seed=0,
+                                  temperature=TEMPERATURES[:MESH_TEXTS], conds=conds)
+        counts, perf = _counts(), dict(tts.perf)
+        if t3.LAST_GENERATION_INFO["mesh"] != {"dp": 1, "tp": 1}:
+            raise AssertionError(f"world of 1: {t3.LAST_GENERATION_INFO}")
+        for i, (w, n) in enumerate(zip(wavs, perf["row_tokens"])):
+            if w.shape != (2 * n * 480,) or n == 0 or not np.isfinite(w).all():
+                raise AssertionError(f"world of 1: row {i} wav {w.shape}, {n} tokens")
+        want = _want(flash_decode=n_layers * perf["decode_steps"], **_s3gen_launches(cfg, perf))
+        if counts != want:
+            raise AssertionError(f"world of 1: launches {counts}, want {want}")
+        launches["mesh_world1_batch"] = counts
+    finally:
+        tts.mesh, tts.t3_params = None, tts._t3_params_single
+        parallel.shutdown()
+    log("mesh_world1", backend=backend, utterances=len(wavs), tokens_equal_plain=True,
+        decode_steps=perf["decode_steps"], launches=json.dumps(
+            {k: v for k, v in counts.items() if v}).replace(" ", ""),
+        t3_s=f"{perf['t3_s']:.4f}", s3gen_s=f"{perf['s3gen_s']:.4f}",
+        seconds=f"{time.time() - t0:.2f}", card=repr(card))
+
+    # (b)-(d): two ranks on this card over gloo, a fp32 T3 from seed 1
+    dev = torch.device("cuda", torch.cuda.current_device())
+    params = t3.init(L.Init(1, dev), cfg.t3)
+    try:
+        t0 = time.time()
+        mesh_tp = parallel.Mesh(np.asarray([[dev, dev]], dtype=object))
+        world_s = time.time() - t0
+        t0 = time.time()
+        sv_tp = parallel.shard_t3_for_decode(mesh_tp, params)
+        torch.cuda.synchronize()
+        bcast_tp_s = time.time() - t0
+        one, _ = t3.start_generation(params, cond, tt[:1], cfg_weight=0.5,
+                                     max_new_tokens=MESH_NEW_TOKENS, cfg=cfg.t3)
+        two, _ = t3.start_generation(sv_tp, cond, tt[:1], cfg_weight=0.5,
+                                     max_new_tokens=MESH_NEW_TOKENS, cfg=cfg.t3, mesh=mesh_tp)
+        err = _logits_close("tp = 2 prefill logits", two.logits, one.logits)
+        gkw = dict(max_new_tokens=MESH_NEW_TOKENS, cfg_weight=0.5, temperature=0.7, seed=0,
+                   stop_on_eos=False, cfg=cfg.t3)
+        forced = t3.generate(params, cond, tt[:1], **gkw)[:MESH_FORCED_STEPS]   # warms too
+        t0 = time.time()
+        want_steps = _forced_logits(params, cond, tt[:1], forced, cfg.t3)
+        got_steps = mesh_tp.call(_forced_logits, sv_tp, cond, tt[:1], forced, cfg.t3,
+                                 mesh=mesh_tp)
+        step_errs = [_logits_close(f"tp = 2 decode step {i} logits (teacher-forced)", g, w)
+                     for i, (g, w) in enumerate(zip(got_steps[1:], want_steps[1:]))]
+        forced_s = time.time() - t0
+        torch.cuda.synchronize()
+        t0 = time.time()
+        info1: dict = {}
+        t3.generate(params, cond, tt[:1], info=info1, **gkw)
+        torch.cuda.synchronize()
+        one_s = time.time() - t0
+        mesh_tp.call_all(_reset_counts)
+        t0 = time.time()
+        info2: dict = {}
+        toks = t3.generate(sv_tp, cond, tt[:1], mesh=mesh_tp, info=info2, **gkw)
+        torch.cuda.synchronize()
+        tp_s = time.time() - t0
+        steps = info2["decode_steps"]
+        ranks = mesh_tp.call_all(_counts)
+        for r, c in enumerate(ranks):
+            if c != _want(flash_decode=n_layers * steps) or steps != MESH_NEW_TOKENS:
+                raise AssertionError(f"tp = 2 rank {r}: launches {c} for {steps} steps")
+            launches[f"mesh_tp2_rank{r}"] = c
+        if (toks.shape != (MESH_NEW_TOKENS,)
+                or not ((toks >= 0) & (toks < cfg.t3.speech_tokens_dict_size)).all()):
+            raise AssertionError(f"tp = 2 tokens {toks.shape}")
+        sum_ms = mesh_tp.call_all(_tp_sum_ms, mesh_tp, cfg.t3.llama.hidden_size)
+        log("mesh_tp2", ranks=2, heads_a_rank=cfg.t3.llama.num_heads // 2, backend=
+            mesh_tp._world.backend, world_start_s=f"{world_s:.2f}",
+            weight_broadcast_s=f"{bcast_tp_s:.3f}",
+            logits_max_abs_err=f"{err:.3e}", logits_atol_rtol=MESH_LOGIT_TOL,
+            forced_steps=len(step_errs), forced_logits_max_abs_err=f"{max(step_errs):.3e}",
+            forced_step_errs=",".join(f"{e:.3e}" for e in step_errs),
+            forced_s=f"{forced_s:.2f}",
+            steps=steps, k1_a_rank=n_layers * steps,
+            tp2_ms_per_step=f"{1e3 * tp_s / steps:.3f}",
+            tp_sum_ms=",".join(f"{m:.4f}" for m in sum_ms),
+            tp_sums_a_step=2 * n_layers,
+            one_process_ms_per_step=f"{1e3 * one_s / info1['decode_steps']:.3f}",
+            note="two ranks sharing one card over gloo, not a multi-card figure",
+            card=repr(card))
+
+        # (c) dp = 2 on the same world
+        mesh_dp = parallel.Mesh(np.asarray([[dev], [dev]], dtype=object))
+        t0 = time.time()
+        sv_dp = parallel.shard_t3_for_serving(mesh_dp, params)
+        torch.cuda.synchronize()
+        bcast_dp_s = time.time() - t0
+        t0 = time.time()
+        want = t3.generate_batch(params, cond, tt, **kw)
+        one_s = time.time() - t0
+        t0 = time.time()
+        got = t3.generate_batch(sv_dp, cond, tt, mesh=mesh_dp, **kw)
+        dp_s = time.time() - t0
+        _same_tokens("dp = 2", want, got)
+        log("mesh_dp2", utterances=len(got), cfg_rows_a_rank=len(got), tokens_equal=True,
+            tokens=",".join(str(len(g)) for g in got), weight_broadcast_s=f"{bcast_dp_s:.3f}",
+            dp2_s=f"{dp_s:.3f}", one_process_s=f"{one_s:.3f}", card=repr(card))
+
+        # (d) the engine at dp = 2
+        def engine(p, m):
+            dec = t3_engine.ContinuousDecoder(p, cfg.t3, mesh=m, **MESH_ENGINE)
+            rids = [dec.submit(tt[i % len(tt)][None, :lens[i % len(tt)]], cond,
+                               temperature=0.7, cfg_weight=0.5, seed=10 + i, max_new_tokens=lim)
+                    for i, lim in enumerate(MESH_ENGINE_LIMITS)]
+            res = dec.drain()
+            return [res[r] for r in rids], dec.steps_run
+        want, steps_one = engine(params, None)
+        mesh_dp.call_all(_reset_counts)
+        got, steps = engine(sv_dp, mesh_dp)
+        ranks = mesh_dp.call_all(_counts)
+        _same_tokens("engine dp = 2", want, got)
+        for r, c in enumerate(ranks):
+            if c != _want(flash_decode=n_layers * steps) or steps != steps_one:
+                raise AssertionError(f"engine dp = 2 rank {r}: launches {c}, {steps} steps "
+                                     f"({steps_one} in one process)")
+            launches[f"mesh_engine_dp2_rank{r}"] = c
+        log("mesh_engine_dp2", slots=MESH_ENGINE["slots"], slots_a_rank=MESH_ENGINE["slots"] // 2,
+            requests=len(got), tokens=",".join(str(len(g)) for g in got), steps=steps,
+            tokens_equal=True, card=repr(card))
+    finally:
+        parallel.shutdown()
+        del params
+        torch.cuda.empty_cache()
+    return launches
+
+
 def _flow_train_batch(frames, dec, seed: int, device) -> dict:
     """A flow training batch of len(frames) rows, max(frames) frames: target
     mel, encoder output and a speaker embedding from the seed, a prompt
@@ -2630,9 +2905,9 @@ REPLACES = {"flash_decode": "chatterbox_embed_tpu/kernels/flash_decode.py:85",
 # and build phases always run; every phase runs when none is named)
 PHASES = ("kernel_check", "attention_check", "probe_check", "probes", "fused_check",
           "consistency", "generate", "generate_batch", "stream_generate", "conditioning",
-          "long_text", "engine", "worker", "train")
+          "long_text", "engine", "worker", "mesh", "train")
 MODEL_PHASES = ("fused_check", "consistency", "generate", "generate_batch",
-                "stream_generate", "conditioning", "long_text", "engine", "worker")
+                "stream_generate", "conditioning", "long_text", "engine", "worker", "mesh")
 
 
 def _selected(argv) -> set:
@@ -2736,6 +3011,9 @@ def main(argv=None) -> None:
     if "worker" in selected:
         launches["worker"] = phase_worker(card, tts)
         phase_done("worker")
+    if "mesh" in selected:
+        launches.update(phase_mesh(card, tts))
+        phase_done("mesh")
     if selected & set(MODEL_PHASES):
         del tts
         torch.cuda.empty_cache()

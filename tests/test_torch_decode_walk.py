@@ -48,7 +48,8 @@ def _walk_and_plain(q, k, v, kc, vc, pos, start, hole, deferred, layer=None):
 # (B, H, Lc, start, pos, hole, deferred): pos = start; fewer live slots than
 # splits (the last splits empty); a hole over the first splits and across
 # split edges; Lc 1280 at the smoke's two row counts (B*H = 32: 16 splits;
-# B*H = 64: 8)
+# B*H = 64: 8); one utterance's 8 heads on a tp = 2 rank (B*H = 16: 16
+# splits at Lc 512, 32 at 1280)
 CASES = [
     (2, 16, 512, 0, 0, None, False),
     (2, 16, 512, 7, 7, None, True),
@@ -58,6 +59,8 @@ CASES = [
     (16, 4, 1280, 4, 964, [[70 + 3 * r, 75 + 5 * r] for r in range(16)], False),
     (2, 16, 1280, 5, 1279, [[0, 0], [600, 700]], True),
     (1, 2, 256, 3, 255, [[9, 33]], False),
+    (2, 8, 512, 4, 381, [[0, 0], [70, 200]], False),
+    (2, 8, 1280, 4, 964, [[30, 47], [600, 700]], False),
 ]
 
 
@@ -148,7 +151,7 @@ def test_split_constants_equal_the_headers():
 
 @pytest.mark.parametrize("b,h,lc,want", [(2, 16, 512, 16), (2, 16, 1280, 16), (16, 16, 512, 2),
                                          (16, 16, 1280, 2), (1, 16, 512, 16), (64, 16, 512, 1),
-                                         (2, 2, 64, 2)])
+                                         (2, 2, 64, 2), (2, 8, 512, 16), (2, 8, 1280, 32)])
 def test_split_count_fills_the_card(b, h, lc, want):
     """kSplitBlocks / (B*H) rounded up, capped at Lc / kMinSplitKeys: 512
     blocks (~4 on each of the H100's 132 SMs) at B = 2 and 16."""

@@ -174,6 +174,9 @@ ENTRY_POINTS = [
     "t3_engine.ContinuousDecoder(None, TINY.t3, slots=1)",
     "training.init_t3_train_state(None)",
     "training.init_flow_train_state(None)",
+    "parallel.make_mesh(2)",
+    "parallel.make_dp_tp_mesh()",
+    "ChatterboxTTS.from_random(config=TINY, device='cpu').enable_mesh(2, tp=1)",
 ]
 
 
@@ -190,7 +193,7 @@ def test_entry_points_need_the_card_unless_asked_for_the_cpu(call, monkeypatch, 
     from chatterbox_embed_tpu_torch.models import layers as L            # noqa: F401
     from chatterbox_embed_tpu_torch.models import llama, t3, t3_engine    # noqa: F401
     from chatterbox_embed_tpu_torch.ops.sampling import Draws, sampling_param   # noqa: F401
-    from chatterbox_embed_tpu_torch import training                       # noqa: F401
+    from chatterbox_embed_tpu_torch import parallel, training             # noqa: F401
     from chatterbox_embed_tpu_torch.utils import audio_io
     from torch_parity import tiny_pipeline_config
     TINY = tiny_pipeline_config()                          # noqa: F841, N806

@@ -11,8 +11,9 @@ Firestore, a fake and a tiny real ChatterboxTTS. No server, no network.
   a drained stream (every status `done`, audio stored, metadata
   `continuous`), the VC mode, the DLQ, the intake fallback, a failing pump
   failing its jobs, the profile cache keyed on the bucket, continuous
-  serving the default; where the port differs on purpose, WORKER_MESH and
-  a missing model factory raise.
+  serving the default; where the port differs on purpose, a malformed
+  WORKER_MESH and a missing model factory raise (a valid WORKER_MESH serves
+  on a mesh: tests/test_torch_parallel.py).
 - The clone pipeline against the JAX package's on the same audio: the same
   result keys, storage keys, stored profile fields and Firestore fields."""
 import base64
@@ -215,10 +216,10 @@ def test_continuous_serving_is_the_default(monkeypatch):
 
 
 def test_worker_mesh_and_missing_factories_raise(store, monkeypatch):
-    """The port has no mesh (ROADMAP item 21) and no download: it says so
-    instead of serving on one card or fetching a model."""
-    monkeypatch.setenv("WORKER_MESH", "2x2")
-    with pytest.raises(NotImplementedError, match="item 21"):
+    """A malformed WORKER_MESH raises when the worker is built, and the
+    port has no download: it says so instead of fetching a model."""
+    monkeypatch.setenv("WORKER_MESH", "2by2")
+    with pytest.raises(ValueError, match="WORKER_MESH"):
         RedisWorker(mode="tts", client=InMemoryStreams(), tts_factory=FakeTTS)
     monkeypatch.delenv("WORKER_MESH")
     worker = RedisWorker(mode="tts", client=InMemoryStreams())
