@@ -12,6 +12,10 @@ made by the same numpy code, so both packages start from the same bits.
 
 `compute_loss` is the flow-matching training loss; its time, noise and CFG
 keep draws come from a draw source (`ops/sampling.py:Draws.flow_train`).
+On a mesh each rank draws for the whole batch and takes its rows.
+
+Under `comm` (parallel/sp.py) the solver runs on one shard of the T axis;
+DeepCache is off there, as in the JAX package.
 """
 from __future__ import annotations
 
@@ -47,7 +51,7 @@ def reuse_flags(n_steps: int, cache_every: int) -> list:
 def solve_euler(params, z, mu, spks, cond, mask=None,
                 cfm: CFMConfig = CFMConfig(),
                 dec_cfg: FlowDecoderConfig = FlowDecoderConfig(),
-                dtype=torch.float32, cache_every=None, cfg_steps=None):
+                dtype=torch.float32, cache_every=None, cfg_steps=None, comm=None):
     """Integrate dx/dt = v(x, t) from noise to mel (channel-last).
 
       z:    (B, T, 80) initial noise
@@ -62,6 +66,8 @@ def solve_euler(params, z, mu, spks, cond, mask=None,
       cfg_steps: CFG interval k: the cond/uncond pair runs on the first k
         steps only, and the later steps integrate the cond-only velocity
         on B rows. None, <= 0 or >= the step count: CFG on every step.
+      comm: parallel.sp.SeqComm when T is this rank's shard of an sp mesh
+        (flow_decoder.forward); no DeepCache stride under it.
     Returns (B, T, 80) fp32 mel. The uncond branch zeroes mu, spks and cond
     but keeps x and t. With both options off this is the plain solver.
     """
@@ -72,7 +78,8 @@ def solve_euler(params, z, mu, spks, cond, mask=None,
     n_steps = len(dts)
     k_cfg = n_steps if cfg_steps is None or int(cfg_steps) <= 0 else min(int(cfg_steps),
                                                                          n_steps)
-    use_cache = cache_every is not None and int(cache_every) >= 2 and n_steps > 2
+    use_cache = (cache_every is not None and int(cache_every) >= 2 and n_steps > 2
+                 and comm is None)
     flags = reuse_flags(n_steps, int(cache_every)) if use_cache else [False] * n_steps
 
     mu2 = torch.cat([mu, torch.zeros_like(mu)], dim=0)
@@ -96,7 +103,7 @@ def solve_euler(params, z, mu, spks, cond, mask=None,
             v, mid = flow_decoder.forward_mid_cached(params, *args, dec_cfg, dtype,
                                                      mid_feats=mid, reuse_mid=flags[i])
         else:
-            v = flow_decoder.forward(params, *args, dec_cfg, dtype)
+            v = flow_decoder.forward(params, *args, dec_cfg, dtype, comm=comm)
         if pair:
             v = (1.0 + w) * v[:b] - w * v[b:]
         x = x + float(dt) * v
@@ -137,15 +144,26 @@ def generate_mel_stream(params, mu, spks, cond, mask, prompt_frames: int, noise_
 def compute_loss(params, draws, x1, mu, spks, cond, mask,
                  cfm: CFMConfig = CFMConfig(),
                  dec_cfg: FlowDecoderConfig = FlowDecoderConfig(),
-                 dtype=torch.float32):
+                 dtype=torch.float32, mesh=None):
     """Flow-matching training loss (the JAX package's cfm.compute_loss).
 
     x1: (B, T, 80) target mel; mu, cond: (B, T, 80); spks: (B, 80); mask:
     (B, T, 1). `draws.flow_train(B, x1.shape)` gives the time, the noise and
     the CFG keep draw. Returns the masked mean squared error of the
-    estimator's velocity, a scalar fp32 tensor."""
+    estimator's velocity, a scalar fp32 tensor.
+
+    mesh: the arguments are the whole batch; each rank draws for all of it
+    from the one source (so the draws are one process's), takes its rows
+    over dp (`Mesh.rows`) and divides their squared error by the whole
+    batch's sum(mask) * 80, which every rank holds: the dp sum of the
+    ranks' losses is one process's."""
     b = x1.shape[0]
     t, z, keep_u = (a.to(x1.device) for a in draws.flow_train(b, tuple(x1.shape)))
+    den = torch.sum(mask) * x1.shape[-1]
+    if mesh is not None:
+        r0, r1 = mesh.rows(b)
+        t, z, keep_u, x1, mu, spks, cond, mask = (
+            a[r0:r1] for a in (t, z, keep_u, x1, mu, spks, cond, mask))
     if cfm.t_scheduler == "cosine":
         t = 1.0 - torch.cos(t * 0.5 * math.pi)
     t_b = t[:, None, None]
@@ -160,5 +178,4 @@ def compute_loss(params, draws, x1, mu, spks, cond, mask,
 
     pred = flow_decoder.forward(params, y, mu, t, spks, cond, mask, dec_cfg, dtype)
     num = torch.sum(torch.square((pred - u) * mask))
-    den = torch.sum(mask) * u.shape[-1]
     return num / torch.clamp(den, min=1.0)

@@ -6,6 +6,14 @@ transformer blocks, all at full mel rate, channel-last. Attention in the
 transformer blocks has a key mask; it is written out (layers.mha) below 4
 rows and runs in the flash-attention kernel (layers.mha_flash) from 4 rows,
 as the JAX package gates it.
+
+Under `comm` (parallel/sp.py:SeqComm) the call runs on one shard of the T
+axis, on every rank of an sp mesh: each causal k=3 conv prepends a 2-frame
+halo from the left neighbour (zeros on the first shard, the causal pad),
+K/V are gathered over sp, and the key mask is gathered once a call. The
+attention there is the plain `layers.mha` of this shard's queries against
+the gathered keys, as the JAX package computes it (XLA): the kernel K3
+takes as many keys as queries.
 """
 from __future__ import annotations
 
@@ -70,31 +78,39 @@ def _sinusoidal_t(t, dim, scale=1000.0):
     return torch.cat([torch.sin(ang), torch.cos(ang)], dim=-1)
 
 
-def _causal_conv3(p, xm, dtype):
-    """k=3 causal conv on a pre-masked input: left-pad 2 zeros."""
-    return L.conv1d(p, xm, padding=(2, 0), dtype=dtype)
+def _causal_conv3(p, xm, dtype, comm=None):
+    """k=3 causal conv on a pre-masked input: left-pad 2 zeros; under
+    `comm` the 2 frames before this shard instead (zeros on the first
+    shard), so the sharded conv equals the unsharded one."""
+    if comm is None:
+        return L.conv1d(p, xm, padding=(2, 0), dtype=dtype)
+    return L.conv1d(p, comm.halo(xm, 2), padding=(0, 0), dtype=dtype)
 
 
-def _causal_block(p, x, mask, dtype):
+def _causal_block(p, x, mask, dtype, comm=None):
     """causal conv(k3) -> LayerNorm -> Mish, masked."""
-    h = _causal_conv3(p["conv"], x * mask, dtype)
+    h = _causal_conv3(p["conv"], x * mask, dtype, comm)
     h = L.layer_norm(p["ln"], h)
     return L.mish(h) * mask
 
 
-def _resnet(p, x, mask, t_emb, dtype):
-    h = _causal_block(p["block1"], x, mask, dtype)
+def _resnet(p, x, mask, t_emb, dtype, comm=None):
+    h = _causal_block(p["block1"], x, mask, dtype, comm)
     h = h + L.linear(p["mlp"], L.mish(t_emb), dtype)[:, None, :]
-    h = _causal_block(p["block2"], h, mask, dtype)
+    h = _causal_block(p["block2"], h, mask, dtype, comm)
     return h + L.conv1d(p["res_conv"], x * mask, dtype=dtype)
 
 
-def _tblock(p, x, n_heads, dtype, key_mask=None):
+def _tblock(p, x, n_heads, dtype, key_mask=None, comm=None):
     h = L.layer_norm(p["ln1"], x)
     q = L.split_heads(L.linear(p["q"], h, dtype), n_heads)
     k = L.split_heads(L.linear(p["k"], h, dtype), n_heads)
     v = L.split_heads(L.linear(p["v"], h, dtype), n_heads)
-    if L.use_flash_attention(x.shape[0]):
+    if comm is not None:
+        # this shard's queries against every shard's keys; key_mask is
+        # already the whole T (gathered once in forward)
+        attn = L.mha(q, comm.gather(k), comm.gather(v), mask=key_mask)
+    elif L.use_flash_attention(x.shape[0]):
         attn = L.mha_flash(q, k, v, None if key_mask is None else key_mask[:, 0, 0, :])
     else:
         attn = L.mha(q, k, v, mask=key_mask)
@@ -104,15 +120,15 @@ def _tblock(p, x, n_heads, dtype, key_mask=None):
     return x + h
 
 
-def _stage(p, x, mask, t_emb, n_heads, dtype, key_mask=None):
-    x = _resnet(p["resnet"], x, mask, t_emb, dtype)
+def _stage(p, x, mask, t_emb, n_heads, dtype, key_mask=None, comm=None):
+    x = _resnet(p["resnet"], x, mask, t_emb, dtype, comm)
     for tb in p["tblocks"]:
-        x = _tblock(tb, x, n_heads, dtype, key_mask)
+        x = _tblock(tb, x, n_heads, dtype, key_mask, comm)
     return x
 
 
 def forward(params, x, mu, t, spks, cond, mask=None,
-            cfg: FlowDecoderConfig = FlowDecoderConfig(), dtype=torch.float32):
+            cfg: FlowDecoderConfig = FlowDecoderConfig(), dtype=torch.float32, comm=None):
     """Velocity estimate (channel-last).
 
       x:    (B, T, 80) noisy mel
@@ -121,19 +137,22 @@ def forward(params, x, mu, t, spks, cond, mask=None,
       spks: (B, 80) speaker embedding
       cond: (B, T, 80) prompt-mel conditioning
       mask: (B, T, 1) or None
+      comm: parallel.sp.SeqComm when T is this rank's shard of an sp mesh
+        (module docstring).
     Returns (B, T, 80) fp32.
     """
-    return forward_mid_cached(params, x, mu, t, spks, cond, mask, cfg, dtype)[0]
+    return forward_mid_cached(params, x, mu, t, spks, cond, mask, cfg, dtype, comm=comm)[0]
 
 
 def forward_mid_cached(params, x, mu, t, spks, cond, mask=None,
                        cfg: FlowDecoderConfig = FlowDecoderConfig(),
-                       dtype=torch.float32, mid_feats=None, reuse_mid=False):
+                       dtype=torch.float32, mid_feats=None, reuse_mid=False, comm=None):
     """`forward` that also returns the mid stack's output, for DeepCache
     solver steps (cfm.solve_euler with cache_every): with `reuse_mid` the
     downsample conv and the mid stages are skipped and `mid_feats` (the
     output of an earlier step) takes their place; the down stage still
-    runs, since its output is the up stage's skip input.
+    runs, since its output is the up stage's skip input. `comm`: forward's
+    (the solver runs no DeepCache step under it).
 
     Returns (velocity (B, T, 80) fp32, mid_feats): on a fresh call the new
     mid output in `dtype`, on a reuse call the one passed in."""
@@ -143,7 +162,8 @@ def forward_mid_cached(params, x, mu, t, spks, cond, mask=None,
         mask = torch.ones((b, tlen, 1), dtype=x.dtype, device=x.device)
     else:
         # bucket-padding exactness: pad positions must not be attended to
-        key_mask = (mask[..., 0] > 0)[:, None, None, :]      # (B, 1, 1, T)
+        km = mask if comm is None else comm.gather(mask)
+        key_mask = (km[..., 0] > 0)[:, None, None, :]        # (B, 1, 1, T_full)
     t_emb = _sinusoidal_t(t, cfg.in_channels)
     t_emb = L.linear(params["time_mlp"]["lin2"],
                      F.silu(L.linear(params["time_mlp"]["lin1"], t_emb)))
@@ -151,22 +171,22 @@ def forward_mid_cached(params, x, mu, t, spks, cond, mask=None,
     h = torch.cat([x, mu, spks[:, None, :].expand(b, tlen, spks.shape[-1]), cond],
                   dim=-1).to(dtype)
 
-    h = _stage(params["down"], h, mask, t_emb, cfg.num_heads, dtype, key_mask)
+    h = _stage(params["down"], h, mask, t_emb, cfg.num_heads, dtype, key_mask, comm)
     skip = h
     if reuse_mid:
         h = mid_feats
     else:
-        h = _causal_conv3(params["down"]["downsample"], h * mask, dtype)
+        h = _causal_conv3(params["down"]["downsample"], h * mask, dtype, comm)
         for st in params["mid"]:
-            h = _stage(st, h, mask, t_emb, cfg.num_heads, dtype, key_mask)
+            h = _stage(st, h, mask, t_emb, cfg.num_heads, dtype, key_mask, comm)
         # the carried cache stays in `dtype` whatever the stage math
         # promoted to (a float32 mask upcasts h under bf16 compute)
         mid_feats = h.to(dtype)
 
     h = torch.cat([h, skip], dim=-1)
-    h = _stage(params["up"], h, mask, t_emb, cfg.num_heads, dtype, key_mask)
-    h = _causal_conv3(params["up"]["upsample"], h * mask, dtype)
+    h = _stage(params["up"], h, mask, t_emb, cfg.num_heads, dtype, key_mask, comm)
+    h = _causal_conv3(params["up"]["upsample"], h * mask, dtype, comm)
 
-    h = _causal_block(params["final_block"], h, mask, dtype)
+    h = _causal_block(params["final_block"], h, mask, dtype, comm)
     out = L.conv1d(params["final_proj"], h * mask, dtype=dtype)
     return (out * mask).float(), mid_feats

@@ -17,7 +17,16 @@
   the port has no int8 cache or phased reads;
 - without a cache (the teacher-forced training forward) every layer runs
   plain attention under the given mask, each under torch.utils.checkpoint
-  with `remat`;
+  with `remat`. Under a tp mesh it runs this rank's H/tp heads and its
+  slice of the MLP through Megatron's pair of collectives (parallel/
+  mesh.py): the gradient of each column-parallel input (q/k/v, gate/up) is
+  summed over tp (`Mesh.tp_input`), and each row-parallel product (o,
+  down) is summed over tp forward with an identity backward
+  (`Mesh.sum_tp`). `remat` re-runs a layer's forward in the backward, its
+  collectives with it: the recompute starts at the first saved tensor the
+  layer's backward reads and stops after the last one it needs (torch's
+  early stop), so every tp rank, running the same graph, meets the same
+  collectives in the same order;
 - the alignment spy (`collect_attn_layer`): at a decode step that one
   layer runs plain attention (a matmul and a softmax, as the JAX package's
   XLA spy path does) and also returns its head-mean probability row over
@@ -151,11 +160,11 @@ def _defer_kv_enabled() -> bool:
     return os.getenv("CHATTERBOX_DEFER_KV", "") == "1"
 
 
-def _qkv(lp, h, cos, sin, cfg: LlamaConfig, dtype):
+def _qkv(lp, h, cos, sin, cfg: LlamaConfig, dtype, mesh=None):
     """A layer's RMSNorm and q, k, v projections, RoPE on q and k; the
     heads are as many as the projections' widths hold (all of them, or a
     tp rank's share)."""
-    hin = L.rms_norm(lp["ln1"], h, cfg.rms_norm_eps)
+    hin = _tp_input(L.rms_norm(lp["ln1"], h, cfg.rms_norm_eps), mesh)
     q, k, v = (L.linear(lp[n], hin, dtype) for n in ("q", "k", "v"))
     q, k, v = (L.split_heads(x, x.shape[-1] // cfg.head_dim) for x in (q, k, v))
     return apply_rope(q, cos, sin), apply_rope(k, cos, sin), v
@@ -166,18 +175,25 @@ def _sum_tp(y, mesh):
     return y if mesh is None else mesh.sum_tp(y)
 
 
+def _tp_input(x, mesh):
+    """A column-parallel product's input: its gradient is summed over the
+    mesh's tp ranks under autograd (nothing moves forward)."""
+    return x if mesh is None else mesh.tp_input(x)
+
+
 def _mlp(lp, h, cfg: LlamaConfig, dtype, mesh=None):
     """A layer's second half: RMSNorm, SwiGLU MLP, residual."""
-    hin = L.rms_norm(lp["ln2"], h, cfg.rms_norm_eps)
+    hin = _tp_input(L.rms_norm(lp["ln2"], h, cfg.rms_norm_eps), mesh)
     return h + _sum_tp(L.linear(lp["down"], F.silu(L.linear(lp["gate"], hin, dtype))
                                 * L.linear(lp["up"], hin, dtype), dtype), mesh)
 
 
-def _layer(lp, h, cos, sin, mask4, cfg: LlamaConfig, dtype):
-    """One layer over a whole block without a cache (plain attention)."""
-    q, k, v = _qkv(lp, h, cos, sin, cfg, dtype)
-    h = h + L.linear(lp["o"], L.merge_heads(L.mha(q, k, v, mask=mask4)), dtype)
-    return _mlp(lp, h, cfg, dtype)
+def _layer(lp, h, cos, sin, mask4, cfg: LlamaConfig, dtype, mesh=None):
+    """One layer over a whole block without a cache (plain attention); on a
+    tp mesh, this rank's heads and MLP slice."""
+    q, k, v = _qkv(lp, h, cos, sin, cfg, dtype, mesh)
+    h = h + _sum_tp(L.linear(lp["o"], L.merge_heads(L.mha(q, k, v, mask=mask4)), dtype), mesh)
+    return _mlp(lp, h, cfg, dtype, mesh)
 
 
 def forward(params, x: torch.Tensor, pos_ids: torch.Tensor,
@@ -208,8 +224,9 @@ def forward(params, x: torch.Tensor, pos_ids: torch.Tensor,
       remat: without a cache (the training forward), run each layer under
         torch.utils.checkpoint (use_reentrant=False): its activations are
         recomputed in the backward instead of kept. The gradients are equal.
-      mesh: with a cache, a mesh whose tp ranks hold the params' Megatron
-        shards (module docstring); None or tp 1 computes alone.
+      mesh: a mesh whose tp ranks hold the params' Megatron shards (module
+        docstring), with a cache or without one; None or tp 1 computes
+        alone.
     Returns (hidden (B, T, D) after the final norm, cache[, attn_row (B, Lc)
     fp32]).
     """
@@ -239,10 +256,10 @@ def forward(params, x: torch.Tensor, pos_ids: torch.Tensor,
     if cache is None:
         for lp in params["layers"]:
             if remat:
-                h = checkpoint(_layer, lp, h, cos, sin, mask4, cfg, dtype,
+                h = checkpoint(_layer, lp, h, cos, sin, mask4, cfg, dtype, tp,
                                use_reentrant=False)
             else:
-                h = _layer(lp, h, cos, sin, mask4, cfg, dtype)
+                h = _layer(lp, h, cos, sin, mask4, cfg, dtype, tp)
         return L.rms_norm(params["norm"], h, cfg.rms_norm_eps), None
 
     for i, lp in enumerate(params["layers"]):

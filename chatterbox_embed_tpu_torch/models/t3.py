@@ -45,7 +45,10 @@ counterpart of `chatterbox_embed_tpu/models/t3.py`: one utterance
 - Training: `forward` runs [cond; text; speech] teacher-forced through
   plain attention under a causal, key-valid mask, and `loss` is the masked
   cross-entropy with the JAX package's next-token shift; neither runs under
-  no_grad (the generation functions do).
+  no_grad (the generation functions do). On a dp x tp mesh `loss` runs each
+  rank's rows through its shard over the whole batch's denominator
+  (training/train_step.py); parallel/pipeline.py runs the same context,
+  layers and heads in stages.
 """
 from __future__ import annotations
 
@@ -196,14 +199,14 @@ def _build_context(params, cond: T3Cond, text_tokens: torch.Tensor,
 # training forward / loss (the JAX package's t3.forward and t3.loss)
 # ---------------------------------------------------------------------------
 
-def forward(params, cond: T3Cond, text_tokens, text_lens, speech_tokens, speech_lens,
-            cfg: T3Config = T3Config(), dtype=torch.float32, remat: bool = False):
-    """Teacher-forced forward over [cond; text; speech] (B rows), causal and
-    key-valid: a row's text keys past text_lens and speech keys past
-    speech_lens are masked. Plain attention (llama.forward without a cache;
-    `remat` checkpoints each layer). Returns (text_logits (B, Lt, V_text),
-    speech_logits (B, Ls, V_speech)), where position t predicts token t from
-    the position before it."""
+def _train_context(params, cond: T3Cond, text_tokens, text_lens, speech_tokens, speech_lens,
+                   cfg: T3Config):
+    """The teacher-forced input of B rows: [cond; text; speech] embeddings
+    (B, T, D), their positions (B, T), the causal key-valid mask (B, T, T)
+    (a row's text keys past text_lens and speech keys past speech_lens are
+    masked) and the widths (lc, lt, ls) of the three parts. Reads only the
+    conditioning, embedding and position leaves (a pipeline's `aux` holds
+    them)."""
     ce = cond_embeds(params, cond, cfg)
     text_tokens, speech_tokens = text_tokens.long(), speech_tokens.long()
     b, lt = text_tokens.shape
@@ -221,34 +224,78 @@ def forward(params, cond: T3Cond, text_tokens, text_lens, speech_tokens, speech_
     text_valid = (idx < lc) | (idx < lc + text_lens.to(dev)[:, None]) | (idx >= lc + lt)
     speech_valid = idx < lc + lt + speech_lens.to(dev)[:, None]
     key_valid = text_valid & speech_valid                          # (B, T)
-    mask = causal[None] & key_valid[:, None, :]
+    return x, pos, causal[None] & key_valid[:, None, :], (lc, lt, ls)
+
+
+def _train_heads(params, h, widths, dtype):
+    """(text_logits (B, Lt, V_text), speech_logits (B, Ls, V_speech)) of
+    the final hidden states h, position t predicting token t from the
+    position before it."""
+    lc, lt, ls = widths
+    return (L.linear(params["text_head"], h[:, lc - 1: lc - 1 + lt], dtype),
+            L.linear(params["speech_head"], h[:, lc + lt - 1: lc + lt - 1 + ls], dtype))
+
+
+def valid_targets(targets, lens) -> torch.Tensor:
+    """The count of targets below each row's length, at least 1 (fp32): the
+    masked cross-entropy's denominator."""
+    m = torch.arange(targets.shape[1], device=targets.device)[None] < lens.to(targets.device)[:, None]
+    return torch.clamp(m.sum().float(), min=1.0)
+
+
+def masked_ce(logits, targets, lens, count=None):
+    """The cross-entropy summed over each row's first lens targets, divided
+    by `count` (default this batch's valid targets, `valid_targets`)."""
+    lsm = torch.log_softmax(logits.float(), dim=-1)
+    ll = torch.gather(lsm, -1, targets.long()[..., None])[..., 0]
+    m = (torch.arange(targets.shape[1], device=ll.device)[None]
+         < lens.to(ll.device)[:, None]).float()
+    if count is None:
+        count = valid_targets(targets, lens)
+    return -torch.sum(ll * m) / count.to(ll.device)
+
+
+def forward(params, cond: T3Cond, text_tokens, text_lens, speech_tokens, speech_lens,
+            cfg: T3Config = T3Config(), dtype=torch.float32, remat: bool = False, mesh=None):
+    """Teacher-forced forward over [cond; text; speech] (B rows), causal and
+    key-valid (`_train_context`). Plain attention (llama.forward without a
+    cache; `remat` checkpoints each layer; `mesh`: the params are this
+    rank's Megatron shard over its tp axis). Returns (text_logits (B, Lt,
+    V_text), speech_logits (B, Ls, V_speech)), where position t predicts
+    token t from the position before it."""
+    x, pos, mask, widths = _train_context(params, cond, text_tokens, text_lens, speech_tokens,
+                                          speech_lens, cfg)
     h, _ = llama.forward(params["llama"], x, pos, mask, cfg=cfg.llama, dtype=dtype,
-                         remat=remat)
-    text_logits = L.linear(params["text_head"], h[:, lc - 1: lc - 1 + lt], dtype)
-    speech_logits = L.linear(params["speech_head"], h[:, lc + lt - 1: lc + lt - 1 + ls], dtype)
-    return text_logits, speech_logits
+                         remat=remat, mesh=mesh)
+    return _train_heads(params, h, widths, dtype)
 
 
 def loss(params, cond: T3Cond, text_tokens, text_lens, speech_tokens, speech_lens,
-         cfg: T3Config = T3Config(), dtype=torch.float32, remat: bool = False):
+         cfg: T3Config = T3Config(), dtype=torch.float32, remat: bool = False, mesh=None):
     """Masked cross-entropy over the text and speech streams: (loss_text,
     loss_speech), scalar fp32 tensors.
 
     The JAX package's objective, which departs from the reference: the
     reference computes logits at the token's own position (an off-by-one it
-    inherited); this is the standard next-token shift of `forward`."""
-    text_logits, speech_logits = forward(params, cond, text_tokens, text_lens,
-                                         speech_tokens, speech_lens, cfg, dtype, remat)
+    inherited); this is the standard next-token shift of `forward`.
 
-    def masked_ce(logits, targets, lens):
-        lsm = torch.log_softmax(logits.float(), dim=-1)
-        ll = torch.gather(lsm, -1, targets.long()[..., None])[..., 0]
-        m = (torch.arange(targets.shape[1], device=ll.device)[None]
-             < lens.to(ll.device)[:, None]).float()
-        return -torch.sum(ll * m) / torch.clamp(torch.sum(m), min=1.0)
-
-    return (masked_ce(text_logits, text_tokens, text_lens),
-            masked_ce(speech_logits, speech_tokens, speech_lens))
+    Each stream is divided by the whole batch's count of valid targets, as
+    the JAX package divides. On a mesh the arguments are the whole batch:
+    each rank runs its rows over dp (`Mesh.rows`) through its tp shard, and
+    divides its rows' sum by the whole batch's count (the dp sum of the
+    ranks' counts, which every rank holds), so that the dp sum of the
+    ranks' losses, and of their gradients, is one process's."""
+    counts = (valid_targets(text_tokens, text_lens), valid_targets(speech_tokens, speech_lens))
+    if mesh is not None:
+        b = text_tokens.shape[0]
+        r0, r1 = mesh.rows(b)
+        cond = _slice_cond(cond, r0, r1, b)
+        text_tokens, text_lens, speech_tokens, speech_lens = (
+            x[r0:r1] for x in (text_tokens, text_lens, speech_tokens, speech_lens))
+    text_logits, speech_logits = forward(params, cond, text_tokens, text_lens, speech_tokens,
+                                         speech_lens, cfg, dtype, remat, mesh)
+    return (masked_ce(text_logits, text_tokens, text_lens, counts[0]),
+            masked_ce(speech_logits, speech_tokens, speech_lens, counts[1]))
 
 
 # ---------------------------------------------------------------------------

@@ -31,6 +31,11 @@ of its own, and the collectives are written out:
   gloo. The choice is printed on one line. Rendezvous is a file in a
   temporary directory, so that two worlds on one host never meet. Nothing
   falls back to another backend or device.
+- A follower computes as the leader does: each call carries the leader's
+  TF32 switches (`torch.backends.cuda.matmul.allow_tf32`,
+  `torch.backends.cudnn.allow_tf32`), which a spawned process would
+  otherwise take at torch's defaults (cuDNN's on: TF32 convolutions on a
+  card).
 - A follower that fails sends its traceback to the leader and exits, so a
   collective waiting on it fails on the other ranks; the world is then
   closed, and the next mesh starts a new one. `shutdown` (also run at
@@ -40,6 +45,20 @@ The spec of a parameter is a `PartitionSpec`, one mesh axis (or None) per
 dimension, as in the JAX package: the Megatron layout of T3's backbone
 splits q/k/v/gate/up along their output features and o/down along their
 input features; everything else replicates.
+
+A mesh is a (dp, tp) grid (serving and the train steps) or one line of
+ranks named `sp` (sequence parallel mel generation, parallel/sp.py) or `pp`
+(pipeline-parallel T3 training, parallel/pipeline.py), as the JAX package
+builds its `("sp",)` and `("pp",)` meshes.
+
+Training adds collectives that autograd sees (Megatron's pair, `tp_input`
+and `sum_tp` under autograd) and two that run outside the graph in a fixed
+order on every rank: the sum of gradients over an axis (`sum_grads`, one
+all-reduce of the gradients laid end to end) and the hop of the pipeline
+and of the sequence halo (`shift`). A hop is one `all_gather` over the
+axis on every backend, each rank keeping its neighbour's part: gloo's
+point-to-point of CUDA tensors is untried (torch 2.11+cu128), and NCCL's
+needs a card a rank, which one card cannot test. The backend line says so.
 """
 from __future__ import annotations
 
@@ -65,6 +84,12 @@ import torch.distributed as dist
 TIMEOUT = timedelta(minutes=10)
 # seconds a follower may take to start (import torch and the port)
 START_S = 300
+# the 1-D meshes: sequence parallel mel generation and the T3 pipeline
+LINE_AXES = ("sp", "pp")
+# how a hop along sp or pp moves, the same on every backend (module docstring)
+HOP = "all_gather"
+# the largest piece of a message on a pipe (`_send`)
+PIECE = 1 << 20
 
 
 class MeshAxes(NamedTuple):
@@ -150,6 +175,34 @@ class _ReplyPickler(pickle.Pickler):
         return NotImplemented
 
 
+def _tf32() -> tuple:
+    """This process's TF32 switches (matmuls, cuDNN)."""
+    return torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32
+
+
+def _set_tf32(switches) -> None:
+    torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = switches
+
+
+def _send(conn, data: bytes) -> None:
+    """One message on a pipe, as its count of pieces and pieces of at most
+    PIECE bytes: CPython's Connection reads a message with os.read(fd,
+    bytes still to come), allocating that much for each read of the pipe's
+    few kilobytes, so one message of a gigabyte took minutes (measured on
+    an H100 host)."""
+    view = memoryview(data)
+    pieces = [view[i:i + PIECE] for i in range(0, len(view), PIECE)]
+    conn.send_bytes(len(pieces).to_bytes(8, "little"))
+    for piece in pieces:
+        conn.send_bytes(piece)
+
+
+def _recv(conn) -> bytes:
+    """A message that `_send` sent."""
+    n = int.from_bytes(conn.recv_bytes(), "little")
+    return b"".join(conn.recv_bytes() for _ in range(n))
+
+
 def _dumps(obj, pickler=_CallPickler) -> bytes:
     buf = io.BytesIO()
     pickler(buf, protocol=pickle.HIGHEST_PROTOCOL).dump(obj)
@@ -200,7 +253,7 @@ def _follow(rank: int, devices, init: str, backend: str, conn, threads: int) -> 
                 break
             continue
         try:
-            raw = conn.recv_bytes()
+            raw = _recv(conn)
         except EOFError:
             break
         try:
@@ -211,13 +264,14 @@ def _follow(rank: int, devices, init: str, backend: str, conn, threads: int) -> 
                 for key in msg[1]:
                     _OBJECTS.pop(key, None)
                 continue
-            _, keep, fn, args, kwargs, want = msg
+            _, keep, fn, args, kwargs, want, tf32 = msg
+            _set_tf32(tf32)
             out = fn(*args, **kwargs)
             if keep is not None:
                 _OBJECTS[keep] = out
-            conn.send_bytes(_dumps(("ok", out if want else None), _ReplyPickler))
+            _send(conn, _dumps(("ok", out if want else None), _ReplyPickler))
         except BaseException:       # noqa: BLE001 — the leader gets every error
-            conn.send_bytes(_dumps(("err", traceback.format_exc()), _ReplyPickler))
+            _send(conn, _dumps(("err", traceback.format_exc()), _ReplyPickler))
             conn.close()
             os._exit(1)             # fail the collectives that wait on this rank
     if dist.is_initialized():
@@ -260,7 +314,7 @@ class _World:
             self.close("it failed to start", failed=True)
             raise
         print(f"[mesh] world of {len(names)} rank(s) on {','.join(names)}: backend "
-              f"{self.backend} ({reason})", flush=True)
+              f"{self.backend} ({reason}); sp and pp hops by {HOP}", flush=True)
 
     @property
     def size(self) -> int:
@@ -275,12 +329,12 @@ class _World:
         if self.closed:
             raise RuntimeError(f"the mesh's world is closed ({self.closed}); build a new mesh")
         conns = [(r, self.conns[r - 1]) for r in ranks if r > 0]
-        payload = _dumps(("call", keep, fn, args, kwargs, want))
+        payload = _dumps(("call", keep, fn, args, kwargs, want, _tf32()))
         for r, conn in conns:
             release, self.pending[r] = self.pending[r], []
             if release:
-                conn.send_bytes(pickle.dumps(("release", release)))
-            conn.send_bytes(payload)
+                _send(conn, pickle.dumps(("release", release)))
+            _send(conn, payload)
         _INSIDE[0] = True
         try:
             out = local() if local is not None else fn(*args, **kwargs)
@@ -310,7 +364,7 @@ class _World:
             try:
                 if wait is not None and not conn.poll(wait):
                     continue
-                status, value = pickle.loads(conn.recv_bytes())
+                status, value = pickle.loads(_recv(conn))
             except (EOFError, OSError) as e:
                 status, value = "err", f"the process is gone ({e!r})"
             if status == "err":
@@ -327,7 +381,7 @@ class _World:
         self.closed = why
         for conn in self.conns:
             try:
-                conn.send_bytes(pickle.dumps(("stop",)))
+                _send(conn, pickle.dumps(("stop",)))
             except (OSError, ValueError):
                 pass
         if failed and dist.is_initialized():
@@ -381,7 +435,8 @@ def _groups(key, axis_names, shape, names):
     """On every rank of the world: the mesh's process groups (new_group is
     collective over the world, in one order everywhere), made once per
     shape a world; a follower that is a member keeps its view of the mesh
-    under `key`. Returns this rank's (group, dp_group, tp_group)."""
+    under `key`. Returns this rank's (group, dp_group, tp_group); a line
+    mesh's sp or pp group is its whole group."""
     n = len(names)
     dp, tp = shape.get("dp", 1), shape.get("tp", 1)
     rank = dist.get_rank()
@@ -392,7 +447,8 @@ def _groups(key, axis_names, shape, names):
                  if tp > 1 else [None] * dp)
     if rank >= n:
         return None
-    mine = (whole, dp_groups[rank % tp], tp_groups[rank // tp])
+    line = axis_names[0] in LINE_AXES
+    mine = (whole, None, None) if line else (whole, dp_groups[rank % tp], tp_groups[rank // tp])
     if _FOLLOWER is not None:
         mesh = Mesh.__new__(Mesh)
         mesh._setup(key, axis_names, shape, names, rank, *mine)
@@ -403,24 +459,29 @@ def _groups(key, axis_names, shape, names):
 class Mesh:
     """A (dp, tp) grid of ranks, each a process on one device (the
     counterpart of jax.sharding.Mesh): `devices` is an array of devices (or
-    their names) of shape (dp, tp), or (n,) under one axis name. Rank r
-    runs on the r-th device in row-major order; rank 0 is the process that
-    builds the mesh, the leader. A device named twice hosts two ranks (the
-    CPU tests; two ranks on one card).
+    their names) of shape (dp, tp), or (n,) under one axis name: dp, tp, or
+    one of LINE_AXES (sp, pp). Rank r runs on the r-th device in row-major
+    order; rank 0 is the process that builds the mesh, the leader. A device
+    named twice hosts two ranks (the CPU tests; two ranks on one card).
 
-    `shape` maps each axis name to its size, as in the JAX package; `dp`
-    and `tp` are 1 for an absent axis. On each rank: `rank`, `device`,
-    `dp_index`, `tp_index`, and the process groups `group` (the whole mesh),
-    `dp_group` (the ranks of this tp index) and `tp_group` (the ranks of
-    this dp index), each None where it would hold one rank. Meshes of one
-    shape in one world share their key and their groups."""
+    `shape` maps each axis name to its size, as in the JAX package; `dp`,
+    `tp`, `sp` and `pp` are 1 for an absent axis. On each rank: `rank`,
+    `device`, `dp_index`, `tp_index`, `sp_index`, `pp_index`, and the
+    process groups `group` (the whole mesh), `dp_group` (the ranks of this
+    tp index), `tp_group` (the ranks of this dp index), `sp_group` and
+    `pp_group` (a line mesh's whole group), each None where it would hold
+    one rank or the axis is absent. Meshes of one shape in one world share
+    their key and their groups."""
 
     def __init__(self, devices, axis_names=("dp", "tp")):
         grid = np.asarray(devices, dtype=object)
         axis_names = tuple(axis_names)
-        if grid.ndim != len(axis_names) or not set(axis_names) <= set(MeshAxes()):
+        grid_axes = len(set(axis_names)) == len(axis_names) and set(axis_names) <= set(MeshAxes())
+        line = len(axis_names) == 1 and axis_names[0] in LINE_AXES
+        if grid.ndim != len(axis_names) or not (grid_axes or line):
             raise ValueError(f"mesh of shape {grid.shape} with axes {axis_names}: one axis "
-                             f"name of {tuple(MeshAxes())} per dimension")
+                             f"name of {tuple(MeshAxes())} per dimension, or one line "
+                             f"axis of {LINE_AXES}")
         names = [str(torch.device(d)) for d in grid.reshape(-1)]
         world = _world_for([torch.device(n) for n in names])
         shape = dict(zip(axis_names, grid.shape))
@@ -439,8 +500,12 @@ class Mesh:
                                   dtype=object).reshape(tuple(shape.values()))
         self.rank = rank
         self.device = torch.device(names[rank])
-        self.dp_index, self.tp_index = divmod(rank, self.tp)
+        line = axis_names[0] if axis_names[0] in LINE_AXES else None
+        self.dp_index, self.tp_index = divmod(rank, self.tp) if line is None else (0, 0)
+        self.sp_index, self.pp_index = (rank if line == "sp" else 0), (rank if line == "pp" else 0)
         self.group, self.dp_group, self.tp_group = group, dp_group, tp_group
+        self.sp_group = group if line == "sp" else None
+        self.pp_group = group if line == "pp" else None
         self._world = None
 
     def __reduce__(self):
@@ -458,8 +523,23 @@ class Mesh:
         return self.shape.get("tp", 1)
 
     @property
+    def sp(self) -> int:
+        return self.shape.get("sp", 1)
+
+    @property
+    def pp(self) -> int:
+        return self.shape.get("pp", 1)
+
+    @property
     def size(self) -> int:
         return len(self.names)
+
+    def axis(self, name: str) -> tuple:
+        """(size, this rank's index, process group) of axis `name`."""
+        return {"dp": (self.dp, self.dp_index, self.dp_group),
+                "tp": (self.tp, self.tp_index, self.tp_group),
+                "sp": (self.sp, self.sp_index, self.sp_group),
+                "pp": (self.pp, self.pp_index, self.pp_group)}[name]
 
     # -- calls ------------------------------------------------------------
 
@@ -517,19 +597,105 @@ class Mesh:
         return self.dp_index * per, (self.dp_index + 1) * per
 
     def sum_tp(self, x: torch.Tensor) -> torch.Tensor:
-        """x summed over the tp ranks, in place (the psum that GSPMD puts
-        after a row-parallel product)."""
-        if self.tp_group is not None:
-            dist.all_reduce(x, group=self.tp_group)
+        """x summed over the tp ranks (the psum that GSPMD puts after a
+        row-parallel product): in place outside autograd (serving); under
+        autograd a new tensor whose backward is the identity (Megatron's
+        g, `_ReduceFromTP`)."""
+        if self.tp_group is None:
+            return x
+        if torch.is_grad_enabled() and x.requires_grad:
+            return _ReduceFromTP.apply(x, self.tp_group)
+        dist.all_reduce(x, group=self.tp_group)
         return x
+
+    def tp_input(self, x: torch.Tensor) -> torch.Tensor:
+        """The input of a column-parallel product: x itself, whose gradient
+        is summed over the tp ranks under autograd (Megatron's f,
+        `_CopyToTP`): each rank's product sees only its columns."""
+        if self.tp_group is None or not (torch.is_grad_enabled() and x.requires_grad):
+            return x
+        return _CopyToTP.apply(x, self.tp_group)
+
+    def sum(self, x: torch.Tensor, axis: str) -> torch.Tensor:
+        """x summed over `axis` in place, outside autograd."""
+        group = self.axis(axis)[2]
+        if group is not None:
+            dist.all_reduce(x, group=group)
+        return x
+
+    def sum_grads(self, leaves, axis: str) -> None:
+        """Every leaf's .grad summed over `axis` (a leaf without one counts
+        zeros), in one all-reduce of the gradients laid end to end in the
+        leaves' order, which is the tree's on every rank. Runs after the
+        backward, outside autograd: a dp sum of gradients, or the pp sum of
+        the pipeline's replicated leaves."""
+        group = self.axis(axis)[2]
+        if group is None:
+            return
+        grads = [x.grad if x.grad is not None else torch.zeros_like(x) for x in leaves]
+        flat = torch.cat([g.reshape(-1) for g in grads])
+        dist.all_reduce(flat, group=group)
+        for x, g in zip(leaves, flat.split([g.numel() for g in grads])):
+            x.grad = g.view_as(x)
+
+    def gather(self, x: torch.Tensor, axis: str, dim: int = 0) -> torch.Tensor:
+        """The ranks' x along `axis` concatenated along `dim`, in axis order
+        (outside autograd)."""
+        n, _, group = self.axis(axis)
+        if group is None:
+            return x
+        parts = [torch.empty_like(x) for _ in range(n)]
+        dist.all_gather(parts, x.contiguous(), group=group)
+        return torch.cat(parts, dim=dim)
 
     def gather_dp(self, x: torch.Tensor) -> torch.Tensor:
         """The dp ranks' x concatenated along dim 0, in dp order."""
-        if self.dp_group is None:
-            return x
-        parts = [torch.empty_like(x) for _ in range(self.dp)]
-        dist.all_gather(parts, x.contiguous(), group=self.dp_group)
-        return torch.cat(parts)
+        return self.gather(x, "dp")
+
+    def shift(self, x: torch.Tensor, axis: str, by: int = 1) -> torch.Tensor:
+        """The x of the rank `by` places before this one along `axis` (by -1:
+        the one after), zeros where there is none: a pipeline's hop (by 1
+        carries activations a stage down, by -1 gradients a stage up) or a
+        sequence shard's left halo. One all_gather over the axis (HOP), of
+        which each rank keeps one part; every rank of the axis must call it,
+        in the same order, outside autograd."""
+        n, i, group = self.axis(axis)
+        if group is None:
+            return torch.zeros_like(x)
+        parts = [torch.empty_like(x) for _ in range(n)]
+        dist.all_gather(parts, x.contiguous(), group=group)
+        src = i - by
+        return parts[src] if 0 <= src < n else torch.zeros_like(x)
+
+
+class _CopyToTP(torch.autograd.Function):
+    """Identity forward, gradient summed over the tp group backward."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        # a copy: autograd may hand the same gradient tensor to other inputs
+        g = g.contiguous().clone()
+        dist.all_reduce(g, group=ctx.group)
+        return g, None
+
+
+class _ReduceFromTP(torch.autograd.Function):
+    """Sum over the tp group forward (into a new tensor), identity backward."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        y = x.contiguous().clone()
+        dist.all_reduce(y, group=group)
+        return y
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
 
 
 def _rows_axis(mesh: Mesh, rows: int):
@@ -543,6 +709,12 @@ def _rows_axis(mesh: Mesh, rows: int):
             f"{rows} batch rows do not divide the dp axis "
             f"({mesh.shape['dp']} devices); pad the batch or resize the mesh")
     return "dp"
+
+
+def kept(obj) -> bool:
+    """True for an object kept on the ranks of a mesh (`Mesh.make`): a
+    call's argument that each rank reads as its own part."""
+    return id(obj) in _KEY_OF
 
 
 def _forget(world, ident: int, key, ranks) -> None:
@@ -590,7 +762,10 @@ def visible_devices(n_devices: Optional[int] = None, device=None) -> list:
     None; n defaults to all of them), or n ranks on `device` (n defaults to
     1). Without a card, device None raises."""
     if device is not None:
-        return [torch.device(device)] * (n_devices or 1)
+        device = torch.device(device)
+        if device.type == "cuda" and device.index is None:
+            device = torch.device("cuda", torch.cuda.current_device())
+        return [device] * (n_devices or 1)
     from ..device import default_device
     default_device()                        # raises without a card
     count = torch.cuda.device_count()
@@ -664,10 +839,11 @@ class _Leaf(NamedTuple):
     dtype: torch.dtype
 
 
-def _take_shards(tree, spec, mesh: Mesh):
+def _take_shards(tree, spec, mesh: Mesh, trainable: bool = False):
     """Each leaf broadcast from the leader over the mesh, and this rank's
     slice of it kept (on the leader `tree` holds the tensors, elsewhere
-    their shapes and dtypes)."""
+    their shapes and dtypes); `trainable`: each slice an fp32 copy that
+    requires grad."""
     def take(leaf, s):
         if isinstance(leaf, torch.Tensor):
             buf = leaf.to(mesh.device).contiguous()
@@ -678,23 +854,26 @@ def _take_shards(tree, spec, mesh: Mesh):
         for dim, axis in enumerate(s):
             if axis is None:
                 continue
-            n, i = {"dp": (mesh.dp, mesh.dp_index), "tp": (mesh.tp, mesh.tp_index)}[axis]
+            n, i, _ = mesh.axis(axis)
             if buf.shape[dim] % n:
                 raise ValueError(f"dimension {dim} of {tuple(buf.shape)} does not divide "
                                  f"the {axis} axis ({n})")
             per = buf.shape[dim] // n
             buf = buf.narrow(dim, i * per, per).contiguous()
+        if trainable:
+            buf = buf.detach().to(torch.float32).clone().requires_grad_(True)
         return buf
     with torch.no_grad():
         return ShardTree(_tree_map(take, tree, spec))
 
 
-def shard_params(params, spec, mesh: Mesh):
+def shard_params(params, spec, mesh: Mesh, trainable: bool = False):
     """Hand each rank its slice of every leaf of `params` (the leader's
     tree) by `spec`: the leader broadcasts each leaf once, and each rank
     keeps its part. Returns the leader's tree of shards (a replicated leaf
-    already on the leader's device is the same tensor), kept on every rank
+    already on the leader's device is the same tensor; with `trainable`
+    every leaf is a fresh fp32 copy that requires grad), kept on every rank
     for the mesh's calls."""
     skeleton = _tree_map(lambda x: _Leaf(tuple(x.shape), x.dtype), params)
-    return mesh.make(_take_shards, skeleton, spec, mesh,
-                     local=lambda: _take_shards(params, spec, mesh))
+    return mesh.make(_take_shards, skeleton, spec, mesh, trainable,
+                     local=lambda: _take_shards(params, spec, mesh, trainable))

@@ -6,8 +6,8 @@ With no argument every phase runs (the device and build phases always
 run); `--phases` names the ones to run (PHASES below: kernel_check,
 attention_check, probe_check, probes, fused_check, consistency, generate,
 generate_batch, stream_generate, conditioning, long_text, engine, worker,
-mesh, train), and the kernel line then lists the kernels whose check and main
-path ran. Phases, one or more lines each, then the result line:
+mesh, train, train_mesh), and the kernel line then lists the kernels whose
+check and main path ran. Phases, one or more lines each, then the result line:
   1. device: the card's name and power limit (nvidia-smi), torch and CUDA
      versions; TF32 switched off for matmuls and convolutions.
   2. build: compiles every kernel of the port from the sources in the
@@ -153,7 +153,22 @@ path ran. Phases, one or more lines each, then the result line:
      700 and 560 frames, each with 56 launches of K3, K3b-dq and K3b-dkv;
      then one step's loss and gradients at 256 frames on the card against
      the CPU (written-out attention) on the same params, batch and draws.
- 14. a JSON line describing each kernel, then the last line
+ 14. train_mesh: the last two parallel axes and training on a mesh, at full
+     width in fp32, two ranks sharing the card over gloo, each part held to
+     one process on the card: (a) sp = 2: sp_generate_mel of one
+     utterance of 812 frames (CFG, 10 Euler steps) within 1e-4; (b) dp = 2:
+     the flow step on 8 rows (4 a rank), its loss within 1e-4 relative and
+     every gradient leaf within 1e-3 of its norm, K3, K3b-dq and K3b-dkv 56
+     launches a step on each rank; (c) the T3 step (remat) at tp = 2 and
+     at dp = 2 on the train phase's batch: the loss within 1e-4 relative,
+     the replicated leaves bit-equal across the ranks after the steps; (d)
+     pp = 2 (15 layers a stage, 2 microbatches): one step's loss within
+     1e-4 relative, every leaf's gradient within 1e-3 of its norm and its
+     updated values within 1e-5 of one process's step wherever that
+     step's |g| >= 1e-6 (below, AdamW's eps makes the first step's update
+     follow rounding); ms a step of each, ms a hop, and the backend line's
+     hop collective.
+ 15. a JSON line describing each kernel, then the last line
      {"ok": true, "device": {...}}.
 
 Any failure raises and the script exits non-zero with no result line. It
@@ -411,6 +426,28 @@ MESH_LOGIT_TOL = 2e-4
 MESH_FORCED_STEPS = 16
 MESH_ENGINE = dict(slots=4, text_bucket=128, max_new_tokens=64, block=16)
 MESH_ENGINE_LIMITS = (40, 12, 28, 20, 36, 16)
+
+# train_mesh: two ranks sharing the card over gloo, full width, fp32, each
+# part held to one process on the card. (a) sp = 2 on one utterance of
+# TRAIN_MESH_SP_FRAMES frames: the halo and the K/V gathers move values
+# exactly, so the limit leaves room only for the shards' own rounding
+# (~1e-6 expected); (b) the flow step at dp = 2 on the train phase's rows
+# twice over (4 a rank: K3's gate) at the train phase's limits; (c) the T3
+# step at tp = 2 and dp = 2 on the train phase's batch; (d) pp = 2 with
+# TRAIN_MESH_MICRO microbatches, its updated stages within
+# TRAIN_MESH_PARAM_TOL of one process's step (a tenth of one AdamW step at
+# lr 1e-4, the CPU tests' bound)
+TRAIN_MESH_SP_FRAMES = 812
+TRAIN_MESH_SP_TOL = 1e-4
+TRAIN_MESH_MICRO = 2
+TRAIN_MESH_PARAM_TOL = 1e-5
+# AdamW's first step moves an element by lr * g / (|g| + eps), eps 1e-8:
+# where |g| is near eps, a rounding difference of the gradient moves the
+# update by up to lr, so the parameter limit holds where one process's
+# |g| >= TRAIN_MESH_GRAD_FLOOR (there a gradient difference d moves the
+# update by at most lr * eps * d / g^2 = d); the gradients themselves are
+# held to TRAIN_GRAD_TOL of each leaf's norm everywhere
+TRAIN_MESH_GRAD_FLOOR = 1e-6
 
 
 def log(phase: str, **kw) -> None:
@@ -2658,6 +2695,37 @@ def _flow_train_batch(frames, dec, seed: int, device) -> dict:
     return {k: torch.as_tensor(v, device=device) for k, v in batch.items()}
 
 
+def _t3_train_batch(cfg) -> dict:
+    """The train phase's T3 batch of 2 (numpy): a speaker embedding, the
+    full prompt, text of TRAIN_T3_TEXT and speech of TRAIN_T3_SPEECH tokens."""
+    rng = np.random.default_rng(0)
+    b, lt, ls = len(TRAIN_T3_TEXT), max(TRAIN_T3_TEXT), max(TRAIN_T3_SPEECH)
+    return {"speaker_emb": rng.standard_normal((b, cfg.speaker_embed_size)).astype(np.float32),
+            "cond_prompt_tokens": rng.integers(0, 6561, (b, cfg.speech_cond_prompt_len)
+                                               ).astype(np.int32),
+            "emotion_adv": np.full((b, 1, 1), 0.5, np.float32),
+            "text_tokens": rng.integers(0, cfg.text_tokens_dict_size, (b, lt)).astype(np.int32),
+            "text_lens": np.asarray(TRAIN_T3_TEXT, np.int32),
+            "speech_tokens": rng.integers(0, 6561, (b, ls)).astype(np.int32),
+            "speech_lens": np.asarray(TRAIN_T3_SPEECH, np.int32)}
+
+
+def _worst_grad(label: str, got: dict, want: dict) -> tuple:
+    """(worst ratio, its leaf) of max |got - want| over the norm of `want`
+    (plus 1e-7 / TRAIN_GRAD_TOL for leaves whose gradient is rounding
+    noise) across the leaves; raises past TRAIN_GRAD_TOL."""
+    worst, worst_path = 0.0, ""
+    for path, gw in want.items():
+        ratio = (got[path].to(gw.device) - gw).abs().max().item() / (
+            gw.norm().item() + 1e-7 / TRAIN_GRAD_TOL)
+        if not np.isfinite(ratio) or ratio > TRAIN_GRAD_TOL:
+            raise AssertionError(f"{label}: gradient {path} max|diff| / ||g|| = {ratio:.3e} "
+                                 f"> {TRAIN_GRAD_TOL}")
+        if ratio > worst:
+            worst, worst_path = ratio, path
+    return worst, worst_path
+
+
 class _FixedDraws:
     """One flow training step's draws, made once and handed to both
     devices (cfm.compute_loss moves them to the batch's device)."""
@@ -2737,16 +2805,8 @@ def phase_train(card: str) -> dict:
     from chatterbox_embed_tpu_torch.weights import _leaves
     launches = {}
     cfg = ChatterboxConfig().t3
-    rng = np.random.default_rng(0)
-    b, lt, ls = 2, max(TRAIN_T3_TEXT), max(TRAIN_T3_SPEECH)
-    batch = {"speaker_emb": rng.standard_normal((b, cfg.speaker_embed_size)).astype(np.float32),
-             "cond_prompt_tokens": rng.integers(0, 6561, (b, cfg.speech_cond_prompt_len)
-                                                ).astype(np.int32),
-             "emotion_adv": np.full((b, 1, 1), 0.5, np.float32),
-             "text_tokens": rng.integers(0, cfg.text_tokens_dict_size, (b, lt)).astype(np.int32),
-             "text_lens": np.asarray(TRAIN_T3_TEXT, np.int32),
-             "speech_tokens": rng.integers(0, 6561, (b, ls)).astype(np.int32),
-             "speech_lens": np.asarray(TRAIN_T3_SPEECH, np.int32)}
+    batch = _t3_train_batch(cfg)
+    b = len(TRAIN_T3_TEXT)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     base = torch.cuda.memory_allocated()
@@ -2864,20 +2924,327 @@ def phase_train(card: str) -> dict:
             seconds=f"{time.time() - t0:.2f}")
     (loss_gpu, g_gpu), (loss_cpu, g_cpu) = result["cuda"], result["cpu"]
     loss_err = abs(loss_gpu - loss_cpu) / abs(loss_cpu)
-    worst, worst_path = 0.0, ""
-    for path, gc in g_cpu.items():
-        ratio = (g_gpu[path] - gc).abs().max().item() / (gc.norm().item() + 1e-7 / TRAIN_GRAD_TOL)
-        if not np.isfinite(ratio) or ratio > TRAIN_GRAD_TOL:
-            raise AssertionError(f"flow step gradient {path}: card against CPU "
-                                 f"max|diff| / ||g|| = {ratio:.3e} > {TRAIN_GRAD_TOL}")
-        if ratio > worst:
-            worst, worst_path = ratio, path
+    worst, worst_path = _worst_grad("flow step, card against CPU", g_gpu, g_cpu)
     if not loss_err <= TRAIN_LOSS_TOL:
         raise AssertionError(f"flow step loss: card {loss_gpu} against CPU {loss_cpu}")
     log("train_flow_check", frames=TRAIN_CHECK_FRAMES, loss_rel_err=f"{loss_err:.3e}",
         loss_limit=TRAIN_LOSS_TOL, leaves=len(g_cpu), worst_grad_err_over_norm=f"{worst:.3e}",
         worst_leaf=worst_path, grad_limit=TRAIN_GRAD_TOL, matmul_tf32=False, cudnn_tf32=False)
     torch.cuda.empty_cache()
+    return launches
+
+
+def _rank_free() -> None:
+    """Free the card memory that a rank's dropped objects held (the caching
+    allocator's blocks)."""
+    import gc
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def _leaf_checksums(params, paths) -> list:
+    """A position-weighted sum of the bits of each leaf of `paths` (int64,
+    on the leaf's device): two copies that differ in one element always
+    give two sums."""
+    from chatterbox_embed_tpu_torch.weights import _leaves
+    flat = dict(_leaves(params))
+    out = []
+    for path in paths:
+        bits = flat[path].detach().contiguous().view(-1).view(torch.int32).to(torch.int64)
+        w = torch.arange(bits.numel(), device=bits.device, dtype=torch.int64) % 65521 + 1
+        out.append(int((bits * w).sum()))
+    return out
+
+
+def _pp_check(params, ref, ref_grads) -> dict:
+    """This pp rank's leaves (its stages and aux) after the step against
+    one process's after its step (`ref`, `ref_grads`: one process's tree
+    and gradients laid out as this rank's, shard_pp_params): the worst
+    gradient max |diff| over the leaf's norm, the worst parameter |diff|
+    where one process's |g| >= TRAIN_MESH_GRAD_FLOOR, and the elements
+    below the floor with their worst |diff|."""
+    from chatterbox_embed_tpu_torch.weights import _leaves
+    got, want, wgrad = (dict(_leaves(t)) for t in (params, ref, ref_grads))
+    out = {"grad_ratio": 0.0, "grad_leaf": "", "param_diff": 0.0, "param_leaf": "",
+           "below_floor": 0, "below_floor_diff": 0.0}
+    for path, x in got.items():
+        g, gw = x.grad, wgrad[path]
+        ratio = (g - gw).abs().max().item() / (gw.norm().item() + 1e-7 / TRAIN_GRAD_TOL)
+        if not ratio <= out["grad_ratio"]:
+            out["grad_ratio"], out["grad_leaf"] = ratio, path
+        diff = (x.detach() - want[path]).abs()
+        above = gw.abs() >= TRAIN_MESH_GRAD_FLOOR
+        worst = diff[above].max().item() if above.any() else 0.0
+        if not worst <= out["param_diff"]:
+            out["param_diff"], out["param_leaf"] = worst, path
+        if not above.all():
+            out["below_floor"] += int((~above).sum())
+            out["below_floor_diff"] = max(out["below_floor_diff"], diff[~above].max().item())
+    return out
+
+
+def _hop_ms(mesh, shape, iters: int = 50) -> float:
+    """Host ms of one pp hop (`Mesh.shift`) of an fp32 tensor of `shape` on
+    this rank's device, over `iters`."""
+    x = torch.zeros(shape, device=mesh.device)
+    for _ in range(5):
+        mesh.shift(x, "pp", 1)
+    torch.cuda.synchronize()
+    t0 = time.time()
+    for _ in range(iters):
+        mesh.shift(x, "pp", 1)
+    torch.cuda.synchronize()
+    return 1e3 * (time.time() - t0) / iters
+
+
+def _ms(seconds) -> str:
+    return ",".join(f"{1e3 * x:.3f}" for x in seconds)
+
+
+def phase_train_mesh(card: str) -> dict:
+    """Training on a mesh and the sp and pp axes at full width (fp32,
+    random weights from seeds), on two ranks sharing the card over gloo;
+    each part held to one process on the card. (a) sp = 2: sp_generate_mel
+    of one utterance of TRAIN_MESH_SP_FRAMES frames (CFG, the default 10
+    Euler steps) against cfm.generate_mel within TRAIN_MESH_SP_TOL. (b)
+    dp = 2: two flow steps on the train phase's rows twice over (4 a
+    rank), the first one's loss and every gradient leaf against one
+    process's first step at the train phase's limits; K3, K3b-dq and
+    K3b-dkv 56 times a step on each rank. (c) The T3 step (remat) at tp = 2
+    and at dp = 2 on the train phase's batch, two steps each: the first
+    one's loss against one process's, the replicated leaves bit-equal
+    across the ranks after both. (d) pp = 2, 15 layers a stage,
+    TRAIN_MESH_MICRO microbatches, one step: its loss against one
+    process's first step, and on each rank its leaves (stages and aux)
+    against that step's (`_pp_check`: gradients within TRAIN_GRAD_TOL of
+    their norm, values within TRAIN_MESH_PARAM_TOL above
+    TRAIN_MESH_GRAD_FLOOR). Every part prints its ms beside
+    one process's; the times are two ranks on one card, not several cards.
+    Returns the flow step's launches on each rank."""
+    from chatterbox_embed_tpu_torch import parallel, training
+    from chatterbox_embed_tpu_torch.config import CFMConfig, ChatterboxConfig, FlowDecoderConfig
+    from chatterbox_embed_tpu_torch.models import cfm, flow_decoder, t3
+    from chatterbox_embed_tpu_torch.models import layers as L
+    from chatterbox_embed_tpu_torch.ops.sampling import Draws
+    from chatterbox_embed_tpu_torch.parallel import mesh as mesh_lib
+    from chatterbox_embed_tpu_torch.parallel import pipeline
+    from chatterbox_embed_tpu_torch.weights import _leaves
+    note = "two ranks sharing one card over gloo, not a multi-card figure"
+    launches = {}
+    dev = torch.device("cuda", torch.cuda.current_device())
+    dec, cfm_cfg = FlowDecoderConfig(), CFMConfig()
+    n_tblocks = (2 + dec.num_mid_blocks) * dec.n_blocks
+    nf = dec.out_channels
+    try:
+        # (a) sp = 2: one utterance's mel over two ranks
+        t_part = time.time()
+        flow = flow_decoder.init(L.Init(3, dev), dec)
+        rng = np.random.default_rng(3)
+        tl = TRAIN_MESH_SP_FRAMES
+        mu = torch.as_tensor(rng.standard_normal((1, tl, nf)).astype(np.float32), device=dev)
+        spks = torch.as_tensor(rng.standard_normal((1, nf)).astype(np.float32), device=dev)
+        cond = torch.zeros((1, tl, nf), device=dev)
+        cond[:, :tl // 4] = torch.as_tensor(
+            rng.standard_normal((1, tl // 4, nf)).astype(np.float32), device=dev)
+        one_s = []
+        for _ in range(2):
+            t0 = time.time()
+            with torch.no_grad():
+                one = cfm.generate_mel(flow, mu, spks, cond, None, cfm_cfg, dec)
+            torch.cuda.synchronize()
+            one_s.append(time.time() - t0)
+        t0 = time.time()
+        mesh_sp = parallel.make_sp_mesh(2, device=dev)
+        world_s = time.time() - t0
+        flow_sp = parallel.replicate(mesh_sp, flow)
+        mesh_sp.call_all(_reset_counts)
+        sp_s = []
+        for _ in range(2):
+            t0 = time.time()
+            out = parallel.sp_generate_mel(mesh_sp, flow_sp, mu, spks, cond, None,
+                                           cfm_cfg=cfm_cfg, dec_cfg=dec)
+            torch.cuda.synchronize()
+            sp_s.append(time.time() - t0)
+        for r, c in enumerate(mesh_sp.call_all(_counts)):
+            if c != _want():
+                raise AssertionError(f"sp = 2 rank {r} launched kernels: {c}")
+        err = (out - one).abs().max().item()
+        if out.shape != one.shape or not torch.isfinite(out).all() or not err <= TRAIN_MESH_SP_TOL:
+            raise AssertionError(f"sp = 2 mel {tuple(out.shape)}: max |err| {err:.3e} against "
+                                 f"one process ({TRAIN_MESH_SP_TOL})")
+        log("train_mesh_sp2", frames=tl, frames_a_rank=tl // 2, euler_steps=cfm_cfg.n_timesteps,
+            cfg_rows=2, max_abs_err=f"{err:.3e}", limit=TRAIN_MESH_SP_TOL,
+            max_abs_out=f"{one.abs().max().item():.3f}", sp2_s=",".join(f"{x:.3f}" for x in sp_s),
+            one_process_s=",".join(f"{x:.3f}" for x in one_s), world_start_s=f"{world_s:.2f}",
+            backend=mesh_sp._world.backend, hop=mesh_lib.HOP,
+            part_s=f"{time.time() - t_part:.1f}", note=note, card=repr(card))
+        del flow, flow_sp, out, one
+
+        # (b) the flow step at dp = 2, 4 rows a rank
+        t_part = time.time()
+        frames = TRAIN_FLOW_FRAMES * 2
+        rows = len(frames)
+        flow0 = flow_decoder.init(L.Init(4, dev), dec)
+        fbatch = _flow_train_batch(frames, dec, 0, "cuda")
+        draws = [_FixedDraws(Draws(20 + i, "cpu").flow_train(rows, (rows, max(frames), nf)))
+                 for i in range(2)]
+        one = training.init_flow_train_state(flow0)
+        step1 = training.make_flow_train_step(None, cfm_cfg, dec)
+        one_s = []
+        for i in range(2):
+            t0 = time.time()
+            one, m1 = step1(one, draws[i], fbatch)
+            torch.cuda.synchronize()
+            one_s.append(time.time() - t0)
+            if i == 0:
+                loss_one = float(m1["loss"])
+                g_one = {path: x.grad.clone() for path, x in _leaves(one.params)}
+        del one, step1
+        mesh_dp = parallel.make_dp_mesh(2, device=dev)
+        t0 = time.time()
+        st = training.shard_flow_state(training.init_flow_train_state(flow0), mesh_dp)
+        torch.cuda.synchronize()
+        place_s = time.time() - t0
+        step = training.make_flow_train_step(mesh_dp, cfm_cfg, dec)
+        want = _want(flash_attention=n_tblocks, flash_attention_bwd_dq=n_tblocks,
+                     flash_attention_bwd_dkv=n_tblocks)
+        dp_s = []
+        for i in range(2):
+            mesh_dp.call_all(_reset_counts)
+            t0 = time.time()
+            st, m = step(st, draws[i], fbatch)
+            torch.cuda.synchronize()
+            dp_s.append(time.time() - t0)
+            for r, c in enumerate(mesh_dp.call_all(_counts)):
+                if c != want:
+                    raise AssertionError(f"flow dp = 2 step {i} rank {r}: launches {c}, "
+                                         f"want {want}")
+                launches[f"train_mesh_flow_dp2_rank{r}"] = c
+            if i == 0:
+                loss_dp = float(m["loss"])
+                worst, worst_path = _worst_grad("flow dp = 2 against one process", {
+                    path: x.grad for path, x in _leaves(st.params)}, g_one)
+        loss_err = abs(loss_dp - loss_one) / abs(loss_one)
+        if not (np.isfinite(loss_dp) and loss_err <= TRAIN_LOSS_TOL):
+            raise AssertionError(f"flow dp = 2 loss {loss_dp} against one process {loss_one}")
+        log("train_mesh_flow_dp2", rows=rows, rows_a_rank=rows // 2, frames=frames,
+            loss=f"{loss_dp:.8f}", loss_rel_err=f"{loss_err:.3e}", loss_limit=TRAIN_LOSS_TOL,
+            worst_grad_err_over_norm=f"{worst:.3e}", worst_leaf=worst_path,
+            grad_limit=TRAIN_GRAD_TOL, launches_a_step_a_rank=f"K3 {n_tblocks}, K3b-dq "
+            f"{n_tblocks}, K3b-dkv {n_tblocks}", dp2_ms=_ms(dp_s), one_process_ms=_ms(one_s),
+            state_placement_s=f"{place_s:.3f}", part_s=f"{time.time() - t_part:.1f}", note=note,
+            card=repr(card))
+        del st, step, g_one, flow0, fbatch
+        mesh_dp.call_all(_rank_free)
+
+        # (c) the T3 step at tp = 2 and at dp = 2
+        t_part = time.time()
+        cfg = ChatterboxConfig().t3
+        batch = _t3_train_batch(cfg)
+        params0 = t3.init(L.Init(0), cfg)               # on the card
+        one = training.init_t3_train_state(params0)
+        step1 = training.make_t3_train_step(None, cfg, remat=True)
+        one_s = []
+        for i in range(2):
+            t0 = time.time()
+            one, m1 = step1(one, batch)
+            torch.cuda.synchronize()
+            one_s.append(time.time() - t0)
+            if i == 0:
+                loss_one = float(m1["loss"])
+                ref_tree = mesh_lib._tree_map(lambda x: x.detach().clone(), one.params)
+                ref_grads = mesh_lib._tree_map(lambda x: x.grad.clone(), one.params)
+        del one, step1
+        _rank_free()
+        spec = parallel.t3_param_spec(params0)
+        split = {path for path, tp in _leaves(mesh_lib._tree_map(lambda s: "tp" in s, spec)) if tp}
+        for name, mesh in (("tp2", parallel.make_tp_mesh(2, device=dev)),
+                           ("dp2", parallel.make_dp_mesh(2, device=dev))):
+            t0 = time.time()
+            st = training.shard_t3_state(training.init_t3_train_state(params0), mesh)
+            torch.cuda.synchronize()
+            place_s = time.time() - t0
+            step = training.make_t3_train_step(mesh, cfg, remat=True)
+            mesh.call_all(_reset_counts)
+            ms = []
+            for i in range(2):
+                t0 = time.time()
+                st, m = step(st, batch)
+                torch.cuda.synchronize()
+                ms.append(time.time() - t0)
+                if i == 0:
+                    loss = float(m["loss"])
+            for r, c in enumerate(mesh.call_all(_counts)):
+                if c != _want():
+                    raise AssertionError(f"T3 {name} rank {r} launched kernels: {c}")
+            loss_err = abs(loss - loss_one) / abs(loss_one)
+            if not (np.isfinite(loss) and loss_err <= TRAIN_LOSS_TOL):
+                raise AssertionError(f"T3 {name} loss {loss} against one process {loss_one}")
+            paths = [path for path, _ in _leaves(st.params) if path not in split or name == "dp2"]
+            sums = mesh.call_all(_leaf_checksums, st.params, paths)
+            differ = [p for p, a, b in zip(paths, sums[0], sums[1]) if a != b]
+            if differ:
+                raise AssertionError(f"T3 {name}: replicated leaves differ across ranks: {differ}")
+            log(f"train_mesh_t3_{name}", rows=len(TRAIN_T3_TEXT), remat=True, loss=f"{loss:.8f}",
+                loss_rel_err=f"{loss_err:.3e}", loss_limit=TRAIN_LOSS_TOL,
+                replicated_leaves_bit_equal=len(paths), ms=_ms(ms), one_process_ms=_ms(one_s),
+                state_placement_s=f"{place_s:.3f}", part_s=f"{time.time() - t_part:.1f}",
+                note=note, card=repr(card))
+            t_part = time.time()
+            del st, step
+            mesh.call_all(_rank_free)
+
+        # (d) pp = 2: 15 layers a stage, TRAIN_MESH_MICRO microbatches; one
+        # process's step laid out as the ranks' trees, to check on each rank
+        t_part = time.time()
+        mesh_pp = pipeline.make_pp_mesh(2, device=dev)
+        ref = pipeline.shard_pp_params(pipeline.stack_t3_for_pipeline(ref_tree, 2), mesh_pp)
+        ref_g = pipeline.shard_pp_params(pipeline.stack_t3_for_pipeline(ref_grads, 2), mesh_pp)
+        del ref_tree, ref_grads
+        t0 = time.time()
+        sharded = pipeline.shard_pp_params(pipeline.stack_t3_for_pipeline(params0, 2), mesh_pp)
+        step, init_state = pipeline.make_pp_train_step(mesh_pp, TRAIN_MESH_MICRO, cfg)
+        st = init_state(sharded)
+        torch.cuda.synchronize()
+        place_s = time.time() - t0
+        del sharded, params0
+        mesh_pp.call_all(_reset_counts)
+        t0 = time.time()
+        st, m = step(st, batch)
+        torch.cuda.synchronize()
+        pp_s = time.time() - t0
+        for r, c in enumerate(mesh_pp.call_all(_counts)):
+            if c != _want():
+                raise AssertionError(f"T3 pp = 2 rank {r} launched kernels: {c}")
+        loss = float(m["loss"])
+        loss_err = abs(loss - loss_one) / abs(loss_one)
+        if not (np.isfinite(loss) and loss_err <= TRAIN_LOSS_TOL):
+            raise AssertionError(f"T3 pp = 2 loss {loss} against one process {loss_one}")
+        checks = mesh_pp.call_all(_pp_check, st.params, ref, ref_g)
+        for r, c in enumerate(checks):
+            if not (c["grad_ratio"] <= TRAIN_GRAD_TOL and c["param_diff"] <= TRAIN_MESH_PARAM_TOL):
+                raise AssertionError(f"T3 pp = 2 rank {r} against one process's step: {c}")
+        t_len = 2 + cfg.perceiver_num_queries + max(TRAIN_T3_TEXT) + max(TRAIN_T3_SPEECH)
+        hop_shape = (len(TRAIN_T3_TEXT) // TRAIN_MESH_MICRO, t_len, cfg.llama.hidden_size)
+        hop = mesh_pp.call_all(_hop_ms, mesh_pp, hop_shape)
+        log("train_mesh_t3_pp2", stages=2, layers_a_stage=cfg.llama.num_layers // 2,
+            microbatches=TRAIN_MESH_MICRO, loss=f"{loss:.8f}", loss_rel_err=f"{loss_err:.3e}",
+            loss_limit=TRAIN_LOSS_TOL,
+            worst_grad_err_over_norm=",".join(f"{c['grad_ratio']:.3e}" for c in checks),
+            worst_grad_leaf=",".join(c["grad_leaf"] for c in checks), grad_limit=TRAIN_GRAD_TOL,
+            param_max_abs_diff=",".join(f"{c['param_diff']:.3e}" for c in checks),
+            param_limit=TRAIN_MESH_PARAM_TOL, grad_floor=TRAIN_MESH_GRAD_FLOOR,
+            elements_below_floor=",".join(str(c["below_floor"]) for c in checks),
+            their_max_abs_diff=",".join(f"{c['below_floor_diff']:.3e}" for c in checks),
+            ms=f"{1e3 * pp_s:.3f}", one_process_ms=_ms(one_s),
+            hop_ms=",".join(f"{x:.4f}" for x in hop), hop_shape=hop_shape,
+            hops_a_step=2 * TRAIN_MESH_MICRO, state_placement_s=f"{place_s:.3f}",
+            part_s=f"{time.time() - t_part:.1f}", note=note, card=repr(card))
+        del st, step, ref, ref_g
+        mesh_pp.call_all(_rank_free)
+    finally:
+        parallel.shutdown()
+        torch.cuda.empty_cache()
     return launches
 
 
@@ -2905,7 +3272,7 @@ REPLACES = {"flash_decode": "chatterbox_embed_tpu/kernels/flash_decode.py:85",
 # and build phases always run; every phase runs when none is named)
 PHASES = ("kernel_check", "attention_check", "probe_check", "probes", "fused_check",
           "consistency", "generate", "generate_batch", "stream_generate", "conditioning",
-          "long_text", "engine", "worker", "mesh", "train")
+          "long_text", "engine", "worker", "mesh", "train", "train_mesh")
 MODEL_PHASES = ("fused_check", "consistency", "generate", "generate_batch",
                 "stream_generate", "conditioning", "long_text", "engine", "worker", "mesh")
 
@@ -3020,6 +3387,9 @@ def main(argv=None) -> None:
     if "train" in selected:
         launches.update(phase_train(card))
         phase_done("train")
+    if "train_mesh" in selected:
+        launches.update(phase_train_mesh(card))
+        phase_done("train_mesh")
     for name, path in MAIN_PATH.items():
         if path in launches and launches[path][name] == 0:
             raise AssertionError(f"{name} was not launched on its path {path}")

@@ -23,7 +23,9 @@ the module's end the world shuts down and every follower is joined.
 - `tts.enable_mesh` on the tiny pipeline: generate_batch's wavs equal the
   unmeshed pipeline's; the Redis worker under WORKER_MESH=2x1 runs a job.
 - Refusals: rows or slots that do not divide dp, a streamed request on a
-  mesh, a malformed WORKER_MESH, a train step's mesh; make_mesh's shapes.
+  mesh, a malformed WORKER_MESH; make_mesh's shapes. A T3 train step on
+  the 2 x 2 mesh equals one process's (training on a mesh, and sp and pp:
+  tests/test_torch_parallel_train.py).
   A rank that fails fails the call on the leader and closes the world.
 - A shard tree or an engine that the leader drops is released on the
   followers with the next call; a mesh built again reuses its key.
@@ -57,7 +59,7 @@ from chatterbox_embed_tpu_torch.serving import continuous as tcont
 from chatterbox_embed_tpu_torch.serving.worker import STREAM_TTS, InMemoryStreams, RedisWorker
 from chatterbox_embed_tpu_torch.tts import ChatterboxTTS
 from torch_dist import (TINY, fail_on, generation_info, kept_keys, shard_widths, spy_row,
-                        tiny_conds, tiny_pipeline_config)
+                        tiny_conds, tiny_pipeline_config, tree_of)
 from torch_parity import JaxDraws, port_params, t
 
 torch.set_num_threads(2)
@@ -363,11 +365,37 @@ def test_malformed_worker_mesh_raises(spec, monkeypatch):
         RedisWorker(mode="tts", client=InMemoryStreams(), tts_factory=lambda: None)
 
 
-def test_a_train_step_still_refuses_a_mesh(world):
-    for make in (lambda m: training.make_t3_train_step(m, TINY),
-                 lambda m: training.make_flow_train_step(m)):
-        with pytest.raises(ValueError, match="mesh must be None.*21b"):
-            make(world)
+def test_a_train_step_still_refuses_a_mesh(world, models, inputs):
+    """Named for what it held before training on a mesh was ported: a T3
+    train step on the module's world (dp x tp = 2 x 2) now runs and equals
+    one process's step (loss and every leaf within 1e-5, the perceiver's
+    key bias, a rounding-noise gradient, within lr), as
+    tests/test_torch_parallel_train.py holds it against the JAX package."""
+    _, tp = models
+    rng = np.random.default_rng(3)
+    batch = {"speaker_emb": rng.standard_normal((4, 16)).astype(np.float32),
+             "cond_prompt_tokens": rng.integers(0, 36, (4, 6)).astype(np.int32),
+             "emotion_adv": np.full((4, 1, 1), 0.5, np.float32),
+             "text_tokens": rng.integers(1, 50, (4, 8)).astype(np.int32),
+             "text_lens": np.asarray([8, 3, 6, 5], np.int32),
+             "speech_tokens": rng.integers(0, 36, (4, 10)).astype(np.int32),
+             "speech_lens": np.asarray([10, 7, 2, 9], np.int32)}
+    one = training.init_t3_train_state(tp, device="cpu")
+    one, want = training.make_t3_train_step(None, TINY)(one, batch)
+    mesh = parallel.make_mesh(4, tp=2, device="cpu")
+    state = training.shard_t3_state(training.init_t3_train_state(tp, device="cpu"), mesh)
+    state, got = training.make_t3_train_step(mesh, TINY)(state, batch)
+    assert state.step == one.step == 1
+    np.testing.assert_allclose(float(got["loss"]), float(want["loss"]), atol=1e-5, rtol=1e-5)
+    shards = mesh.call_all(tree_of, state.params)
+    for li, layer in enumerate(one.params["llama"]["layers"]):
+        q = torch.cat([shards[r]["llama"]["layers"][li]["q"]["w"] for r in (0, 1)], dim=1)
+        o = torch.cat([shards[r]["llama"]["layers"][li]["o"]["w"] for r in (0, 1)], dim=0)
+        torch.testing.assert_close(q, layer["q"]["w"].detach(), atol=1e-5, rtol=0)
+        torch.testing.assert_close(o, layer["o"]["w"].detach(), atol=1e-5, rtol=0)
+    for name in ("speech_head", "text_emb"):
+        torch.testing.assert_close(shards[3][name]["w"], one.params[name]["w"].detach(),
+                                   atol=1e-5, rtol=0)
 
 
 def test_make_mesh_shapes(world):

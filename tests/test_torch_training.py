@@ -309,12 +309,16 @@ def test_flow_train_steps_match_jax(flow_models):
 
 
 def test_a_mesh_is_refused(t3_models):
+    """A mesh that is not a parallel.Mesh is refused (a Mesh runs the steps
+    on every rank: tests/test_torch_parallel_train.py); mesh None makes
+    the optimizer anew over the same tree."""
     _, tp = t3_models
     state = tts_.init_t3_train_state(tp, device="cpu")
     for make in (lambda m: tts_.make_t3_train_step(m, TINY),
                  lambda m: tts_.make_flow_train_step(m, CFM, DEC),
-                 lambda m: tts_.shard_t3_state(state, m)):
-        with pytest.raises(ValueError, match="mesh must be None"):
+                 lambda m: tts_.shard_t3_state(state, m),
+                 lambda m: tts_.shard_flow_state(state, m)):
+        with pytest.raises(TypeError, match="mesh must be None or a parallel.Mesh"):
             make(object())
     fresh = tts_.shard_t3_state(state, None, lr=3e-4)
     assert fresh.params is state.params and fresh.opt_state is not state.opt_state

@@ -1,12 +1,13 @@
-"""Helpers of the mesh tests (tests/test_torch_parallel.py) that a mesh's
-follower processes import: this module imports the port and torch, never
-jax or the JAX package, because a follower re-imports the module of every
-function and class the leader sends it. The configs here are the port's
-own, for the same reason."""
+"""Helpers of the mesh tests (tests/test_torch_parallel.py,
+tests/test_torch_parallel_train.py) that a mesh's follower processes
+import: this module imports the port and torch, never jax or the JAX
+package, because a follower re-imports the module of every function and
+class the leader sends it. The configs here are the port's own, and the
+flow step's draws fixed arrays made on the leader, for the same reason."""
 import numpy as np
 import torch
 
-from chatterbox_embed_tpu_torch.config import (ChatterboxConfig, ConformerConfig,
+from chatterbox_embed_tpu_torch.config import (CFMConfig, ChatterboxConfig, ConformerConfig,
                                                FlowDecoderConfig, HiFTConfig, LlamaConfig,
                                                S3GenConfig, S3TokenizerConfig, T3Config,
                                                replace)
@@ -21,6 +22,35 @@ TINY = T3Config(
     start_speech_token=36, stop_speech_token=37,
     max_text_tokens=64, max_speech_tokens=128,
     speaker_embed_size=16, speech_cond_prompt_len=6)
+
+# tests/test_parallel.py's pipeline config (4 layers: 4 stages of 1)
+PP_TINY = replace(TINY, llama=replace(TINY.llama, num_layers=4))
+# tests/test_training.py's TINY T3, and tests/test_torch_training.py's
+# 1-block estimator
+TRAIN_TINY = T3Config(
+    llama=LlamaConfig(hidden_size=32, intermediate_size=64, num_layers=2,
+                      num_heads=4, num_kv_heads=4, head_dim=8),
+    text_tokens_dict_size=50, speech_tokens_dict_size=40,
+    start_speech_token=36, stop_speech_token=37,
+    max_text_tokens=32, max_speech_tokens=64,
+    speaker_embed_size=8, speech_cond_prompt_len=4)
+FLOW_DEC = FlowDecoderConfig(in_channels=32, out_channels=8, channels=16, attention_head_dim=8,
+                             num_heads=2, n_blocks=1, num_mid_blocks=1, time_embed_dim=64)
+FLOW_CFM = CFMConfig()
+
+
+class FixedDraws:
+    """One flow training step's draws (time, noise, CFG keep) as numpy
+    arrays made on the leader (from the JAX package's key there), handed
+    to every rank: cfm.compute_loss draws for the whole batch."""
+
+    def __init__(self, t, z, keep):
+        self.arrays = (np.asarray(t), np.asarray(z), np.asarray(keep))
+
+    def flow_train(self, rows, shape):
+        t, z, keep = self.arrays
+        assert t.shape == (rows,) and z.shape == tuple(shape), (t.shape, z.shape, rows, shape)
+        return tuple(torch.from_numpy(a.copy()) for a in self.arrays)
 
 
 def tiny_pipeline_config() -> ChatterboxConfig:
@@ -106,3 +136,63 @@ def kept_keys():
     follower's; the leader keeps none)."""
     from chatterbox_embed_tpu_torch.parallel import mesh
     return sorted(mesh._OBJECTS)
+
+
+def axes(mesh):
+    """(rank, dp, tp, sp, pp indices, and whether each group is set) of this
+    rank of `mesh`."""
+    return (mesh.rank, mesh.dp_index, mesh.tp_index, mesh.sp_index, mesh.pp_index,
+            tuple(g is not None for g in (mesh.dp_group, mesh.tp_group, mesh.sp_group,
+                                          mesh.pp_group)))
+
+
+def tree_of(params):
+    """This rank's tree (shards, or a kept state's params) as plain
+    detached tensors."""
+    if isinstance(params, dict):
+        return {k: tree_of(v) for k, v in params.items()}
+    if isinstance(params, (list, tuple)):
+        return [tree_of(v) for v in params]
+    return params.detach().clone()
+
+
+def grads_of(params):
+    """The .grad of every leaf of this rank's tree (None stays None)."""
+    if isinstance(params, dict):
+        return {k: grads_of(v) for k, v in params.items()}
+    if isinstance(params, (list, tuple)):
+        return [grads_of(v) for v in params]
+    return None if params.grad is None else params.grad.clone()
+
+
+def pp_loss_and_grads(pp_params, batch, n_micro, cfg, mesh):
+    """The pipelined loss and this rank's gradients (its stages', and aux
+    summed over pp) from a trainable copy of its shard tree."""
+    from chatterbox_embed_tpu_torch.parallel import pipeline
+    params = pipeline._trainable(pp_params)
+    b = {k: torch.as_tensor(v) for k, v in batch.items()}
+    loss = pipeline.pp_loss(params, b, mesh.pp, n_micro, cfg, mesh=mesh, backward=True)
+    return float(loss), grads_of(params)
+
+
+def flash_rows(params, draws, batch, mesh):
+    """The row counts this rank's flow loss hands the flash-attention
+    kernel's wrapper (its plain version on the CPU), counted by wrapping
+    it for the one call."""
+    from chatterbox_embed_tpu_torch.models import cfm
+    from chatterbox_embed_tpu_torch.models import layers as L
+    real, rows = L.flash_attention, []
+    L.flash_attention = lambda q, *a: rows.append(q.shape[0]) or real(q, *a)
+    try:
+        b = {k: torch.as_tensor(v) for k, v in batch.items()}
+        with torch.no_grad():
+            cfm.compute_loss(params, draws, b["mel"], b["mu"], b["spks"], b["cond"], b["mask"],
+                             FLOW_CFM, FLOW_DEC, mesh=mesh)
+    finally:
+        L.flash_attention = real
+    return rows
+
+
+def tf32_switches():
+    """This rank's TF32 switches (matmuls, cuDNN)."""
+    return torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32
