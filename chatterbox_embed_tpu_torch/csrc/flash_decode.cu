@@ -8,6 +8,13 @@
 //        after the walk, which then covers [start, cache_pos - 1]: the
 //        current row is never read from the cache, so the caller can write
 //        every layer's row in one stacked insert after the layer loop.
+// and the int8 entry of both, which the TPU kernel does not have: the JAX
+// package reads its int8 KV cache (CHATTERBOX_INT8_KV=1) through XLA only
+// (chatterbox_embed_tpu/models/llama.py:418-440, "mode 1"), with the scales
+// factored out of both dots. The port decodes through K1 at every row count,
+// so K1 and K1s walk the int8 slabs themselves: a plain read of the int8
+// cache would write a dequantised copy of every layer's live cache each step
+// (read 1 byte, write 2, read 2 an element: 2.5x the bf16 cache's bytes).
 //
 // What it computes (the same as the TPU kernel): one query token per
 // (row, head) attends to the live cache slots j of the walk, minus an
@@ -30,11 +37,14 @@
 //   q            (B, H, D)              contiguous
 //   k, v         (nL, Lc, B, H, D)      contiguous, sequence-major (nL = 1
 //                                       for K1); layer `layer` is read, as a
-//                                       pointer offset (no copy)
+//                                       pointer offset (no copy); q's dtype,
+//                                       or int8 with the scale planes
+//   k_scale,     (nL, Lc, B, H) fp32    or null: the int8 cache's scales,
+//   v_scale                             one a (slot, row, head)
 //   hole         (B, 2) int32           or null
 //   span         (B, 2) int32           or null (K1 only)
-//   k_cur, v_cur (B, H, D)              or null (K1)
-//   out          (B, H, D)
+//   k_cur, v_cur (B, H, D)              or null (K1); q's dtype, unquantised
+//   out          (B, H, D)              q's dtype
 //   part         (D + 2) * B*H*S fp32   workspace: the splits' partials
 //                                       (m, then l, then acc)
 //   counters     (B*H) int32            workspace, zero between launches
@@ -54,12 +64,18 @@
 //   start + s * ceil(live / S), so no block walks dead capacity; a split past
 //   the walk's end reads nothing and leaves m = -inf, l = 0.
 //   A block walks its slots with decode_walk.cuh (4 keys a warp-wide load,
-//   32 slots a warp in flight, the softmax once a tile), merges its 4 warps,
+//   32 slots a warp in flight, 64 of an int8 cache with their two scales,
+//   the softmax once a tile), merges its 4 warps,
 //   writes its partial and counts itself in (arrive_last). The last block of
 //   a (row, head) merges the S partials with the max-rescale (an empty split
 //   adds nothing, so no NaN), folds k_cur / v_cur in as one more key with
 //   K1s, writes out, and puts the counter back to 0: no memset launch, no
 //   second kernel.
+// The int8 entry's bytes: 1 a slab element plus 8 a (slot, row, head) for
+// the two scales, 136 a live key against bf16's 256 (0.53x); at the batch's
+// B=16, Lc 512, pos 385 with holes about 12.9 MB against 24.3 MB. It rides
+// the same walk, split plan and merge, so at these sizes it is bounded by
+// the same latency first, not by its bytes.
 
 #include "decode_walk.cuh"
 
@@ -68,9 +84,11 @@ namespace {
 constexpr int kWarps = kSplitWarps;
 constexpr int kThreads = kWarps * 32;
 
-template <typename T>
+// T: q, k_cur, v_cur and out; C: the cache's slabs (T, or int8 with scales)
+template <typename T, typename C>
 __global__ void __launch_bounds__(kThreads)
-decode_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
+decode_kernel(const T* __restrict__ q, const C* __restrict__ k, const C* __restrict__ v,
+              const float* __restrict__ k_scale, const float* __restrict__ v_scale,
               const int* __restrict__ hole, const int* __restrict__ span,
               const T* __restrict__ k_cur, const T* __restrict__ v_cur, T* __restrict__ out,
               float* __restrict__ part, int* __restrict__ counters, int bh_total, int heads,
@@ -97,14 +115,17 @@ decode_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restr
     hole_hi = hole[2 * row + 1];
   }
 
-  // q has the cache dtype (the wrapper checks), so q.k multiplies values of
-  // that dtype exactly in fp32, as the TPU kernel's cache-dtype product does
+  // q has the cache dtype (the wrapper checks), or the cache is int8, so q.k
+  // multiplies values of q's dtype and the cache's exactly in fp32, as the
+  // TPU kernel's cache-dtype product (and XLA's fp32-accumulated dot of the
+  // int8 cache) does
   float qv[kElems];
   load_lane(q + (size_t)bh * kHeadDim, qv);
   float m = -INFINITY, l = 0.f;
   float acc[kElems] = {};
-  walk_keys<T, kWarps>(k, v, qv, (size_t)bh_total * kHeadDim, (size_t)bh * kHeadDim, lo, hi,
-                       hole_lo, hole_hi, m, l, acc);
+  walk_keys<C, kWarps>(k, v, qv, (size_t)bh_total * kHeadDim, (size_t)bh * kHeadDim, lo, hi,
+                       hole_lo, hole_hi, m, l, acc, k_scale, v_scale, (size_t)bh_total,
+                       (size_t)bh);
   reduce_groups(l, acc);
   float mb, lb, ab;
   merge_warps<kWarps>(m, l, acc, sm_m, sm_l, sm_acc, mb, lb, ab);
@@ -138,17 +159,20 @@ decode_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restr
   if (d < kHeadDim) store1(out + (size_t)bh * kHeadDim + d, lb > 0.f ? ab / lb : 0.f);
 }
 
-template <typename T>
-int launch(const void* q, const void* k, const void* v, const int* hole, const int* span,
-           const void* k_cur, const void* v_cur, void* out, float* part, int* counters, int batch, int heads,
+template <typename T, typename C>
+int launch(const void* q, const void* k, const void* v, const float* k_scale,
+           const float* v_scale, const int* hole, const int* span, const void* k_cur,
+           const void* v_cur, void* out, float* part, int* counters, int batch, int heads,
            int lcache, int layer, int cache_pos, int start, int n_splits,
            cudaStream_t stream) {
   const int bh = batch * heads;
-  const size_t layer_off = (size_t)layer * lcache * bh * kHeadDim;
+  const size_t scale_off = (size_t)layer * lcache * bh;
+  const size_t layer_off = scale_off * kHeadDim;
   const int walk_end = k_cur != nullptr ? cache_pos - 1 : cache_pos;
-  decode_kernel<T><<<dim3(bh, n_splits), kThreads, 0, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k) + layer_off,
-      static_cast<const T*>(v) + layer_off, hole, span, static_cast<const T*>(k_cur),
+  decode_kernel<T, C><<<dim3(bh, n_splits), kThreads, 0, stream>>>(
+      static_cast<const T*>(q), static_cast<const C*>(k) + layer_off,
+      static_cast<const C*>(v) + layer_off, k_scale ? k_scale + scale_off : nullptr,
+      v_scale ? v_scale + scale_off : nullptr, hole, span, static_cast<const T*>(k_cur),
       static_cast<const T*>(v_cur), static_cast<T*>(out), part, counters, bh, heads, lcache,
       walk_end, start, n_splits);
   return (int)cudaGetLastError();
@@ -156,7 +180,11 @@ int launch(const void* q, const void* k, const void* v, const int* hole, const i
 
 }  // namespace
 
-// Plain C entry for ctypes. dtype: 0 = float32, 1 = bfloat16. k_cur and
+// Plain C entry for ctypes. dtype: q's, 0 = float32, 1 = bfloat16.
+// k_scale and v_scale are both null (k and v have q's dtype) or both given
+// (k and v are int8, the int8 entry): one entry with two more optional
+// pointers, as K1 and K1s share one with k_cur / v_cur, so that the wrapper
+// declares and checks one signature. k_cur and
 // v_cur are both null (K1) or both given (K1s); span (K1 only) replaces
 // start and cache_pos for every row when it is not null. n_splits must be
 // splits_for(batch * heads, lcache) (the wrapper's mirror sizes `part`
@@ -164,6 +192,7 @@ int launch(const void* q, const void* k, const void* v, const int* hole, const i
 // launch, and the kernel leaves them so. Returns the cudaError_t of the
 // launch (0 on success); it never synchronises and allocates nothing.
 extern "C" int cbx_flash_decode(const void* q, const void* k, const void* v,
+                                const float* k_scale, const float* v_scale,
                                 const int* hole, const int* span, const void* k_cur,
                                 const void* v_cur, void* out, float* part,
                                 int* counters, int batch, int heads, int head_dim,
@@ -173,12 +202,24 @@ extern "C" int cbx_flash_decode(const void* q, const void* k, const void* v,
     return (int)cudaErrorInvalidValue;
   if ((k_cur == nullptr) != (v_cur == nullptr)) return (int)cudaErrorInvalidValue;
   if (span != nullptr && k_cur != nullptr) return (int)cudaErrorInvalidValue;
+  if ((k_scale == nullptr) != (v_scale == nullptr)) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const bool int8 = k_scale != nullptr;
+  if (dtype == 0 && !int8)
+    return launch<float, float>(q, k, v, nullptr, nullptr, hole, span, k_cur, v_cur, out,
+                                part, counters, batch, heads, lcache, layer, cache_pos, start,
+                                n_splits, s);
+  if (dtype == 1 && !int8)
+    return launch<__nv_bfloat16, __nv_bfloat16>(q, k, v, nullptr, nullptr, hole, span, k_cur,
+                                                v_cur, out, part, counters, batch, heads,
+                                                lcache, layer, cache_pos, start, n_splits, s);
   if (dtype == 0)
-    return launch<float>(q, k, v, hole, span, k_cur, v_cur, out, part, counters, batch,
-                         heads, lcache, layer, cache_pos, start, n_splits, s);
+    return launch<float, int8_t>(q, k, v, k_scale, v_scale, hole, span, k_cur, v_cur, out,
+                                 part, counters, batch, heads, lcache, layer, cache_pos, start,
+                                 n_splits, s);
   if (dtype == 1)
-    return launch<__nv_bfloat16>(q, k, v, hole, span, k_cur, v_cur, out, part, counters,
-                                 batch, heads, lcache, layer, cache_pos, start, n_splits, s);
+    return launch<__nv_bfloat16, int8_t>(q, k, v, k_scale, v_scale, hole, span, k_cur, v_cur,
+                                         out, part, counters, batch, heads, lcache, layer,
+                                         cache_pos, start, n_splits, s);
   return (int)cudaErrorInvalidValue;
 }

@@ -13,6 +13,12 @@ K1 also takes an optional per-row `span` (B, 2): row b then attends
 [span[b, 0], span[b, 1]] minus its hole in place of the shared [start,
 cache_pos] (the continuous engine's slots, models/t3_engine.py:
 engine_spans); an empty span gives 0.
+Both take an int8 cache (the int8 KV cache, CHATTERBOX_INT8_KV=1) with its
+fp32 scale planes `k_scale`, `v_scale`, one scale a (slot, row, head): the
+int8 entry of the same kernel walks the int8 slabs and multiplies each
+score by its key's scale and each probability by its value's (the JAX
+package's mode-1 formula, models/llama.py:418-440, which it runs in XLA).
+q, k_cur, v_cur and the output keep the compute dtype.
 On a CUDA tensor it launches the hand-written split-KV kernel in
 `csrc/flash_decode.cu` (design notes there), one launch a call, with a
 scratch workspace kept per (device, dtype, B, H, Lc); on a CPU tensor it
@@ -43,10 +49,10 @@ SPLIT_WARPS = 4
 SPLIT_BLOCKS = 512     # B*H*S the split count aims at: ~4 blocks on each of 132 SMs
 MIN_SPLIT_KEYS = 32    # slots a split covers at least, at full capacity
 GROUPS = 4
-LOADS = {torch.bfloat16: 8, torch.float32: 4}
+LOADS = {torch.bfloat16: 8, torch.float32: 4, torch.int8: 16}   # by the cache's dtype
 _SCALE_LOG2 = 0.125 * math.log2(math.e)
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
-_ARGTYPES = ([ctypes.c_void_p] * 10 + [ctypes.c_int] * 9 + [ctypes.c_void_p])
+_ARGTYPES = ([ctypes.c_void_p] * 12 + [ctypes.c_int] * 9 + [ctypes.c_void_p])
 
 
 def splits_for(bh: int, lcache: int) -> int:
@@ -90,13 +96,16 @@ def workspace(device, dtype, b: int, h: int, lcache: int):
     return ws
 
 
-def _layer_slab(k, v, layer):
-    """One layer's (Lc, B, H, D) view of a per-layer or stacked cache."""
+def _layer_slab(k, v, layer, k_scale=None, v_scale=None):
+    """One layer's (Lc, B, H, D) view of a per-layer or stacked cache, and
+    its (Lc, B, H) scale planes (None for a float cache)."""
     if k.dim() == 5:
         if layer is None:
             raise ValueError("decode_attention: a stacked (nL, Lc, B, H, D) cache needs `layer`")
-        return k[layer], v[layer]
-    return k, v
+        k, v = k[layer], v[layer]
+        if k_scale is not None:
+            k_scale, v_scale = k_scale[layer], v_scale[layer]
+    return k, v, k_scale, v_scale
 
 
 def _row_ranges(b, cache_pos, start, span, deferred, device):
@@ -111,7 +120,7 @@ def _row_ranges(b, cache_pos, start, span, deferred, device):
 
 
 def decode_attention_reference(q, k, v, cache_pos, start=0, hole=None, layer=None,
-                               k_cur=None, v_cur=None, span=None):
+                               k_cur=None, v_cur=None, span=None, k_scale=None, v_scale=None):
     """Plain PyTorch version (mirrors the JAX package's
     decode_attention_reference, and its kernel's deferred-insert entry).
     q (B, H, D); k, v (Lc, B, H, D), or (nL, Lc, B, H, D) with `layer`;
@@ -120,8 +129,13 @@ def decode_attention_reference(q, k, v, cache_pos, start=0, hole=None, layer=Non
     logit/value column. span (B, 2) int or None: row b attends [span[b, 0],
     span[b, 1]] in place of [start, cache_pos], and a row whose span holds
     no live key gives 0 (the kernel's value; without a span such a row is
-    NaN, as in the JAX package). Returns (B, H, D) in q's dtype."""
-    k, v = _layer_slab(k, v, layer)
+    NaN, as in the JAX package). With k_scale/v_scale ((Lc, B, H), or
+    (nL, Lc, B, H), fp32) k and v are an int8 cache, read by the JAX
+    package's mode-1 formula (its XLA decode, models/llama.py:418-440): the
+    logits (q . kq) * ks / sqrt(D), then (w * vs) rounded to q's dtype times
+    vq, summed and rounded to q's dtype before the current row's fp32 term
+    (k_cur/v_cur stay unquantised). Returns (B, H, D) in q's dtype."""
+    k, v, k_scale, v_scale = _layer_slab(k, v, layer, k_scale, v_scale)
     lcache = k.shape[0]
     lo, hi = _row_ranges(q.shape[0], cache_pos, start, span, k_cur is not None, q.device)
     idx = torch.arange(lcache, device=q.device)
@@ -131,17 +145,26 @@ def decode_attention_reference(q, k, v, cache_pos, start=0, hole=None, layer=Non
         mask = mask & ~((idx[None, :] >= hole[:, :1]) & (idx[None, :] < hole[:, 1:2]))
     mask = mask[:, None, :]
     scale = 1.0 / math.sqrt(q.shape[-1])
-    logits = torch.einsum("bhd,kbhd->bhk", q.float(), k.float()) * scale
-    logits = logits.masked_fill(~mask, float("-inf"))
+    logits = torch.einsum("bhd,kbhd->bhk", q.float(), k.float())
+    if k_scale is not None:
+        logits = logits * k_scale.permute(1, 2, 0)
+    logits = (logits * scale).masked_fill(~mask, float("-inf"))
     vals = v.float()
     if k_cur is not None:
         cur = (q.float() * k_cur.float()).sum(-1, keepdim=True) * scale     # (B, H, 1)
         logits = torch.cat([logits, cur], dim=-1)
-        vals = torch.cat([vals, v_cur.float()[None]], dim=0)
+        if k_scale is None:
+            vals = torch.cat([vals, v_cur.float()[None]], dim=0)
     w = torch.softmax(logits, dim=-1)
     if span is not None:
         w = torch.where(mask.any(-1, keepdim=True), w, torch.zeros_like(w))
-    return torch.einsum("bhk,kbhd->bhd", w, vals).to(q.dtype)
+    if k_scale is None:
+        return torch.einsum("bhk,kbhd->bhd", w, vals).to(q.dtype)
+    wl = (w[..., :lcache] * v_scale.permute(1, 2, 0)).to(q.dtype)
+    att = torch.einsum("bhk,kbhd->bhd", wl.float(), vals).to(q.dtype)
+    if k_cur is not None:
+        att = (att.float() + w[..., lcache:] * v_cur.float()).to(q.dtype)
+    return att
 
 
 def _exp2s(x):
@@ -159,7 +182,7 @@ def _merge(m, l, acc, dim):
 
 @torch.no_grad()
 def walk_reference(q, k, v, cache_pos, start=0, hole=None, layer=None, k_cur=None,
-                   v_cur=None, span=None):
+                   v_cur=None, span=None, k_scale=None, v_scale=None):
     """The kernels' schedule (csrc/flash_decode.cu over decode_walk.cuh)
     walked in plain PyTorch, fp32, for tests: each row's live range [start,
     walk_end] (or its span, clamped to the cache) cut into splits_for(B*H,
@@ -168,13 +191,19 @@ def walk_reference(q, k, v, cache_pos, start=0, hole=None, layer=None, k_cur=Non
     SPLIT_WARPS + w) * GROUPS + g; per warp one max a tile, exp2 with the
     scale folded in, one rescale a tile; the warps merged, then the splits
     by the last block (max-rescale, empty splits adding nothing); K1s's
-    current row folded in last. Arguments as decode_attention; returns (B,
-    H, D) in q's dtype. Nothing on a serving path calls it."""
-    k, v = _layer_slab(k, v, layer)
+    current row folded in last. An int8 cache (k_scale, v_scale) has
+    LOADS[torch.int8] keys a warp's slot, each score times its key's scale
+    and each value term's probability times its value's, l unscaled.
+    Arguments as decode_attention; returns (B, H, D) in q's dtype. Nothing
+    on a serving path calls it."""
+    k, v, k_scale, v_scale = _layer_slab(k, v, layer, k_scale, v_scale)
     lcache, b, h, d = k.shape
     bh, w_n = b * h, SPLIT_WARPS
     qf = q.float().reshape(bh, d)
     kf, vf = k.float().reshape(lcache, bh, d), v.float().reshape(lcache, bh, d)
+    ks = vs = torch.ones((lcache, bh))
+    if k_scale is not None:
+        ks, vs = k_scale.float().reshape(lcache, bh), v_scale.float().reshape(lcache, bh)
     lo_r, hi_r = _row_ranges(b, cache_pos, start, None if span is None else
                              torch.as_tensor(span).cpu(), k_cur is not None, "cpu")
     if span is not None:
@@ -186,8 +215,8 @@ def walk_reference(q, k, v, cache_pos, start=0, hole=None, layer=None, k_cur=Non
         hole = torch.as_tensor(hole, dtype=torch.long).cpu()
         hole_lo, hole_hi = hole[:, 0].repeat_interleave(h), hole[:, 1].repeat_interleave(h)
     n_splits = splits_for(bh, lcache)
-    tile = w_n * LOADS[q.dtype] * GROUPS
-    slot = torch.arange(tile).reshape(LOADS[q.dtype], w_n, GROUPS).transpose(0, 1)
+    tile = w_n * LOADS[k.dtype] * GROUPS
+    slot = torch.arange(tile).reshape(LOADS[k.dtype], w_n, GROUPS).transpose(0, 1)
     slot = slot.reshape(w_n, -1)                        # (warp, its keys in a tile)
     live_n = (end_bh - start_bh + 1).clamp_min(0)
     per = -(-live_n // n_splits)                        # (BH,) slots a split
@@ -206,14 +235,16 @@ def walk_reference(q, k, v, cache_pos, start=0, hole=None, layer=None, k_cur=Non
             live = (j <= hi[:, None, None]) & ((j < hole_lo[:, None, None])
                                                | (j >= hole_hi[:, None, None]))
             jc = j.clamp(0, lcache - 1)
-            sc = torch.einsum("bd,bwkd->bwk", qf, kf[jc, rows]).masked_fill(~live, -math.inf)
+            sc = (torch.einsum("bd,bwkd->bwk", qf, kf[jc, rows]) * ks[jc, rows]
+                  ).masked_fill(~live, -math.inf)
             m_new = torch.maximum(m, sc.amax(-1))
             keep = m_new == -math.inf                       # nothing live yet: no change
             alpha = torch.where(keep, torch.ones_like(m), _exp2s(m - m_new))
             p = torch.where(keep[..., None], torch.zeros_like(sc),
                             _exp2s(sc - m_new[..., None]))
             l = l * alpha + p.sum(-1)
-            acc = acc * alpha[..., None] + torch.einsum("bwk,bwkd->bwd", p, vf[jc, rows])
+            acc = acc * alpha[..., None] + torch.einsum("bwk,bwkd->bwd", p * vs[jc, rows],
+                                                        vf[jc, rows])
             m = torch.where(keep, m, m_new)
         parts.append(_merge(m, l, acc, 1))                 # the block's warps
     mb, lb, ab = _merge(*(torch.stack(x, 1) for x in zip(*parts)), 1)   # the last block
@@ -238,19 +269,26 @@ def _check_rows(name, t, q):
                          "(B, 2) int32 tensor on q's device")
 
 
-def _check(q, k, v, hole, k_cur, v_cur, span):
+def _check(q, k, v, hole, k_cur, v_cur, span, k_scale, v_scale):
     if q.device.type != "cuda":
         raise ValueError(f"decode_attention: unsupported device {q.device}")
-    pairs = [("k", k), ("v", v)]
+    int8 = k_scale is not None
+    cache_dtype = torch.int8 if int8 else q.dtype
+    pairs = [("k", k, cache_dtype), ("v", v, cache_dtype)]
     if k_cur is not None:
-        pairs += [("k_cur", k_cur), ("v_cur", v_cur)]
-    for name, t in pairs:
+        pairs += [("k_cur", k_cur, q.dtype), ("v_cur", v_cur, q.dtype)]
+    if int8:
+        pairs += [("k_scale", k_scale, torch.float32), ("v_scale", v_scale, torch.float32)]
+    for name, t, dtype in pairs:
         if t.device != q.device:
             raise ValueError(f"decode_attention: {name} on {t.device}, q on {q.device}")
-        if t.dtype != q.dtype:
-            raise ValueError(f"decode_attention: {name} dtype {t.dtype} != q dtype {q.dtype}")
+        if t.dtype != dtype:
+            raise ValueError(f"decode_attention: {name} dtype {t.dtype}, want {dtype} "
+                             f"(q {q.dtype}{', int8 cache' if int8 else ''})")
         if not t.is_contiguous():
             raise ValueError(f"decode_attention: {name} must be contiguous")
+    if int8 and (k_scale.shape != k.shape[:-1] or v_scale.shape != k.shape[:-1]):
+        raise ValueError(f"decode_attention: k_scale, v_scale must be {tuple(k.shape[:-1])}")
     if q.dtype not in _DTYPE_CODE:
         raise ValueError(f"decode_attention: dtype {q.dtype} not supported "
                          f"(float32, bfloat16)")
@@ -270,7 +308,7 @@ def _check(q, k, v, hole, k_cur, v_cur, span):
 
 
 def decode_attention(q, k, v, cache_pos, start=0, hole=None, layer=None,
-                     k_cur=None, v_cur=None, span=None):
+                     k_cur=None, v_cur=None, span=None, k_scale=None, v_scale=None):
     """q (B, H, D); k, v (Lc, B, H, D) one layer's cache, or the stacked
     (nL, Lc, B, H, D) cache with `layer`. Attends slots [start, cache_pos]
     minus each row's optional hole [lo, hi) (hole: (B, 2) int32); with
@@ -279,20 +317,29 @@ def decode_attention(q, k, v, cache_pos, start=0, hole=None, layer=None,
     only) row b attends [span[b, 0], span[b, 1]] minus its hole instead, and
     a row with no live key gives 0; the span is read on the device (no
     check of its values on the host: the kernel clamps it to the cache).
-    Returns (B, H, D) in q's dtype.
+    k_scale, v_scale ((Lc, B, H), or (nL, Lc, B, H) beside a stacked cache;
+    fp32): k and v are an int8 cache with these scales (the int8 entry);
+    q, k_cur and v_cur keep their float dtype. Returns (B, H, D) in q's
+    dtype.
 
     CPU tensors take the plain version; CUDA tensors launch the kernel or
     raise. A launch adds one to `decode_attention.launches` (K1) or, with
-    k_cur/v_cur, to `decode_attention.launches_deferred` (K1s)."""
+    k_cur/v_cur, to `decode_attention.launches_deferred` (K1s); with an
+    int8 cache to `launches_int8` or `launches_int8_deferred` instead."""
     if (k_cur is None) != (v_cur is None):
         raise ValueError("decode_attention: give both k_cur and v_cur, or neither")
+    if (k_scale is None) != (v_scale is None):
+        raise ValueError("decode_attention: give both k_scale and v_scale, or neither")
+    if (k.dtype == torch.int8) != (k_scale is not None):
+        raise ValueError("decode_attention: an int8 cache needs its k_scale and v_scale, "
+                         "and only an int8 cache takes them")
     if span is not None and k_cur is not None:
         raise ValueError("decode_attention: a per-row span is K1's; the deferred entry "
                          "takes none")
     if q.device.type == "cpu":
         return decode_attention_reference(q, k, v, cache_pos, start, hole, layer, k_cur,
-                                          v_cur, span)
-    _check(q, k, v, hole, k_cur, v_cur, span)
+                                          v_cur, span, k_scale, v_scale)
+    _check(q, k, v, hole, k_cur, v_cur, span, k_scale, v_scale)
     cache_pos, start = int(cache_pos), int(start)
     n_layers = k.shape[0] if k.dim() == 5 else 1
     layer = 0 if k.dim() == 4 else int(layer)
@@ -308,8 +355,10 @@ def decode_attention(q, k, v, cache_pos, start=0, hole=None, layer=None,
     out = torch.empty_like(q)
     stream = torch.cuda.current_stream(q.device).cuda_stream
     deferred = k_cur is not None
+    int8 = k_scale is not None
     rc = lib.cbx_flash_decode(
         q.data_ptr(), k.data_ptr(), v.data_ptr(),
+        k_scale.data_ptr() if int8 else None, v_scale.data_ptr() if int8 else None,
         None if hole is None else hole.data_ptr(),
         None if span is None else span.data_ptr(),
         k_cur.data_ptr() if deferred else None, v_cur.data_ptr() if deferred else None,
@@ -318,12 +367,12 @@ def decode_attention(q, k, v, cache_pos, start=0, hole=None, layer=None,
         _DTYPE_CODE[q.dtype], stream)
     if rc != 0:
         raise RuntimeError(f"flash_decode kernel launch failed: cudaError {rc}")
-    if deferred:
-        decode_attention.launches_deferred += 1
-    else:
-        decode_attention.launches += 1
+    counter = ("launches_int8" if int8 else "launches") + ("_deferred" if deferred else "")
+    setattr(decode_attention, counter, getattr(decode_attention, counter) + 1)
     return out
 
 
 decode_attention.launches = 0
 decode_attention.launches_deferred = 0
+decode_attention.launches_int8 = 0
+decode_attention.launches_int8_deferred = 0

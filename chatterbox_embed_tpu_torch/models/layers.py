@@ -6,7 +6,8 @@ JAX package's tree layout, so each function reads like its JAX counterpart
 and the tests compare like with like. Public layouts stay channel-last.
 
 Parameter layouts (what `weights.from_jax_params` produces):
-- Linear:    {"w": (in, out), "b": (out,)?}       y = x @ w + b (as in JAX)
+- Linear:    {"w": (in, out), "b": (out,)?}       y = x @ w + b (as in JAX);
+             int8: {"w_q": (in, out) int8, "scale": (1, out) fp32, "b"?}
 - Conv1d:    {"w": (out, in/groups, width), "b"}  torch's layout for F.conv1d
 - Conv2d:    {"w": (out, in, kh, kw), "b"}        torch's layout for F.conv2d
 - ConvT1d:   {"w": (in, out, width), "b"}         torch's layout for F.conv_transpose1d
@@ -108,11 +109,40 @@ def conv2d_init(init: Init, kh, kw, d_in, d_out, bias=True):
 # ---------------------------------------------------------------------------
 
 def linear(p, x, dtype=None):
+    """y = x @ w (+ b) in the compute dtype. An int8 linear ({"w_q",
+    "scale"}, `quantize_linear`) dequantises its weight first, as the JAX
+    package's `linear` does: w = w_q * scale with the product rounded to
+    the compute dtype, then the same matmul (XLA's product there, outside
+    any kernel; torch.matmul here)."""
     d = dtype or x.dtype
-    y = torch.matmul(x.to(d), _cast(p["w"], d))
+    if "w_q" in p:
+        w = p["w_q"].to(d) * _cast(p["scale"], d)
+    else:
+        w = _cast(p["w"], d)
+    y = torch.matmul(x.to(d), w)
     if "b" in p:
         y = y + _cast(p["b"], y.dtype)
     return y
+
+
+def quantize_linear(p, axis: int = 0):
+    """fp weight dict -> int8 dict {w_q, scale(, b)}; symmetric per output
+    channel. The port's copy of `chatterbox_embed_tpu/models/layers.py:
+    quantize_linear` with its arithmetic: scale = amax / 127 + 1e-12 in fp32,
+    w_q = clip(round(w / scale), -127, 127) with round-half-to-even
+    (np.round's and torch.round's). It runs in torch, on the weight's
+    device, with both divisions tensor by tensor (IEEE's correctly rounded
+    division, as numpy's; torch on CUDA multiplies by a Python scalar's
+    reciprocal instead), so a tree on the card quantises there. The bias is
+    kept as it is."""
+    w = p["w"].detach().float()
+    amax = w.abs().amax(dim=axis, keepdim=True)
+    scale = amax / torch.full_like(amax, 127.0) + 1e-12
+    w_q = torch.round(w / scale).clamp(-127, 127).to(torch.int8)
+    out = {"w_q": w_q, "scale": scale}
+    if "b" in p:
+        out["b"] = p["b"]
+    return out
 
 
 def embedding(p, ids):

@@ -13,8 +13,8 @@
   a decode step defers its cache writes: each layer attends through the
   kernel's deferred-insert entry (the stacked cache with `layer`, the
   current k/v row folded in) and all layers' rows land in one stacked write
-  after the loop. Only the JAX package's flash branch of that path applies:
-  the port has no int8 cache or phased reads;
+  after the loop (the JAX package's flash branch of that path; the port
+  has no phased reads, which its kernels would not use: models/t3.py);
 - without a cache (the teacher-forced training forward) every layer runs
   plain attention under the given mask, each under torch.utils.checkpoint
   with `remat`. Under a tp mesh it runs this rank's H/tp heads and its
@@ -39,8 +39,16 @@
   before the residual add (the psum GSPMD inserts in the JAX package). The
   spy's head mean is each rank's partial mean, weighted (H/tp)/H and
   summed over tp;
-- the int8 cache of the JAX package (CHATTERBOX_INT8_KV=1|2) is ROADMAP
-  item 22: a cache is refused while that setting asks for it.
+- the int8 KV cache (CHATTERBOX_INT8_KV=1, the JAX package's mode 1): k/v
+  int8 with one fp32 scale a (slot, row, head), amax / 127 + 1e-12, the
+  values rounded half to even. Every write quantises (the block write of a
+  prefill or an insert-first step, the deferred stacked write after the
+  loop, whose current row each layer folds in unquantised); a decode layer
+  reads it through K1's or K1s's int8 entry, the spy layer by the JAX
+  package's formula with both scales factored out of the dots, and a
+  multi-token forward over the cache dequantises k/v x scale in the
+  compute dtype. Mode 2 (int8 x int8 dots) is not ported: the JAX package
+  measured it and rejected it (ROADMAP, not to port).
 """
 from __future__ import annotations
 
@@ -59,9 +67,12 @@ from . import layers as L
 
 
 class KVCache(NamedTuple):
-    """(layers, L, B, H, D) k and v, updated in place by `forward`."""
+    """(layers, L, B, H, D) k and v, updated in place by `forward`; for an
+    int8 cache also their (layers, L, B, H) fp32 scales (None otherwise)."""
     k: torch.Tensor
     v: torch.Tensor
+    k_scale: Optional[torch.Tensor] = None
+    v_scale: Optional[torch.Tensor] = None
 
 
 def init(init: L.Init, cfg: LlamaConfig = LlamaConfig()):
@@ -123,35 +134,78 @@ def apply_rope(x, cos, sin):
 # ---------------------------------------------------------------------------
 
 def _kv_int8_mode() -> int:
-    """CHATTERBOX_INT8_KV, read where the JAX package reads it (at every
-    cache it makes): unset or 0 is the compute-dtype cache; 1 and 2, the
-    JAX package's int8 caches, raise until ROADMAP item 22 ports them. On a
-    GPU the port defaults to no int8 (the JAX default of 1 is a TPU's)."""
+    """CHATTERBOX_INT8_KV, read at call time where the JAX package reads
+    it (each generation's and engine's cache): unset or 0 is the
+    compute-dtype cache, 1 the int8 cache. 2, the JAX package's int8 x int8
+    dots, raises: it is on ROADMAP's not-to-port list (measured and
+    rejected there as slower than mode 1). On a GPU the default is 0 (the
+    JAX default of 1 is a TPU's)."""
     env = os.getenv("CHATTERBOX_INT8_KV")
     if env is None or env.strip() == "0":
         return 0
-    if env.strip() in ("1", "2"):
+    if env.strip() == "1":
+        return 1
+    if env.strip() == "2":
         raise NotImplementedError(
-            f"CHATTERBOX_INT8_KV={env}: the int8 KV cache is not ported yet (ROADMAP "
-            "item 22); unset it or set 0")
+            "CHATTERBOX_INT8_KV=2: int8 x int8 decode dots are on ROADMAP's not-to-port "
+            "list (the JAX package measured them slower than mode 1); set 1 or 0")
     raise ValueError(f"CHATTERBOX_INT8_KV={env!r}: want 0, 1 or 2")
 
 
 def kv_heads(params, cfg: LlamaConfig) -> int:
     """K/V heads of a backbone's params: cfg.num_kv_heads, or this rank's
     share of them for a tp shard (the k projection's width)."""
-    return params["layers"][0]["k"]["w"].shape[1] // cfg.head_dim
+    k = params["layers"][0]["k"]
+    return k["w_q" if "w_q" in k else "w"].shape[1] // cfg.head_dim
 
 
 def init_cache(cfg: LlamaConfig, batch: int, max_len: int, dtype=torch.float32,
                device=None, heads: Optional[int] = None) -> KVCache:
     """Zero (layers, max_len, batch, heads, D) k and v; heads defaults to
-    cfg.num_kv_heads (a tp rank passes its share, `kv_heads`)."""
-    _kv_int8_mode()
+    cfg.num_kv_heads (a tp rank passes its share, `kv_heads`). dtype
+    torch.int8 makes the int8 cache, with zero (layers, max_len, batch,
+    heads) fp32 scale planes."""
     device = resolve_device(device)
     shape = (cfg.num_layers, max_len, batch, heads or cfg.num_kv_heads, cfg.head_dim)
+    scales = ()
+    if dtype == torch.int8:
+        scales = tuple(torch.zeros(shape[:-1], dtype=torch.float32, device=device)
+                       for _ in range(2))
     return KVCache(torch.zeros(shape, dtype=dtype, device=device),
-                   torch.zeros(shape, dtype=dtype, device=device))
+                   torch.zeros(shape, dtype=dtype, device=device), *scales)
+
+
+def quantize_kv(x: torch.Tensor):
+    """Rows (..., D) -> (int8 rows, fp32 scales (...)): scale = amax / 127 +
+    1e-12 over the row, int8 = round(x / scale) half to even (the JAX
+    package's int8 cache writes)."""
+    xf = x.float()
+    s = xf.abs().amax(dim=-1) / 127.0 + 1e-12
+    return torch.round(xf / s[..., None]).to(torch.int8), s
+
+
+def _write(cache: KVCache, idx, k_rows, v_rows) -> None:
+    """cache.k[idx] = k_rows and cache.v[idx] = v_rows, quantised (with
+    their scales) into an int8 cache."""
+    if cache.k_scale is None:
+        cache.k[idx] = k_rows.to(cache.k.dtype)
+        cache.v[idx] = v_rows.to(cache.v.dtype)
+        return
+    for slab, plane, rows in ((cache.k, cache.k_scale, k_rows),
+                              (cache.v, cache.v_scale, v_rows)):
+        q, s = quantize_kv(rows)
+        slab[idx] = q
+        plane[idx] = s
+
+
+def _read(cache: KVCache, i: int, dtype):
+    """Layer i's k and v as (B, L, H, D) in `dtype`; an int8 cache's
+    dequantised, x scale in the compute dtype."""
+    k, v = cache.k[i].transpose(0, 1).to(dtype), cache.v[i].transpose(0, 1).to(dtype)
+    if cache.k_scale is not None:
+        k = k * cache.k_scale[i].transpose(0, 1)[..., None].to(dtype)
+        v = v * cache.v_scale[i].transpose(0, 1)[..., None].to(dtype)
+    return k, v
 
 
 def _defer_kv_enabled() -> bool:
@@ -262,54 +316,58 @@ def forward(params, x: torch.Tensor, pos_ids: torch.Tensor,
                 h = _layer(lp, h, cos, sin, mask4, cfg, dtype, tp)
         return L.rms_norm(params["norm"], h, cfg.rms_norm_eps), None
 
+    int8 = cache.k_scale is not None
     for i, lp in enumerate(params["layers"]):
         q, k, v = _qkv(lp, h, cos, sin, cfg, dtype)
+        scales = (dict(k_scale=cache.k_scale[i], v_scale=cache.v_scale[i]) if int8
+                  else {})
 
         if not defer:
             # insert-first, in place: slots [cache_pos, cache_pos + T) of
-            # layer i take this block's rows
-            cache.k[i, cache_pos:cache_pos + t] = k.transpose(0, 1).to(cache.k.dtype)
-            cache.v[i, cache_pos:cache_pos + t] = v.transpose(0, 1).to(cache.v.dtype)
+            # layer i take this block's rows (quantised into an int8 cache)
+            _write(cache, (i, slice(cache_pos, cache_pos + t)), k.transpose(0, 1),
+                   v.transpose(0, 1))
         if defer:
-            # the current row joins the softmax as one more key; slot
-            # cache_pos is written for every layer after the loop
-            k_cur = k[:, 0].to(cache.k.dtype).contiguous()
-            v_cur = v[:, 0].to(cache.v.dtype).contiguous()
+            # the current row joins the softmax as one more key, in the
+            # compute dtype; slot cache_pos is written for every layer after
+            # the loop
+            k_cur = k[:, 0].to(dtype if int8 else cache.k.dtype).contiguous()
+            v_cur = v[:, 0].to(dtype if int8 else cache.v.dtype).contiguous()
             new_ks.append(k_cur)
             new_vs.append(v_cur)
         if decode and i == collect_attn_layer:
             att, attn_row = _spy_attention(
                 q[:, 0], cache.k[i], cache.v[i], cache_pos, flash_start, flash_hole,
-                k_cur if defer else None, v_cur if defer else None)
+                k_cur if defer else None, v_cur if defer else None, **scales)
             att = att[:, None]
             if tp is not None:
                 attn_row = tp.sum_tp(attn_row * (q.shape[2] / cfg.num_heads))
         elif defer:
+            stacked = dict(k_scale=cache.k_scale, v_scale=cache.v_scale) if int8 else {}
             att = decode_attention(q[:, 0].contiguous(), cache.k, cache.v, cache_pos,
                                    start=flash_start, hole=flash_hole, layer=i,
-                                   k_cur=k_cur, v_cur=v_cur)[:, None]
+                                   k_cur=k_cur, v_cur=v_cur, **stacked)[:, None]
         elif decode:
             att = decode_attention(q[:, 0], cache.k[i], cache.v[i], cache_pos,
                                    start=flash_start, hole=flash_hole,
-                                   span=flash_span)[:, None]
+                                   span=flash_span, **scales)[:, None]
         else:
-            k_att = cache.k[i].transpose(0, 1).to(dtype)         # (B, L, H, D)
-            v_att = cache.v[i].transpose(0, 1).to(dtype)
+            k_att, v_att = _read(cache, i, dtype)                # (B, L, H, D)
             att = L.mha(q, k_att, v_att, mask=mask4)
         h = h + _sum_tp(L.linear(lp["o"], L.merge_heads(att), dtype), tp)
         h = _mlp(lp, h, cfg, dtype, tp)
 
     if defer:
         # one stacked write of all layers' rows at slot cache_pos
-        cache.k[:, cache_pos] = torch.stack(new_ks)
-        cache.v[:, cache_pos] = torch.stack(new_vs)
+        _write(cache, (slice(None), cache_pos), torch.stack(new_ks), torch.stack(new_vs))
     h = L.rms_norm(params["norm"], h, cfg.rms_norm_eps)
     if collect_attn_layer is not None:
         return h, cache, attn_row
     return h, cache
 
 
-def _spy_attention(q, k, v, cache_pos: int, start: int, hole, k_cur=None, v_cur=None):
+def _spy_attention(q, k, v, cache_pos: int, start: int, hole, k_cur=None, v_cur=None,
+                   k_scale=None, v_scale=None):
     """The alignment spy layer's decode attention, plain: q (B, H, D) over
     one layer's cache k, v (Lc, B, H, D), slots [start, cache_pos] minus
     each row's hole [lo, hi), logits and softmax in fp32 (the JAX package's
@@ -317,6 +375,9 @@ def _spy_attention(q, k, v, cache_pos: int, start: int, hole, k_cur=None, v_cur=
     end at cache_pos - 1 and the current row is one more key, whose
     probability is folded back into slot cache_pos of the row, as the JAX
     package's `_spy_row` does. Only the live prefix [0, cache_pos] is read.
+    An int8 cache's (Lc, B, H) scales factor out of both dots as in the JAX
+    package (llama.py:418-440): logits (q . kq) * ks / sqrt(D), then
+    (w * vs) in q's dtype times vq.
 
     Returns (att (B, H, D) in q's dtype, head-mean probabilities (B, Lc)
     fp32 over cache coordinates)."""
@@ -330,7 +391,10 @@ def _spy_attention(q, k, v, cache_pos: int, start: int, hole, k_cur=None, v_cur=
         hole = hole.to(dev).long()
         valid = valid & ~((kidx[None] >= hole[:, :1]) & (kidx[None] < hole[:, 1:]))
     scale = float(np.sqrt(q.shape[-1]))
-    logits = torch.einsum("bhd,lbhd->bhl", q.float(), k[:n].float()) / scale
+    logits = torch.einsum("bhd,lbhd->bhl", q.float(), k[:n].float())
+    if k_scale is not None:
+        logits = logits * k_scale[:n].permute(1, 2, 0)
+    logits = logits / scale
     logits = torch.where(valid[:, None, :], logits,
                          torch.tensor(-1e10, dtype=torch.float32, device=dev))
     if k_cur is not None:
@@ -339,8 +403,12 @@ def _spy_attention(q, k, v, cache_pos: int, start: int, hole, k_cur=None, v_cur=
     w = torch.softmax(logits, dim=-1)
     row = torch.zeros((q.shape[0], lc), dtype=torch.float32, device=dev)
     row[:, :n] = w[..., :n].mean(dim=1)
-    att = torch.einsum("bhl,lbhd->bhd", w[..., :n].to(v.dtype), v[:n])
+    wl = w[..., :n]
+    if v_scale is not None:
+        wl = wl * v_scale[:n].permute(1, 2, 0)
+    cdt = q.dtype if v_scale is not None else v.dtype
+    att = torch.einsum("bhl,lbhd->bhd", wl.to(cdt), v[:n].to(cdt))
     if k_cur is not None:
         row[:, cache_pos] += w[..., n].mean(dim=1)
-        att = (att.float() + w[..., n:] * v_cur.float()).to(v.dtype)
+        att = (att.float() + w[..., n:] * v_cur.float()).to(cdt)
     return att.to(q.dtype), row

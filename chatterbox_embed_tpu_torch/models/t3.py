@@ -16,11 +16,21 @@ counterpart of `chatterbox_embed_tpu/models/t3.py`: one utterance
   the output is cut after the first one, so the tokens are those of a
   per-step check. Step i draws its Gumbel noise by its global index.
 - Under CHATTERBOX_FUSED_STEP=1 a decode step of unragged rows runs the
-  whole backbone in one fused kernel (K4, `kernels/fused_decode.py`).
+  whole backbone in one fused kernel (K4, `kernels/fused_decode.py`), when
+  the backbone's weights are not int8 (K4 streams a bf16 wall).
 - Every decode step's attention runs in a kernel that walks only the live
   cache slots (the flash-decode kernel in llama.forward at every row count,
   or the fused step), so the cache capacity is rounded up to a multiple of
-  256 as the JAX package does when its kernels are on (t3.py:756).
+  256 as the JAX package does when its kernels are on (t3.py:756). For the
+  same reason the JAX package's phased reads (early decode phases reading
+  a shorter prefix of the cache) buy nothing here: `_phased_cache_k` is
+  kept for its derivation, and `phase_totals` is always [cache_total].
+- CHATTERBOX_INT8_KV=1 (read at call time) keeps the cache in int8 with
+  per-(slot, row, head) scales (models/llama.py) at every row count, except
+  under the fused step, which walks its own cache in the compute dtype
+  (the JAX package's rule, whose XLA-only int8 cache also yields to its
+  Pallas decode kernel; the port's K1 reads int8). The utterance cap then
+  doubles and the fence counts the scale planes too.
 - Sampling parameters are one value for every row or one per utterance
   (ops/sampling.py:SamplingParams); each sub-batch of `generate_batch`
   draws from its own source.
@@ -373,16 +383,17 @@ class DecodeState(NamedTuple):
 def prefill(params, context, cfg: T3Config, total: int, pad_len: int,
             cfg_on: bool = True, dtype=torch.float32,
             key_valid: Optional[torch.Tensor] = None, mesh=None,
-            n_utt: Optional[int] = None) -> DecodeState:
+            n_utt: Optional[int] = None, kv_int8: bool = False) -> DecodeState:
     """Full-context forward filling a static cache of capacity `total`;
     context (B, P, D) has `pad_len` masked junk slots on the LEFT.
     key_valid: optional (B, total) bool that also masks each row's
     right-padded text keys. mesh: the tp mesh of the params' shards (the
     rows are the caller's: this rank's, under dp). n_utt: utterances of
-    the counts and done flags (default B / 2 under CFG, else B)."""
+    the counts and done flags (default B / 2 under CFG, else B). kv_int8:
+    the cache is int8 with its scale planes (models/llama.py)."""
     b, p_len, _ = context.shape
     dev = context.device
-    cache = llama.init_cache(cfg.llama, b, total, dtype, dev,
+    cache = llama.init_cache(cfg.llama, b, total, torch.int8 if kv_int8 else dtype, dev,
                              heads=llama.kv_heads(params["llama"], cfg.llama))
     idx = torch.arange(p_len, device=dev)
     kidx = torch.arange(total, device=dev)
@@ -429,23 +440,74 @@ def free_device_bytes(device) -> Optional[int]:
     return int(torch.cuda.mem_get_info(device)[0])
 
 
+def kv_bytes_per_token_row(cfg: Optional[T3Config] = None, dtype=torch.bfloat16,
+                           kv_int8: bool = False) -> int:
+    """Bytes of KV cache one row holds for one token: k and v of every
+    layer and head, L * 2 * H * D in `dtype`; an int8 cache holds L * 2 * H *
+    (D + 4), its fp32 scale planes counted (the JAX package's fence leaves
+    them out, ROADMAP's reference fault 3)."""
+    lcfg = (cfg or T3Config()).llama
+    if kv_int8:
+        return lcfg.num_layers * 2 * lcfg.num_kv_heads * (lcfg.head_dim + 4)
+    itemsize = torch.empty((), dtype=dtype).element_size()
+    return lcfg.num_layers * 2 * lcfg.num_kv_heads * lcfg.head_dim * itemsize
+
+
 def max_decode_utterances(cache_capacity: Optional[int] = None, *,
                           rows_per_utt: int = 2, cfg: Optional[T3Config] = None,
-                          dtype=torch.bfloat16,
-                          free_bytes: Optional[int] = None) -> int:
-    """Utterances one lock-step decode may hold: MAX_DECODE_UTTERANCES,
-    and with a cache capacity and the device's free bytes, no more than
-    KV_FENCE_FRACTION of those bytes of KV cache (rows x capacity x bytes
-    per token-row in `dtype`), snapped down to a power of two. rows_per_utt
-    is 2 under CFG, 1 otherwise."""
+                          dtype=torch.bfloat16, free_bytes: Optional[int] = None,
+                          kv_int8: Optional[bool] = None) -> int:
+    """Utterances one lock-step decode may hold: MAX_DECODE_UTTERANCES (twice
+    that for an int8 cache, as in the JAX package), and with a cache
+    capacity and the device's free bytes, no more than KV_FENCE_FRACTION of
+    those bytes of KV cache (rows x capacity x kv_bytes_per_token_row),
+    snapped down to a power of two. rows_per_utt is 2 under CFG, 1
+    otherwise. kv_int8: the cache the caller allocates (None: the
+    CHATTERBOX_INT8_KV setting's)."""
+    if kv_int8 is None:
+        kv_int8 = llama._kv_int8_mode() > 0
+    base = 2 * MAX_DECODE_UTTERANCES if kv_int8 else MAX_DECODE_UTTERANCES
     if not cache_capacity or free_bytes is None:
-        return MAX_DECODE_UTTERANCES
-    lcfg = (cfg or T3Config()).llama
-    itemsize = torch.empty((), dtype=dtype).element_size()
-    per_token_row = lcfg.num_layers * 2 * lcfg.num_kv_heads * lcfg.head_dim * itemsize
+        return base
+    per_token_row = kv_bytes_per_token_row(cfg, dtype, kv_int8)
     rows = int(free_bytes * KV_FENCE_FRACTION) // max(int(cache_capacity) * per_token_row, 1)
     utts = max(rows // max(rows_per_utt, 1), 1)
-    return min(MAX_DECODE_UTTERANCES, 1 << (utts.bit_length() - 1))
+    return min(base, 1 << (utts.bit_length() - 1))
+
+
+# The JAX package's phased-cache derivation (t3.py:519-567): its batched XLA
+# decode reads the WHOLE static cache capacity every step, so it decodes in
+# K phases whose attention reads successively longer prefixes. The port's
+# decode attention (K1, K1s, K4) walks only the live slots [start, pos] at
+# every row count, so phases would save nothing it does not skip already
+# (ROADMAP item 22: at Lc 1280, pos 961, B = 16, K1 reads 62.0 MB where the
+# whole capacity is ~83.9 MB). The derivation is kept, and start_generation
+# records the one phase it decodes in (`phase_totals`).
+_PHASED_MIN_CAP = 600
+_PHASED_PHASE_LEN = 256
+_phased_env_warned = False
+
+
+def _phased_cache_k(gen_cap: int = 0) -> int:
+    """The JAX package's phase count for a generation cap:
+    CHATTERBOX_PHASED_CACHE when it parses as an integer (0 or 1: one
+    phase); unset or empty, ceil(gen_cap / 256) from a cap of 600 up and 0
+    below. An unparseable value warns once and falls back to the
+    derivation."""
+    raw = os.getenv("CHATTERBOX_PHASED_CACHE", "").strip()
+    if raw:
+        try:
+            return int(raw)
+        except ValueError:
+            global _phased_env_warned
+            if not _phased_env_warned:
+                _phased_env_warned = True
+                import warnings
+                warnings.warn(f"CHATTERBOX_PHASED_CACHE={raw!r} is not an integer; "
+                              "falling back to the derived phase count")
+    if gen_cap < _PHASED_MIN_CAP:
+        return 0
+    return -(-gen_cap // _PHASED_PHASE_LEN)
 
 
 def _cfg_on(cfg_weight) -> bool:
@@ -466,6 +528,23 @@ def _use_fused_step() -> bool:
     """CHATTERBOX_FUSED_STEP=1 (read at call time): the decode step runs the
     whole backbone as one fused kernel (kernels/fused_decode.py, K4)."""
     return os.getenv("CHATTERBOX_FUSED_STEP", "0") == "1"
+
+
+def fused_weights(params) -> bool:
+    """Whether K4 can stack this backbone's wall: its linears hold "w" (an
+    int8 backbone holds w_q and scale; K4 streams bf16 only, as the JAX
+    package's gate at t3.py:740-741)."""
+    return "w" in params["llama"]["layers"][0]["q"]
+
+
+def _fused_gate(params, cfg: T3Config, n_utt: int, cfg_on: bool, alignment: bool,
+                mesh) -> bool:
+    """K4's gates that hold before any row is seen: the setting, no mesh,
+    no guard, at most FUSED_STEP_MAX_UTTERANCES, a bf16-able backbone and
+    a row count `fused_decode.plan` takes. Ragged rows turn it off later."""
+    return (mesh is None and _use_fused_step() and not alignment
+            and n_utt <= FUSED_STEP_MAX_UTTERANCES and fused_weights(params)
+            and fused_decode.plan(cfg.llama, (2 if cfg_on else 1) * n_utt) is not None)
 
 
 # utterances (lock-step rows / 2 under CFG) up to which the fused step
@@ -498,7 +577,8 @@ def _mesh_rows(params, cond, text_tokens, *, mesh, cfg_weight=0.0, **_):
 
 # start_generation's decisions for the last decode (the JAX package's
 # LAST_GENERATION_INFO): p_len, cache_total, n_utt, alignment, use_fused,
-# and the mesh's shape (None without one)
+# kv_int8, phase_totals ([cache_total]: one phase, module docstring) and the
+# mesh's shape (None without one)
 LAST_GENERATION_INFO: dict = {}
 
 
@@ -513,10 +593,10 @@ def start_generation(params, cond: T3Cond, text_tokens: np.ndarray, *,
     above max_decode_utterances, whose fence reads `free_bytes` (default:
     the device's free memory now); generate_batch sub-batches below it.
     Returns (state, info) with the decode's p_len, pad, cfg_on,
-    cache_total, the K1 hole (or None), use_fused, the fused step's weights
-    (or None), the guard's align_layer, text_start and per-row text_len
-    (None without `alignment`), the mesh and this rank's rows [r0, r1) of
-    the context.
+    cache_total, the K1 hole (or None), use_fused, kv_int8, phase_totals,
+    the fused step's weights (or None), the guard's align_layer, text_start
+    and per-row text_len (None without `alignment`), the mesh and this
+    rank's rows [r0, r1) of the context.
 
     mesh: the rows split over dp and the params are each rank's shard
     (module docstring); no fence applies. Called on the leader, the prefill
@@ -526,10 +606,12 @@ def start_generation(params, cond: T3Cond, text_tokens: np.ndarray, *,
 
     The fused step (K4) serves when CHATTERBOX_FUSED_STEP=1, at most
     FUSED_STEP_MAX_UTTERANCES utterances, a config `fused_decode.plan`
-    takes, and unragged rows: its RoPE position is one for every row, and
-    it attends [pad, pos] with no hole. These gates decide before any
-    launch. Under `alignment` it is off: the guard's spy layer runs plain
-    attention."""
+    takes, weights that are not int8, and unragged rows: its RoPE position
+    is one for every row, and it attends [pad, pos] with no hole. These
+    gates decide before any launch. Under `alignment` it is off: the
+    guard's spy layer runs plain attention. The cache is int8 when
+    CHATTERBOX_INT8_KV=1 and K4 is off; the fence counts the cache this
+    decode allocates."""
     device = resolve_device(device)
     tt_np = np.atleast_2d(np.asarray(text_tokens, np.int32))
     u, lt = tt_np.shape
@@ -542,17 +624,8 @@ def start_generation(params, cond: T3Cond, text_tokens: np.ndarray, *,
                          f"{cfg.max_speech_seq_len} speech positions")
     cfg_on = _cfg_on(cfg_weight)
     pad, p_len, cap = _capacity(lt, cond, cfg, cfg_on, max_new_tokens)
-    if mesh is None:
-        if free_bytes is None:
-            free_bytes = free_device_bytes(device)
-        cap_utt = max_decode_utterances(cap, rows_per_utt=2 if cfg_on else 1, cfg=cfg,
-                                        dtype=dtype, free_bytes=free_bytes)
-        if u > cap_utt:
-            raise ValueError(f"{u} utterances > max_decode_utterances({cap})={cap_utt} for "
-                             f"one lock-step decode; generate_batch sub-batches")
-    use_fused = (mesh is None and _use_fused_step() and not alignment
-                 and u <= FUSED_STEP_MAX_UTTERANCES
-                 and fused_decode.plan(cfg.llama, (2 if cfg_on else 1) * u) is not None)
+    kv_mode = llama._kv_int8_mode()
+    use_fused = _fused_gate(params, cfg, u, cfg_on, alignment, mesh)
     align_layer = text_start = text_len = None
     if alignment:
         align_layer = min(ALIGNMENT_LAYER, cfg.llama.num_layers - 1)
@@ -576,6 +649,15 @@ def start_generation(params, cond: T3Cond, text_tokens: np.ndarray, *,
             key_valid = ~((kidx[None] >= ts_col + lens[:, None]) & (kidx[None] < ts_col + lt))
             hole = torch.stack([ts_col + lens, torch.full_like(lens, ts_col + lt)],
                                dim=1).to(torch.int32).contiguous()
+    kv_int8 = kv_mode > 0 and not use_fused
+    if mesh is None:
+        if free_bytes is None:
+            free_bytes = free_device_bytes(device)
+        cap_utt = max_decode_utterances(cap, rows_per_utt=2 if cfg_on else 1, cfg=cfg,
+                                        dtype=dtype, free_bytes=free_bytes, kv_int8=kv_int8)
+        if u > cap_utt:
+            raise ValueError(f"{u} utterances > max_decode_utterances({cap})={cap_utt} for "
+                             f"one lock-step decode; generate_batch sub-batches")
     tb = torch.from_numpy(np.pad(tt_np, ((0, 0), (pad, 0)))).to(device)
     context = _build_context(params, cond, tb, cfg, cfg_on, pad)
     rows = (0, context.shape[0])
@@ -584,17 +666,18 @@ def start_generation(params, cond: T3Cond, text_tokens: np.ndarray, *,
         context, key_valid = shard_generation_inputs(mesh, context, key_valid)
         hole = None if hole is None else hole[rows[0]:rows[1]].contiguous()
     state = prefill(params, context, cfg, total, pad, cfg_on, dtype, key_valid, mesh=mesh,
-                    n_utt=u)
+                    n_utt=u, kv_int8=kv_int8)
     if mesh is not None:
         state = state._replace(logits=mesh.gather_dp(state.logits))
     info = dict(p_len=p_len, pad=pad, cfg_on=cfg_on, cache_total=total, hole=hole,
-                use_fused=use_fused,
+                use_fused=use_fused, kv_int8=kv_int8, phase_totals=[total],
                 fused=_fused_params(params, cfg, dtype) if use_fused else None,
                 align_layer=align_layer, text_start=text_start, text_len=text_len,
                 mesh=mesh, rows=rows)
     LAST_GENERATION_INFO.clear()
     LAST_GENERATION_INFO.update(p_len=p_len, cache_total=total, n_utt=u,
                                 alignment=align_layer is not None, use_fused=use_fused,
+                                kv_int8=kv_int8, phase_totals=[total],
                                 mesh=None if mesh is None else dict(mesh.shape))
     return state, info
 
@@ -857,7 +940,9 @@ def generate_batch(params, cond: T3Cond, text_tokens: np.ndarray, *,
     one scalar for every row or a length-U sequence. `cond` is one voice
     (1 row) or one per utterance (U rows), with a scalar or (U,) emotion.
 
-    Above max_decode_utterances the rows decode in sequential sub-batches;
+    Above max_decode_utterances (sized against the cache the batch's gates
+    give: int8 under CHATTERBOX_INT8_KV=1 unless K4 takes it) the rows
+    decode in sequential sub-batches;
     sub-batch [s0, s1) samples with seed + s0 from `make_draws(seed + s0)`
     (default `sampling.Draws(seed + s0, device)`). The fence reads
     `free_bytes` (default: the device's free memory, read once).
@@ -879,8 +964,10 @@ def generate_batch(params, cond: T3Cond, text_tokens: np.ndarray, *,
         if free_bytes is None:
             free_bytes = free_device_bytes(device)
         cap = _capacity(lt, cond, cfg, cfg_on, max_new_tokens)[2]
+        kv_int8 = (llama._kv_int8_mode() > 0
+                   and not _fused_gate(params, cfg, n_utt, cfg_on, alignment, None))
         cap_utt = max_decode_utterances(cap, rows_per_utt=2 if cfg_on else 1, cfg=cfg,
-                                        dtype=dtype, free_bytes=free_bytes)
+                                        dtype=dtype, free_bytes=free_bytes, kv_int8=kv_int8)
     outs, steps = [], 0
     for s0 in range(0, n_utt, cap_utt):
         s1 = min(n_utt, s0 + cap_utt)

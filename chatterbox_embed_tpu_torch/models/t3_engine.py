@@ -26,8 +26,11 @@ layout [cond rows 0..S-1; uncond rows S..2S-1], as t3.decode_block.
 - Draws: each request samples step i with draws.gumbel(i, (V,)) from its
   own source `make_draws(seed)`, so its tokens do not depend on its slot or
   on the traffic around it (the JAX engine's fold_in(PRNGKey(seed), i)).
-- The cache is bf16 or fp32 in the compute dtype; the JAX package's int8
-  cache (`kv_int8=True`) waits for ROADMAP item 22.
+- The cache is in the compute dtype, or int8 with its scale planes
+  (`kv_int8=True`, or None and CHATTERBOX_INT8_KV=1, as the JAX engine):
+  a request's prefill quantises its context, the insert copies its slabs
+  and scales, each step's ring column is quantised as it is written, and
+  K1's int8 entry walks the spans.
 - On a mesh (`mesh=`, parallel/): `engine_slots` is the JAX package's
   engine_sharding rule. Under dp each rank owns S/dp slots, both CFG rows
   of each, and holds their cache rows and logits; it prefills only the
@@ -115,11 +118,13 @@ def engine_geometry(cfg: T3Config, text_bucket: int, cond_w: int, max_new_tokens
 
 def engine_init(cfg: T3Config, *, slots: int, text_bucket: int, cond_w: int,
                 max_new_tokens: int, dtype=torch.float32, device=None,
-                own: Optional[tuple] = None, heads: Optional[int] = None) -> EngineState:
+                own: Optional[tuple] = None, heads: Optional[int] = None,
+                kv_int8: bool = False) -> EngineState:
     """All-free engine state on `device` (None: the card): every slot done,
-    with pad = p_len. The cache has the compute dtype (no int8 cache yet,
-    ROADMAP item 22). own: the slots [s0, s1) whose rows this rank holds
-    (default all); heads: its K/V heads (default all, llama.init_cache)."""
+    with pad = p_len. The cache has the compute dtype, or is int8 with its
+    scale planes (`kv_int8`). own: the slots [s0, s1) whose rows this rank
+    holds (default all); heads: its K/V heads (default all,
+    llama.init_cache)."""
     device = resolve_device(device)
     p_len, total = engine_geometry(cfg, text_bucket, cond_w, max_new_tokens)
     if max_new_tokens + 2 > cfg.max_speech_seq_len:
@@ -135,7 +140,8 @@ def engine_init(cfg: T3Config, *, slots: int, text_bucket: int, cond_w: int,
         return torch.full(shape, value, dtype=dt, device=device)
 
     return EngineState(
-        cache=llama.init_cache(cfg.llama, 2 * mine, total, dtype, device, heads=heads),
+        cache=llama.init_cache(cfg.llama, 2 * mine, total, torch.int8 if kv_int8 else dtype,
+                               device, heads=heads),
         logits=full((2 * mine, v), 0.0, torch.float32),
         counts=full((s, v), 0, torch.int32),
         fresh_counts=torch.nn.functional.one_hot(
@@ -178,11 +184,12 @@ def engine_spans(pad: torch.Tensor, g_start: torch.Tensor, dead: torch.Tensor, g
 
 @torch.no_grad()
 def prefill_request(params, cond: t3.T3Cond, text_tokens: np.ndarray, *, text_bucket: int,
-                    p_len: int, cfg: T3Config, dtype=torch.float32, device=None, mesh=None):
+                    p_len: int, cfg: T3Config, dtype=torch.float32, device=None, mesh=None,
+                    kv_int8: bool = False):
     """Prefill ONE request's 2 CFG rows into a p_len-capacity DecodeState
     (t3._build_context and t3.prefill, left-padded to the engine's text
-    bucket; `mesh`: the tp ranks of the params' shards). Returns (state,
-    pad)."""
+    bucket; `mesh`: the tp ranks of the params' shards; `kv_int8`: an int8
+    cache). Returns (state, pad)."""
     device = resolve_device(device)
     tt = np.atleast_2d(np.asarray(text_tokens, np.int32))
     if tt.shape[0] != 1:
@@ -193,7 +200,8 @@ def prefill_request(params, cond: t3.T3Cond, text_tokens: np.ndarray, *, text_bu
     pad = text_bucket - lt
     tb = torch.from_numpy(np.pad(tt, ((0, 0), (pad, 0)))).to(device)
     context = t3._build_context(params, cond, tb, cfg, True, pad)
-    return t3.prefill(params, context, cfg, p_len, pad, True, dtype, mesh=mesh), pad
+    return t3.prefill(params, context, cfg, p_len, pad, True, dtype, mesh=mesh,
+                      kv_int8=kv_int8), pad
 
 
 @torch.no_grad()
@@ -201,7 +209,8 @@ def engine_insert(state: EngineState, sub: t3.DecodeState, slot: int, draws,
                   meta: Dict[str, float]) -> None:
     """Put a prefilled request (prefill_request's state, capacity p_len)
     into slot `slot`, in place: its cache columns [0, p_len) of the slot's
-    cond and uncond rows, their logits, its counts and sampling parameters,
+    cond and uncond rows (and of an int8 cache's scale planes), their
+    logits, its counts and sampling parameters,
     and its join step g. meta: limit, pad, temperature, cfg_weight,
     repetition_penalty, min_p, top_p. Every write takes a host scalar or a
     device tensor; no copy waits for the device. A rank that does not hold
@@ -209,9 +218,11 @@ def engine_insert(state: EngineState, sub: t3.DecodeState, slot: int, draws,
     s0, s1 = state.own
     if sub is not None:
         p_len = sub.cache.k.shape[1]
+        pairs = list(zip(state.cache, sub.cache))      # k, v (, k_scale, v_scale)
         for half, row in enumerate((slot - s0, s1 - s0 + slot - s0)):
-            state.cache.k[:, :p_len, row] = sub.cache.k[:, :, half]
-            state.cache.v[:, :p_len, row] = sub.cache.v[:, :, half]
+            for dst, src in pairs:
+                if dst is not None:
+                    dst[:, :p_len, row] = src[:, :, half]
             state.logits[row] = sub.logits[half]
     state.counts[slot] = state.fresh_counts           # prefill's counts: BOS once
     state.i[slot] = 0
@@ -322,6 +333,8 @@ class ContinuousDecoder:
     make_draws: the draw-source factory, called once a request with its
     seed (default `sampling.Draws(seed, device)`); on a mesh it must pickle
     (a module-level function, a class, a functools.partial).
+    kv_int8: the int8 cache (None: CHATTERBOX_INT8_KV=1 asks for it);
+    under a tp mesh each rank holds its heads' slabs and scales.
     mesh: the params are each rank's shard (parallel.serve.
     shard_t3_for_serving); the slots split over dp (`engine_slots`), and
     the decoder is built on every rank (module docstring).
@@ -333,10 +346,7 @@ class ContinuousDecoder:
                  use_top_p: bool = False, retain_results: bool = True,
                  make_draws: Optional[Callable[[int], object]] = None, device=None,
                  mesh=None):
-        if kv_int8:
-            raise NotImplementedError(
-                "kv_int8=True: the int8 KV cache is not ported yet (ROADMAP item 22); the "
-                "engine keeps its cache in the compute dtype")
+        self.kv_int8 = llama._kv_int8_mode() > 0 if kv_int8 is None else bool(kv_int8)
         own = engine_slots(mesh, slots)
         self.mesh = mesh
         self.device = resolve_device(device)
@@ -353,7 +363,8 @@ class ContinuousDecoder:
         self.p_len, self.total = engine_geometry(cfg, text_bucket, self.cond_w, max_new_tokens)
         self.state = engine_init(cfg, slots=slots, text_bucket=text_bucket, cond_w=self.cond_w,
                                  max_new_tokens=max_new_tokens, dtype=dtype, device=self.device,
-                                 own=own, heads=llama.kv_heads(params["llama"], cfg.llama))
+                                 own=own, heads=llama.kv_heads(params["llama"], cfg.llama),
+                                 kv_int8=self.kv_int8)
         self._queue: List[dict] = []
         self._slots = [_Slot() for _ in range(slots)]
         # retain_results=False for run-forever callers that consume step()'s
@@ -372,7 +383,8 @@ class ContinuousDecoder:
         if mesh is not None and mesh.leads():
             mesh.adopt(self, ContinuousDecoder, params, cfg, slots=slots,
                        text_bucket=text_bucket, max_new_tokens=max_new_tokens, block=block,
-                       dtype=dtype, use_top_p=use_top_p, retain_results=retain_results,
+                       dtype=dtype, kv_int8=self.kv_int8, use_top_p=use_top_p,
+                       retain_results=retain_results,
                        make_draws=make_draws, device=device, mesh=mesh)
 
     # -- submission ---------------------------------------------------------
@@ -420,7 +432,7 @@ class ContinuousDecoder:
                 sub, pad = prefill_request(self.params, req["cond"], req["text"],
                                            text_bucket=self.text_bucket, p_len=self.p_len,
                                            cfg=self.cfg, dtype=self.dtype, device=self.device,
-                                           mesh=self.mesh)
+                                           mesh=self.mesh, kv_int8=self.kv_int8)
             meta = dict(limit=req["max_new"], pad=pad, **{
                 k: req[k] for k in ("temperature", "cfg_weight", "rep_penalty", "min_p",
                                     "top_p")})

@@ -35,7 +35,10 @@ of its own, and the collectives are written out:
   TF32 switches (`torch.backends.cuda.matmul.allow_tf32`,
   `torch.backends.cudnn.allow_tf32`), which a spawned process would
   otherwise take at torch's defaults (cuDNN's on: TF32 convolutions on a
-  card).
+  card), and its CHATTERBOX_* settings, which the models read at call time
+  (CHATTERBOX_INT8_KV picks each rank's cache, CHATTERBOX_DEFER_KV its
+  decode step): a follower spawned earlier would otherwise keep the
+  environment it started with.
 - A follower that fails sends its traceback to the leader and exits, so a
   collective waiting on it fails on the other ranks; the world is then
   closed, and the next mesh starts a new one. `shutdown` (also run at
@@ -184,6 +187,18 @@ def _set_tf32(switches) -> None:
     torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = switches
 
 
+def _settings() -> dict:
+    """This process's CHATTERBOX_* environment."""
+    return {k: v for k, v in os.environ.items() if k.startswith("CHATTERBOX_")}
+
+
+def _set_settings(settings: dict) -> None:
+    """Make this process's CHATTERBOX_* environment the leader's."""
+    for k in [k for k in os.environ if k.startswith("CHATTERBOX_") and k not in settings]:
+        del os.environ[k]
+    os.environ.update(settings)
+
+
 def _send(conn, data: bytes) -> None:
     """One message on a pipe, as its count of pieces and pieces of at most
     PIECE bytes: CPython's Connection reads a message with os.read(fd,
@@ -264,8 +279,9 @@ def _follow(rank: int, devices, init: str, backend: str, conn, threads: int) -> 
                 for key in msg[1]:
                     _OBJECTS.pop(key, None)
                 continue
-            _, keep, fn, args, kwargs, want, tf32 = msg
+            _, keep, fn, args, kwargs, want, tf32, settings = msg
             _set_tf32(tf32)
+            _set_settings(settings)
             out = fn(*args, **kwargs)
             if keep is not None:
                 _OBJECTS[keep] = out
@@ -329,7 +345,7 @@ class _World:
         if self.closed:
             raise RuntimeError(f"the mesh's world is closed ({self.closed}); build a new mesh")
         conns = [(r, self.conns[r - 1]) for r in ranks if r > 0]
-        payload = _dumps(("call", keep, fn, args, kwargs, want, _tf32()))
+        payload = _dumps(("call", keep, fn, args, kwargs, want, _tf32(), _settings()))
         for r, conn in conns:
             release, self.pending[r] = self.pending[r], []
             if release:
@@ -867,13 +883,33 @@ def _take_shards(tree, spec, mesh: Mesh, trainable: bool = False):
         return ShardTree(_tree_map(take, tree, spec))
 
 
+def _unplaced(tree, spec, path=""):
+    """Paths of `tree`'s leaves that `spec` has no entry for."""
+    if isinstance(tree, dict):
+        return [p for k, v in tree.items()
+                for p in (_unplaced(v, spec[k], f"{path}{k}/") if isinstance(spec, dict)
+                          and k in spec else [f"{path}{k}"])]
+    if isinstance(tree, list):
+        return [p for i, v in enumerate(tree) for p in _unplaced(v, spec[i], f"{path}{i}/")]
+    return []
+
+
 def shard_params(params, spec, mesh: Mesh, trainable: bool = False):
     """Hand each rank its slice of every leaf of `params` (the leader's
     tree) by `spec`: the leader broadcasts each leaf once, and each rank
     keeps its part. Returns the leader's tree of shards (a replicated leaf
     already on the leader's device is the same tensor; with `trainable`
     every leaf is a fresh fp32 copy that requires grad), kept on every rank
-    for the mesh's calls."""
+    for the mesh's calls. A leaf the spec does not name raises: an int8
+    backbone's w_q and scale among them, which the T3 spec (the JAX
+    package's `_llama_spec`, naming "w" only) cannot place."""
+    unplaced = _unplaced(params, spec)
+    if unplaced:
+        raise ValueError(f"shard_params: the spec places no {unplaced[0]}"
+                         + (f" (and {len(unplaced) - 1} more leaves)" if len(unplaced) > 1 else "")
+                         + ("; int8 weights cannot be placed on a mesh: the tp spec names "
+                            "only a linear's 'w', as the JAX package's does"
+                            if any(p.endswith(("/w_q", "/scale")) for p in unplaced) else ""))
     skeleton = _tree_map(lambda x: _Leaf(tuple(x.shape), x.dtype), params)
     return mesh.make(_take_shards, skeleton, spec, mesh, trainable,
                      local=lambda: _take_shards(params, spec, mesh, trainable))

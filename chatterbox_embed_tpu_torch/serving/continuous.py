@@ -33,6 +33,7 @@ from typing import Any, Callable, Dict, List, Optional, Tuple
 import numpy as np
 
 from ..config import SPEECH_VOCAB_SIZE
+from ..models import llama
 from ..models import t3 as t3_mod
 from ..models import t3_engine
 from ..models.t3_engine import ContinuousDecoder
@@ -58,7 +59,9 @@ class ContinuousServer:
       vocode_batch: completions are vocoded once this many are ready, or
         when the engine idles.
       retries: seed-drift retries of too-short decodes.
-      kv_int8: None or False (the int8 cache is ROADMAP item 22).
+      kv_int8: the engine's int8 cache; None follows CHATTERBOX_INT8_KV.
+        The default slots are sized against the cache the engine will
+        allocate (an explicit value overrides the setting).
       make_draws: draw-source factory (module docstring); on a mesh it must
         pickle.
 
@@ -81,8 +84,9 @@ class ContinuousServer:
         if slots is None:
             _, capacity = t3_engine.engine_geometry(
                 tts.cfg.t3, text_bucket, 2 + tts.cfg.t3.perceiver_num_queries, max_new_tokens)
+            eff_int8 = llama._kv_int8_mode() > 0 if kv_int8 is None else kv_int8
             slots = min(16, t3_mod.max_decode_utterances(
-                capacity, cfg=tts.cfg.t3, dtype=tts.dtype,
+                capacity, cfg=tts.cfg.t3, dtype=tts.dtype, kv_int8=eff_int8,
                 free_bytes=t3_mod.free_device_bytes(tts.device))) * dp
         elif slots % dp != 0:
             raise ValueError(f"slots={slots} must be a multiple of the dp "

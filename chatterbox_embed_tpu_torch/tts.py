@@ -34,11 +34,14 @@ conditioning encoders in fp32.
 `generate_batch`, long text and the continuous engine decode over it, while
 S3Gen, the conditioning and `stream_generate` stay on this process's card.
 
-The port runs no int8 (ROADMAP item 22): `from_local(int8=True)`,
-CHATTERBOX_INT8=1 and CHATTERBOX_INT8_S3GEN=1 raise where the JAX package
-reads them, and so does CHATTERBOX_INT8_KV=1|2 at every KV cache
-(models/llama.py). On a GPU the default is no int8; the JAX package's
-default of int8 weights is a TPU's.
+int8, read where the JAX package reads it: `from_local(int8=True)` or
+CHATTERBOX_INT8=1 quantises T3's backbone linears after conversion,
+CHATTERBOX_INT8_S3GEN=1 the flow stack's (utils/quantize.py); each linear
+is dequantised before its matmul. CHATTERBOX_INT8_KV=1 keeps the KV cache in
+int8 (models/llama.py; read at each generation and engine). On a GPU every
+default is no int8; the JAX package's defaults of int8 weights and cache
+are a TPU's. An int8 backbone never takes the fused step (K4 streams a bf16
+wall), and the int8 cache yields to K4 where K4 serves.
 """
 from __future__ import annotations
 
@@ -268,16 +271,14 @@ class ChatterboxTTS:
         trees in the port's layout, which `weights.from_arrays` checks leaf
         by leaf and turns into tensors.
 
-        int8: None or False loads full-precision weights; True, like
-        CHATTERBOX_INT8=1 or CHATTERBOX_INT8_S3GEN=1, raises (int8 weights
-        are ROADMAP item 22)."""
-        if int8:
-            raise NotImplementedError("from_local(int8=True): int8 weights are not ported "
-                                      "yet (ROADMAP item 22); pass int8=None or False")
-        for key in ("CHATTERBOX_INT8", "CHATTERBOX_INT8_S3GEN"):
-            if _env_bool(key, False):
-                raise NotImplementedError(f"{key}={os.environ[key]}: int8 weights are not "
-                                          "ported yet (ROADMAP item 22); unset it or set 0")
+        int8: True quantises T3's backbone to int8 weights after the
+        conversion (utils/quantize.quantize_t3), False keeps them full
+        precision, None follows CHATTERBOX_INT8 (default off on a GPU; the
+        JAX package's default of on is a TPU's). CHATTERBOX_INT8_S3GEN=1
+        also quantises the flow stack (quantize_s3gen)."""
+        from .utils.quantize import quantize_s3gen, quantize_t3
+        if int8 is None:
+            int8 = _env_bool("CHATTERBOX_INT8", False)
         ckpt_dir = Path(ckpt_dir)
         device = resolve_device(device)
         ve_sd = weights_mod.load_safetensors(str(ckpt_dir / "ve.safetensors"))
@@ -287,6 +288,10 @@ class ChatterboxTTS:
         s3_sd = weights_mod.load_safetensors(str(ckpt_dir / "s3gen.safetensors"))
         s3_tree = weights_mod.convert_s3gen(s3_sd, cfg=config.s3gen)
         state = from_arrays(t3_tree, s3_tree, config, ve_params=ve_tree)
+        if int8:
+            state["t3"] = quantize_t3(state["t3"])
+        if _env_bool("CHATTERBOX_INT8_S3GEN", False):
+            state["s3gen"] = quantize_s3gen(state["s3gen"])
         tokenizer = EnTokenizer(str(ckpt_dir / "tokenizer.json"))
         conds = None
         if (ckpt_dir / "conds.pt").exists():
@@ -339,8 +344,8 @@ class ChatterboxTTS:
                token_buckets=(256,), stream: bool = False) -> Dict[str, float]:
         """Run the serving shapes once before the first request: on the card
         build every serving kernel (K1/K1s, K2, K3, K4: one nvcc each, all
-        started together) and, under CHATTERBOX_FUSED_STEP=1, stack K4's
-        weight wall; then the JAX package's stages: `generate` or
+        started together) and, under CHATTERBOX_FUSED_STEP=1 with a backbone
+        that is not int8, stack K4's weight wall; then the JAX package's stages: `generate` or
         `generate_batch` per batch size, `_run_s3gen` per token bucket and
         optionally a stream's first chunk.
 
@@ -366,8 +371,8 @@ class ChatterboxTTS:
 
         if self.device.type == "cuda":
             stage("kernels_s", _build_serving_kernels)
-            if (t3_mod._use_fused_step() and t3_mod.fused_decode.plan(
-                    self.cfg.t3.llama, 2) is not None):
+            if (t3_mod._use_fused_step() and t3_mod.fused_weights(self._t3_single)
+                    and t3_mod.fused_decode.plan(self.cfg.t3.llama, 2) is not None):
                 stage("fused_wall_s", lambda: t3_mod._fused_params(
                     self._t3_single, self.cfg.t3, self.dtype))
         try:

@@ -18,6 +18,10 @@ Layout changes made by `from_jax_params`, all of them:
   x @ w, as JAX does), embeddings stay (vocab, dim), norms, biases and the
   other vectors keep their shapes.
 
+A linear may come quantised (the JAX package's or the port's
+`utils/quantize.py`): "w_q" (in, out) int8 and "scale" (1, out) fp32 in
+place of "w". They need no relayout and keep their dtypes.
+
 Every leaf of the port's expected tree (its `init` on the meta device) must
 exist in the JAX tree with the expected shape after the layout change, and
 every JAX leaf must be consumed: a missing, misshapen or unused leaf raises,
@@ -56,8 +60,11 @@ def _convert(expected, src, path="", relayout=True):
     if isinstance(expected, dict):
         if not isinstance(src, dict):
             raise TypeError(f"{path or '<root>'}: expected a dict, got {type(src).__name__}")
-        out = {}
+        int8 = "w" in expected and "w" not in src and "w_q" in src
+        out = _int8_leaves(expected["w"], src, path) if int8 else {}
         for k, v in expected.items():
+            if int8 and k == "w":
+                continue
             if k not in src:
                 raise KeyError(f"params missing {path}{k} (have: {sorted(src)})")
             out[k] = _convert(v, src[k], f"{path}{k}/", relayout)
@@ -79,12 +86,29 @@ def _convert(expected, src, path="", relayout=True):
     return torch.from_numpy(np.ascontiguousarray(a))
 
 
+def _int8_leaves(w, src, path):
+    """A quantised linear's w_q (int8, of w's (in, out) shape) and scale
+    ((1, out) fp32) in place of w, kept in their dtypes."""
+    if w.dim() != 2:
+        raise ValueError(f"{path}w_q: only a linear's (in, out) weight may be int8, "
+                         f"this one is {tuple(w.shape)}")
+    w_q, scale = np.asarray(src["w_q"]), np.asarray(src.get("scale"))
+    if w_q.dtype != np.int8 or tuple(w_q.shape) != tuple(w.shape):
+        raise ValueError(f"{path}w_q: {w_q.dtype} {tuple(w_q.shape)}, expected int8 "
+                         f"{tuple(w.shape)}")
+    if scale.dtype != np.float32 or tuple(scale.shape) != (1, w.shape[1]):
+        raise ValueError(f"{path}scale: {scale.dtype} {tuple(scale.shape)}, expected "
+                         f"float32 {(1, w.shape[1])}")
+    return {"w_q": torch.from_numpy(np.array(w_q)), "scale": torch.from_numpy(np.array(scale))}
+
+
 def convert_tree(expected, src, name: str, relayout=True):
     """Convert the tree of arrays `src` to the port's `expected` tree of
-    tensors; raises on a missing, misshapen or unused leaf. `relayout`: the
-    source is in the JAX package's layout (else the port's)."""
+    tensors; raises on a missing, misshapen or unused leaf (a quantised
+    linear's w_q and scale stand for its w). `relayout`: the source is in
+    the JAX package's layout (else the port's)."""
     out = _convert(expected, src, relayout=relayout)
-    want = {p for p, _ in _leaves(expected)}
+    want = {p for p, _ in _leaves(out)}
     unused = sorted(p for p, _ in _leaves(src) if p not in want)
     if unused:
         raise ValueError(f"{len(unused)} {name} parameters have no place in the port "
@@ -109,7 +133,7 @@ def from_jax_params(t3_params, s3gen_params, config: ChatterboxConfig = Chatterb
                     ve_params=None):
     """JAX T3, S3Gen and (optionally) VoiceEncoder parameter trees (numpy or
     jax arrays) -> the port's {"t3": tree, "s3gen": tree[, "ve": tree]} of
-    fp32 CPU tensors (layouts above)."""
+    fp32 CPU tensors (a quantised linear's w_q int8; layouts above)."""
     return _trees(t3_params, s3gen_params, ve_params, config, relayout=True)
 
 
@@ -122,13 +146,16 @@ def from_arrays(t3_params, s3gen_params, config: ChatterboxConfig = ChatterboxCo
 
 def place(tree, device, dtype, fp32=()):
     """Copy a parameter tree to `device`: matmul, conv and embedding weights
-    (leaves named "w" with >= 2 dims) in `dtype`, every other leaf fp32.
-    `fp32` names top-level subtrees kept in fp32 altogether."""
+    (leaves named "w" with >= 2 dims) in `dtype`, a quantised linear's "w_q"
+    in int8, every other leaf (its "scale" too) fp32. `fp32` names top-level
+    subtrees kept in fp32 altogether."""
     def go(x, name, dt):
         if isinstance(x, dict):
             return {k: go(v, k, dt) for k, v in x.items()}
         if isinstance(x, list):
             return [go(v, name, dt) for v in x]
+        if name == "w_q":
+            return x.to(device=device, dtype=torch.int8)
         want = dt if name == "w" and x.dim() >= 2 else torch.float32
         return x.to(device=device, dtype=want)
     return {k: go(v, k, torch.float32 if k in fp32 else dtype) for k, v in tree.items()}

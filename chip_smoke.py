@@ -6,7 +6,7 @@ With no argument every phase runs (the device and build phases always
 run); `--phases` names the ones to run (PHASES below: kernel_check,
 attention_check, probe_check, probes, fused_check, consistency, generate,
 generate_batch, stream_generate, conditioning, long_text, engine, worker,
-mesh, train, train_mesh), and the kernel line then lists the kernels whose
+mesh, int8, train, train_mesh), and the kernel line then lists the kernels whose
 check and main path ran. Phases, one or more lines each, then the result line:
   1. device: the card's name and power limit (nvidia-smi), torch and CUDA
      versions; TF32 switched off for matmuls and convolutions.
@@ -146,14 +146,33 @@ check and main path ran. Phases, one or more lines each, then the result line:
      ranks at dp = 2: generate_batch of the 4 texts equals one process
      token for token. (d) The engine at dp = 2 (4 slots, 6 requests): equal
      tokens and steps, K1 30 x steps on each rank.
- 13. train: at full width in fp32 with random weights, T3 (30 layers) takes
+ 13. int8 (ROADMAP item 22), at full width, bf16 compute: (a) K1's and K1s's
+     int8 entry against their plain version on the same int8 cache
+     (fp32 1e-5, bf16 2e-2): B 2 and 16 (and a tp = 2 rank's 8 heads), Lc
+     512 and 1280, with holes; K1s on a 4-layer stacked cache; the engine's
+     16- and 4-slot spans; a planted fault (the scale planes one slot off)
+     must read above the limit; each timed beside bf16 K1 on the same shape
+     and beside "dequantise + SDPA" (two calls, so no library time); (b)
+     quantize_t3 of the backbone: prefill logits against bf16 (cos > 0.995,
+     rel < 0.1), then generate of 250 tokens under CHATTERBOX_FUSED_STEP=1
+     (an int8 backbone never takes K4: K1 30 x steps, K4 0), its ms a step
+     beside the bf16 default step's, and the trees' bytes; (c)
+     quantize_s3gen: one 8-row flow_to_mel against fp (cos > 0.99, rel <
+     0.15), K2 and K3 as in the batch; (d) CHATTERBOX_INT8_KV=1: prefill
+     logits against the bf16 cache (cos > 0.995, rel < 0.1), generate_batch
+     of the 8 texts x 250 tokens with K1's int8 entry 30 x steps and bf16
+     K1 0, the cache's bytes against bf16's, max_decode_utterances; then a
+     one-utterance generate under CHATTERBOX_DEFER_KV=1 too (K1s's int8
+     entry 30 x steps); (e) the engine at kv_int8=True: 4 slots, 6 requests,
+     K1's int8 entry 30 x steps, one request alone giving equal tokens.
+ 14. train: at full width in fp32 with random weights, T3 (30 layers) takes
      3 AdamW steps with remat on a batch of 2 (150 prompt tokens, text 64
      and 48, speech 256 and 200): losses finite and falling, ms a step and
      peak memory; the flow estimator takes 3 steps on 4 rows of 812, 812,
      700 and 560 frames, each with 56 launches of K3, K3b-dq and K3b-dkv;
      then one step's loss and gradients at 256 frames on the card against
      the CPU (written-out attention) on the same params, batch and draws.
- 14. train_mesh: the last two parallel axes and training on a mesh, at full
+ 15. train_mesh: the last two parallel axes and training on a mesh, at full
      width in fp32, two ranks sharing the card over gloo, each part held to
      one process on the card: (a) sp = 2: sp_generate_mel of one
      utterance of 812 frames (CFG, 10 Euler steps) within 1e-4; (b) dp = 2:
@@ -168,7 +187,7 @@ check and main path ran. Phases, one or more lines each, then the result line:
      step's |g| >= 1e-6 (below, AdamW's eps makes the first step's update
      follow rounding); ms a step of each, ms a hop, and the backend line's
      hop collective.
- 15. a JSON line describing each kernel, then the last line
+ 16. a JSON line describing each kernel, then the last line
      {"ok": true, "device": {...}}.
 
 Any failure raises and the script exits non-zero with no result line. It
@@ -449,6 +468,35 @@ TRAIN_MESH_PARAM_TOL = 1e-5
 # held to TRAIN_GRAD_TOL of each leaf's norm everywhere
 TRAIN_MESH_GRAD_FLOOR = 1e-6
 
+# int8 (ROADMAP item 22). (a) K1's and K1s's int8 entry against the plain
+# version on the same int8 cache, at K1's limits (TOL: the scales multiply
+# each score and probability once, in fp32 on both sides). In bf16 the
+# plain version also rounds w * vs to bf16 before its product, as the JAX
+# package's mode-1 read does, so where one key dominates the two round
+# vs * vq twice and once: they differ by one bf16 step of the output, and
+# a value row of the int8 cache reaches past 4, where that step is 2^-5
+# (0.03125, read on the card at first). So in bf16 each error is
+# divided by max(1, |ref|) before it is held to 2e-2, as K2's and K3's are
+# (one step is 2^-7 of the output); fp32 stays absolute. The (start,
+# cache_pos) cases of K1's check less the duplicates of one split.
+# (b)-(d) the quality bounds of tests/test_int8.py (logits cos > 0.995
+# and rel < 0.1; mel cos > 0.99 and rel < 0.15) on the full-width
+# random weights; (e) the engine phase's geometry with half the cap and 6
+# of its requests (the phase's time), one of them again alone. The deferred
+# entry is checked at T3's 16 heads only (INT8_DEFER_BH): the mesh runs K1
+# (KERNEL_BH has a tp = 2 rank's 8 heads), never K1s.
+INT8_DEFER_BH = ((KERNEL_B, KERNEL_H), (KERNEL_B_BATCH, KERNEL_H))
+INT8_CASES = ((0, 0), (3, 40), (63, 64), (64, 300), (5, -1), (300, 300), (72, 205))
+INT8_LOGIT_COS, INT8_LOGIT_REL = 0.995, 0.1
+INT8_MEL_COS, INT8_MEL_REL = 0.99, 0.15
+INT8_NEW_TOKENS = 250
+INT8_MEL_ROWS, INT8_MEL_TOKENS = 8, 250
+INT8_DEFER_TOKENS = 32
+INT8_ENGINE_GEO = dict(slots=4, text_bucket=128, max_new_tokens=128, block=32, vocode_batch=4,
+                       kv_int8=True)
+INT8_ENGINE_LIMITS = [24, 100, 40, 80, 60, 30]
+INT8_ENGINE_ALONE = 3
+
 
 def log(phase: str, **kw) -> None:
     print(f"[{phase}] " + " ".join(f"{k}={v}" for k, v in kw.items()), flush=True)
@@ -471,8 +519,9 @@ def phase_device() -> str:
 
 def _kernels() -> dict:
     """name -> (kernel module, the wrapper that counts its launches, the
-    counter's attribute, its C entry). K1 and K1s are two entries of one
-    kernel source with a counter each, and so are K3b-dq and K3b-dkv."""
+    counter's attribute, its C entry). K1 and K1s, and their int8 entries,
+    are four entries of one kernel source with a counter each, and K3b-dq
+    and K3b-dkv two of another."""
     from chatterbox_embed_tpu_torch.kernels import decode_anatomy as da
     from chatterbox_embed_tpu_torch.kernels import flash_attention as fa
     from chatterbox_embed_tpu_torch.kernels import flash_attention_bwd as fb
@@ -489,6 +538,9 @@ def _kernels() -> dict:
                                        "cbx_flash_attention_bwd_dq"),
             "flash_attention_bwd_dkv": (fb, fb.flash_attention_backward, "launches_dkv",
                                         "cbx_flash_attention_bwd_dkv"),
+            "flash_decode_int8": (fd, fd.decode_attention, "launches_int8", "cbx_flash_decode"),
+            "flash_decode_int8_deferred": (fd, fd.decode_attention, "launches_int8_deferred",
+                                           "cbx_flash_decode"),
             "fused_decode": (fu, fu.fused_decode_step, "launches", "cbx_fused_decode"),
             "weight_stream": (ws, ws.stream_once, "launches", "cbx_weight_stream"),
             "decode_anatomy": (da, da.attn, "launches", "cbx_decode_anatomy")}
@@ -738,14 +790,16 @@ def _span_keys(span, hole) -> int:
     return n
 
 
-def phase_span_check(card: str) -> dict:
+def phase_span_check(card: str, int8: bool = False) -> dict:
     """K1 with per-row spans against its plain version at SPAN_GEOMETRIES:
     rows unwrapped, wrapped, with an empty hole (a = 0), a full ring, free
     rows (whose output must be exactly 0), one-slot spans and a random mix;
     fp32 and bf16. The worker's geometry is timed in bf16 with every slot
     live at random depths, beside SDPA with a boolean mask over the same
-    keys; the bound is the live rows' bytes."""
+    keys; the bound is the live rows' bytes. `int8`: K1's int8 entry on an
+    int8 cache (the engine's kv_int8), timed without a library call."""
     from chatterbox_embed_tpu_torch.kernels import flash_decode as fd
+    name = "flash_decode_span" + ("_int8" if int8 else "")
     rng = np.random.default_rng(77)
     g = torch.Generator(device="cuda").manual_seed(77)
     h, d = KERNEL_H, KERNEL_D
@@ -777,25 +831,40 @@ def phase_span_check(card: str) -> dict:
         timed = _span_case(slots, p_len, ring, step, rng.integers(0, ring, slots), pads, live)
         for dtype in (torch.float32, torch.bfloat16):
             q = torch.randn((b, h, d), generator=g, device="cuda").to(dtype)
-            k, v = (torch.randn((lc, b, h, d), generator=g, device="cuda").to(dtype)
-                    for _ in range(2))
-            for name, (span, hole) in cases.items():
-                out = fd.decode_attention(q, k, v, p_len + c, span=span, hole=hole)
-                ref = fd.decode_attention_reference(q, k, v, p_len + c, span=span, hole=hole)
-                err = _check_err("flash_decode_span", out, ref, TOL[dtype], slots=slots, lc=lc,
-                                 dtype=str(dtype)[6:], case=name)
+            sc = {}
+            if int8:
+                (k, ks), (v, vs) = (_quantized((lc, b, h, d), g) for _ in range(2))
+                sc = dict(k_scale=ks, v_scale=vs)
+            else:
+                k, v = (torch.randn((lc, b, h, d), generator=g, device="cuda").to(dtype)
+                        for _ in range(2))
+            for case, (span, hole) in cases.items():
+                out = fd.decode_attention(q, k, v, p_len + c, span=span, hole=hole, **sc)
+                ref = fd.decode_attention_reference(q, k, v, p_len + c, span=span, hole=hole,
+                                                    **sc)
+                err = _check_err(name, out, ref, TOL[dtype],
+                                 relative=int8 and dtype == torch.bfloat16, slots=slots,
+                                 lc=lc, dtype=str(dtype)[6:], case=case)
                 empty = (span[:, 0] > span[:, 1]).nonzero().flatten()
                 if empty.numel() and out[empty].abs().max().item() != 0.0:
-                    raise AssertionError(f"flash_decode_span {name}: a free row is not 0")
+                    raise AssertionError(f"{name} {case}: a free row is not 0")
                 worst[dtype] = max(worst[dtype], err)
             if dtype == torch.bfloat16 and slots == SPAN_GEOMETRIES[0][0]:
                 span, hole = timed
                 t = _timing(lambda: fd.decode_attention(q, k, v, p_len + c, span=span,
-                                                        hole=hole),
+                                                        hole=hole, **sc),
                             lambda: fd.decode_attention_reference(q, k, v, p_len + c, span=span,
-                                                                  hole=hole))
+                                                                  hole=hole, **sc))
                 keys = _span_keys(span, hole)
-                t.update(_bound(2 * h * d * (2 * keys + 2 * b), 4 * keys * h * d))
+                # int8: each live key's two int8 rows and two fp32 scales a head
+                t.update(_bound((h * (2 * d + 8) * keys + 2 * 2 * b * h * d) if int8
+                                else 2 * h * d * (2 * keys + 2 * b), 4 * keys * h * d))
+                if int8:
+                    t["library_ms"] = None
+                    timing = t
+                    _log_time(name, t, card, slots=slots, rows=b, lc=lc, live_keys=keys,
+                              bound_ms=f"{t['bound_ms']:.5f}")
+                    continue
                 idx = torch.arange(lc, device="cuda")[None, :]
                 mask = ((idx >= span[:, :1]) & (idx <= span[:, 1:])
                         & ~((idx >= hole[:, :1]) & (idx < hole[:, 1:])))
@@ -3248,6 +3317,368 @@ def phase_train_mesh(card: str) -> dict:
     return launches
 
 
+# ---------------------------------------------------------------------------
+# int8 (ROADMAP item 22)
+# ---------------------------------------------------------------------------
+
+def _quantized(shape, g):
+    """An int8 cache's slabs and fp32 scales, quantised as the model writes
+    them (models/llama.quantize_kv) from normal rows, each row times a
+    factor in [0.5, 1.5) so that a scale in the wrong slot shows."""
+    from chatterbox_embed_tpu_torch.models.llama import quantize_kv
+    x = torch.randn(shape, generator=g, device="cuda")
+    x = x * (0.5 + torch.rand(shape[:-1] + (1,), generator=g, device="cuda"))
+    return quantize_kv(x)
+
+
+def _int8_work(b: int, h: int, d: int, start: int, pos: int, hole, deferred: bool):
+    """(bytes, operations) of one int8-entry call on these inputs: each live
+    cache key's int8 k and v rows and their two fp32 scales a head, q and
+    out in bf16, and with the deferred entry the current row's bf16 k and
+    v; the operations as K1's."""
+    _, ops = _decode_work(b, h, d, start, pos, hole, deferred)
+    keys = ops // (4 * h * d)
+    cur = b if deferred else 0
+    return (keys - cur) * h * (2 * d + 8) + 2 * (2 * b * h * d) + cur * 2 * 2 * h * d, ops
+
+
+def phase_int8_kernel_check(card: str, deferred: bool = False) -> dict:
+    """K1's int8 entry (with `deferred`, K1s's: a DEFER_LAYERS-layer stacked
+    cache, a layer index and the current bf16/fp32 row folded in) against
+    decode_attention_reference on the same int8 cache and scales, at each
+    (B, H) of KERNEL_BH (K1s: INT8_DEFER_BH) and Lc of KERNEL_LC, INT8_CASES
+    with and without holes, fp32 and bf16 q; a planted fault (both scale
+    planes rolled by one slot) on the reported shape must read above the
+    limit. Timed in bf16 at the decode step's shape beside bf16 K1 (K1s)
+    on the same shape and, for K1, beside "dequantise + SDPA" (two calls,
+    so no library time); K1 also with the engine's spans
+    (phase_span_check(int8=True))."""
+    from chatterbox_embed_tpu_torch.kernels import flash_decode as fd
+    name = "flash_decode_int8" + ("_deferred" if deferred else "")
+    g = torch.Generator(device="cuda").manual_seed(5151 if deferred else 5150)
+    d = KERNEL_D
+    report = (KERNEL_B if deferred else KERNEL_B_BATCH, KERNEL_LC[0])
+    worst = {torch.float32: 0.0, torch.bfloat16: 0.0}
+    faults, timing = {}, {}
+    for b, h in (INT8_DEFER_BH if deferred else KERNEL_BH):
+        for lc in KERNEL_LC:
+            lead = (DEFER_LAYERS,) if deferred else ()
+            (k, ks), (v, vs) = (_quantized(lead + (lc, b, h, d), g) for _ in range(2))
+            holes = [None, torch.tensor([[0, 0], [70, 200]], dtype=torch.int32, device="cuda")
+                     if b == KERNEL_B else _batch_holes(b)]
+            for dtype in (torch.float32, torch.bfloat16):
+                q, kc, vc = (torch.randn((b, h, d), generator=g, device="cuda").to(dtype)
+                             for _ in range(3))
+
+                def call(fn, start, pos, hole, k_scale=ks, v_scale=vs, kk=k, vv=v):
+                    layer = (start + pos) % DEFER_LAYERS
+                    extra = dict(layer=layer, k_cur=kc, v_cur=vc) if deferred else {}
+                    sc = {} if k_scale is None else dict(k_scale=k_scale, v_scale=v_scale)
+                    return fn(q, kk, vv, pos, start, hole, **extra, **sc)
+
+                for hole in holes:
+                    for start, pos in INT8_CASES:
+                        pos = lc - 1 if pos < 0 else pos
+                        out = call(fd.decode_attention, start, pos, hole)
+                        ref = call(fd.decode_attention_reference, start, pos, hole)
+                        err = _check_err(name, out, ref, TOL[dtype],
+                                         relative=dtype == torch.bfloat16, b=b, h=h, lc=lc,
+                                         dtype=str(dtype)[6:], start=start, pos=pos,
+                                         hole=hole is not None)
+                        worst[dtype] = max(worst[dtype], err)
+                if (b, lc) != report or h != KERNEL_H:
+                    continue
+                start, pos, hole = 4, min(lc - 1, 4 + (lc - 4) * 3 // 4), holes[-1]
+                rolled = [torch.roll(x, 1, dims=-3).contiguous() for x in (ks, vs)]
+                bad = call(fd.decode_attention, start, pos, hole, *rolled)
+                ref = call(fd.decode_attention_reference, start, pos, hole)
+                torch.cuda.synchronize()
+                floor = ref.float().abs().clamp_min(1.0) if dtype == torch.bfloat16 else 1.0
+                faults[dtype] = ((bad.float() - ref.float()).abs() / floor).max().item()
+                log("kernel_fault", name=name, fault="scale_planes_one_slot_off", b=b, lc=lc,
+                    dtype=str(dtype)[6:], checked_err=f"{faults[dtype]:.3e}",
+                    limit=TOL[dtype], caught=faults[dtype] > TOL[dtype])
+                if not faults[dtype] > TOL[dtype]:
+                    raise AssertionError(f"{name}: a planted fault reads {faults[dtype]} <= "
+                                         f"{TOL[dtype]}")
+                if dtype != torch.bfloat16:
+                    continue
+                t = _timing(lambda: call(fd.decode_attention, start, pos, hole),
+                            lambda: call(fd.decode_attention_reference, start, pos, hole))
+                t.update(_bound(*_int8_work(b, h, d, start, pos, hole, deferred)))
+                t["library_ms"] = None
+                # bf16 K1 (K1s) on the same shape: the cache dequantised to bf16
+                kb, vb = ((x.float() * s[..., None]).to(torch.bfloat16) for x, s in
+                          ((k, ks), (v, vs)))
+                t["ms_bf16_cache"] = _device_ms(
+                    lambda: call(fd.decode_attention, start, pos, hole, None, None, kb, vb))
+                t["bound_ms_bf16_cache"] = _bound(
+                    *_decode_work(b, h, d, start, pos, hole, deferred))["bound_ms"]
+                if not deferred:
+                    idx = torch.arange(lc, device="cuda")[None, :]
+                    live = (idx >= start) & (idx <= pos) & ~(
+                        (idx >= hole[:, :1]) & (idx < hole[:, 1:2]))
+                    smask, sq = live[:, None, None, :], q[:, :, None, :]
+
+                    def dequant_sdpa():
+                        kd = (k.to(torch.bfloat16) * ks[..., None].to(torch.bfloat16))
+                        vd = (v.to(torch.bfloat16) * vs[..., None].to(torch.bfloat16))
+                        return torch.nn.functional.scaled_dot_product_attention(
+                            sq, kd.permute(1, 2, 0, 3), vd.permute(1, 2, 0, 3),
+                            attn_mask=smask)
+                    _check_err(name + "_dequant_sdpa", dequant_sdpa()[:, :, 0],
+                               call(fd.decode_attention, start, pos, hole), TOL[dtype],
+                               relative=True, b=b, lc=lc, call="dequantise_then_sdpa")
+                    t["ms_dequant_sdpa"] = _device_ms(dequant_sdpa)
+                timing[(b, lc)] = t
+                _log_time(name, t, card, b=b, lc=lc, start=start, pos=pos, hole=True)
+                log("kernel_time_int8", name=name, b=b, lc=lc,
+                    int8_ms=f"{t['ms']:.5f}", bf16_cache_ms=f"{t['ms_bf16_cache']:.5f}",
+                    bound_ms=f"{t['bound_ms']:.5f}", bound_mb=f"{t['bound_bytes'] / 1e6:.2f}",
+                    bf16_bound_ms=f"{t['bound_ms_bf16_cache']:.5f}",
+                    dequant_sdpa_ms=(f"{t['ms_dequant_sdpa']:.5f}" if "ms_dequant_sdpa" in t
+                                     else "none"), card=repr(card))
+    out = {"max_abs_err": worst[torch.bfloat16], "max_abs_err_fp32": worst[torch.float32],
+           "fault_err_bf16": faults[torch.bfloat16], "fault_err_fp32": faults[torch.float32],
+           "timing": timing[report]}
+    if not deferred:
+        span = phase_span_check(card, int8=True)
+        out["timing"].update(ms_span=span["timing"]["ms"],
+                             plain_ms_span=span["timing"]["plain_ms"],
+                             bound_ms_span=span["timing"]["bound_ms"])
+        out.update(max_abs_err_span=span["max_abs_err"],
+                   max_abs_err_span_fp32=span["max_abs_err_fp32"])
+    return out
+
+
+@contextlib.contextmanager
+def _params(tts, t3=None, s3gen=None, conds=None):
+    """The pipeline with other T3 / S3Gen trees and conditionals for the
+    block, then its own again."""
+    old = tts.t3_params, tts.s3gen_params, tts.conds
+    tts.t3_params = old[0] if t3 is None else t3
+    tts.s3gen_params = old[1] if s3gen is None else s3gen
+    tts.conds = old[2] if conds is None else conds
+    try:
+        yield
+    finally:
+        tts.t3_params, tts.s3gen_params, tts.conds = old
+
+
+def _tree_bytes(tree) -> int:
+    from chatterbox_embed_tpu_torch.weights import _leaves
+    return sum(x.numel() * x.element_size() for _, x in _leaves(tree))
+
+
+def _close(label: str, got, want, min_cos: float, max_rel: float, **case) -> tuple:
+    a, b = want.double().flatten(), got.double().flatten()
+    cos = float((a @ b) / (a.norm() * b.norm()))
+    rel = float((a - b).norm() / a.norm())
+    log("int8_close", what=label, cos=f"{cos:.6f}", rel=f"{rel:.5f}", min_cos=min_cos,
+        max_rel=max_rel, **case)
+    if not (cos > min_cos and rel < max_rel):
+        raise AssertionError(f"{label}: cos {cos}, rel {rel}; want > {min_cos}, < {max_rel}")
+    return cos, rel
+
+
+def _int8_generate(tts, n_layers: int, label: str, env: dict, counter: str,
+                   max_new_tokens: int = INT8_NEW_TOKENS) -> tuple:
+    """tts.generate of TEXT under `env`, its wav checked and its launches
+    held to `counter` = 30 x steps and nothing else of T3's. Returns
+    (launches, perf)."""
+    with _env(env):
+        _reset_counts()
+        wav = tts.generate(TEXT, max_new_tokens=max_new_tokens, cfg_weight=0.5,
+                           temperature=0.7, seed=0)
+        counts, perf = _counts(), dict(tts.perf)
+    n_tok, steps = perf["speech_tokens"], perf["decode_steps"]
+    if wav.shape != (1, 2 * n_tok * 480) or not np.isfinite(wav).all() or steps == 0:
+        raise AssertionError(f"{label}: wav {wav.shape} for {n_tok} tokens")
+    if counts != _want(**{counter: n_layers * steps}) or perf["use_fused"]:
+        raise AssertionError(f"{label}: launches {counts}, want {counter} = {n_layers} x "
+                             f"{steps}, no K4")
+    return counts, perf
+
+
+def phase_int8(card: str, tts) -> dict:
+    """(b)-(e) of the int8 phase (module docstring) at full width with the
+    pipeline's random bf16 weights and a voice made from a seed. Returns
+    each path's launches."""
+    from chatterbox_embed_tpu_torch import tts as tts_mod
+    from chatterbox_embed_tpu_torch.models import s3gen as s3gen_mod
+    from chatterbox_embed_tpu_torch.models import t3
+    from chatterbox_embed_tpu_torch.utils.quantize import quantize_s3gen, quantize_t3
+    cfg = tts.cfg
+    n_layers = cfg.t3.llama.num_layers
+    conds = _random_conds(cfg, "cuda", seed=3)
+    cond = conds.t3
+    launches = {}
+
+    # (b) int8 T3 weights
+    t0 = time.time()
+    qt3 = quantize_t3(tts.t3_params)
+    torch.cuda.synchronize()
+    quant_s = time.time() - t0
+    tt, lens = _text_rows(tts, [TEXT])
+    kw = dict(cfg_weight=0.5, max_new_tokens=INT8_NEW_TOKENS, cfg=cfg.t3, dtype=tts.dtype,
+              device=tts.device)
+    fp_state, _ = t3.start_generation(tts.t3_params, cond, tt, **kw)
+    q8_state, _ = t3.start_generation(qt3, cond, tt, **kw)
+    _close("int8_weights_prefill_logits", q8_state.logits, fp_state.logits, INT8_LOGIT_COS,
+           INT8_LOGIT_REL)
+    del fp_state, q8_state
+    llama_bytes = {"bf16": _tree_bytes(tts.t3_params["llama"]),
+                   "int8": _tree_bytes(qt3["llama"])}
+    with _params(tts, conds=conds):
+        for label, params, env in (("warmup_int8", qt3, {"CHATTERBOX_FUSED_STEP": "1"}),
+                                   ("bf16", None, {}),
+                                   ("int8_weights", qt3, {"CHATTERBOX_FUSED_STEP": "1"})):
+            with _params(tts, t3=params):
+                counts, perf = _int8_generate(tts, n_layers, label, env, "flash_decode",
+                                              32 if label.startswith("warmup")
+                                              else INT8_NEW_TOKENS)
+            if label == "bf16":
+                bf16_ms = 1e3 * perf["t3_s"] / perf["decode_steps"]
+        launches["int8_weights"] = counts
+    ms = 1e3 * perf["t3_s"] / perf["decode_steps"]
+    log("int8_weights", tokens=perf["speech_tokens"], decode_steps=perf["decode_steps"],
+        fused_step_asked=True, use_fused=perf["use_fused"],
+        launches=json.dumps({k: v for k, v in counts.items() if v}).replace(" ", ""),
+        ms_per_step=f"{ms:.3f}", bf16_ms_per_step=f"{bf16_ms:.3f}",
+        t3_s=f"{perf['t3_s']:.4f}", quantize_s=f"{quant_s:.3f}",
+        llama_bytes_bf16=llama_bytes["bf16"], llama_bytes_int8=llama_bytes["int8"],
+        card=repr(card))
+    del qt3
+    torch.cuda.empty_cache()
+
+    # (c) int8 S3Gen: one 8-row flow_to_mel against fp
+    qs3 = quantize_s3gen(tts.s3gen_params)
+    rng = np.random.default_rng(8)
+    u, n_tok = INT8_MEL_ROWS, INT8_MEL_TOKENS
+    gen = conds.gen
+    n_prompt = int(np.asarray(gen["prompt_token_len"]).reshape(-1)[0])
+    toks = torch.tensor(rng.integers(0, 6561, (u, n_tok)), dtype=torch.int64, device="cuda")
+    tok_len = torch.tensor(n_prompt + n_tok - 10 * np.arange(u), dtype=torch.int64,
+                           device="cuda")
+    prompt = (torch.as_tensor(np.asarray(gen["prompt_token"]), device="cuda").expand(u, -1),
+              torch.as_tensor(np.asarray(gen["prompt_feat"]), dtype=torch.float32,
+                              device="cuda").expand(u, -1, -1),
+              torch.as_tensor(np.asarray(gen["embedding"]), dtype=torch.float32,
+                              device="cuda").expand(u, -1))
+    stride, cfg_steps = tts_mod._derive_cfm_cache(u), tts_mod._derive_cfm_cfg_steps()
+    mels = {}
+    for label, params in (("fp", tts.s3gen_params), ("int8", qs3)):
+        _reset_counts()
+        t0 = time.time()
+        with torch.no_grad():
+            mels[label] = s3gen_mod.flow_to_mel(
+                params, toks, tok_len, *prompt, cfg=cfg.s3gen, dtype=tts.dtype,
+                cache_every=stride, cfg_steps=cfg_steps).float()
+        torch.cuda.synchronize()
+        secs = time.time() - t0
+    counts = _counts()
+    want = _want(**_s3gen_launches(cfg, dict(cfm_cache_every=stride, s3gen_dispatches=1)))
+    if counts != want or not torch.isfinite(mels["int8"]).all():
+        raise AssertionError(f"int8 S3Gen: launches {counts}, want {want}")
+    launches["int8_s3gen"] = counts
+    _close("int8_s3gen_mel", mels["int8"], mels["fp"], INT8_MEL_COS, INT8_MEL_REL, rows=u,
+           tokens=n_tok)
+    log("int8_s3gen", rows=u, tokens=n_tok, cfm_stride=stride, flow_s=f"{secs:.4f}",
+        launches=json.dumps({k: v for k, v in counts.items() if v}).replace(" ", ""),
+        flow_bytes_fp=_tree_bytes(tts.s3gen_params["flow"]),
+        flow_bytes_int8=_tree_bytes(qs3["flow"]), card=repr(card))
+    del qs3, mels
+    torch.cuda.empty_cache()
+
+    # (d) the int8 KV cache: generate_batch of the 8 texts, then the deferred insert
+    tt, lens = _text_rows(tts, TEXTS)
+    kw = dict(cfg_weight=0.5, max_new_tokens=BATCH_KW["max_new_tokens"], text_lens=lens,
+              cfg=cfg.t3, dtype=tts.dtype, device=tts.device)
+    states = {}
+    for mode in ("0", "1"):
+        with _env({"CHATTERBOX_INT8_KV": mode}):
+            states[mode], info = t3.start_generation(tts.t3_params, cond, tt, **kw)
+    _close("int8_cache_prefill_logits", states["1"].logits, states["0"].logits,
+           INT8_LOGIT_COS, INT8_LOGIT_REL)
+    cache_bytes = {m: sum(x.numel() * x.element_size() for x in st.cache if x is not None)
+                   for m, st in states.items()}
+    total = info["cache_total"]
+    del states
+    per_row = t3.kv_bytes_per_token_row(cfg.t3, kv_int8=True)
+    free = t3.free_device_bytes("cuda")
+    cap_utt = t3.max_decode_utterances(total, cfg=cfg.t3, free_bytes=free, kv_int8=True)
+    with _env({"CHATTERBOX_INT8_KV": "1"}):
+        _reset_counts()
+        wavs = tts.generate_batch(TEXTS, conds=conds, **BATCH_KW)
+        counts, perf = _counts(), dict(tts.perf)
+        info = dict(t3.LAST_GENERATION_INFO)
+    steps = perf["decode_steps"]
+    for i, (w, n) in enumerate(zip(wavs, perf["row_tokens"])):
+        if w.shape != (2 * n * 480,) or n == 0 or not np.isfinite(w).all():
+            raise AssertionError(f"int8 cache: row {i} wav {w.shape}, {n} tokens")
+    want = _want(flash_decode_int8=n_layers * steps, **_s3gen_launches(cfg, perf))
+    if counts != want or not info["kv_int8"] or steps == 0:
+        raise AssertionError(f"int8 cache: launches {counts}, want {want}, info {info}")
+    launches["int8_cache"] = counts
+    log("int8_cache", utterances=len(wavs), decode_steps=steps, kv_int8=info["kv_int8"],
+        phase_totals=info["phase_totals"],
+        launches=json.dumps({k: v for k, v in counts.items() if v}).replace(" ", ""),
+        t3_s=f"{perf['t3_s']:.4f}", ms_per_step=f"{1e3 * perf['t3_s'] / steps:.3f}",
+        s3gen_s=f"{perf['s3gen_s']:.4f}", cache_bytes_int8=cache_bytes["1"],
+        cache_bytes_bf16=cache_bytes["0"], cache_total=total,
+        bytes_per_token_row_int8=per_row,
+        bytes_per_token_row_bf16=t3.kv_bytes_per_token_row(cfg.t3, tts.dtype),
+        max_decode_utterances_int8=t3.max_decode_utterances(kv_int8=True),
+        fence_utterances_at_capacity=cap_utt, free_bytes=free,
+        fence_bytes=int(free * t3.KV_FENCE_FRACTION), card=repr(card))
+    with _params(tts, conds=conds):
+        counts, perf = _int8_generate(
+            tts, n_layers, "int8_cache_defer",
+            {"CHATTERBOX_INT8_KV": "1", "CHATTERBOX_DEFER_KV": "1"},
+            "flash_decode_int8_deferred", INT8_DEFER_TOKENS)
+    launches["int8_defer"] = counts
+    log("int8_cache_defer", tokens=perf["speech_tokens"], decode_steps=perf["decode_steps"],
+        launches=json.dumps({k: v for k, v in counts.items() if v}).replace(" ", ""),
+        ms_per_step=f"{1e3 * perf['t3_s'] / perf['decode_steps']:.3f}", card=repr(card))
+
+    # (e) the engine at kv_int8=True
+    from chatterbox_embed_tpu_torch.config import SPEECH_VOCAB_SIZE
+    requests = [dict(text=t, conds=conds, seed=i, temperature=0.8, cfg_weight=0.5,
+                     max_new_tokens=lim)
+                for i, (t, lim) in enumerate(zip(ENGINE_TEXTS, INT8_ENGINE_LIMITS))]
+    _reset_counts()
+    run = _serve_engine(tts, requests, INT8_ENGINE_GEO)
+    counts, dec = _counts(), run["decoder"]
+    steps = dec.steps_run
+    if (counts != _want(flash_decode_int8=n_layers * steps, **{
+            k: counts[k] for k in ("rel_attention", "flash_attention")})
+            or steps == 0 or dec.state.cache.k.dtype != torch.int8):
+        raise AssertionError(f"int8 engine: launches {counts}, {steps} steps")
+    for rid, req in zip(run["rids"], requests):
+        toks, w = run["completions"][rid], run["wavs"][rid]
+        n = int((toks < SPEECH_VOCAB_SIZE).sum())
+        if len(toks) > req["max_new_tokens"] or n == 0 or w.shape != (2 * n * 480,) \
+                or not np.isfinite(w).all():
+            raise AssertionError(f"int8 engine request {rid}: {len(toks)} tokens, wav {w.shape}")
+    rid = run["rids"][INT8_ENGINE_ALONE]
+    step0, slot = run["joined"][rid]
+    alone = _serve_engine(tts, [requests[INT8_ENGINE_ALONE]], INT8_ENGINE_GEO,
+                          start_step=step0)
+    got, want_toks = alone["completions"][alone["rids"][0]], run["completions"][rid]
+    if not np.array_equal(got, want_toks):
+        raise AssertionError(f"int8 engine: request {INT8_ENGINE_ALONE} alone gives other "
+                             f"tokens ({len(got)} against {len(want_toks)})")
+    launches["int8_engine"] = counts
+    log("int8_engine", requests=len(requests), slots=dec.slots, steps=steps,
+        ms_per_step=f"{1e3 * dec.t_decode / steps:.3f}", wall_s=f"{run['wall_s']:.4f}",
+        alone_request=INT8_ENGINE_ALONE, joined_at=step0, slot_in_traffic=slot,
+        alone_equal=True,
+        launches=json.dumps({k: v for k, v in counts.items() if v}).replace(" ", ""),
+        card=repr(card))
+    torch.cuda.empty_cache()
+    return launches
+
+
 # the path whose launch count each kernel's JSON entry reports: the
 # streamed request for K1 and K4, the paths that run the others, and for the
 # two probe kernels their probe's entry point
@@ -3255,6 +3686,7 @@ MAIN_PATH = {"flash_decode": "stream_generate", "flash_decode_deferred": "genera
              "rel_attention": "generate_batch", "flash_attention": "generate_batch",
              "flash_attention_bwd_dq": "train_flow", "flash_attention_bwd_dkv": "train_flow",
              "fused_decode": "stream_generate_fused_step",
+             "flash_decode_int8": "int8_cache", "flash_decode_int8_deferred": "int8_defer",
              "weight_stream": "probe_weight_stream", "decode_anatomy": "probe_decode_anatomy"}
 REPLACES = {"flash_decode": "chatterbox_embed_tpu/kernels/flash_decode.py:85",
             "flash_decode_deferred": "chatterbox_embed_tpu/kernels/flash_decode.py:169",
@@ -3264,6 +3696,10 @@ REPLACES = {"flash_decode": "chatterbox_embed_tpu/kernels/flash_decode.py:85",
             "flash_attention_bwd_dq": "jax/experimental/pallas/ops/tpu/flash_attention.py:1287",
             "flash_attention_bwd_dkv": "jax/experimental/pallas/ops/tpu/flash_attention.py:941",
             "fused_decode": "chatterbox_embed_tpu/kernels/fused_decode.py:111",
+            # no TPU kernel: the JAX package reads its int8 cache in XLA
+            # (mode 1, the scales factored out of both dots)
+            "flash_decode_int8": "chatterbox_embed_tpu/models/llama.py:416",
+            "flash_decode_int8_deferred": "chatterbox_embed_tpu/models/llama.py:416",
             "weight_stream": "scripts/microbench_weight_stream.py:39",
             "decode_anatomy": "scripts/microbench_decode_anatomy.py:40"}
 
@@ -3272,9 +3708,10 @@ REPLACES = {"flash_decode": "chatterbox_embed_tpu/kernels/flash_decode.py:85",
 # and build phases always run; every phase runs when none is named)
 PHASES = ("kernel_check", "attention_check", "probe_check", "probes", "fused_check",
           "consistency", "generate", "generate_batch", "stream_generate", "conditioning",
-          "long_text", "engine", "worker", "mesh", "train", "train_mesh")
+          "long_text", "engine", "worker", "mesh", "int8", "train", "train_mesh")
 MODEL_PHASES = ("fused_check", "consistency", "generate", "generate_batch",
-                "stream_generate", "conditioning", "long_text", "engine", "worker", "mesh")
+                "stream_generate", "conditioning", "long_text", "engine", "worker", "mesh",
+                "int8")
 
 
 def _selected(argv) -> set:
@@ -3381,6 +3818,12 @@ def main(argv=None) -> None:
     if "mesh" in selected:
         launches.update(phase_mesh(card, tts))
         phase_done("mesh")
+    if "int8" in selected:
+        check["flash_decode_int8"] = phase_int8_kernel_check(card)
+        check["flash_decode_int8_deferred"] = phase_int8_kernel_check(card, deferred=True)
+        phase_done("int8_kernel_check")
+        launches.update(phase_int8(card, tts))
+        phase_done("int8")
     if selected & set(MODEL_PHASES):
         del tts
         torch.cuda.empty_cache()
@@ -3409,7 +3852,7 @@ def main(argv=None) -> None:
         "max_abs_err": check[name]["max_abs_err"],
         "max_abs_err_fp32": check[name].get("max_abs_err_fp32"),
         **{key: val for key, val in check[name].items()
-           if key.startswith(("max_abs_err_span", "err_vs_exact"))},
+           if key.startswith(("max_abs_err_span", "err_vs_exact", "fault_err"))},
         "ms": check[name]["timing"]["ms"], "plain_ms": check[name]["timing"]["plain_ms"],
         "bound_ms": check[name]["timing"]["bound_ms"],
         "bound_by": check[name]["timing"]["bound_by"],

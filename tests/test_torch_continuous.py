@@ -217,7 +217,9 @@ def test_vocode_failure_preserves_completions(pair, monkeypatch):
 def test_slot_derivation_follows_the_fence(pair, monkeypatch):
     """slots=None: t3.max_decode_utterances at the engine's capacity, in
     the compute dtype, against the device's free bytes: 16 without a
-    fence (the CPU), 4 when the free bytes hold 4 CFG slots' cache."""
+    fence (the CPU), 4 when the free bytes hold 4 CFG slots' cache; with
+    kv_int8=True the same bytes hold 8 (int8 slabs and their fp32 scales:
+    (16 + 4) bytes a head-row against fp32's 64)."""
     _, port = pair
     cfg = port.cfg.t3
     bucket, cap = 32, 16
@@ -230,8 +232,9 @@ def test_slot_derivation_follows_the_fence(pair, monkeypatch):
     monkeypatch.setattr(tt3, "free_device_bytes", lambda device: free)
     srv = tcont.ContinuousServer(port, text_bucket=bucket, max_new_tokens=cap, block=8)
     assert srv.decoder.slots == 4
-    with pytest.raises(NotImplementedError, match="item 22"):
-        tcont.ContinuousServer(port, slots=2, kv_int8=True)
+    srv = tcont.ContinuousServer(port, text_bucket=bucket, max_new_tokens=cap, block=8,
+                                 kv_int8=True)
+    assert srv.decoder.slots == 8 and srv.decoder.kv_int8
 
 
 def _stories(pair, **kw):

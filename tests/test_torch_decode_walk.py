@@ -143,7 +143,7 @@ def test_split_constants_equal_the_headers():
     assert walk["kHeadDim"] == tfd.HEAD_DIM == D
     assert 32 // walk["kGroupLanes"] == tfd.GROUPS          # kGroups = 32 / kGroupLanes
     loads = re.findall(r"struct Row<(\w+)> \{\s*static constexpr int kLoads = (\d+);", text)
-    names = {"__nv_bfloat16": torch.bfloat16, "float": torch.float32}
+    names = {"__nv_bfloat16": torch.bfloat16, "float": torch.float32, "int8_t": torch.int8}
     assert {names[t]: int(n) for t, n in loads} == tfd.LOADS
     fused, _ = _constants(_build.CSRC / "fused_decode.cu")
     assert fused["kMaxSplits"] == tfu.MAX_SPLITS

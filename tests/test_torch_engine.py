@@ -237,7 +237,7 @@ def test_engine_near_greedy_matches_generate(models, rng):
     np.testing.assert_array_equal(eng.drain()[rid], ref)
 
 
-def test_engine_refusals(models, rng):
+def test_engine_refusals(models, rng, monkeypatch):
     eng = teng.ContinuousDecoder(models[1], TINY, slots=1, text_bucket=8, max_new_tokens=8,
                                  block=4, device="cpu")
     with pytest.raises(ValueError, match="text bucket"):
@@ -247,9 +247,14 @@ def test_engine_refusals(models, rng):
     with pytest.raises(ValueError, match="use_top_p"):
         eng.submit(_text(rng, 3), _cond(rng)[1], top_p=0.9)
     assert eng.idle
-    with pytest.raises(NotImplementedError, match="item 22"):
-        teng.ContinuousDecoder(models[1], TINY, slots=1, text_bucket=8, max_new_tokens=8,
-                               kv_int8=True, device="cpu")
+    # kv_int8=True builds the int8 cache (ROADMAP item 22); the int8
+    # x int8 mode the JAX package rejected is still refused
+    geo = dict(slots=1, text_bucket=8, max_new_tokens=8, device="cpu")
+    assert teng.ContinuousDecoder(models[1], TINY, kv_int8=True, **geo).state.cache.k.dtype \
+        == torch.int8
+    monkeypatch.setenv("CHATTERBOX_INT8_KV", "2")
+    with pytest.raises(NotImplementedError, match="not-to-port"):
+        teng.ContinuousDecoder(models[1], TINY, **geo)
 
 
 def test_idle_step_clears_last_block_tokens(models, rng):

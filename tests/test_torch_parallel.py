@@ -1,6 +1,6 @@
 """Serving on a mesh (chatterbox_embed_tpu_torch/parallel/): the port's
 counterparts of tests/test_parallel.py's serving cases, on worlds of 2-4
-processes over gloo on the CPU, and the int8 refusals (ROADMAP F1).
+processes over gloo on the CPU, and the int8 settings (ROADMAP item 22).
 
 One world of 4 ranks is started for the module (rendezvous through a
 temporary file) and every mesh below reuses it: a 2-rank mesh runs on its
@@ -29,9 +29,12 @@ the module's end the world shuts down and every follower is joined.
   A rank that fails fails the call on the leader and closes the world.
 - A shard tree or an engine that the leader drops is released on the
   followers with the next call; a mesh built again reuses its key.
-- F1: from_local(int8=True), CHATTERBOX_INT8=1, CHATTERBOX_INT8_S3GEN=1
-  and CHATTERBOX_INT8_KV=1|2 raise NotImplementedError naming ROADMAP item
-  22; 0 or unset loads and decodes as before.
+- int8 (ROADMAP item 22, which replaced F1's refusals): from_local(int8=
+  True), CHATTERBOX_INT8=1 and CHATTERBOX_INT8_S3GEN=1 load int8 trees
+  equal to utils/quantize.py's; CHATTERBOX_INT8_KV=1 decodes with the int8
+  cache alone, on dp = 2 (bit for bit), on tp = 2 (logits within 2e-4)
+  and in the engine; CHATTERBOX_INT8_KV=2 and an unparseable value raise;
+  0 or unset decodes as before.
 """
 import base64
 import gc
@@ -461,40 +464,118 @@ def test_a_failed_rank_fails_the_call_and_closes_the_world(world):
     assert [float(x) for x in fresh.call_all(fail_on, 9, fresh)] == [2.0, 2.0]
 
 
-# -- F1: the int8 settings are refused --------------------------------------------
+# -- F1 and item 22: the int8 settings load -------------------------------------
+
+@pytest.fixture
+def converted(monkeypatch):
+    """from_local's reads answered with the tiny pipeline's trees as the
+    port's converters (utils/weights.py) return them from a reference
+    checkpoint: numpy arrays in the port's layout (no reference checkpoint
+    can be written here). Returns the config and the trees."""
+    from chatterbox_embed_tpu_torch import tts as ttts
+    from chatterbox_embed_tpu_torch.models.tokenizer import FallbackTokenizer
+    cfg = tiny_pipeline_config()
+    src = ChatterboxTTS.from_random(seed=3, config=cfg, device="cpu")
+    trees = {"ve": src.ve_params, "t3": src.t3_params, "s3gen": src.s3gen_params}
+
+    def arrays(tree):
+        if isinstance(tree, dict):
+            return {k: arrays(v) for k, v in tree.items()}
+        if isinstance(tree, list):
+            return [arrays(v) for v in tree]
+        return tree.numpy().copy()
+    monkeypatch.setattr(ttts.weights_mod, "load_safetensors", lambda path: path)
+    monkeypatch.setattr(ttts.weights_mod, "convert_voice_encoder",
+                        lambda sd, **_: arrays(trees["ve"]))
+    monkeypatch.setattr(ttts.weights_mod, "convert_t3", lambda sd, **_: arrays(trees["t3"]))
+    monkeypatch.setattr(ttts.weights_mod, "convert_s3gen", lambda sd, **_: arrays(trees["s3gen"]))
+    monkeypatch.setattr(ttts, "EnTokenizer", lambda path: FallbackTokenizer(cfg.t3))
+    for key in ("CHATTERBOX_INT8", "CHATTERBOX_INT8_S3GEN", "CHATTERBOX_INT8_KV"):
+        monkeypatch.delenv(key, raising=False)
+    return cfg, trees
+
+
+def _int8_parts(tts) -> tuple:
+    """(T3's backbone is int8, the flow stack is int8)."""
+    return ("w_q" in tts.t3_params["llama"]["layers"][0]["q"],
+            "w_q" in tts.s3gen_params["flow"]["decoder"]["down"]["tblocks"][0]["q"])
+
 
 @pytest.mark.parametrize("key", ["CHATTERBOX_INT8", "CHATTERBOX_INT8_S3GEN"])
-def test_int8_weight_settings_raise(key, monkeypatch, tmp_path):
-    monkeypatch.delenv("CHATTERBOX_INT8", raising=False)
-    monkeypatch.delenv("CHATTERBOX_INT8_S3GEN", raising=False)
-    monkeypatch.setenv(key, "1")
-    with pytest.raises(NotImplementedError, match=f"{key}=1.*item 22"):
-        ChatterboxTTS.from_local(tmp_path, device="cpu")
+def test_int8_weight_settings_raise(key, converted, monkeypatch, tmp_path):
+    """Item 22 replaced F1's refusal: CHATTERBOX_INT8=1 loads T3's backbone
+    in int8 (equal to quantize_t3 of the full-precision load, bit for bit),
+    CHATTERBOX_INT8_S3GEN=1 the flow stack (its `pos` projections fp); 0
+    loads full precision; the int8 pipeline speaks."""
+    from chatterbox_embed_tpu_torch.utils.quantize import quantize_s3gen, quantize_t3
+    from chatterbox_embed_tpu_torch.weights import _leaves
+    cfg, trees = converted
     monkeypatch.setenv(key, "0")
-    with pytest.raises(FileNotFoundError):      # past the check: the loading starts
-        ChatterboxTTS.from_local(tmp_path, device="cpu")
+    assert _int8_parts(ChatterboxTTS.from_local(tmp_path, config=cfg, device="cpu")) == (
+        False, False)
+    monkeypatch.setenv(key, "1")
+    q8 = ChatterboxTTS.from_local(tmp_path, config=cfg, device="cpu")
+    want = (key == "CHATTERBOX_INT8", key == "CHATTERBOX_INT8_S3GEN")
+    assert _int8_parts(q8) == want
+    if want[0]:
+        ref, got = quantize_t3(trees["t3"]), q8.t3_params
+    else:
+        ref, got = quantize_s3gen(trees["s3gen"]), q8.s3gen_params
+        assert "w" in got["flow"]["encoder"]["blocks"][0]["pos"]
+    for (path, a), (path_b, b) in zip(_leaves(got), _leaves(ref), strict=True):
+        assert path == path_b and a.dtype == b.dtype and torch.equal(a, b), path
+    q8.conds = tiny_conds(cfg)
+    wav = q8.generate("hello there", max_new_tokens=8, cfg_weight=0.5, seed=0)
+    assert wav.shape[0] == 1 and wav.shape[1] > 0 and np.isfinite(wav).all()
 
 
-def test_from_local_int8_argument(monkeypatch, tmp_path):
-    monkeypatch.delenv("CHATTERBOX_INT8", raising=False)
-    monkeypatch.delenv("CHATTERBOX_INT8_S3GEN", raising=False)
-    with pytest.raises(NotImplementedError, match=r"int8=True.*item 22"):
-        ChatterboxTTS.from_local(tmp_path, device="cpu", int8=True)
-    for off in (None, False):
-        with pytest.raises(FileNotFoundError):
-            ChatterboxTTS.from_local(tmp_path, device="cpu", int8=off)
+def test_from_local_int8_argument(converted, monkeypatch, tmp_path):
+    """int8=True quantises T3 whatever CHATTERBOX_INT8 says, False keeps it
+    full precision, None follows the setting (off when unset, the GPU
+    default)."""
+    cfg, _ = converted
+
+    def load(**kw):
+        return _int8_parts(ChatterboxTTS.from_local(tmp_path, config=cfg, device="cpu", **kw))
+    assert load(int8=True) == (True, False)
+    assert load(int8=None) == (False, False)
+    assert load(int8=False) == (False, False)
+    monkeypatch.setenv("CHATTERBOX_INT8", "1")
+    assert load(int8=None) == (True, False)
+    assert load(int8=False) == (False, False)
 
 
 @pytest.mark.parametrize("value", ["1", "2"])
-def test_int8_kv_setting_raises(value, models, inputs, monkeypatch):
+def test_int8_kv_setting_raises(value, world, models, inputs, monkeypatch):
+    """CHATTERBOX_INT8_KV=1 (item 22) decodes with the int8 cache: alone,
+    on a dp = 2 mesh (each rank's cache int8, the followers taking the
+    leader's setting; tokens equal to one process bit for bit) and in the
+    engine; 2, the JAX package's int8 x int8 dots, still raises, naming
+    ROADMAP's not-to-port list."""
     _, tp = models
     _, cond, texts = inputs
     monkeypatch.setenv("CHATTERBOX_INT8_KV", value)
-    with pytest.raises(NotImplementedError, match=f"CHATTERBOX_INT8_KV={value}.*item 22"):
-        tt3.generate(tp, cond, texts[:1], **KW)
-    with pytest.raises(NotImplementedError, match="item 22"):
-        teng.ContinuousDecoder(tp, TINY, slots=2, text_bucket=16, max_new_tokens=24,
-                               device="cpu")
+    if value == "2":
+        with pytest.raises(NotImplementedError, match="CHATTERBOX_INT8_KV=2.*not-to-port"):
+            tt3.generate(tp, cond, texts[:1], **KW)
+        with pytest.raises(NotImplementedError, match="not-to-port"):
+            teng.ContinuousDecoder(tp, TINY, slots=2, text_bucket=16, max_new_tokens=24,
+                                   device="cpu")
+        return
+    _valid(tt3.generate(tp, cond, texts[:1], **KW))
+    assert tt3.LAST_GENERATION_INFO["kv_int8"] is True
+    plain = tt3.generate_batch(tp, cond, texts, **KW)
+    mesh = parallel.make_dp_mesh(2, device="cpu")
+    sv = parallel.shard_t3_for_serving(mesh, tp)
+    out = tt3.generate_batch(sv, cond, texts, mesh=mesh, **KW)
+    for a, b in zip(plain, out, strict=True):
+        np.testing.assert_array_equal(b, a)
+    assert [i["kv_int8"] for i in mesh.call_all(generation_info)] == [True, True]
+    dec = teng.ContinuousDecoder(tp, TINY, slots=2, text_bucket=16, max_new_tokens=24,
+                                 device="cpu")
+    assert dec.kv_int8 and dec.state.cache.k.dtype == torch.int8
+    dec.submit(texts[:1, :6], cond, seed=1)
+    _valid(dec.drain()[0])
 
 
 def test_int8_kv_off_decodes_as_before(models, inputs, monkeypatch):
@@ -507,3 +588,28 @@ def test_int8_kv_off_decodes_as_before(models, inputs, monkeypatch):
     monkeypatch.setenv("CHATTERBOX_INT8_KV", "yes")
     with pytest.raises(ValueError, match="want 0, 1 or 2"):
         tt3.generate(tp, cond, texts[:1], **KW)
+
+
+def test_int8_kv_on_a_tp_mesh(world, models, inputs, monkeypatch):
+    """The int8 cache under tp = 2: each rank quantises and walks its H/tp
+    heads (the per-(slot, row, head) scales split with the heads); prefill
+    logits within LOGIT_TOL of one process's int8 prefill; the decode is
+    valid. The engine's int8 cache over dp = 2 (each rank holds its slots'
+    slabs and scales) equals the one-process engine token for token."""
+    _, tp = models
+    _, cond, texts = inputs
+    monkeypatch.setenv("CHATTERBOX_INT8_KV", "1")
+    want = _logits(tp, cond, texts)
+    mesh = parallel.make_tp_mesh(2, device="cpu")
+    sv = parallel.shard_t3_for_decode(mesh, tp)
+    np.testing.assert_allclose(_logits(sv, cond, texts, mesh).numpy(), want.numpy(),
+                               atol=LOGIT_TOL, rtol=LOGIT_TOL)
+    assert [i["kv_int8"] for i in mesh.call_all(generation_info)] == [True, True]
+    for toks in tt3.generate_batch(sv, cond, texts, mesh=mesh, **KW):
+        _valid(toks)
+    dp = parallel.make_dp_mesh(2, device="cpu")
+    plain, plain_run = _engine_run(tp, cond, texts)
+    out, run = _engine_run(parallel.shard_t3_for_serving(dp, tp), cond, texts, dp)
+    assert run == plain_run
+    for a, b in zip(plain, out, strict=True):
+        np.testing.assert_array_equal(b, a)
