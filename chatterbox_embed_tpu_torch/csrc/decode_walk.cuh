@@ -7,33 +7,28 @@
 // Layout: the key/value row of slot j for (row, head) bh starts at
 // j * row_stride + bh * 64 (row_stride = B * H * 64, one layer's cache).
 //
-// Cache types: float and bf16 rows hold the values themselves; an int8 row
-// (K1's int8 entry, the int8 KV cache) holds round(x / s) with one fp32
-// scale s a (slot, row, head), kept in planes of their own: the scale of
-// slot j for bh is at j * scale_stride + scale_off (scale_stride = B * H).
-// The scales factor out of both products: a score is ks * (q . kq) and a
-// value adds (p * vs) * vq, so the walk dequantises nothing but the two
-// scalars a key, and l sums the unscaled p.
-//
 // Who holds what. A lane owns keys, not elements of every key: the 8 lanes
 // of a group (lane / 8) share one key row, lane % 8 holding its elements
-// 8 (lane % 8) ... + 7 (bf16: one 16-byte load; fp32: two; int8: one
-// 8-byte load, and the key's two scales, the same address for the 8). So one
+// 8 (lane % 8) ... + 7 (bf16: one 16-byte load; fp32: two). So one
 // warp-wide load brings 4 keys, and q.k is a partial dot over 8 elements
 // plus a 3-step shuffle inside the group. A block's warps walk a key range
 // in tiles: slot u of warp w's group g holds key
-//   base + (u * kWarps + w) * 4 + g,     u < kLoads (8 bf16, 4 fp32, 16 int8),
+//   base + (u * kWarps + w) * 4 + g,     u < kLoads (8 bf16, 4 fp32),
 // all kLoads rows of k and of v loaded before any is used (32 keys, 8 KB in
-// flight a warp; int8: 64 keys, the same 8 KB of slabs). The softmax runs
-// once a tile: one max over the tile's scores (warp-wide, so m stays
-// warp-uniform), one exp2 a key with the scale folded into the exponent
-// (scores and m stay unscaled), one rescale of the accumulator. P.V accumulates per lane over its own group's keys;
+// flight a warp). The softmax runs once a tile: one max over the tile's
+// scores (warp-wide, so m stays warp-uniform), one exp2 a key with the
+// scale folded into the exponent (scores and m stay unscaled), one rescale
+// of the accumulator. P.V accumulates per lane over its own group's keys;
 // the groups' sums are added once per range (reduce_groups).
 //
 // Exactness: a dead key (past the range's end, inside the hole) is never
 // loaded and scores -inf, so its p is exactly 0 and its value row is never
 // read; a tile with nothing live yet changes nothing. An empty range leaves
 // m = -inf, l = 0, acc = 0.
+//
+// An int8 cache (K1's int8 entry) has a walk of its own, in flash_decode.cu:
+// its slabs pass through shared memory, not registers, and it takes the
+// group layout, the softmax a tile and the merges below.
 //
 // Everything here has internal linkage (an anonymous namespace): each .cu
 // builds its own shared library, and a symbol with external linkage defined
@@ -43,7 +38,6 @@
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <math.h>
-#include <stdint.h>
 
 namespace {
 
@@ -80,7 +74,6 @@ struct Row;
 template <>
 struct Row<__nv_bfloat16> {
   static constexpr int kLoads = 8;
-  static constexpr bool kScaled = false;
   struct Raw { uint4 a; };
   __device__ static Raw load(const __nv_bfloat16* p) {
     return {*reinterpret_cast<const uint4*>(p)};
@@ -99,7 +92,6 @@ struct Row<__nv_bfloat16> {
 template <>
 struct Row<float> {
   static constexpr int kLoads = 4;
-  static constexpr bool kScaled = false;
   struct Raw { float4 a, b; };
   __device__ static Raw load(const float* p) {
     return {reinterpret_cast<const float4*>(p)[0], reinterpret_cast<const float4*>(p)[1]};
@@ -107,23 +99,6 @@ struct Row<float> {
   __device__ static void unpack(const Raw& r, float (&o)[kElems]) {
     o[0] = r.a.x; o[1] = r.a.y; o[2] = r.a.z; o[3] = r.a.w;
     o[4] = r.b.x; o[5] = r.b.y; o[6] = r.b.z; o[7] = r.b.w;
-  }
-};
-
-// int8 rows with per-row scales (kScaled): twice as many rows in flight as
-// bf16, so a warp keeps the same bytes of slabs in flight.
-template <>
-struct Row<int8_t> {
-  static constexpr int kLoads = 16;
-  static constexpr bool kScaled = true;
-  struct Raw { uint2 a; };
-  __device__ static Raw load(const int8_t* p) { return {*reinterpret_cast<const uint2*>(p)}; }
-  __device__ static void unpack(const Raw& r, float (&o)[kElems]) {
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {          // byte i sign-extended: shift it to the top
-      o[i] = (float)((int)(r.a.x << (24 - 8 * i)) >> 24);
-      o[4 + i] = (float)((int)(r.a.y << (24 - 8 * i)) >> 24);
-    }
   }
 };
 
@@ -159,19 +134,15 @@ __host__ __device__ constexpr int tile_keys() { return kWarps * kLoads * kGroups
 // kWrap > 0 reads slot j's row from cache row j % kWrap (the decode-anatomy
 // probe's compute-only variant, which repeats one resident chunk); 0, the
 // decode paths' value, reads row j. kLoads: key rows in flight a warp (the
-// fused step, short of registers, takes fewer). ks, vs: the scale planes of
-// an int8 cache (Row<T>::kScaled), read at j * scale_stride + scale_off;
-// unused otherwise. Every thread of the block calls it with the same range.
+// fused step, short of registers, takes fewer). Every thread of the block
+// calls it with the same range.
 template <typename T, int kWarps, int kWrap = 0, int kLoads = Row<T>::kLoads>
 __device__ __forceinline__ void walk_keys(const T* __restrict__ k,
                                           const T* __restrict__ v,
                                           const float (&q)[kElems], size_t row_stride,
                                           size_t head_off, int lo, int hi, int hole_lo,
                                           int hole_hi, float& m, float& l,
-                                          float (&acc)[kElems],
-                                          const float* __restrict__ ks = nullptr,
-                                          const float* __restrict__ vs = nullptr,
-                                          size_t scale_stride = 0, size_t scale_off = 0) {
+                                          float (&acc)[kElems]) {
   using R = Row<T>;
   constexpr int U = kLoads;
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
@@ -179,22 +150,15 @@ __device__ __forceinline__ void walk_keys(const T* __restrict__ k,
   const size_t lane_off = head_off + (lane % kGroupLanes) * kElems;
   for (int base = lo; base <= hi; base += tile_keys<kWarps, U>()) {
     typename R::Raw kr[U], vr[U];
-    float ksr[U], vsr[U];                             // kScaled only
     bool live[U];
 #pragma unroll
     for (int u = 0; u < U; ++u) {
       const int j = base + (u * kWarps + warp) * kGroups + g;
       live[u] = j <= hi && (j < hole_lo || j >= hole_hi);   // uniform in the group
-      ksr[u] = vsr[u] = 0.f;
       if (live[u]) {
         const size_t off = (size_t)(kWrap > 0 ? j % kWrap : j) * row_stride + lane_off;
         kr[u] = R::load(k + off);
         vr[u] = R::load(v + off);
-        if constexpr (R::kScaled) {
-          const size_t so = (size_t)j * scale_stride + scale_off;
-          ksr[u] = __ldg(ks + so);
-          vsr[u] = __ldg(vs + so);
-        }
       } else {
         kr[u] = typename R::Raw{};                    // scored, then masked to -inf
       }
@@ -211,7 +175,6 @@ __device__ __forceinline__ void walk_keys(const T* __restrict__ k,
       d += __shfl_xor_sync(0xffffffffu, d, 1);
       d += __shfl_xor_sync(0xffffffffu, d, 2);
       d += __shfl_xor_sync(0xffffffffu, d, 4);
-      if constexpr (R::kScaled) d *= ksr[u];
       s[u] = live[u] ? d : -INFINITY;
       tmax = fmaxf(tmax, s[u]);
     }
@@ -228,12 +191,11 @@ __device__ __forceinline__ void walk_keys(const T* __restrict__ k,
     for (int u = 0; u < U; ++u) {
       if (!live[u]) continue;
       const float p = exp2f(fmaf(s[u], kScaleLog2, -mc));
-      const float pv = R::kScaled ? p * vsr[u] : p;
       float vv[kElems];
       R::unpack(vr[u], vv);
       l += p;
 #pragma unroll
-      for (int e = 0; e < kElems; ++e) acc[e] = fmaf(pv, vv[e], acc[e]);
+      for (int e = 0; e < kElems; ++e) acc[e] = fmaf(p, vv[e], acc[e]);
     }
     m = m_new;
   }

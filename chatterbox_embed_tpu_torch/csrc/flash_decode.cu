@@ -21,6 +21,9 @@
 // optional per-row dead range [hole_lo, hole_hi), plus the current row with
 // K1s. The softmax is an fp32 online softmax with scale 1/sqrt(D); q.k and
 // p.v accumulate in fp32 whatever the input dtype; the output has q's dtype.
+// An int8 row holds round(x / s) with one fp32 scale s a (slot, row, head):
+// a score is ks * (q . kq) and a value adds (p * vs) * vq, l sums the
+// unscaled p, so the walk dequantises nothing but the two scalars a key.
 //
 // K1 may take a per-row span in place of the shared [start, cache_pos]: row
 // b then walks [span[b, 0], span[b, 1]] (clamped to [0, Lc - 1]) minus its
@@ -50,9 +53,12 @@
 //   counters     (B*H) int32            workspace, zero between launches
 //
 // What bounds it on an H100: the live K/V bytes, 2 * (pos - start + 1) * B *
-// H * D * sizeof(T) per layer, against ~1 FLOP per byte -- it is memory-bound
-// and, at the decode shapes (0.8-24 MB a call), latency-bound: one launch,
-// one round of loads, one merge. The design:
+// H * D * sizeof(T) per layer (int8: 1 a slab element plus 8 a key for the
+// two scales), against ~1 FLOP per byte -- it is memory-bound and, at the
+// decode shapes (0.4-24 MB a call), latency-bound: one launch, one round of
+// loads, one merge. Tensor cores do not apply: T3 has as many key/value heads
+// as query heads (16), so each key row meets exactly one query row and every
+// product is a GEMV; a wgmma would idle 63 of its 64 rows. The design:
 //   grid (B*H, S) of 128 threads, S = splits_for(B*H, Lc): kSplitBlocks /
 //   (B*H) rounded up, at most Lc / kMinSplitKeys, at least 1. 512 blocks is
 //   ~4 a SM of the 132, and 4 warps a block keep 16 warps an SM walking:
@@ -63,79 +69,261 @@
 //   range [start, walk_end] itself: split s takes ceil(live / S) slots from
 //   start + s * ceil(live / S), so no block walks dead capacity; a split past
 //   the walk's end reads nothing and leaves m = -inf, l = 0.
-//   A block walks its slots with decode_walk.cuh (4 keys a warp-wide load,
-//   32 slots a warp in flight, 64 of an int8 cache with their two scales,
-//   the softmax once a tile), merges its 4 warps,
-//   writes its partial and counts itself in (arrive_last). The last block of
-//   a (row, head) merges the S partials with the max-rescale (an empty split
-//   adds nothing, so no NaN), folds k_cur / v_cur in as one more key with
-//   K1s, writes out, and puts the counter back to 0: no memset launch, no
-//   second kernel.
-// The int8 entry's bytes: 1 a slab element plus 8 a (slot, row, head) for
-// the two scales, 136 a live key against bf16's 256 (0.53x); at the batch's
-// B=16, Lc 512, pos 385 with holes about 12.9 MB against 24.3 MB. It rides
-// the same walk, split plan and merge, so at these sizes it is bounded by
-// the same latency first, not by its bytes.
+//   A block walks its slots (a float or bf16 cache: decode_walk.cuh, 32
+//   slots a warp in flight in registers, the softmax once a tile), merges its
+//   4 warps, writes its partial and counts itself in (arrive_last). The last
+//   block of a (row, head) merges the S partials with the max-rescale (an
+//   empty split adds nothing, so no NaN), folds k_cur / v_cur in as one more
+//   key with K1s, writes out, and puts the counter back to 0: no memset
+//   launch, no second kernel.
+//
+// The int8 walk (walk_int8 below) has the same split plan, group layout,
+// softmax a tile and merges, and differs where an int8 row differs. Each
+// choice was timed against scratch variants on an H100
+// (scripts/torch_decode_check.py --builds; PERF.md §6):
+//   - one wave: 512 blocks need 4 resident an SM (528 slots); a walk that
+//     held 16 rows of k and v a lane in registers took 160 and ran in 1.29
+//     waves of 396 slots. This one is compiled for kInt8Blocks = 4 blocks
+//     an SM (<= 128 registers; it takes 78, and ~18 KB of shared memory);
+//   - slabs through cp.async, not registers: a tile's k and v rows (64
+//     contiguous bytes a key) are copied 16 bytes a thread into a ring of
+//     kInt8Stages shared-memory stages of kInt8Tile keys, the next tile in
+//     flight while this one is scored, one barrier a tile; each lane reads
+//     its 8 bytes of a key from shared memory (4 keys a warp-wide read, no
+//     bank conflict). Two stages of 64 keys timed faster than 128-key
+//     stages and than deeper rings of 32, 64 or 96;
+//   - scales staged once a tile: one thread a key copies its two fp32
+//     scales (the (L, Lc, B, H) planes put a (row, head)'s successive
+//     scales B*H*4 bytes apart), in place of 8 lanes each loading them
+//     while the tile is scored;
+//   - int8 -> fp32 by byte permute: __byte_perm puts x ^ 0x80 into the low
+//     byte of 2^23's bits, and one FADD of -(2^23 + 128) gives x exactly
+//     (one PRMT and one FADD an element, where a sign-extending shift pair
+//     and an I2F ran at a quarter of the FMA rate; the walk is bound by
+//     latency, so the two timed alike). The offset is never folded into
+//     the dot, where q . (2^23 + 128 + x) would lose x's low bits;
+//   - a tile's slots are scored without a branch, so that their chains
+//     interleave (a branch a slot cost 10-30 %).
 
 #include "decode_walk.cuh"
+
+#include <stdint.h>
 
 namespace {
 
 constexpr int kWarps = kSplitWarps;
 constexpr int kThreads = kWarps * 32;
 
-// T: q, k_cur, v_cur and out; C: the cache's slabs (T, or int8 with scales)
-template <typename T, typename C>
-__global__ void __launch_bounds__(kThreads)
-decode_kernel(const T* __restrict__ q, const C* __restrict__ k, const C* __restrict__ v,
-              const float* __restrict__ k_scale, const float* __restrict__ v_scale,
-              const int* __restrict__ hole, const int* __restrict__ span,
-              const T* __restrict__ k_cur, const T* __restrict__ v_cur, T* __restrict__ out,
-              float* __restrict__ part, int* __restrict__ counters, int bh_total, int heads,
-              int lcache, int walk_end, int start, int n_splits) {
-  __shared__ float sm_m[kWarps], sm_l[kWarps];
-  __shared__ float sm_acc[kWarps * kHeadDim];
-  __shared__ float sm_dot[kHeadDim / 32];
-  __shared__ int sm_last;
-  const int bh = blockIdx.x;
-  const int split = blockIdx.y;
-  const int row = bh / heads;
+// The int8 walk's ring: kInt8Tile keys a stage, kInt8Stages stages; each
+// warp's group scores kInt8Slots keys of a tile (kernels/flash_decode.py
+// mirrors the tile as INT8_TILE and LOADS[torch.int8]).
+constexpr int kInt8Tile = 64;
+constexpr int kInt8Stages = 2;
+constexpr int kInt8Blocks = 4;                      // resident blocks an SM, compiled for
+constexpr int kInt8Slots = kInt8Tile / (kWarps * kGroups);
+constexpr int kRowCopies = kHeadDim / 16;           // 16-byte copies a 64-byte int8 row
+static_assert(kInt8Tile * kRowCopies % kThreads == 0, "whole copies a thread");
+static_assert(kInt8Tile <= kThreads, "one thread a key's scales");
+// int8 -> fp32: the bits 0x4B0000xx are 2^23 + xx, and xx = x + 128
+constexpr unsigned kI8Magic = 0x4B000000u;
+constexpr float kI8Offset = 8388736.0f;             // 2^23 + 128
+
+struct Int8Stage {
+  int8_t k[kInt8Tile][kHeadDim];
+  int8_t v[kInt8Tile][kHeadDim];
+  float ks[kInt8Tile];
+  float vs[kInt8Tile];
+};
+
+__device__ __forceinline__ unsigned smem_addr(const void* p) {
+  return static_cast<unsigned>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void copy16(void* dst, const void* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(smem_addr(dst)), "l"(src)
+               : "memory");
+}
+
+__device__ __forceinline__ void copy4(void* dst, const void* src) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(smem_addr(dst)), "l"(src)
+               : "memory");
+}
+
+__device__ __forceinline__ void copy_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int kPending>
+__device__ __forceinline__ void copy_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(kPending) : "memory");
+}
+
+__device__ __forceinline__ bool live_key(int j, int hi, int hole_lo, int hole_hi) {
+  return j <= hi && (j < hole_lo || j >= hole_hi);
+}
+
+// A lane's 8 int8 elements (two words, element 0 in the low byte) as fp32
+__device__ __forceinline__ void unpack_int8(uint2 r, float (&o)[kElems]) {
+  const unsigned a = r.x ^ 0x80808080u, b = r.y ^ 0x80808080u;
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    o[i] = __uint_as_float(__byte_perm(a, kI8Magic, 0x7540 | i)) - kI8Offset;
+    o[4 + i] = __uint_as_float(__byte_perm(b, kI8Magic, 0x7540 | i)) - kI8Offset;
+  }
+}
+
+// Copy the live keys of the tile at `base` (k and v rows, then the two
+// scales) into `st` as one commit group; a dead key is not copied. Past the
+// range the group is empty, so the count stays one group a tile.
+__device__ __forceinline__ void stage_tile(Int8Stage& st, const int8_t* __restrict__ k,
+                                           const int8_t* __restrict__ v,
+                                           const float* __restrict__ ks,
+                                           const float* __restrict__ vs, size_t row_stride,
+                                           size_t head_off, size_t scale_stride,
+                                           size_t scale_off, int base, int hi, int hole_lo,
+                                           int hole_hi) {
+  if (base <= hi) {
+#pragma unroll
+    for (int c = 0; c < kInt8Tile * kRowCopies / kThreads; ++c) {
+      const int i = c * kThreads + threadIdx.x;
+      const int key = i / kRowCopies, at = (i % kRowCopies) * 16;
+      if (live_key(base + key, hi, hole_lo, hole_hi)) {
+        const size_t off = (size_t)(base + key) * row_stride + head_off + at;
+        copy16(&st.k[key][at], k + off);
+        copy16(&st.v[key][at], v + off);
+      }
+    }
+    const int key = threadIdx.x;
+    if (key < kInt8Tile && live_key(base + key, hi, hole_lo, hole_hi)) {
+      const size_t so = (size_t)(base + key) * scale_stride + scale_off;
+      copy4(&st.ks[key], ks + so);
+      copy4(&st.vs[key], vs + so);
+    }
+  }
+  copy_commit();
+}
+
+// Fold the tile at `base` (staged in `st`) into this warp's state as
+// walk_keys folds a tile: slot u of warp w's group g is the key
+// base + (u * kWarps + w) * kGroups + g; one max a tile, one rescale. Every
+// slot is scored, without a branch, so that the compiler interleaves the
+// slots' independent chains (a branch a slot serialised them); a dead key's
+// staged bytes are stale, and the selects drop its score and its value.
+__device__ __forceinline__ void fold_tile(const Int8Stage& st, const float (&q)[kElems],
+                                          int base, int hi, int hole_lo, int hole_hi,
+                                          float& m, float& l, float (&acc)[kElems]) {
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int g = lane / kGroupLanes, at = (lane % kGroupLanes) * kElems;
+  float s[kInt8Slots];
+  float tmax = -INFINITY;
+#pragma unroll
+  for (int u = 0; u < kInt8Slots; ++u) {
+    const int key = (u * kWarps + warp) * kGroups + g;
+    float kk[kElems];
+    unpack_int8(*reinterpret_cast<const uint2*>(&st.k[key][at]), kk);
+    float d = 0.f;
+#pragma unroll
+    for (int e = 0; e < kElems; ++e) d = fmaf(q[e], kk[e], d);
+    d += __shfl_xor_sync(0xffffffffu, d, 1);
+    d += __shfl_xor_sync(0xffffffffu, d, 2);
+    d += __shfl_xor_sync(0xffffffffu, d, 4);
+    s[u] = live_key(base + key, hi, hole_lo, hole_hi) ? d * st.ks[key] : -INFINITY;
+    tmax = fmaxf(tmax, s[u]);
+  }
+  tmax = fmaxf(tmax, __shfl_xor_sync(0xffffffffu, tmax, 8));
+  tmax = fmaxf(tmax, __shfl_xor_sync(0xffffffffu, tmax, 16));
+  const float m_new = fmaxf(m, tmax);
+  if (m_new == -INFINITY) return;                  // warp-uniform: nothing live yet
+  const float alpha = exp2f((m - m_new) * kScaleLog2);   // 0 while m = -inf
+  const float mc = m_new * kScaleLog2;
+  l *= alpha;
+#pragma unroll
+  for (int e = 0; e < kElems; ++e) acc[e] *= alpha;
+#pragma unroll
+  for (int u = 0; u < kInt8Slots; ++u) {
+    const int key = (u * kWarps + warp) * kGroups + g;
+    const float p = exp2f(fmaf(s[u], kScaleLog2, -mc));   // 0 for a dead key
+    const float pv = live_key(base + key, hi, hole_lo, hole_hi) ? p * st.vs[key] : 0.f;
+    float vv[kElems];
+    unpack_int8(*reinterpret_cast<const uint2*>(&st.v[key][at]), vv);
+    l += p;
+#pragma unroll
+    for (int e = 0; e < kElems; ++e) acc[e] = fmaf(pv, vv[e], acc[e]);
+  }
+  m = m_new;
+}
+
+// walk_keys for an int8 cache: the block's tiles of [lo, hi] minus the hole
+// through the ring, kInt8Stages - 1 tiles in flight while one is scored.
+// One barrier a tile: past it, tile t has landed for every thread and every
+// warp is done with tile t - 1, whose stage then takes tile t + kInt8Stages
+// - 1. Every thread of the block calls it with the same range.
+__device__ __forceinline__ void walk_int8(Int8Stage* ring, const int8_t* __restrict__ k,
+                                          const int8_t* __restrict__ v,
+                                          const float* __restrict__ ks,
+                                          const float* __restrict__ vs,
+                                          const float (&q)[kElems], size_t row_stride,
+                                          size_t head_off, size_t scale_stride,
+                                          size_t scale_off, int lo, int hi, int hole_lo,
+                                          int hole_hi, float& m, float& l,
+                                          float (&acc)[kElems]) {
+  static_assert(kInt8Stages >= 2, "a tile in flight while one is scored");
+  const int n_tiles = hi >= lo ? (hi - lo) / kInt8Tile + 1 : 0;
+#pragma unroll
+  for (int t = 0; t < kInt8Stages - 1; ++t)
+    stage_tile(ring[t], k, v, ks, vs, row_stride, head_off, scale_stride, scale_off,
+               lo + t * kInt8Tile, hi, hole_lo, hole_hi);
+  for (int t = 0; t < n_tiles; ++t) {
+    copy_wait<kInt8Stages - 2>();                  // one group a tile: tile t has landed
+    __syncthreads();
+    const int ahead = t + kInt8Stages - 1;
+    stage_tile(ring[ahead % kInt8Stages], k, v, ks, vs, row_stride, head_off, scale_stride,
+               scale_off, lo + ahead * kInt8Tile, hi, hole_lo, hole_hi);
+    fold_tile(ring[t % kInt8Stages], q, lo + t * kInt8Tile, hi, hole_lo, hole_hi, m, l, acc);
+  }
+}
+
+// The block's range of the walk: row's span or [start, walk_end], cut into
+// n_splits; and its hole.
+struct Range {
+  int lo, hi, hole_lo, hole_hi;
+};
+
+__device__ __forceinline__ Range block_range(const int* __restrict__ hole,
+                                             const int* __restrict__ span, int row,
+                                             int lcache, int walk_end, int start, int split,
+                                             int n_splits) {
   if (span != nullptr) {
     start = max(span[2 * row], 0);
     walk_end = min(span[2 * row + 1], lcache - 1);
   }
-
   const int live = walk_end - start + 1;             // <= 0: nothing to walk
   const int per = live > 0 ? (live + n_splits - 1) / n_splits : 0;
   const int lo = start + split * per;
-  const int hi = min(walk_end, lo + per - 1);
-  int hole_lo = 0, hole_hi = 0;
+  Range r{lo, min(walk_end, lo + per - 1), 0, 0};
   if (hole != nullptr) {
-    hole_lo = hole[2 * row];
-    hole_hi = hole[2 * row + 1];
+    r.hole_lo = hole[2 * row];
+    r.hole_hi = hole[2 * row + 1];
   }
+  return r;
+}
 
-  // q has the cache dtype (the wrapper checks), or the cache is int8, so q.k
-  // multiplies values of q's dtype and the cache's exactly in fp32, as the
-  // TPU kernel's cache-dtype product (and XLA's fp32-accumulated dot of the
-  // int8 cache) does
-  float qv[kElems];
-  load_lane(q + (size_t)bh * kHeadDim, qv);
-  float m = -INFINITY, l = 0.f;
-  float acc[kElems] = {};
-  walk_keys<C, kWarps>(k, v, qv, (size_t)bh_total * kHeadDim, (size_t)bh * kHeadDim, lo, hi,
-                       hole_lo, hole_hi, m, l, acc, k_scale, v_scale, (size_t)bh_total,
-                       (size_t)bh);
-  reduce_groups(l, acc);
-  float mb, lb, ab;
-  merge_warps<kWarps>(m, l, acc, sm_m, sm_l, sm_acc, mb, lb, ab);
-
+// After merge_warps: write the block's partial and count it in; the last
+// block of the (row, head) merges the splits, folds K1s's current row in
+// and writes out.
+template <typename T>
+__device__ __forceinline__ void finish(float mb, float lb, float ab, const T* __restrict__ q,
+                                       const T* __restrict__ k_cur,
+                                       const T* __restrict__ v_cur, T* __restrict__ out,
+                                       float* __restrict__ part, int* __restrict__ counters,
+                                       int bh, int split, int bh_total, int n_splits,
+                                       float* sm_dot, int* sm_last) {
   const size_t base = (size_t)bh * n_splits;
   float* part_m = part;
   float* part_l = part + (size_t)bh_total * n_splits;
   float* part_acc = part + 2 * (size_t)bh_total * n_splits;
   if (!arrive_last(mb, lb, ab, part_m + base + split, part_l + base + split,
-                   part_acc + (base + split) * kHeadDim, counters + bh, n_splits, &sm_last))
+                   part_acc + (base + split) * kHeadDim, counters + bh, n_splits, sm_last))
     return;
   const int d = threadIdx.x;
   if (d < kHeadDim)
@@ -159,7 +347,71 @@ decode_kernel(const T* __restrict__ q, const C* __restrict__ k, const C* __restr
   if (d < kHeadDim) store1(out + (size_t)bh * kHeadDim + d, lb > 0.f ? ab / lb : 0.f);
 }
 
-template <typename T, typename C>
+// T: q, k_cur, v_cur, out and the cache (a float or bf16 cache)
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+decode_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
+              const int* __restrict__ hole, const int* __restrict__ span,
+              const T* __restrict__ k_cur, const T* __restrict__ v_cur, T* __restrict__ out,
+              float* __restrict__ part, int* __restrict__ counters, int bh_total, int heads,
+              int lcache, int walk_end, int start, int n_splits) {
+  __shared__ float sm_m[kWarps], sm_l[kWarps];
+  __shared__ float sm_acc[kWarps * kHeadDim];
+  __shared__ float sm_dot[kHeadDim / 32];
+  __shared__ int sm_last;
+  const int bh = blockIdx.x;
+  const Range r = block_range(hole, span, bh / heads, lcache, walk_end, start, blockIdx.y,
+                              n_splits);
+  // q has the cache dtype (the wrapper checks), so q.k multiplies values of
+  // one dtype exactly in fp32, as the TPU kernel's cache-dtype product does
+  float qv[kElems];
+  load_lane(q + (size_t)bh * kHeadDim, qv);
+  float m = -INFINITY, l = 0.f;
+  float acc[kElems] = {};
+  walk_keys<T, kWarps>(k, v, qv, (size_t)bh_total * kHeadDim, (size_t)bh * kHeadDim, r.lo,
+                       r.hi, r.hole_lo, r.hole_hi, m, l, acc);
+  reduce_groups(l, acc);
+  float mb, lb, ab;
+  merge_warps<kWarps>(m, l, acc, sm_m, sm_l, sm_acc, mb, lb, ab);
+  finish(mb, lb, ab, q, k_cur, v_cur, out, part, counters, bh, blockIdx.y, bh_total,
+         n_splits, sm_dot, &sm_last);
+}
+
+// T: q, k_cur, v_cur and out; the cache is int8 with its scale planes
+template <typename T>
+__global__ void __launch_bounds__(kThreads, kInt8Blocks)
+decode_kernel_int8(const T* __restrict__ q, const int8_t* __restrict__ k,
+                   const int8_t* __restrict__ v, const float* __restrict__ k_scale,
+                   const float* __restrict__ v_scale, const int* __restrict__ hole,
+                   const int* __restrict__ span, const T* __restrict__ k_cur,
+                   const T* __restrict__ v_cur, T* __restrict__ out, float* __restrict__ part,
+                   int* __restrict__ counters, int bh_total, int heads, int lcache,
+                   int walk_end, int start, int n_splits) {
+  __shared__ __align__(16) Int8Stage ring[kInt8Stages];
+  __shared__ float sm_m[kWarps], sm_l[kWarps];
+  __shared__ float sm_acc[kWarps * kHeadDim];
+  __shared__ float sm_dot[kHeadDim / 32];
+  __shared__ int sm_last;
+  const int bh = blockIdx.x;
+  const Range r = block_range(hole, span, bh / heads, lcache, walk_end, start, blockIdx.y,
+                              n_splits);
+  // q.k multiplies q's values by the int8 ones exactly in fp32, as XLA's
+  // fp32-accumulated dot of the int8 cache does
+  float qv[kElems];
+  load_lane(q + (size_t)bh * kHeadDim, qv);
+  float m = -INFINITY, l = 0.f;
+  float acc[kElems] = {};
+  walk_int8(ring, k, v, k_scale, v_scale, qv, (size_t)bh_total * kHeadDim,
+            (size_t)bh * kHeadDim, (size_t)bh_total, (size_t)bh, r.lo, r.hi, r.hole_lo,
+            r.hole_hi, m, l, acc);
+  reduce_groups(l, acc);
+  float mb, lb, ab;
+  merge_warps<kWarps>(m, l, acc, sm_m, sm_l, sm_acc, mb, lb, ab);
+  finish(mb, lb, ab, q, k_cur, v_cur, out, part, counters, bh, blockIdx.y, bh_total,
+         n_splits, sm_dot, &sm_last);
+}
+
+template <typename T>
 int launch(const void* q, const void* k, const void* v, const float* k_scale,
            const float* v_scale, const int* hole, const int* span, const void* k_cur,
            const void* v_cur, void* out, float* part, int* counters, int batch, int heads,
@@ -169,13 +421,26 @@ int launch(const void* q, const void* k, const void* v, const float* k_scale,
   const size_t scale_off = (size_t)layer * lcache * bh;
   const size_t layer_off = scale_off * kHeadDim;
   const int walk_end = k_cur != nullptr ? cache_pos - 1 : cache_pos;
-  decode_kernel<T, C><<<dim3(bh, n_splits), kThreads, 0, stream>>>(
-      static_cast<const T*>(q), static_cast<const C*>(k) + layer_off,
-      static_cast<const C*>(v) + layer_off, k_scale ? k_scale + scale_off : nullptr,
-      v_scale ? v_scale + scale_off : nullptr, hole, span, static_cast<const T*>(k_cur),
-      static_cast<const T*>(v_cur), static_cast<T*>(out), part, counters, bh, heads, lcache,
-      walk_end, start, n_splits);
+  const dim3 grid(bh, n_splits);
+  if (k_scale != nullptr)
+    decode_kernel_int8<T><<<grid, kThreads, 0, stream>>>(
+        static_cast<const T*>(q), static_cast<const int8_t*>(k) + layer_off,
+        static_cast<const int8_t*>(v) + layer_off, k_scale + scale_off, v_scale + scale_off,
+        hole, span, static_cast<const T*>(k_cur), static_cast<const T*>(v_cur),
+        static_cast<T*>(out), part, counters, bh, heads, lcache, walk_end, start, n_splits);
+  else
+    decode_kernel<T><<<grid, kThreads, 0, stream>>>(
+        static_cast<const T*>(q), static_cast<const T*>(k) + layer_off,
+        static_cast<const T*>(v) + layer_off, hole, span, static_cast<const T*>(k_cur),
+        static_cast<const T*>(v_cur), static_cast<T*>(out), part, counters, bh, heads,
+        lcache, walk_end, start, n_splits);
   return (int)cudaGetLastError();
+}
+
+template <typename T>
+const void* kernel_of(bool int8) {
+  return int8 ? reinterpret_cast<const void*>(&decode_kernel_int8<T>)
+              : reinterpret_cast<const void*>(&decode_kernel<T>);
 }
 
 }  // namespace
@@ -204,22 +469,32 @@ extern "C" int cbx_flash_decode(const void* q, const void* k, const void* v,
   if (span != nullptr && k_cur != nullptr) return (int)cudaErrorInvalidValue;
   if ((k_scale == nullptr) != (v_scale == nullptr)) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const bool int8 = k_scale != nullptr;
-  if (dtype == 0 && !int8)
-    return launch<float, float>(q, k, v, nullptr, nullptr, hole, span, k_cur, v_cur, out,
-                                part, counters, batch, heads, lcache, layer, cache_pos, start,
-                                n_splits, s);
-  if (dtype == 1 && !int8)
-    return launch<__nv_bfloat16, __nv_bfloat16>(q, k, v, nullptr, nullptr, hole, span, k_cur,
-                                                v_cur, out, part, counters, batch, heads,
-                                                lcache, layer, cache_pos, start, n_splits, s);
   if (dtype == 0)
-    return launch<float, int8_t>(q, k, v, k_scale, v_scale, hole, span, k_cur, v_cur, out,
+    return launch<float>(q, k, v, k_scale, v_scale, hole, span, k_cur, v_cur, out, part,
+                         counters, batch, heads, lcache, layer, cache_pos, start, n_splits, s);
+  if (dtype == 1)
+    return launch<__nv_bfloat16>(q, k, v, k_scale, v_scale, hole, span, k_cur, v_cur, out,
                                  part, counters, batch, heads, lcache, layer, cache_pos, start,
                                  n_splits, s);
-  if (dtype == 1)
-    return launch<__nv_bfloat16, int8_t>(q, k, v, k_scale, v_scale, hole, span, k_cur, v_cur,
-                                         out, part, counters, batch, heads, lcache, layer,
-                                         cache_pos, start, n_splits, s);
   return (int)cudaErrorInvalidValue;
+}
+
+// What the CUDA runtime reports of the kernel instance for q's dtype (0 =
+// float32, 1 = bfloat16) on a float / bf16 cache (int8 = 0) or an int8 one:
+// info[0] registers a thread, info[1] local (spill) bytes a thread, info[2]
+// resident blocks an SM at 128 threads, info[3] static shared bytes a block.
+// Returns the cudaError_t of the queries.
+extern "C" int cbx_flash_decode_info(int dtype, int int8, int* info) {
+  if (dtype != 0 && dtype != 1) return (int)cudaErrorInvalidValue;
+  const void* fn = dtype == 0 ? kernel_of<float>(int8 != 0) : kernel_of<__nv_bfloat16>(int8 != 0);
+  cudaFuncAttributes a;
+  cudaError_t e = cudaFuncGetAttributes(&a, fn);
+  if (e != cudaSuccess) return (int)e;
+  int blocks = 0;
+  e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, fn, kThreads, 0);
+  info[0] = a.numRegs;
+  info[1] = (int)a.localSizeBytes;
+  info[2] = blocks;
+  info[3] = (int)a.sharedSizeBytes;
+  return (int)e;
 }

@@ -15,9 +15,10 @@ cache_pos] (the continuous engine's slots, models/t3_engine.py:
 engine_spans); an empty span gives 0.
 Both take an int8 cache (the int8 KV cache, CHATTERBOX_INT8_KV=1) with its
 fp32 scale planes `k_scale`, `v_scale`, one scale a (slot, row, head): the
-int8 entry of the same kernel walks the int8 slabs and multiplies each
-score by its key's scale and each probability by its value's (the JAX
-package's mode-1 formula, models/llama.py:418-440, which it runs in XLA).
+int8 entry (a kernel of its own in the same source) walks the int8 slabs
+and multiplies each score by its key's scale and each probability by its
+value's (the JAX package's mode-1 formula, models/llama.py:418-440, which
+it runs in XLA).
 q, k_cur, v_cur and the output keep the compute dtype.
 On a CUDA tensor it launches the hand-written split-KV kernel in
 `csrc/flash_decode.cu` (design notes there), one launch a call, with a
@@ -41,18 +42,26 @@ from . import _build
 
 SOURCE = _build.CSRC / "flash_decode.cu"
 HEAD_DIM = 64          # the kernel's compiled head width
-# The split-KV launch (csrc/decode_walk.cuh; kept equal by
-# tests/test_torch_decode_walk.py): a grid (B*H, S) of SPLIT_WARPS-warp
-# blocks, S = splits_for(B*H, Lc). A warp-wide load brings GROUPS keys (8
-# lanes a 64-wide row) and a warp keeps LOADS[dtype] of them in flight.
+# The split-KV launch (csrc/decode_walk.cuh and csrc/flash_decode.cu; kept
+# equal by tests/test_torch_decode_walk.py): a grid (B*H, S) of
+# SPLIT_WARPS-warp blocks, S = splits_for(B*H, Lc). A warp-wide load brings
+# GROUPS keys (8 lanes a 64-wide row) and a warp scores LOADS[dtype] of them
+# a tile. An int8 cache is staged through shared memory in tiles of
+# INT8_TILE keys, INT8_STAGES tiles in a ring, the kernel compiled for
+# INT8_BLOCKS resident blocks an SM.
 SPLIT_WARPS = 4
 SPLIT_BLOCKS = 512     # B*H*S the split count aims at: ~4 blocks on each of 132 SMs
 MIN_SPLIT_KEYS = 32    # slots a split covers at least, at full capacity
 GROUPS = 4
-LOADS = {torch.bfloat16: 8, torch.float32: 4, torch.int8: 16}   # by the cache's dtype
+INT8_TILE = 64
+INT8_STAGES = 2
+INT8_BLOCKS = 4
+LOADS = {torch.bfloat16: 8, torch.float32: 4,                   # by the cache's dtype
+         torch.int8: INT8_TILE // (SPLIT_WARPS * GROUPS)}
 _SCALE_LOG2 = 0.125 * math.log2(math.e)
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _ARGTYPES = ([ctypes.c_void_p] * 12 + [ctypes.c_int] * 9 + [ctypes.c_void_p])
+_INFO_ARGTYPES = [ctypes.c_int, ctypes.c_int, ctypes.POINTER(ctypes.c_int)]
 
 
 def splits_for(bh: int, lcache: int) -> int:
@@ -191,9 +200,10 @@ def walk_reference(q, k, v, cache_pos, start=0, hole=None, layer=None, k_cur=Non
     SPLIT_WARPS + w) * GROUPS + g; per warp one max a tile, exp2 with the
     scale folded in, one rescale a tile; the warps merged, then the splits
     by the last block (max-rescale, empty splits adding nothing); K1s's
-    current row folded in last. An int8 cache (k_scale, v_scale) has
-    LOADS[torch.int8] keys a warp's slot, each score times its key's scale
-    and each value term's probability times its value's, l unscaled.
+    current row folded in last. An int8 cache (k_scale, v_scale) walks
+    tiles of INT8_TILE keys (LOADS[torch.int8] slots a warp), each score
+    times its key's scale and each value term's probability times its
+    value's, l unscaled.
     Arguments as decode_attention; returns (B, H, D) in q's dtype. Nothing
     on a serving path calls it."""
     k, v, k_scale, v_scale = _layer_slab(k, v, layer, k_scale, v_scale)
@@ -262,6 +272,20 @@ def _library():
     return _build.load(SOURCE, "cbx_flash_decode", _ARGTYPES)
 
 
+def kernel_info(dtype, int8: bool = False) -> dict:
+    """What the CUDA runtime reports of the kernel instance for q's `dtype`
+    on a float / bf16 cache or (int8) an int8 one, in the library that
+    launches it: registers and local (spill) bytes a thread, resident
+    blocks an SM, static shared bytes a block. Needs the card."""
+    fn = _library().cbx_flash_decode_info
+    fn.restype, fn.argtypes = ctypes.c_int, _INFO_ARGTYPES
+    info = (ctypes.c_int * 4)()
+    rc = fn(_DTYPE_CODE[dtype], int(int8), info)
+    if rc != 0:
+        raise RuntimeError(f"cbx_flash_decode_info: cudaError {rc}")
+    return dict(zip(("registers", "local_bytes", "blocks_per_sm", "smem_bytes"), info))
+
+
 def _check_rows(name, t, q):
     if (t.device != q.device or t.dtype != torch.int32 or t.shape != (q.shape[0], 2)
             or not t.is_contiguous()):
@@ -287,6 +311,8 @@ def _check(q, k, v, hole, k_cur, v_cur, span, k_scale, v_scale):
                              f"(q {q.dtype}{', int8 cache' if int8 else ''})")
         if not t.is_contiguous():
             raise ValueError(f"decode_attention: {name} must be contiguous")
+    if k.data_ptr() % 16 or v.data_ptr() % 16:
+        raise ValueError("decode_attention: k and v must start on a 16-byte boundary")
     if int8 and (k_scale.shape != k.shape[:-1] or v_scale.shape != k.shape[:-1]):
         raise ValueError(f"decode_attention: k_scale, v_scale must be {tuple(k.shape[:-1])}")
     if q.dtype not in _DTYPE_CODE:

@@ -316,6 +316,7 @@ def save_voice_profile(params, ref_wav: np.ndarray, ref_sr: int, save_path: str,
 
 
 def drop_invalid_tokens(x: np.ndarray) -> np.ndarray:
-    """Keep only real speech codes < 6561."""
+    """Keep only real speech codes < 6561: the second step of cleaning T3's
+    tokens, after s3tokenizer.drop_invalid_tokens (the SOS / EOS cut)."""
     x = np.asarray(x).reshape(-1)
     return x[x < SPEECH_VOCAB_SIZE]

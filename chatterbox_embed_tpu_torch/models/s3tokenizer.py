@@ -20,7 +20,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from ..config import S3_SR, S3_TOKEN_RATE, S3TokenizerConfig
+from ..config import EOS, S3_SR, S3_TOKEN_RATE, SOS, S3TokenizerConfig
 from ..device import full_fp32
 from ..ops import mel as mel_ops
 from . import layers as L
@@ -159,3 +159,16 @@ def tokenize_wave(params, wav_16k: torch.Tensor, max_len: int | None = None,
     mel_lens = torch.full((mels.shape[0],), mels.shape[-1], dtype=torch.int64,
                           device=mels.device)
     return quantize(params, mels, mel_lens, cfg, dtype)
+
+
+def drop_invalid_tokens(tokens: np.ndarray) -> np.ndarray:
+    """The ids of a 1-D sequence after its first SOS (from the start if none)
+    and before its first EOS (to the end if none): the first step of
+    cleaning T3's tokens, as the JAX package's s3tokenizer.drop_invalid_tokens;
+    s3gen.drop_invalid_tokens (ids < 6561) is the second."""
+    tokens = np.asarray(tokens).reshape(-1)
+    sos = np.nonzero(tokens == SOS)[0]
+    eos = np.nonzero(tokens == EOS)[0]
+    start = int(sos[0]) + 1 if sos.size else 0
+    end = int(eos[0]) if eos.size else tokens.shape[0]
+    return tokens[start:end]

@@ -620,9 +620,9 @@ class ChatterboxTTS:
             repetition_penalty=repetition_penalty, min_p=min_p, top_p=top_p,
             seed=seed, draws=draws, alignment=_alignment_on(), cfg=self.cfg.t3,
             dtype=self.dtype, device=self.device, info=info, mesh=self.mesh)
-        # generate stops at (and includes) the first EOS; drop it and every
-        # other non-speech id
-        return s3gen_mod.drop_invalid_tokens(speech)
+        # the JAX package's two steps: cut between the first SOS and the
+        # first EOS, then keep the speech ids
+        return s3gen_mod.drop_invalid_tokens(s3tok_mod.drop_invalid_tokens(speech))
 
     def _run_s3gen(self, speech_tokens: np.ndarray, gen: Dict, seed: int = 0,
                    draws=None) -> np.ndarray:
@@ -745,8 +745,8 @@ class ChatterboxTTS:
             tokens.append(block)
             yield from emit(synth.feed(block))
         yield from emit(synth.finish())
-        speech = s3gen_mod.drop_invalid_tokens(np.concatenate(tokens) if tokens else
-                                               np.zeros((0,), np.int32))
+        speech = s3gen_mod.drop_invalid_tokens(s3tok_mod.drop_invalid_tokens(
+            np.concatenate(tokens) if tokens else np.zeros((0,), np.int32)))
         self.perf = {"first_chunk_s": stats["first_chunk_s"], "total_s": time.time() - t0,
                      "speech_tokens": int(speech.size), "decode_steps": int(info["decode_steps"]),
                      "chunks": stats["chunks"], "audio_s": stats["samples"] / float(self.sr),
@@ -848,7 +848,8 @@ class ChatterboxTTS:
         of (T_i,) float32 wavs, cleaned token counts, dispatch info)."""
         dev = self.device
         u = len(token_lists)
-        token_lists = [s3gen_mod.drop_invalid_tokens(t) for t in token_lists]
+        token_lists = [s3gen_mod.drop_invalid_tokens(s3tok_mod.drop_invalid_tokens(t))
+                       for t in token_lists]
         lens = [len(t) for t in token_lists]
         bkt = _bucket_tokens(max([1] + lens))
         toks = np.zeros((u, bkt), np.int64)

@@ -252,7 +252,7 @@ class ChatterboxVC:
         speech = t3_mod.generate(self.t3_params, cond, text_tokens, max_new_tokens=1000,
                                  temperature=temperature, cfg_weight=cfg_weight, seed=seed,
                                  draws=draws, cfg=t3cfg, dtype=self.dtype, device=dev)
-        speech = s3gen_mod.drop_invalid_tokens(speech)
+        speech = s3gen_mod.drop_invalid_tokens(s3tok_mod.drop_invalid_tokens(speech))
         wav = self._tokens_to_wav(speech, seed, draws)
         wav = self.watermarker.apply_watermark(wav, sample_rate=self.sr)
         peak = np.abs(wav).max()

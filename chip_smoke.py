@@ -151,8 +151,10 @@ check and main path ran. Phases, one or more lines each, then the result line:
      (fp32 1e-5, bf16 2e-2): B 2 and 16 (and a tp = 2 rank's 8 heads), Lc
      512 and 1280, with holes; K1s on a 4-layer stacked cache; the engine's
      16- and 4-slot spans; a planted fault (the scale planes one slot off)
-     must read above the limit; each timed beside bf16 K1 on the same shape
-     and beside "dequantise + SDPA" (two calls, so no library time); (b)
+     must read above the limit; timed (K1 at B=16, Lc 512 and 1280; K1s at
+     B=2; the spans) beside bf16 K1 on the same shape and beside
+     "dequantise + SDPA" (two calls, so no library time), with the int8
+     instance's registers and resident blocks an SM; (b)
      quantize_t3 of the backbone: prefill logits against bf16 (cos > 0.995,
      rel < 0.1), then generate of 250 tokens under CHATTERBOX_FUSED_STEP=1
      (an int8 backbone never takes K4: K1 30 x steps, K4 0), its ms a step
@@ -790,6 +792,36 @@ def _span_keys(span, hole) -> int:
     return n
 
 
+def _span_cases(rng, slots: int, bucket: int, ring: int):
+    """One SPAN_GEOMETRIES geometry's K1 cases, drawn from `rng`: (p_len,
+    Lc, rows, ring column c, {case: (span, hole)}, the timed (span, hole),
+    every slot live at a random depth)."""
+    p_len = bucket + SPAN_COND_W + 2
+    lc, b = p_len + ring, 2 * slots
+    step = 3 * ring + 7                      # the ring has wrapped three times
+    c = step % ring
+    pads = rng.integers(0, bucket, slots)
+    live = np.zeros(slots, bool)
+    cases = {
+        "no_wrap": _span_case(slots, p_len, ring, step, rng.integers(0, c + 1, slots),
+                              pads, live),
+        "wrap": _span_case(slots, p_len, ring, step, rng.integers(c + 1, ring, slots),
+                           pads, live),
+        "empty_hole": _span_case(slots, p_len, ring, step, np.full(slots, c), pads, live),
+        "full_ring": _span_case(slots, p_len, ring, step, np.full(slots, ring - 1), pads,
+                                live),
+        "free_rows": _span_case(slots, p_len, ring, step, rng.integers(0, ring, slots),
+                                pads, np.arange(slots) % 2 == 1),
+        "mixed": _span_case(slots, p_len, ring, step, rng.integers(0, ring, slots), pads,
+                            rng.random(slots) < 0.25),
+    }
+    one = torch.tensor(rng.integers(0, lc, b), dtype=torch.int32, device="cuda")
+    cases["one_slot"] = (torch.stack([one, one], 1).contiguous(),
+                         torch.zeros((b, 2), dtype=torch.int32, device="cuda"))
+    timed = _span_case(slots, p_len, ring, step, rng.integers(0, ring, slots), pads, live)
+    return p_len, lc, b, c, cases, timed
+
+
 def phase_span_check(card: str, int8: bool = False) -> dict:
     """K1 with per-row spans against its plain version at SPAN_GEOMETRIES:
     rows unwrapped, wrapped, with an empty hole (a = 0), a full ring, free
@@ -806,29 +838,7 @@ def phase_span_check(card: str, int8: bool = False) -> dict:
     worst = {torch.float32: 0.0, torch.bfloat16: 0.0}
     timing = None
     for slots, bucket, ring in SPAN_GEOMETRIES:
-        p_len = bucket + SPAN_COND_W + 2
-        lc, b = p_len + ring, 2 * slots
-        step = 3 * ring + 7                      # the ring has wrapped three times
-        c = step % ring
-        pads = rng.integers(0, bucket, slots)
-        live = np.zeros(slots, bool)
-        cases = {
-            "no_wrap": _span_case(slots, p_len, ring, step, rng.integers(0, c + 1, slots),
-                                  pads, live),
-            "wrap": _span_case(slots, p_len, ring, step, rng.integers(c + 1, ring, slots),
-                               pads, live),
-            "empty_hole": _span_case(slots, p_len, ring, step, np.full(slots, c), pads, live),
-            "full_ring": _span_case(slots, p_len, ring, step, np.full(slots, ring - 1), pads,
-                                    live),
-            "free_rows": _span_case(slots, p_len, ring, step, rng.integers(0, ring, slots),
-                                    pads, np.arange(slots) % 2 == 1),
-            "mixed": _span_case(slots, p_len, ring, step, rng.integers(0, ring, slots), pads,
-                                rng.random(slots) < 0.25),
-        }
-        one = torch.tensor(rng.integers(0, lc, b), dtype=torch.int32, device="cuda")
-        cases["one_slot"] = (torch.stack([one, one], 1).contiguous(),
-                             torch.zeros((b, 2), dtype=torch.int32, device="cuda"))
-        timed = _span_case(slots, p_len, ring, step, rng.integers(0, ring, slots), pads, live)
+        p_len, lc, b, c, cases, timed = _span_cases(rng, slots, bucket, ring)
         for dtype in (torch.float32, torch.bfloat16):
             q = torch.randn((b, h, d), generator=g, device="cuda").to(dtype)
             sc = {}
@@ -3351,13 +3361,17 @@ def phase_int8_kernel_check(card: str, deferred: bool = False) -> dict:
     planes rolled by one slot) on the reported shape must read above the
     limit. Timed in bf16 at the decode step's shape beside bf16 K1 (K1s)
     on the same shape and, for K1, beside "dequantise + SDPA" (two calls,
-    so no library time); K1 also with the engine's spans
-    (phase_span_check(int8=True))."""
+    so no library time): K1s at B=2, Lc 512; K1 at B=16, Lc 512 (the
+    batch) and Lc 1280 (where its bytes bind), and with the engine's spans
+    (phase_span_check(int8=True)). The timing line carries the int8
+    instance's registers and resident blocks an SM."""
     from chatterbox_embed_tpu_torch.kernels import flash_decode as fd
     name = "flash_decode_int8" + ("_deferred" if deferred else "")
     g = torch.Generator(device="cuda").manual_seed(5151 if deferred else 5150)
     d = KERNEL_D
     report = (KERNEL_B if deferred else KERNEL_B_BATCH, KERNEL_LC[0])
+    timed = [report] if deferred else [(KERNEL_B_BATCH, lc) for lc in KERNEL_LC]
+    occupancy = fd.kernel_info(torch.bfloat16, int8=True)
     worst = {torch.float32: 0.0, torch.bfloat16: 0.0}
     faults, timing = {}, {}
     for b, h in (INT8_DEFER_BH if deferred else KERNEL_BH):
@@ -3386,21 +3400,23 @@ def phase_int8_kernel_check(card: str, deferred: bool = False) -> dict:
                                          dtype=str(dtype)[6:], start=start, pos=pos,
                                          hole=hole is not None)
                         worst[dtype] = max(worst[dtype], err)
-                if (b, lc) != report or h != KERNEL_H:
+                if (b, lc) not in timed or h != KERNEL_H:
                     continue
                 start, pos, hole = 4, min(lc - 1, 4 + (lc - 4) * 3 // 4), holes[-1]
-                rolled = [torch.roll(x, 1, dims=-3).contiguous() for x in (ks, vs)]
-                bad = call(fd.decode_attention, start, pos, hole, *rolled)
-                ref = call(fd.decode_attention_reference, start, pos, hole)
-                torch.cuda.synchronize()
-                floor = ref.float().abs().clamp_min(1.0) if dtype == torch.bfloat16 else 1.0
-                faults[dtype] = ((bad.float() - ref.float()).abs() / floor).max().item()
-                log("kernel_fault", name=name, fault="scale_planes_one_slot_off", b=b, lc=lc,
-                    dtype=str(dtype)[6:], checked_err=f"{faults[dtype]:.3e}",
-                    limit=TOL[dtype], caught=faults[dtype] > TOL[dtype])
-                if not faults[dtype] > TOL[dtype]:
-                    raise AssertionError(f"{name}: a planted fault reads {faults[dtype]} <= "
-                                         f"{TOL[dtype]}")
+                if (b, lc) == report:
+                    rolled = [torch.roll(x, 1, dims=-3).contiguous() for x in (ks, vs)]
+                    bad = call(fd.decode_attention, start, pos, hole, *rolled)
+                    ref = call(fd.decode_attention_reference, start, pos, hole)
+                    torch.cuda.synchronize()
+                    floor = (ref.float().abs().clamp_min(1.0) if dtype == torch.bfloat16
+                             else 1.0)
+                    faults[dtype] = ((bad.float() - ref.float()).abs() / floor).max().item()
+                    log("kernel_fault", name=name, fault="scale_planes_one_slot_off", b=b,
+                        lc=lc, dtype=str(dtype)[6:], checked_err=f"{faults[dtype]:.3e}",
+                        limit=TOL[dtype], caught=faults[dtype] > TOL[dtype])
+                    if not faults[dtype] > TOL[dtype]:
+                        raise AssertionError(f"{name}: a planted fault reads {faults[dtype]} "
+                                             f"<= {TOL[dtype]}")
                 if dtype != torch.bfloat16:
                     continue
                 t = _timing(lambda: call(fd.decode_attention, start, pos, hole),
@@ -3437,10 +3453,16 @@ def phase_int8_kernel_check(card: str, deferred: bool = False) -> dict:
                     bound_ms=f"{t['bound_ms']:.5f}", bound_mb=f"{t['bound_bytes'] / 1e6:.2f}",
                     bf16_bound_ms=f"{t['bound_ms_bf16_cache']:.5f}",
                     dequant_sdpa_ms=(f"{t['ms_dequant_sdpa']:.5f}" if "ms_dequant_sdpa" in t
-                                     else "none"), card=repr(card))
+                                     else "none"), registers=occupancy["registers"],
+                    local_bytes=occupancy["local_bytes"],
+                    blocks_per_sm=occupancy["blocks_per_sm"], card=repr(card))
     out = {"max_abs_err": worst[torch.bfloat16], "max_abs_err_fp32": worst[torch.float32],
            "fault_err_bf16": faults[torch.bfloat16], "fault_err_fp32": faults[torch.float32],
            "timing": timing[report]}
+    for b, lc in timed:
+        if (b, lc) != report:
+            out["timing"].update({f"{key}_lc{lc}": timing[(b, lc)][key] for key in
+                                  ("ms", "bound_ms", "ms_bf16_cache", "bound_ms_bf16_cache")})
     if not deferred:
         span = phase_span_check(card, int8=True)
         out["timing"].update(ms_span=span["timing"]["ms"],

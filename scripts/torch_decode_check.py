@@ -3,24 +3,36 @@ H100): the flash-decode kernel (K1, K1s), the fused T3 step (K4) and the
 decode-anatomy probe (K6), all over the walk of `csrc/decode_walk.cuh`.
 Shorter than the smoke run and more talkative:
 
-    python3 scripts/torch_decode_check.py [--no-time] [--builds LABEL=DIR,...] [--stamps]
+    python3 scripts/torch_decode_check.py [--no-time] [--no-k4] [--builds LABEL=DIR,...]
+                                          [--stamps]
 
 1. compiles `csrc/flash_decode.cu`, `fused_decode.cu` and `decode_anatomy.cu`
    once more with `-Xptxas -v` beside the normal build and prints, per
-   kernel, the registers, spills and any ptxas warning;
+   kernel, the registers, spills and any ptxas warning; and for each of
+   flash_decode.cu's four instances (fp32 / bf16 q, a float or an int8
+   cache) what the CUDA runtime reports: registers, local bytes and
+   resident blocks an SM (`flash_decode.kernel_info`);
 2. runs the smoke's K1 / K1s checks (every case, fp32 and bf16, B = 2 and
-   16, Lc 512 and 1280, timed beside the library's call), the K6 checks,
-   and K4 on random full-width weights (30 layers, d = 1024): a chain at
-   the lowest positions and one near the top of Lc 512, fp32 against the
-   plain version, and the first layer in bf16;
-3. unless `--no-time`: K1's bf16 device time and kernels a call, K6's
+   16, Lc 512 and 1280, timed beside the library's call), the int8 entry's
+   (`chip_smoke.phase_int8_kernel_check`: every case, the planted scale
+   fault, the engine's spans), the K6 checks, and, unless `--no-k4`, K4 on
+   random full-width weights (30 layers, d = 1024): a chain at the lowest
+   positions and one near the top of Lc 512, fp32 against the plain
+   version, and the first layer in bf16;
+3. unless `--no-time`: K1's bf16 device time and kernels a call, the int8
+   entry's time at INT8_SHAPES beside bf16 K1 / K1s on the same shape, K6's
    probe (warm and with L2 flushed, pos 44 and 379) and K4's time
    (`chip_smoke.fused_times`: CUDA events over steps queued behind a spin
    kernel, B = 2 at pos 44, 260 and 507, and 4, 8 and 16 rows at 507);
-4. with `--builds`: scratch builds of K4, each from a directory that holds
-   a copy of `csrc/` with `fused_decode.cu` edited (a design choice changed
-   by hand, outside the tree), each checked as in 2 and timed as in 3 in
-   turns with the shipped build (shipped, builds..., shipped);
+4. with `--builds`: scratch builds, each from a directory that holds a copy
+   of `csrc/` with a design choice changed by hand (outside the tree, under
+   the git-ignored `bench_out/`). A build covers each kernel whose own source
+   differs from the shipped one: `flash_decode.cu` (K1; its
+   `decode_walk.cuh` comes from the same directory) is checked as the
+   int8 entry is in 2 and its int8 entry timed at INT8_SHAPES, and
+   `fused_decode.cu` (K4) is checked and timed as in 2 and 3; both in
+   turns with the shipped build (K1: shipped, builds..., shipped,
+   builds reversed..., shipped; K4: shipped, builds..., shipped);
 5. with `--stamps`: K4's phases timed inside the kernel, a scratch build
    (STAMP_EDITS, of the shipped source and of each `--builds` one) in which
    thread 0 of every block reads clock64() just before and just after each
@@ -29,6 +41,7 @@ Shorter than the smoke run and more talkative:
    ran at, for 30 steps that each start with the card idle and for one
    queued behind other steps.
 
+`--no-k4` stops after K1's part (its builds and times): no K4, no K6 probe.
 Exits non-zero if a check fails. Needs CUDA and nvcc.
 """
 from __future__ import annotations
@@ -40,6 +53,7 @@ import shutil
 import subprocess
 import sys
 import time
+from functools import partial
 from pathlib import Path
 
 import numpy as np
@@ -56,7 +70,12 @@ from chatterbox_embed_tpu_torch.kernels import fused_decode as fu  # noqa: E402
 from chatterbox_embed_tpu_torch.probes import timing  # noqa: E402
 
 OUT = _build.BUILD_ROOT / "decode_check"
+K1 = "flash_decode.cu"
 K4 = "fused_decode.cu"
+# the int8 entry's timed shapes (PERF.md §6), bf16 q: (B, Lc, deferred) with
+# the smoke's holes at pos 4 + 3/4 of the rest; and the engine's spans
+INT8_SHAPES = ((cs.KERNEL_B_BATCH, 512, False), (cs.KERNEL_B_BATCH, 1280, False),
+               (cs.KERNEL_B, 512, True))
 MODULES = {"flash_decode": fd, "fused_decode": fu, "decode_anatomy": da}
 # K4's barriers timed from inside: g_k4_stamps[site][block] = (cycles since
 # the block left the previous barrier until the whole block reached this
@@ -107,6 +126,16 @@ def ptxas_report() -> None:
             print(text[-6000:])
             raise SystemExit(f"nvcc failed on {src.name}")
         _print_ptxas(src.stem, text)
+    occupancy_report("shipped")
+
+
+def occupancy_report(label: str) -> None:
+    """Registers, local bytes and resident blocks an SM of flash_decode.cu's
+    four instances in the library K1's wrapper launches."""
+    for dtype in (torch.float32, torch.bfloat16):
+        for int8 in (False, True):
+            cs.log("occupancy", build=label, kernel="flash_decode", q=str(dtype)[6:],
+                   cache="int8" if int8 else str(dtype)[6:], **fd.kernel_info(dtype, int8))
 
 
 def _print_ptxas(label: str, text: str) -> None:
@@ -121,16 +150,21 @@ def _print_ptxas(label: str, text: str) -> None:
             print(f"[ptxas] {label} WARNING {line.strip()[:300]}")
 
 
-def build_k4(builds: dict) -> dict:
-    """label -> a directory holding a copy of csrc/ (with fused_decode.cu
-    edited by hand, say); each one's K4 built in parallel with -Xptxas -v
-    into the build directory and loaded. One that does not build is
-    reported and left out."""
+def differs(src, name: str) -> bool:
+    """Whether the directory `src` holds a `name` other than the shipped one."""
+    return (Path(src) / name).read_bytes() != (_build.CSRC / name).read_bytes()
+
+
+def build_libs(builds: dict, name: str, mod) -> dict:
+    """label -> a directory holding a copy of csrc/ (with `name` edited by
+    hand, say); each one's `name` built in parallel with -Xptxas -v into the
+    build directory and loaded, its C entry declared as `mod`'s. One that
+    does not build is reported and left out."""
     jobs = {}
     for label, src in builds.items():
-        stem = re.sub(r"\W", "_", label)
+        stem = re.sub(r"\W", "_", f"{label}_{Path(name).stem}")
         lib = OUT / f"lib{stem}.so"
-        jobs[label] = (lib, _nvcc(Path(src) / K4, lib, "-Xptxas", "-v"))
+        jobs[label] = (lib, _nvcc(Path(src) / name, lib, "-Xptxas", "-v"))
     libs = {}
     for label, (lib, proc) in jobs.items():
         text, _ = proc.communicate()
@@ -139,8 +173,9 @@ def build_k4(builds: dict) -> dict:
             continue
         _print_ptxas(label, text)
         cdll = ctypes.CDLL(str(lib))
-        cdll.cbx_fused_decode.restype = ctypes.c_int
-        cdll.cbx_fused_decode.argtypes = list(fu._ARGTYPES)
+        entry = getattr(cdll, "cbx_" + Path(name).stem)
+        entry.restype = ctypes.c_int
+        entry.argtypes = list(mod._ARGTYPES)
         libs[label] = cdll
     return libs
 
@@ -161,20 +196,20 @@ def stamped_copy(src: Path, label: str) -> Path:
 
 
 class patched:
-    """Within the block, K4's wrapper launches `cdll`; its workspace is
-    made anew."""
+    """Within the block, the wrapper of kernel module `mod` (K1's or K4's)
+    launches `cdll`; its workspace is made anew."""
 
-    def __init__(self, cdll):
-        self.cdll = cdll
+    def __init__(self, mod, cdll):
+        self.mod, self.cdll = mod, cdll
 
     def __enter__(self):
-        self.keep = fu._library
-        fu._library = lambda: self.cdll
-        fu._WORKSPACE.clear()
+        self.keep = self.mod._library
+        self.mod._library = lambda: self.cdll
+        self.mod._WORKSPACE.clear()
 
     def __exit__(self, *exc):
-        fu._library = self.keep
-        fu._WORKSPACE.clear()
+        self.mod._library = self.keep
+        self.mod._WORKSPACE.clear()
 
 
 def full_width():
@@ -322,11 +357,91 @@ def k1_time(card, label="shipped") -> None:
                    device_kernels_per_call=per_call, card=repr(card))
 
 
+def int8_shapes(g) -> dict:
+    """The int8 entry's timed calls, bf16 q: name -> (the int8 call, bf16 K1
+    (K1s) on the same shape with the cache dequantised to bf16, the int8
+    bound ms, the bf16 bound ms); INT8_SHAPES and the engine's spans (the
+    smoke's timed case: SPAN_GEOMETRIES[0], drawn as phase_span_check
+    draws it). Made once, so every build reads the same inputs."""
+    h, d = cs.KERNEL_H, cs.KERNEL_D
+    bf16 = torch.bfloat16
+    shapes = {}
+    for b, lc, deferred in INT8_SHAPES:
+        lead = (cs.DEFER_LAYERS,) if deferred else ()
+        (k, ks), (v, vs) = (cs._quantized(lead + (lc, b, h, d), g) for _ in range(2))
+        kb, vb = ((x.float() * s[..., None]).to(bf16) for x, s in ((k, ks), (v, vs)))
+        q, kc, vc = (torch.randn((b, h, d), generator=g, device="cuda").to(bf16)
+                     for _ in range(3))
+        hole = (cs._batch_holes(b) if b != cs.KERNEL_B else
+                torch.tensor([[0, 0], [70, 200]], dtype=torch.int32, device="cuda"))
+        start, pos = 4, min(lc - 1, 4 + (lc - 4) * 3 // 4)
+        kw = dict(layer=(start + pos) % cs.DEFER_LAYERS, k_cur=kc, v_cur=vc) if deferred else {}
+        shapes[f"{'k1s' if deferred else 'k1'}_b{b}_lc{lc}_pos{pos}"] = (
+            partial(fd.decode_attention, q, k, v, pos, start, hole, k_scale=ks, v_scale=vs, **kw),
+            partial(fd.decode_attention, q, kb, vb, pos, start, hole, **kw),
+            cs._bound(*cs._int8_work(b, h, d, start, pos, hole, deferred))["bound_ms"],
+            cs._bound(*cs._decode_work(b, h, d, start, pos, hole, deferred))["bound_ms"])
+    p_len, lc, b, c, _, (span, hole) = cs._span_cases(np.random.default_rng(77),
+                                                      *cs.SPAN_GEOMETRIES[0])
+    (k, ks), (v, vs) = (cs._quantized((lc, b, h, d), g) for _ in range(2))
+    kb, vb = ((x.float() * s[..., None]).to(bf16) for x, s in ((k, ks), (v, vs)))
+    q = torch.randn((b, h, d), generator=g, device="cuda").to(bf16)
+    keys = cs._span_keys(span, hole)
+    shapes[f"k1_spans_rows{b}_lc{lc}_keys{keys}"] = (
+        partial(fd.decode_attention, q, k, v, p_len + c, span=span, hole=hole, k_scale=ks,
+                v_scale=vs),
+        partial(fd.decode_attention, q, kb, vb, p_len + c, span=span, hole=hole),
+        cs._bound(h * (2 * d + 8) * keys + 2 * 2 * b * h * d, 4 * keys * h * d)["bound_ms"],
+        cs._bound(2 * h * d * (2 * keys + 2 * b), 4 * keys * h * d)["bound_ms"])
+    return shapes
+
+
+def k1_int8_times(card, label: str, shapes: dict, bf16: bool) -> None:
+    """The int8 entry's device time at each shape (bf16: also bf16 K1 /
+    K1s on it), with the int8 instance's registers and blocks an SM."""
+    occ = fd.kernel_info(torch.bfloat16, int8=True)
+    for name, (int8_call, bf16_call, bound, bound_bf16) in shapes.items():
+        extra = ({"bf16_ms": f"{cs._device_ms(bf16_call, 50):.5f}",
+                  "bf16_bound_ms": f"{bound_bf16:.5f}"} if bf16 else {})
+        cs.log("k1_int8_time", build=label, shape=name,
+               int8_ms=f"{cs._device_ms(int8_call, 50):.5f}", bound_ms=f"{bound:.5f}",
+               **extra, registers=occ["registers"], local_bytes=occ["local_bytes"],
+               blocks_per_sm=occ["blocks_per_sm"], card=repr(card))
+
+
+def k1_builds(card, builds: dict, timed: bool) -> list:
+    """Each K1 build (flash_decode.cu edited) checked as the shipped int8
+    entry is, then (timed) every build's int8 entry in turns with the
+    shipped one. Returns the labels that failed."""
+    libs = build_libs(builds, K1, fd)
+    failed = []
+    for label, cdll in libs.items():
+        with patched(fd, cdll):
+            occupancy_report(label)
+            try:
+                cs.phase_int8_kernel_check(card)
+                cs.phase_int8_kernel_check(card, deferred=True)
+            except AssertionError as err:
+                print(f"[build] {label} FAILED its check: {err}", flush=True)
+                failed.append(label)
+    ok = [label for label in libs if label not in failed]
+    if timed:
+        shapes = int8_shapes(torch.Generator(device="cuda").manual_seed(5))
+        for label in ["shipped", *ok, "shipped", *ok[::-1], "shipped"]:
+            if label == "shipped":
+                k1_int8_times(card, label, shapes, bf16=True)
+                continue
+            with patched(fd, libs[label]):
+                k1_int8_times(card, label, shapes, bf16=False)
+    return failed
+
+
 def main() -> None:
     ap = argparse.ArgumentParser()
     ap.add_argument("--no-time", action="store_true")
+    ap.add_argument("--no-k4", action="store_true", help="skip K4's checks and times")
     ap.add_argument("--builds", default="",
-                    help="comma list of LABEL=DIR, DIR a copy of csrc/ with K4 edited")
+                    help="comma list of LABEL=DIR, DIR a copy of csrc/ with K1 or K4 edited")
     ap.add_argument("--stamps", action="store_true")
     args = ap.parse_args()
     card = cs.phase_device()
@@ -334,18 +449,29 @@ def main() -> None:
     ptxas_report()
     cs.phase_kernel_check(card)
     cs.phase_kernel_check(card, deferred=True)
+    cs.phase_int8_kernel_check(card)
+    cs.phase_int8_kernel_check(card, deferred=True)
     g = torch.Generator(device="cuda").manual_seed(99)
     k6_checks(g)
+    builds = dict(item.split("=", 1) for item in args.builds.split(",") if item)
+    failed = k1_builds(card, {label: src for label, src in builds.items() if differs(src, K1)},
+                       not args.no_time)
+    if not args.no_time:
+        k1_time(card)
+    if args.no_k4:
+        if failed:
+            raise SystemExit(f"decode check: builds failed their checks: {failed}")
+        print("decode check: all cases passed", flush=True)
+        return
     cfg, fused32, fused16 = full_width()
     k4_checks(cfg, fused32, fused16, g)
-    builds = dict(item.split("=", 1) for item in args.builds.split(",") if item)
+    builds = {label: src for label, src in builds.items() if differs(src, K4)}
     if args.stamps:
         builds.update({f"{label}+stamps": stamped_copy(Path(src), f"{label}+stamps")
                        for label, src in [("shipped", _build.CSRC), *builds.items()]})
-    libs = build_k4(builds) if builds else {}
-    failed = []
+    libs = build_libs(builds, K4, fu) if builds else {}
     for label, cdll in libs.items():
-        with patched(cdll):
+        with patched(fu, cdll):
             try:
                 k4_checks(cfg, fused32, fused16, g)
             except AssertionError as err:
@@ -354,7 +480,6 @@ def main() -> None:
     del fused32
     torch.cuda.empty_cache()
     if not args.no_time:
-        k1_time(card)
         from chatterbox_embed_tpu_torch.probes import decode_anatomy as pda
         res = pda.run(steps=(1024,), device_iters=30)
         for mode, key in pda.SCRIPT_KEY.items():
@@ -369,11 +494,11 @@ def main() -> None:
             if label == "shipped":
                 cs.fused_times(fused16, cfg, card, label)
                 continue
-            with patched(libs[label]):
+            with patched(fu, libs[label]):
                 cs.fused_times(fused16, cfg, card, label)
     for label, cdll in libs.items():
         if label.endswith("+stamps") and label not in failed:
-            with patched(cdll):
+            with patched(fu, cdll):
                 k4_stamps(cfg, fused16, g, card, label, cdll)
     if failed:
         raise SystemExit(f"decode check: builds failed their checks: {failed}")

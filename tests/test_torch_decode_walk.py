@@ -143,8 +143,18 @@ def test_split_constants_equal_the_headers():
     assert walk["kHeadDim"] == tfd.HEAD_DIM == D
     assert 32 // walk["kGroupLanes"] == tfd.GROUPS          # kGroups = 32 / kGroupLanes
     loads = re.findall(r"struct Row<(\w+)> \{\s*static constexpr int kLoads = (\d+);", text)
-    names = {"__nv_bfloat16": torch.bfloat16, "float": torch.float32, "int8_t": torch.int8}
-    assert {names[t]: int(n) for t, n in loads} == tfd.LOADS
+    names = {"__nv_bfloat16": torch.bfloat16, "float": torch.float32}
+    # the int8 walk (flash_decode.cu): a ring of kInt8Stages tiles of
+    # kInt8Tile keys, kInt8Slots = kInt8Tile / (kWarps * kGroups) a warp
+    int8, fd_text = _constants(_build.CSRC / "flash_decode.cu")
+    assert int8["kInt8Tile"] == tfd.INT8_TILE
+    assert int8["kInt8Stages"] == tfd.INT8_STAGES
+    assert int8["kInt8Blocks"] == tfd.INT8_BLOCKS
+    assert "constexpr int kWarps = kSplitWarps;" in fd_text
+    assert "constexpr int kInt8Slots = kInt8Tile / (kWarps * kGroups);" in fd_text
+    assert "__launch_bounds__(kThreads, kInt8Blocks)" in fd_text
+    slots = int8["kInt8Tile"] // (walk["kSplitWarps"] * (32 // walk["kGroupLanes"]))
+    assert {**{names[t]: int(n) for t, n in loads}, torch.int8: slots} == tfd.LOADS
     fused, _ = _constants(_build.CSRC / "fused_decode.cu")
     assert fused["kMaxSplits"] == tfu.MAX_SPLITS
 

@@ -385,7 +385,7 @@ def test_int8_decode_step_matches_jax_mode_1(rng, t3_pair, monkeypatch, case):
 
 @pytest.mark.parametrize("deferred", [False, True])
 def test_int8_walk_matches_the_plain_version(rng, deferred):
-    """The int8 entry's schedule (walk_reference: 16 keys a warp's slot,
+    """The int8 entry's schedule (walk_reference: tiles of INT8_TILE keys,
     scores x ks, probabilities x vs) against decode_attention_reference,
     fp32 within 1e-5; a stacked cache with a layer and holes."""
     b, h, d, lc, n_l = 4, 4, 64, 300, 2
@@ -399,7 +399,120 @@ def test_int8_walk_matches_the_plain_version(rng, deferred):
     got = tfd.walk_reference(*args, **kw)
     want = tfd.decode_attention_reference(*args, **kw)
     np.testing.assert_allclose(got.numpy(), want.numpy(), atol=1e-5, rtol=0)
-    assert tfd.LOADS[torch.int8] == 2 * tfd.LOADS[torch.bfloat16]
+    assert tfd.LOADS[torch.int8] * tfd.SPLIT_WARPS * tfd.GROUPS == tfd.INT8_TILE
+
+
+def _jax_mode_1(q, k, v, ks, vs, mask, k_cur=None, v_cur=None):
+    """The JAX package's mode-1 read of an int8 cache
+    (chatterbox_embed_tpu/models/llama.py:377-381, 418-440) in jnp: q (B,
+    H, D) in the compute dtype, k, v (Lc, B, H, D) int8, ks, vs (Lc, B, H)
+    fp32, mask (B, Lc); with k_cur / v_cur the current row is one more
+    fp32 logit and value column."""
+    dtype, d, lw = q.dtype, q.shape[-1], k.shape[0]
+    logits = jnp.einsum("bhd,lbhd->bhl", q, k.astype(dtype),
+                        preferred_element_type=jnp.float32)
+    logits = logits * jnp.transpose(ks, (1, 2, 0)) / np.sqrt(d)
+    logits = jnp.where(mask[:, None, :], logits, jnp.float32(-1e10))
+    if k_cur is not None:
+        lcur = jnp.sum(q.astype(jnp.float32) * k_cur.astype(jnp.float32), axis=-1) / np.sqrt(d)
+        logits = jnp.concatenate([logits, lcur[..., None]], axis=-1)
+    w = jax.nn.softmax(logits, axis=-1)
+    wl = w[..., :lw] * jnp.transpose(vs, (1, 2, 0))
+    att = jnp.einsum("bhl,lbhd->bhd", wl.astype(dtype), v.astype(dtype))
+    if k_cur is not None:
+        att = (att.astype(jnp.float32) + w[..., lw:] * v_cur.astype(jnp.float32)).astype(dtype)
+    return att
+
+
+def _close_rel(got, want, limit):
+    """max |got - want| / max(1, |want|) <= limit (the card's bf16 int8 check)."""
+    got, want = np.asarray(got, np.float32), np.asarray(want, np.float32)
+    err = np.abs(got - want) / np.maximum(1.0, np.abs(want))
+    assert np.isfinite(got).all() and err.max() <= limit, err.max()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", ["holes", "spans_wrap", "defer"])
+def test_int8_walk_at_its_tile_matches_plain_and_jax_mode_1(case, dtype):
+    """walk_reference on an int8 cache at the kernel's tile (INT8_TILE keys a
+    tile, so at B*H = 256 and Lc 512 each of the 2 splits walks several
+    tiles, the last partial) against decode_attention_reference and the JAX
+    package's mode-1 read: per-row holes across tile and split edges;
+    per-row spans, half of them wrapped to the cache's end (the engine's
+    ring) with a hole inside; K1s's stacked cache with its current row
+    folded in. fp32 within 1e-5; bf16 q within 2e-2 of max(1, |ref|), the
+    card's int8 limits (the plain and JAX reads round w * vs to bf16)."""
+    rng = np.random.default_rng({"holes": 1, "spans_wrap": 2, "defer": 3}[case])
+    b, h, d, lc, start, pos = 16, 16, 64, 512, 4, 385
+    n_l = 2 if case == "defer" else 1
+    x = rng.standard_normal((2, n_l, lc, b, h, d)).astype(np.float32)
+    x *= rng.uniform(0.3, 3.0, (2, n_l, lc, b, h, 1)).astype(np.float32)
+    (k, ks), (v, vs) = (tllama.quantize_kv(torch.from_numpy(a)) for a in x)
+    q = torch.from_numpy(rng.standard_normal((b, h, d)).astype(np.float32)).to(dtype)
+    lo, hi = np.full(b, start), np.full(b, pos - (case == "defer"))
+    hole = np.stack([100 + 5 * np.arange(b), 140 + 9 * np.arange(b)], 1)   # across 132
+    span, kw = None, {}
+    if case == "spans_wrap":
+        lo = rng.integers(0, 60, b)
+        hi = np.where(np.arange(b) % 2 == 0, lc - 1, rng.integers(300, lc - 1, b))
+        hole = np.stack([lo + 150, lo + 150 + rng.integers(0, 120, b)], 1)
+        span = torch.tensor(np.stack([lo, hi], 1), dtype=torch.int32)
+    if case == "defer":
+        kw = dict(layer=1, k_cur=torch.randn(b, h, d).to(dtype), v_cur=torch.randn(b, h, d).to(dtype))
+    if case != "defer":
+        k, v, ks, vs = k[0], v[0], ks[0], vs[0]
+    args = (q, k, v, pos, start, torch.tensor(hole, dtype=torch.int32))
+    kw.update(span=span, k_scale=ks, v_scale=vs)
+    walk = tfd.walk_reference(*args, **kw)
+    plain = tfd.decode_attention_reference(*args, **kw)
+    idx = np.arange(lc)[None]
+    mask = ((idx >= lo[:, None]) & (idx <= hi[:, None])
+            & ~((idx >= hole[:, :1]) & (idx < hole[:, 1:])))
+    layer = kw.get("layer", 0)
+    kl, vl = (a[layer] if a.dim() == 5 else a for a in (k, v))
+    ksl, vsl = (a[layer] if a.dim() == 4 else a for a in (ks, vs))
+    jd = jnp.float32 if dtype == torch.float32 else jnp.bfloat16
+    cur = {}
+    if case == "defer":
+        cur = {n: jnp.asarray(kw[n].float().numpy()).astype(jd) for n in ("k_cur", "v_cur")}
+    jax_out = _jax_mode_1(jnp.asarray(q.float().numpy()).astype(jd), jnp.asarray(kl.numpy()),
+                          jnp.asarray(vl.numpy()), jnp.asarray(ksl.numpy()),
+                          jnp.asarray(vsl.numpy()), jnp.asarray(mask), **cur)
+    jax_out = np.asarray(jax_out.astype(jnp.float32))
+    assert walk.dtype == dtype
+    if dtype == torch.float32:
+        np.testing.assert_allclose(walk.numpy(), plain.numpy(), atol=1e-5, rtol=0)
+        np.testing.assert_allclose(walk.numpy(), jax_out, atol=1e-5, rtol=0)
+    else:
+        _close_rel(walk.float().numpy(), plain.float().numpy(), 2e-2)
+        _close_rel(walk.float().numpy(), jax_out, 2e-2)
+
+
+def test_byte_permute_conversion_is_exact():
+    """The int8 walk's int8 -> fp32 conversion (csrc/flash_decode.cu:
+    unpack_int8): __byte_perm(w ^ 0x80808080, kI8Magic, 0x7540 | i) read as
+    fp32 minus kI8Offset, emulated in numpy for every byte value at every
+    byte position of a word, equals int8 -> float32 bit for bit."""
+    import re
+    from chatterbox_embed_tpu_torch.kernels import _build
+    text = (_build.CSRC / "flash_decode.cu").read_text()
+    magic = int(re.search(r"constexpr unsigned kI8Magic = (0x[0-9A-Fa-f]+)u;", text).group(1), 16)
+    offset = np.float32(re.search(r"constexpr float kI8Offset = ([\d.]+)f;", text).group(1))
+    assert "const unsigned a = r.x ^ 0x80808080u, b = r.y ^ 0x80808080u;" in text
+    assert "__uint_as_float(__byte_perm(a, kI8Magic, 0x7540 | i)) - kI8Offset" in text
+    raw = np.arange(256, dtype=np.uint32)
+    words = raw | np.roll(raw, 1) << 8 | np.roll(raw, 2) << 16 | np.roll(raw, 3) << 24
+    flipped = words ^ np.uint32(0x80808080)
+    # __byte_perm(x, y, s): result byte n is byte s[4n + 2 : 4n] of (y:x)
+    pool = [(flipped >> 8 * n) & 0xFF for n in range(4)] + \
+        [np.full_like(words, (magic >> 8 * n) & 0xFF) for n in range(4)]
+    for i in range(4):
+        sel = 0x7540 | i
+        bits = sum(pool[(sel >> 4 * n) & 0x7] << 8 * n for n in range(4)).astype(np.uint32)
+        got = bits.view(np.float32) - offset
+        want = ((words >> 8 * i) & 0xFF).astype(np.uint8).view(np.int8).astype(np.float32)
+        assert sorted(want.tolist()) == list(range(-128, 128))
+        np.testing.assert_array_equal(got.view(np.uint32), want.view(np.uint32))
 
 
 def test_int8_cache_without_scales_is_refused():
