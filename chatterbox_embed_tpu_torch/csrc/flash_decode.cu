@@ -284,15 +284,18 @@ __device__ __forceinline__ void walk_int8(Int8Stage* ring, const int8_t* __restr
 }
 
 // The block's range of the walk: row's span or [start, walk_end], cut into
-// n_splits; and its hole.
+// n_splits; and its hole. start_dev, when given, holds `start` on the device
+// (a CUDA graph replays one launch for every text length of a bucket).
 struct Range {
   int lo, hi, hole_lo, hole_hi;
 };
 
 __device__ __forceinline__ Range block_range(const int* __restrict__ hole,
-                                             const int* __restrict__ span, int row,
+                                             const int* __restrict__ span,
+                                             const int* __restrict__ start_dev, int row,
                                              int lcache, int walk_end, int start, int split,
                                              int n_splits) {
+  if (start_dev != nullptr) start = max(*start_dev, 0);
   if (span != nullptr) {
     start = max(span[2 * row], 0);
     walk_end = min(span[2 * row + 1], lcache - 1);
@@ -354,14 +357,15 @@ decode_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restr
               const int* __restrict__ hole, const int* __restrict__ span,
               const T* __restrict__ k_cur, const T* __restrict__ v_cur, T* __restrict__ out,
               float* __restrict__ part, int* __restrict__ counters, int bh_total, int heads,
-              int lcache, int walk_end, int start, int n_splits) {
+              int lcache, int walk_end, int start, const int* __restrict__ start_dev,
+              int n_splits) {
   __shared__ float sm_m[kWarps], sm_l[kWarps];
   __shared__ float sm_acc[kWarps * kHeadDim];
   __shared__ float sm_dot[kHeadDim / 32];
   __shared__ int sm_last;
   const int bh = blockIdx.x;
-  const Range r = block_range(hole, span, bh / heads, lcache, walk_end, start, blockIdx.y,
-                              n_splits);
+  const Range r = block_range(hole, span, start_dev, bh / heads, lcache, walk_end, start,
+                              blockIdx.y, n_splits);
   // q has the cache dtype (the wrapper checks), so q.k multiplies values of
   // one dtype exactly in fp32, as the TPU kernel's cache-dtype product does
   float qv[kElems];
@@ -386,15 +390,16 @@ decode_kernel_int8(const T* __restrict__ q, const int8_t* __restrict__ k,
                    const int* __restrict__ span, const T* __restrict__ k_cur,
                    const T* __restrict__ v_cur, T* __restrict__ out, float* __restrict__ part,
                    int* __restrict__ counters, int bh_total, int heads, int lcache,
-                   int walk_end, int start, int n_splits) {
+                   int walk_end, int start, const int* __restrict__ start_dev,
+                   int n_splits) {
   __shared__ __align__(16) Int8Stage ring[kInt8Stages];
   __shared__ float sm_m[kWarps], sm_l[kWarps];
   __shared__ float sm_acc[kWarps * kHeadDim];
   __shared__ float sm_dot[kHeadDim / 32];
   __shared__ int sm_last;
   const int bh = blockIdx.x;
-  const Range r = block_range(hole, span, bh / heads, lcache, walk_end, start, blockIdx.y,
-                              n_splits);
+  const Range r = block_range(hole, span, start_dev, bh / heads, lcache, walk_end, start,
+                              blockIdx.y, n_splits);
   // q.k multiplies q's values by the int8 ones exactly in fp32, as XLA's
   // fp32-accumulated dot of the int8 cache does
   float qv[kElems];
@@ -415,7 +420,7 @@ template <typename T>
 int launch(const void* q, const void* k, const void* v, const float* k_scale,
            const float* v_scale, const int* hole, const int* span, const void* k_cur,
            const void* v_cur, void* out, float* part, int* counters, int batch, int heads,
-           int lcache, int layer, int cache_pos, int start, int n_splits,
+           int lcache, int layer, int cache_pos, int start, const int* start_dev, int n_splits,
            cudaStream_t stream) {
   const int bh = batch * heads;
   const size_t scale_off = (size_t)layer * lcache * bh;
@@ -427,13 +432,14 @@ int launch(const void* q, const void* k, const void* v, const float* k_scale,
         static_cast<const T*>(q), static_cast<const int8_t*>(k) + layer_off,
         static_cast<const int8_t*>(v) + layer_off, k_scale + scale_off, v_scale + scale_off,
         hole, span, static_cast<const T*>(k_cur), static_cast<const T*>(v_cur),
-        static_cast<T*>(out), part, counters, bh, heads, lcache, walk_end, start, n_splits);
+        static_cast<T*>(out), part, counters, bh, heads, lcache, walk_end, start, start_dev,
+        n_splits);
   else
     decode_kernel<T><<<grid, kThreads, 0, stream>>>(
         static_cast<const T*>(q), static_cast<const T*>(k) + layer_off,
         static_cast<const T*>(v) + layer_off, hole, span, static_cast<const T*>(k_cur),
         static_cast<const T*>(v_cur), static_cast<T*>(out), part, counters, bh, heads,
-        lcache, walk_end, start, n_splits);
+        lcache, walk_end, start, start_dev, n_splits);
   return (int)cudaGetLastError();
 }
 
@@ -451,7 +457,11 @@ const void* kernel_of(bool int8) {
 // pointers, as K1 and K1s share one with k_cur / v_cur, so that the wrapper
 // declares and checks one signature. k_cur and
 // v_cur are both null (K1) or both given (K1s); span (K1 only) replaces
-// start and cache_pos for every row when it is not null. n_splits must be
+// start and cache_pos for every row when it is not null. start_dev is null
+// or a device int that replaces `start`, read by every block: a CUDA graph
+// then captures one launch for every text length of a bucket (a negative
+// one is taken as 0, as a span's start; a start past walk_end walks
+// nothing). n_splits must be
 // splits_for(batch * heads, lcache) (the wrapper's mirror sizes `part`
 // with it); `counters` must hold batch * heads zeros before the first
 // launch, and the kernel leaves them so. Returns the cudaError_t of the
@@ -462,7 +472,8 @@ extern "C" int cbx_flash_decode(const void* q, const void* k, const void* v,
                                 const void* v_cur, void* out, float* part,
                                 int* counters, int batch, int heads, int head_dim,
                                 int lcache, int layer, int cache_pos, int start,
-                                int n_splits, int dtype, void* stream) {
+                                int n_splits, int dtype, void* stream,
+                                const int* start_dev) {
   if (head_dim != kHeadDim || n_splits != splits_for(batch * heads, lcache))
     return (int)cudaErrorInvalidValue;
   if ((k_cur == nullptr) != (v_cur == nullptr)) return (int)cudaErrorInvalidValue;
@@ -471,11 +482,12 @@ extern "C" int cbx_flash_decode(const void* q, const void* k, const void* v,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
     return launch<float>(q, k, v, k_scale, v_scale, hole, span, k_cur, v_cur, out, part,
-                         counters, batch, heads, lcache, layer, cache_pos, start, n_splits, s);
+                         counters, batch, heads, lcache, layer, cache_pos, start, start_dev,
+                         n_splits, s);
   if (dtype == 1)
     return launch<__nv_bfloat16>(q, k, v, k_scale, v_scale, hole, span, k_cur, v_cur, out,
                                  part, counters, batch, heads, lcache, layer, cache_pos, start,
-                                 n_splits, s);
+                                 start_dev, n_splits, s);
   return (int)cudaErrorInvalidValue;
 }
 

@@ -13,9 +13,11 @@
 //   h    = T(h + T(mm . Wd))
 // then h_out = T(rmsnorm(h) * fnorm). Every product accumulates in fp32.
 // RoPE takes the position pos - start for every row (unragged rows; the
-// caller gates). Each layer's new k/v row is written into the cache at slot
-// pos; the attention never reads that slot, so the write is safe while the
-// walk runs (the JAX package inserts it outside its kernel instead).
+// caller gates). `start` may come from the device (start_dev), so that a
+// CUDA graph replays one launch for every text length of a bucket. Each
+// layer's new k/v row is written into the cache at slot pos; the attention
+// never reads that slot, so the write is safe while the walk runs (the JAX
+// package inserts it outside its kernel instead).
 //
 //   wall   (L, S, d) T   rows per layer [q^T k^T v^T | o^T | gate^T up^T |
 //                        down^T laid flat over its I rows], one contiguous
@@ -171,6 +173,7 @@ struct Params {
   float* mm;
   float* part;
   int* counters;
+  const int* start_dev;      // null, or the device int that replaces start
   int layers, rows, d, heads, hd, inter, lcache, pos, start, splits;
   float eps;
 };
@@ -357,7 +360,8 @@ fused_step_kernel(Params p) {
   const int gwarp = blockIdx.x * kWarps + warp;
   const int nwarps = gridDim.x * kWarps;
   const size_t slot = (size_t)rows * qo;            // one cache slot, B*H*hd
-  const float rope_pos = (float)(p.pos - p.start);
+  const int start = p.start_dev != nullptr ? max(*p.start_dev, 0) : p.start;
+  const float rope_pos = (float)(p.pos - start);
   for (int e = blockIdx.x * kThreads + threadIdx.x; e < rows * d;
        e += gridDim.x * kThreads)
     p.h[e] = load1(x + e);
@@ -426,7 +430,7 @@ fused_step_kernel(Params p) {
       s_cur += __shfl_xor_sync(0xffffffffu, s_cur, 1);
       s_cur += __shfl_xor_sync(0xffffffffu, s_cur, 2);
       s_cur += __shfl_xor_sync(0xffffffffu, s_cur, 4);
-      int lo = p.start, hi = p.pos - 1;
+      int lo = start, hi = p.pos - 1;
       {
         const int live = hi - lo + 1;
         const int per = live > 0 ? (live + p.splits - 1) / p.splits : 0;
@@ -509,32 +513,64 @@ fused_step_kernel(Params p) {
   }
 }
 
+// The grid of one template on the current device: the shared-memory
+// attribute, the cooperative check and the occupancy query run once per
+// (device, shared bytes), so that a launch makes no other runtime call (none
+// inside a CUDA graph capture).
+template <typename T, int R>
+cudaError_t grid_for(void (*kern)(Params), size_t smem, int* grid) {
+  static int set_dev = -1, set_grid = 0;
+  static size_t set_smem = 0;
+  int dev = 0, sms = 0, per_sm = 0, coop = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  if (dev == set_dev && smem == set_smem) {
+    *grid = set_grid;
+    return cudaSuccess;
+  }
+  err = cudaFuncSetAttribute((const void*)kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             (int)smem);
+  if (err != cudaSuccess) return err;
+  if ((err = cudaDeviceGetAttribute(&coop, cudaDevAttrCooperativeLaunch, dev)) != cudaSuccess)
+    return err;
+  if (!coop) return cudaErrorNotSupported;
+  if ((err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev)) != cudaSuccess)
+    return err;
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kern, kThreads, smem);
+  if (err != cudaSuccess) return err;
+  if (per_sm < 1) return cudaErrorCooperativeLaunchTooLarge;
+  set_dev = dev;
+  set_smem = smem;
+  set_grid = per_sm * sms;
+  *grid = set_grid;
+  return cudaSuccess;
+}
+
+// The launch is cudaLaunchKernelEx with the cooperative attribute (what
+// cudaLaunchCooperativeKernel does), the form CUDA 12 documents for stream
+// capture: a captured step keeps its grid-wide barriers.
 template <typename T, int R>
 int launch(const Params& p, cudaStream_t stream) {
   void (*kern)(Params) = fused_step_kernel<T, R>;
   const int act_stride = p.d > p.inter ? p.d : p.inter;
   const size_t smem = (size_t)R * act_stride * sizeof(T);
-  cudaError_t err = cudaFuncSetAttribute(
-      (const void*)kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  int grid = 0;
+  cudaError_t err = grid_for<T, R>(kern, smem, &grid);
   if (err != cudaSuccess) return (int)err;
-  int dev = 0, sms = 0, per_sm = 0, coop = 0;
-  if ((err = cudaGetDevice(&dev)) != cudaSuccess) return (int)err;
-  if ((err = cudaDeviceGetAttribute(&coop, cudaDevAttrCooperativeLaunch, dev)) != cudaSuccess)
-    return (int)err;
-  if (!coop) return (int)cudaErrorNotSupported;
-  if ((err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev)) != cudaSuccess)
-    return (int)err;
-  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kern, kThreads, smem);
-  if (err != cudaSuccess) return (int)err;
-  if (per_sm < 1) return (int)cudaErrorCooperativeLaunchTooLarge;
-  const int grid = per_sm * sms;
   Params arg = p;
   const int by_grid = grid / (p.rows * p.heads);
   arg.splits = by_grid < 1 ? 1 : (by_grid > kMaxSplits ? kMaxSplits : by_grid);
-  void* args[] = {&arg};
-  err = cudaLaunchCooperativeKernel((const void*)kern, dim3(grid), dim3(kThreads), args, smem,
-                                    stream);
-  return (int)err;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeCooperative;
+  attr[0].val.cooperative = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(grid);
+  cfg.blockDim = dim3(kThreads);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  return (int)cudaLaunchKernelEx(&cfg, kern, arg);
 }
 
 template <typename T>
@@ -553,6 +589,8 @@ int launch_rows(const Params& p, int rows_t, cudaStream_t stream) {
 // Plain C entry for ctypes. dtype: 0 = float32, 1 = bfloat16; rows_t is the
 // compiled row count (2, 4, 8 or 16, >= rows). part must hold rows * heads
 // * kMaxSplits * (head_dim + 2) floats and counters rows * heads ints.
+// start_dev is null or a device int that replaces `start` (then not checked
+// here; the kernel takes a negative one as 0).
 // Returns the cudaError_t of the launch (0 on success;
 // cudaErrorCooperativeLaunchTooLarge when no block fits on an SM); it never
 // synchronises and allocates nothing.
@@ -565,13 +603,13 @@ extern "C" int cbx_fused_decode(const void* wall, const float* ln1,
                                 int layers, int rows, int rows_t, int d,
                                 int heads, int head_dim, int inter, int lcache,
                                 int pos, int start, int dtype, float eps,
-                                void* stream) {
+                                void* stream, const int* start_dev) {
   if (head_dim != kHeadDim || heads * head_dim != d || rows < 1 || rows > rows_t ||
-      pos < start || start < 0 || pos >= lcache)
+      pos < 0 || pos >= lcache || (start_dev == nullptr && (pos < start || start < 0)))
     return (int)cudaErrorInvalidValue;
   const Params p{wall, ln1, ln2, fnorm, inv_freq, x, cache_k, cache_v, h_out, h,
-                 qkv, att, mm, part, counters, layers, rows, d, heads, head_dim, inter,
-                 lcache, pos, start, 1, eps};
+                 qkv, att, mm, part, counters, start_dev, layers, rows, d, heads, head_dim,
+                 inter, lcache, pos, start, 1, eps};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0) return launch_rows<float>(p, rows_t, s);
   if (dtype == 1) return launch_rows<__nv_bfloat16>(p, rows_t, s);

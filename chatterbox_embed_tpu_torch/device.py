@@ -3,8 +3,9 @@ from __future__ import annotations
 
 import contextlib
 import time
-from typing import Optional
+from typing import Callable, Optional
 
+import numpy as np
 import torch
 
 
@@ -22,6 +23,22 @@ def default_device() -> torch.device:
 def resolve_device(device=None) -> torch.device:
     """`device`, or the default device when it is None."""
     return default_device() if device is None else torch.device(device)
+
+
+_CONSTANTS: dict = {}
+
+
+def constant(key, device, make: Callable[[], np.ndarray]) -> torch.Tensor:
+    """A host-made constant on `device`, copied there once per (key,
+    device): `make()` gives its numpy array the first time. A copy from the
+    host is not allowed inside a CUDA graph capture (streaming.py captures
+    the stream's first chunk), and one made on every call costs a transfer
+    each time. `key` must name everything the array depends on."""
+    k = (key, str(torch.device(device)))
+    t = _CONSTANTS.get(k)
+    if t is None:
+        t = _CONSTANTS[k] = torch.from_numpy(np.ascontiguousarray(make())).to(device)
+    return t
 
 
 def lap(timings: Optional[dict], name: str, t0: float, device: torch.device) -> float:

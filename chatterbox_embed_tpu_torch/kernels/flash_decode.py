@@ -12,7 +12,10 @@ caller writes every layer's row in one stacked insert after the layer loop.
 K1 also takes an optional per-row `span` (B, 2): row b then attends
 [span[b, 0], span[b, 1]] minus its hole in place of the shared [start,
 cache_pos] (the continuous engine's slots, models/t3_engine.py:
-engine_spans); an empty span gives 0.
+engine_spans); an empty span gives 0. `start` may be a one-element int32
+tensor on the device, read by the kernel: a CUDA graph of the stream's
+first chunk (streaming.py) then replays one launch for every text length
+of a bucket.
 Both take an int8 cache (the int8 KV cache, CHATTERBOX_INT8_KV=1) with its
 fp32 scale planes `k_scale`, `v_scale`, one scale a (slot, row, head): the
 int8 entry (a kernel of its own in the same source) walks the int8 slabs
@@ -22,7 +25,8 @@ it runs in XLA).
 q, k_cur, v_cur and the output keep the compute dtype.
 On a CUDA tensor it launches the hand-written split-KV kernel in
 `csrc/flash_decode.cu` (design notes there), one launch a call, with a
-scratch workspace kept per (device, dtype, B, H, Lc); on a CPU tensor it
+scratch workspace kept per (device, stream, dtype, B, H, Lc), or made for
+one CUDA graph capture alone (`graph_workspaces`); on a CPU tensor it
 runs `decode_attention_reference`, the plain PyTorch version. There is no
 other path: a CUDA call that the kernel cannot take raises.
 `walk_reference` walks the kernel's schedule in plain PyTorch for the tests.
@@ -33,6 +37,7 @@ plain C entry, loaded with ctypes, the first time a CUDA tensor arrives
 """
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import math
 
@@ -60,7 +65,7 @@ LOADS = {torch.bfloat16: 8, torch.float32: 4,                   # by the cache's
          torch.int8: INT8_TILE // (SPLIT_WARPS * GROUPS)}
 _SCALE_LOG2 = 0.125 * math.log2(math.e)
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
-_ARGTYPES = ([ctypes.c_void_p] * 12 + [ctypes.c_int] * 9 + [ctypes.c_void_p])
+_ARGTYPES = ([ctypes.c_void_p] * 12 + [ctypes.c_int] * 9 + [ctypes.c_void_p] * 2)
 _INFO_ARGTYPES = [ctypes.c_int, ctypes.c_int, ctypes.POINTER(ctypes.c_int)]
 
 
@@ -82,6 +87,34 @@ def split_range(start: int, walk_end: int, n_splits: int, split: int):
 
 
 _WORKSPACE: dict = {}
+# the workspaces of the CUDA graph captures in progress, innermost last
+_CAPTURES: list = []
+
+
+@contextlib.contextmanager
+def graph_workspaces():
+    """Inside the block every kernel workspace (K1/K1s here, K4's in
+    fused_decode.py) is made for one CUDA graph capture alone: in the
+    graph's memory pool, held in the dict this yields (the caller keeps it
+    with the graph), and never taken from or left in the shared caches,
+    whose workspaces eager calls use (an eager call on another stream could
+    otherwise run beside a replay on the same scratch)."""
+    own: dict = {}
+    _CAPTURES.append(own)
+    try:
+        yield own
+    finally:
+        _CAPTURES.pop()
+
+
+def kept_workspace(shared: dict, key, make):
+    """The workspace `key` of `shared` (made by `make` the first time), or
+    of the capture in progress (`graph_workspaces`)."""
+    store = _CAPTURES[-1] if _CAPTURES else shared
+    ws = store.get(key)
+    if ws is None:
+        ws = store[key] = make()
+    return ws
 
 
 def stream_key(device) -> int:
@@ -95,14 +128,11 @@ def workspace(device, dtype, b: int, h: int, lcache: int):
     """The kernels' scratch for one (device, stream, dtype, B, H, Lc), made
     once: the partials (m, l: B*H*S each, then acc: B*H*S*64, fp32) and one
     arrival counter a (row, head), zero, which every launch leaves zero."""
-    key = (str(device), stream_key(device), dtype, b, h, lcache)
-    ws = _WORKSPACE.get(key)
-    if ws is None:
-        n = b * h * splits_for(b * h, lcache)
-        ws = (torch.empty(n * (HEAD_DIM + 2), dtype=torch.float32, device=device),
-              torch.zeros(b * h, dtype=torch.int32, device=device))
-        _WORKSPACE[key] = ws
-    return ws
+    n = b * h * splits_for(b * h, lcache)
+    return kept_workspace(
+        _WORKSPACE, ("flash_decode", str(device), stream_key(device), dtype, b, h, lcache),
+        lambda: (torch.empty(n * (HEAD_DIM + 2), dtype=torch.float32, device=device),
+                 torch.zeros(b * h, dtype=torch.int32, device=device)))
 
 
 def _layer_slab(k, v, layer, k_scale=None, v_scale=None):
@@ -124,8 +154,9 @@ def _row_ranges(b, cache_pos, start, span, deferred, device):
         span = torch.as_tensor(span, dtype=torch.long, device=device)
         return span[:, 0], span[:, 1]
     last = cache_pos - 1 if deferred else cache_pos
-    return (torch.full((b,), start, dtype=torch.long, device=device),
-            torch.full((b,), last, dtype=torch.long, device=device))
+    lo = (start.to(device=device, dtype=torch.long).reshape(1).clamp_min(0).expand(b)
+          if torch.is_tensor(start) else torch.full((b,), start, dtype=torch.long, device=device))
+    return lo, torch.full((b,), last, dtype=torch.long, device=device)
 
 
 def decode_attention_reference(q, k, v, cache_pos, start=0, hole=None, layer=None,
@@ -333,6 +364,16 @@ def _check(q, k, v, hole, k_cur, v_cur, span, k_scale, v_scale):
             _check_rows(name, t, q)
 
 
+def device_start(start, x, name: str = "decode_attention") -> int:
+    """A tensor `start` as the int32 pointer a kernel reads (K1/K1s here,
+    K4 in fused_decode.py), checked to be one element on x's device."""
+    if (start.device != x.device or start.dtype != torch.int32 or start.numel() != 1
+            or not start.is_contiguous()):
+        raise ValueError(f"{name}: a tensor start must be one contiguous int32 element on "
+                         "the inputs' device")
+    return start.data_ptr()
+
+
 def decode_attention(q, k, v, cache_pos, start=0, hole=None, layer=None,
                      k_cur=None, v_cur=None, span=None, k_scale=None, v_scale=None):
     """q (B, H, D); k, v (Lc, B, H, D) one layer's cache, or the stacked
@@ -343,7 +384,10 @@ def decode_attention(q, k, v, cache_pos, start=0, hole=None, layer=None,
     only) row b attends [span[b, 0], span[b, 1]] minus its hole instead, and
     a row with no live key gives 0; the span is read on the device (no
     check of its values on the host: the kernel clamps it to the cache).
-    k_scale, v_scale ((Lc, B, H), or (nL, Lc, B, H) beside a stacked cache;
+    start: an int, or a one-element int32 tensor on q's device, which the
+    kernel reads (its value is not checked on the host either: the kernel
+    takes a negative one as 0, as a span's, and a start past the walk's end
+    walks nothing). k_scale, v_scale ((Lc, B, H), or (nL, Lc, B, H) beside a stacked cache;
     fp32): k and v are an int8 cache with these scales (the int8 entry);
     q, k_cur and v_cur keep their float dtype. Returns (B, H, D) in q's
     dtype.
@@ -366,7 +410,8 @@ def decode_attention(q, k, v, cache_pos, start=0, hole=None, layer=None,
         return decode_attention_reference(q, k, v, cache_pos, start, hole, layer, k_cur,
                                           v_cur, span, k_scale, v_scale)
     _check(q, k, v, hole, k_cur, v_cur, span, k_scale, v_scale)
-    cache_pos, start = int(cache_pos), int(start)
+    start_dev = device_start(start, q) if torch.is_tensor(start) else None
+    cache_pos, start = int(cache_pos), 0 if start_dev is not None else int(start)
     n_layers = k.shape[0] if k.dim() == 5 else 1
     layer = 0 if k.dim() == 4 else int(layer)
     lcache = k.shape[-4]
@@ -390,7 +435,7 @@ def decode_attention(q, k, v, cache_pos, start=0, hole=None, layer=None,
         k_cur.data_ptr() if deferred else None, v_cur.data_ptr() if deferred else None,
         out.data_ptr(), part.data_ptr(), counters.data_ptr(),
         b, h, d, lcache, layer, cache_pos, start, splits_for(b * h, lcache),
-        _DTYPE_CODE[q.dtype], stream)
+        _DTYPE_CODE[q.dtype], stream, start_dev)
     if rc != 0:
         raise RuntimeError(f"flash_decode kernel launch failed: cudaError {rc}")
     counter = ("launches_int8" if int8 else "launches") + ("_deferred" if deferred else "")

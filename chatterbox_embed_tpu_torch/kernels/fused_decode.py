@@ -11,7 +11,9 @@ CUDA tensor it launches the persistent cooperative kernel in
 same wall with the same roundings. A CUDA call the kernel cannot take
 raises. Each layer's new k/v row is written into the caches in place, at
 `cache_pos` (the JAX package returns new caches and inserts outside its
-kernel; the values are the same).
+kernel; the values are the same). `start` may be a one-element int32
+tensor on the device, read by the kernel, so that a CUDA graph replays one
+launch for every text length of a bucket (streaming.py).
 """
 from __future__ import annotations
 
@@ -21,9 +23,9 @@ import torch
 import torch.nn.functional as F
 
 from ..config import LlamaConfig
-from ..models.llama import _scaled_inv_freq
+from ..models.llama import inv_freq
 from . import _build
-from .flash_decode import decode_attention_reference, stream_key
+from .flash_decode import decode_attention_reference, device_start, kept_workspace, stream_key
 
 SOURCE = _build.CSRC / "fused_decode.cu"
 HEAD_DIM = 64             # the kernel's compiled head width
@@ -34,7 +36,7 @@ MAX_SPLITS = 8            # the kernel's walk splits a (row, head), at most (kMa
 SMEM_LIMIT = 227 * 1024 - 8192
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _ARGTYPES = ([ctypes.c_void_p] * 15 + [ctypes.c_int] * 11 + [ctypes.c_float]
-             + [ctypes.c_void_p])
+             + [ctypes.c_void_p] * 2)
 
 
 def plan(cfg: LlamaConfig, b: int):
@@ -91,10 +93,14 @@ def _mv(a, rows):
     return torch.matmul(a.float(), rows.float().t())
 
 
-def _rope_table(cfg: LlamaConfig, rope_pos: int, device):
-    """cos, sin (hd,) fp32 at RoPE position `rope_pos`, HF half-split."""
-    inv = torch.from_numpy(_scaled_inv_freq(cfg)).to(device)
-    ang = torch.tensor(float(rope_pos), dtype=torch.float32, device=device) * inv
+def _rope_table(cfg: LlamaConfig, rope_pos, device):
+    """cos, sin (hd,) fp32 at RoPE position `rope_pos` (an int or a
+    one-element tensor), HF half-split."""
+    inv = inv_freq(cfg, device)
+    if torch.is_tensor(rope_pos):
+        ang = rope_pos.to(device=device, dtype=torch.float32).reshape(()) * inv
+    else:
+        ang = torch.tensor(float(rope_pos), dtype=torch.float32, device=device) * inv
     ang = torch.cat([ang, ang])
     return torch.cos(ang), torch.sin(ang)
 
@@ -118,7 +124,8 @@ def fused_decode_step_reference(fused, x, cache_k, cache_v, cache_pos, start,
         raise ValueError("fused_decode_step: the config cannot take the fused step")
     qo, inter, hh, hd = p["qo"], p["inter"], p["h"], p["hd"]
     o_off, gu_off, dn_off = p["offsets"][1:]
-    pos, st = int(cache_pos), int(start)
+    pos = int(cache_pos)
+    st = start.clamp_min(0) if torch.is_tensor(start) else int(start)
     eps = cfg.rms_norm_eps
     cos, sin = _rope_table(cfg, pos - st, x.device)
     half = hd // 2
@@ -152,18 +159,7 @@ def _library():
     return _build.load(SOURCE, "cbx_fused_decode", _ARGTYPES)
 
 
-_INV_FREQ: dict = {}
 _WORKSPACE: dict = {}
-
-
-def _inv_freq(cfg: LlamaConfig, device):
-    key = (cfg.head_dim, cfg.rope_theta, cfg.rope_scaling_factor, cfg.rope_low_freq_factor,
-           cfg.rope_high_freq_factor, cfg.rope_original_max_position, str(device))
-    t = _INV_FREQ.get(key)
-    if t is None:
-        t = torch.from_numpy(_scaled_inv_freq(cfg)).to(device)
-        _INV_FREQ[key] = t
-    return t
 
 
 def _workspace(device, b: int, p: dict):
@@ -171,15 +167,15 @@ def _workspace(device, b: int, p: dict):
     (device, stream, shape): h (B, d), qkv (B, 3 qo), att (B, qo), mm (B, I)
     and the walk's partials (B*H*MAX_SPLITS*(D + 2)); and B*H int32 arrival
     counters, which the kernel sets to 0 itself."""
-    key = (str(device), stream_key(device), b, p["d"], p["qo"], p["inter"], p["h"])
-    ws = _WORKSPACE.get(key)
-    if ws is None:
-        sizes = (b * p["d"], b * 3 * p["qo"], b * p["qo"], b * p["inter"],
-                 b * p["h"] * MAX_SPLITS * (HEAD_DIM + 2))
+    sizes = (b * p["d"], b * 3 * p["qo"], b * p["qo"], b * p["inter"],
+             b * p["h"] * MAX_SPLITS * (HEAD_DIM + 2))
+
+    def make():
         flat = torch.empty(sum(sizes), dtype=torch.float32, device=device)
-        ws = (flat.split(sizes), torch.zeros(b * p["h"], dtype=torch.int32, device=device))
-        _WORKSPACE[key] = ws
-    return ws
+        return flat.split(sizes), torch.zeros(b * p["h"], dtype=torch.int32, device=device)
+
+    return kept_workspace(_WORKSPACE, ("fused_decode", str(device), stream_key(device), b,
+                                       p["d"], p["qo"], p["inter"], p["h"]), make)
 
 
 def _check(fused, x, cache_k, cache_v, p, dtype):
@@ -233,7 +229,9 @@ def fused_decode_step(fused, x, cache_k, cache_v, cache_pos, start,
     at cache_pos; `fused` from stack_for_fused in `dtype`. Attends slots
     [start, cache_pos - 1] plus the current row, with RoPE at
     cache_pos - start for every row (so unragged rows only: the caller
-    gates). Returns (h (B, d) after the final norm, cache_k, cache_v).
+    gates). start: an int, or a one-element int32 tensor on x's device,
+    which the kernel reads (not checked on the host; a negative one is
+    taken as 0). Returns (h (B, d) after the final norm, cache_k, cache_v).
 
     CPU tensors take the plain version; CUDA tensors launch the kernel
     (one launch, counted in `fused_decode_step.launches`) or raise."""
@@ -245,7 +243,8 @@ def fused_decode_step(fused, x, cache_k, cache_v, cache_pos, start,
         return fused_decode_step_reference(fused, x, cache_k, cache_v, cache_pos, start,
                                            cfg, dtype)
     _check(fused, x, cache_k, cache_v, p, dtype)
-    pos, st = int(cache_pos), int(start)
+    start_dev = device_start(start, x, "fused_decode_step") if torch.is_tensor(start) else None
+    pos, st = int(cache_pos), 0 if start_dev is not None else int(start)
     n_layers, lcache = cache_k.shape[0], cache_k.shape[1]
     if not 0 <= st <= pos < lcache:
         raise ValueError(f"fused_decode_step: need 0 <= start ({st}) <= cache_pos "
@@ -257,11 +256,11 @@ def fused_decode_step(fused, x, cache_k, cache_v, cache_pos, start,
     stream = torch.cuda.current_stream(x.device).cuda_stream
     rc = lib.cbx_fused_decode(
         fused["wall"].data_ptr(), fused["ln1"].data_ptr(), fused["ln2"].data_ptr(),
-        fused["fnorm"].data_ptr(), _inv_freq(cfg, x.device).data_ptr(), x.data_ptr(),
+        fused["fnorm"].data_ptr(), inv_freq(cfg, x.device).data_ptr(), x.data_ptr(),
         cache_k.data_ptr(), cache_v.data_ptr(), h_out.data_ptr(), h_res.data_ptr(),
         qkv.data_ptr(), att.data_ptr(), mm.data_ptr(), part.data_ptr(), counters.data_ptr(),
         n_layers, b, _row_template(b), d, p["h"], p["hd"], inter, lcache, pos, st,
-        _DTYPE_CODE[dtype], float(cfg.rms_norm_eps), stream)
+        _DTYPE_CODE[dtype], float(cfg.rms_norm_eps), stream, start_dev)
     if rc != 0:
         raise RuntimeError(f"fused_decode kernel launch failed: cudaError {rc}")
     fused_decode_step.launches += 1

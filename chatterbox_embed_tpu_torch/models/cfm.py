@@ -26,6 +26,7 @@ import numpy as np
 import torch
 
 from ..config import CFMConfig, FlowDecoderConfig
+from ..device import constant
 from . import flow_decoder
 
 
@@ -35,6 +36,11 @@ def fixed_noise(n_feats: int = 80, frames: int = 50 * 300) -> np.ndarray:
     package's cfm.fixed_noise, bit for bit)."""
     g = np.random.Generator(np.random.Philox(54321))
     return g.standard_normal(size=(1, frames, n_feats), dtype=np.float32)
+
+
+def _noise(n_feats: int, device) -> torch.Tensor:
+    """fixed_noise(n_feats) on `device`, copied there once."""
+    return constant(("cfm_noise", n_feats), device, lambda: fixed_noise(n_feats))
 
 
 def t_span_cosine(n_timesteps: int) -> np.ndarray:
@@ -116,8 +122,7 @@ def generate_mel(params, mu, spks, cond, mask=None, cfm: CFMConfig = CFMConfig()
     """mu (B, T, 80) -> mel (B, T, 80) from the fixed noise buffer; the
     solver options are solve_euler's."""
     b, tlen, nf = mu.shape
-    z = torch.from_numpy(fixed_noise(nf)[:, :tlen, :]).to(mu.device)
-    z = z.expand(b, tlen, nf)
+    z = _noise(nf, mu.device)[:, :tlen, :].expand(b, tlen, nf)
     return solve_euler(params, z, mu, spks, cond, mask, cfm, dec_cfg, dtype,
                        cache_every=cache_every, cfg_steps=cfg_steps)
 
@@ -133,11 +138,11 @@ def generate_mel_stream(params, mu, spks, cond, mask, prompt_frames: int, noise_
     The start is clamped into the buffer, as JAX's dynamic_slice clamps it.
     The plain solver (no DeepCache stride, CFG on every step)."""
     b, tlen, nf = mu.shape
-    buf = fixed_noise(nf)
+    buf = _noise(nf, mu.device)
     n_gen = tlen - prompt_frames
     start = min(max(prompt_frames + int(noise_off), 0), buf.shape[1] - n_gen)
-    z = np.concatenate([buf[:, :prompt_frames], buf[:, start:start + n_gen]], axis=1)
-    z = torch.from_numpy(z).to(mu.device).expand(b, tlen, nf)
+    z = torch.cat([buf[:, :prompt_frames], buf[:, start:start + n_gen]], dim=1)
+    z = z.expand(b, tlen, nf)
     return solve_euler(params, z, mu, spks, cond, mask, cfm, dec_cfg, dtype)
 
 

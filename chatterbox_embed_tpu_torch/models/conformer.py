@@ -19,6 +19,7 @@ import torch
 import torch.nn.functional as F
 
 from ..config import ConformerConfig
+from ..device import constant
 from ..kernels.rel_attention import rel_attention
 from . import layers as L
 
@@ -140,8 +141,9 @@ def _lookahead(p, x, pre_len, dtype):
 
 
 def _trig(t, d, device):
-    sin_t, cos_t = _rel_trig(t, d)
-    return torch.from_numpy(sin_t).to(device), torch.from_numpy(cos_t).to(device)
+    """The rel-pos sin and cos tables of width t on `device`, copied once."""
+    return (constant(("conformer_sin", t, d), device, lambda: _rel_trig(t, d)[0]),
+            constant(("conformer_cos", t, d), device, lambda: _rel_trig(t, d)[1]))
 
 
 def forward(params, x: torch.Tensor, lens: torch.Tensor | None = None,

@@ -188,21 +188,28 @@ def stream_synthesize(params, mel_win: torch.Tensor, draws, window: int,
                    draws.stream_phase(...), the same in every window
       phase_carry  (B, nb_harmonics + 1) cumulative cycles at the window's
                    start (zeros for the first window)
-      carry_idx    the sample at which the next window's carry is read,
-                   clamped into the window as JAX's dynamic_index clamps it
+      carry_idx    the sample at which the next window's carry is read (an
+                   int, or a one-element integer tensor on the device, as
+                   the stream's first chunk computes it there), clamped into
+                   the window as JAX's dynamic_index clamps it
     Returns (wav (B, (M + new) * 480), the next phase_carry)."""
     b = mel_win.shape[0]
     nh = cfg.nb_harmonics + 1
     f0 = f0_predict(params["f0_predictor"], mel_win, dtype)
-    f0_up = torch.repeat_interleave(f0, cfg.total_upsample, dim=-1)
+    up = cfg.total_upsample
+    f0_up = f0[..., None].expand(*f0.shape, up).reshape(b, -1)     # repeat_interleave
     harmonics = torch.arange(1, nh + 1, dtype=torch.float32, device=mel_win.device)[None, :, None]
     f_mat = f0_up[:, None, :].float() * harmonics / cfg.sampling_rate
     rad = phase_carry.float()[:, :, None] + torch.cumsum(f_mat, dim=-1)
-    ci = min(max(int(carry_idx), 0), rad.shape[-1] - 1)
-    carry_next = torch.remainder(rad[:, :, ci], 1.0)
+    if torch.is_tensor(carry_idx):
+        ci = carry_idx.reshape(1).long().clamp(0, rad.shape[-1] - 1)
+        carry_next = torch.remainder(rad.index_select(2, ci)[:, :, 0], 1.0)
+    else:
+        ci = min(max(int(carry_idx), 0), rad.shape[-1] - 1)
+        carry_next = torch.remainder(rad[:, :, ci], 1.0)
     theta = 2.0 * math.pi * torch.remainder(rad, 1.0)
     phase = draws.stream_phase((b, nh, 1)).to(mel_win.device).float().clone()
-    phase[:, 0, :] = 0.0
+    phase[:, 0, :].fill_(0.0)
     sines = cfg.nsf_alpha * torch.sin(theta + phase)
     uv = (f0_up > cfg.nsf_voiced_threshold).float()[:, None, :]
     noise_amp = uv * cfg.nsf_sigma + (1.0 - uv) * cfg.nsf_alpha / 3.0

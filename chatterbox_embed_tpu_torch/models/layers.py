@@ -231,8 +231,7 @@ def mha(q, k, v, mask=None):
     scale = 1.0 / math.sqrt(q.shape[-1])
     logits = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) * scale
     if mask is not None:
-        logits = torch.where(mask, logits, torch.tensor(-1e10, dtype=logits.dtype,
-                                                        device=logits.device))
+        logits = logits.masked_fill(~mask, -1e10)
     w = torch.softmax(logits, dim=-1)
     return torch.einsum("bhqk,bkhd->bqhd", w.to(v.dtype), v)
 

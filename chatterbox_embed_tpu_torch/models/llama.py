@@ -47,8 +47,8 @@
   reads it through K1's or K1s's int8 entry, the spy layer by the JAX
   package's formula with both scales factored out of the dots, and a
   multi-token forward over the cache dequantises k/v x scale in the
-  compute dtype. Mode 2 (int8 x int8 dots) is not ported: the JAX package
-  measured it and rejected it (ROADMAP, not to port).
+  compute dtype. Mode 2 (int8 x int8 dots) is not ported yet: ROADMAP
+  queue 1 names it as the next slice.
 """
 from __future__ import annotations
 
@@ -61,7 +61,7 @@ import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from ..config import LlamaConfig
-from ..device import resolve_device
+from ..device import constant, resolve_device
 from ..kernels.flash_decode import decode_attention
 from . import layers as L
 
@@ -113,9 +113,18 @@ def _scaled_inv_freq(cfg: LlamaConfig) -> np.ndarray:
     return scaled.astype(np.float32)
 
 
+def inv_freq(cfg: LlamaConfig, device) -> torch.Tensor:
+    """The scaled inverse frequencies (head_dim / 2,) fp32 on `device`,
+    copied there once per (RoPE settings, device): a copy from the host is
+    not allowed inside a CUDA graph capture."""
+    key = ("inv_freq", cfg.head_dim, cfg.rope_theta, cfg.rope_scaling_factor,
+           cfg.rope_low_freq_factor, cfg.rope_high_freq_factor, cfg.rope_original_max_position)
+    return constant(key, device, lambda: _scaled_inv_freq(cfg))
+
+
 def rope_cos_sin(pos_ids: torch.Tensor, cfg: LlamaConfig):
     """pos_ids (B, T) int -> cos, sin (B, T, head_dim) fp32."""
-    inv = torch.from_numpy(_scaled_inv_freq(cfg)).to(pos_ids.device)
+    inv = inv_freq(cfg, pos_ids.device)
     ang = pos_ids[..., None].float() * inv                      # (B, T, D/2)
     ang = torch.cat([ang, ang], dim=-1)                          # HF half-split layout
     return torch.cos(ang), torch.sin(ang)
@@ -137,9 +146,8 @@ def _kv_int8_mode() -> int:
     """CHATTERBOX_INT8_KV, read at call time where the JAX package reads
     it (each generation's and engine's cache): unset or 0 is the
     compute-dtype cache, 1 the int8 cache. 2, the JAX package's int8 x int8
-    dots, raises: it is on ROADMAP's not-to-port list (measured and
-    rejected there as slower than mode 1). On a GPU the default is 0 (the
-    JAX default of 1 is a TPU's)."""
+    dots, raises: it is not ported yet (ROADMAP queue 1, the next slice).
+    On a GPU the default is 0 (the JAX default of 1 is a TPU's)."""
     env = os.getenv("CHATTERBOX_INT8_KV")
     if env is None or env.strip() == "0":
         return 0
@@ -147,8 +155,8 @@ def _kv_int8_mode() -> int:
         return 1
     if env.strip() == "2":
         raise NotImplementedError(
-            "CHATTERBOX_INT8_KV=2: int8 x int8 decode dots are on ROADMAP's not-to-port "
-            "list (the JAX package measured them slower than mode 1); set 1 or 0")
+            "CHATTERBOX_INT8_KV=2: int8 x int8 decode dots are not ported yet (ROADMAP "
+            "queue 1, the next slice); set 1 or 0")
     raise ValueError(f"CHATTERBOX_INT8_KV={env!r}: want 0, 1 or 2")
 
 
@@ -254,7 +262,7 @@ def forward(params, x: torch.Tensor, pos_ids: torch.Tensor,
             attn_mask: Optional[torch.Tensor] = None,
             cache: Optional[KVCache] = None, cache_pos: int = 0,
             cfg: LlamaConfig = LlamaConfig(), dtype=torch.float32,
-            flash_start: int = 0, flash_hole: Optional[torch.Tensor] = None,
+            flash_start=0, flash_hole: Optional[torch.Tensor] = None,
             collect_attn_layer: Optional[int] = None,
             flash_span: Optional[torch.Tensor] = None, remat: bool = False, mesh=None):
     """Run the transformer over a block of embeddings.
@@ -265,7 +273,8 @@ def forward(params, x: torch.Tensor, pos_ids: torch.Tensor,
       attn_mask: bool (B|1, T, L) where L is the cache length (or T when no
         cache): True = attend. Defaults to causal. Unused at T == 1 with a
         cache: the decode step attends slots [flash_start, cache_pos]
-        through the flash-decode kernel, minus each row's dead range
+        through the flash-decode kernel (flash_start an int or a
+        one-element int32 tensor on the device), minus each row's dead range
         [lo, hi) of `flash_hole` ((B, 2) int32, or None); with `flash_span`
         ((B, 2) int32) row b attends [span[b, 0], span[b, 1]] minus its hole
         instead (the K/V insert stays at the shared cache_pos).

@@ -14,7 +14,7 @@ import numpy as np
 import torch
 
 from ..config import S3_SR, S3GEN_SR, SPEECH_VOCAB_SIZE, S3GenConfig
-from ..device import lap
+from ..device import constant, lap
 from ..ops import mel as mel_ops
 from ..ops import resample as resample_ops
 from . import layers as L
@@ -160,10 +160,12 @@ def flow_to_mel_window(params, tokens: torch.Tensor, vlen: torch.Tensor,
                                   prompt_frames=mel_len1, noise_off=noise_off,
                                   cfm=cfg.flow.cfm, dec_cfg=cfg.flow.decoder, dtype=dtype)
     # mu frames of tokens [vlen - C, vlen - C + PIN / r), C = PIN / r + look;
-    # the start clamped into mu, as JAX's dynamic_slice clamps it
-    tail = mel_len1 + r * int(vlen.reshape(-1)[0]) - pin_max - r * look
-    tail = min(max(tail, 0), mu.shape[1] - pin_max)
-    return mel[:, mel_len1:], mu[:, tail:tail + pin_max]
+    # the start clamped into mu, as JAX's dynamic_slice clamps it, and taken
+    # on the device (vlen may be a count the device computed)
+    tail = (mel_len1 + r * vlen.reshape(-1)[:1].long() - pin_max - r * look).clamp(
+        0, mu.shape[1] - pin_max)
+    rows = tail + torch.arange(pin_max, device=mu.device)
+    return mel[:, mel_len1:], mu.index_select(1, rows)
 
 
 def trim_fade(sr: int = S3GEN_SR) -> np.ndarray:
@@ -172,6 +174,11 @@ def trim_fade(sr: int = S3GEN_SR) -> np.ndarray:
     fade = np.zeros(2 * n, np.float32)
     fade[n:] = (np.cos(np.linspace(np.pi, 0.0, n)) + 1.0) / 2.0
     return fade
+
+
+def trim_fade_on(device, sr: int = S3GEN_SR) -> torch.Tensor:
+    """trim_fade(sr) on `device`, copied there once."""
+    return constant(("trim_fade", sr), device, lambda: trim_fade(sr))
 
 
 @torch.no_grad()
@@ -185,7 +192,7 @@ def token_to_wav(params, tokens, token_len, prompt_tokens, prompt_feat,
     mel = flow_to_mel(params, tokens, token_len, prompt_tokens, prompt_feat,
                       embedding, cfg, dtype, prompt_len, cache_every, cfg_steps)
     wav, _src = hifigan.inference(params["hift"], mel, draws, cfg.hift, dtype)
-    fade = torch.from_numpy(trim_fade()).to(wav.device)
+    fade = trim_fade_on(wav.device)
     wav[:, : fade.shape[0]] *= fade
     return wav
 

@@ -15,6 +15,10 @@ counterpart of `chatterbox_embed_tpu/models/t3.py`: one utterance
   once per `EOS_CHECK_EVERY` steps; finished rows keep emitting EOS, and
   the output is cut after the first one, so the tokens are those of a
   per-step check. Step i draws its Gumbel noise by its global index.
+- `decode_fixed_block` is the same block as fixed steps that never wait on
+  the host (n_new, the done flags and the step count stay on the device,
+  the text's left pad may be a device value): the stream's first chunk,
+  which the card captures as one CUDA graph per text bucket (streaming.py).
 - Under CHATTERBOX_FUSED_STEP=1 a decode step of unragged rows runs the
   whole backbone in one fused kernel (K4, `kernels/fused_decode.py`), when
   the backbone's weights are not int8 (K4 streams a bf16 wall).
@@ -173,14 +177,16 @@ def cond_width(cond: T3Cond, cfg: T3Config) -> int:
 
 
 def _build_context(params, cond: T3Cond, text_tokens: torch.Tensor,
-                   cfg: T3Config, cfg_on: bool, pad: int):
+                   cfg: T3Config, cfg_on: bool, pad):
     """Context embeddings [junk(pad); cond; text; BOS(; BOS)] for text_tokens
     (U, T) LEFT-padded by `pad` dummy ids to the bucket width T. Rows are
     [cond rows; uncond rows] when CFG is on: the uncond rows get zero text
     embeddings but keep the text position embeddings, and the BOS is
     duplicated. With per-utterance conditioning (U cond rows) the uncond
     rows keep the full conditioning too. Columns below `pad` are junk that
-    every mask excludes."""
+    every mask excludes. `pad` is an int or a one-element tensor on the
+    device (the JAX package traces it: one first-chunk graph serves every
+    text length of a bucket, streaming.py)."""
     ce = cond_embeds(params, cond, cfg)                     # (1 or U, W, D)
     u, lt = text_tokens.shape
     te = L.embedding(params["text_emb"], text_tokens.long()).float()
@@ -201,8 +207,14 @@ def _build_context(params, cond: T3Cond, text_tokens: torch.Tensor,
     if cfg_on:
         parts.append(bos)
     base = torch.cat(parts, dim=1)                           # (B, W + T + nb, D)
-    base[:, pad:pad + w] = ce.to(base.dtype)
-    return base
+    if not torch.is_tensor(pad):
+        base[:, pad:pad + w] = ce.to(base.dtype)
+        return base
+    # the conditioning lands at columns [pad, pad + w), gathered on the device
+    col = torch.arange(base.shape[1], device=base.device)
+    rel = col - pad.reshape(()).long()
+    at = ((rel >= 0) & (rel < w))[None, :, None]
+    return torch.where(at, ce.to(base.dtype)[:, rel.clamp(0, w - 1)], base)
 
 
 # ---------------------------------------------------------------------------
@@ -407,7 +419,7 @@ def prefill(params, context, cfg: T3Config, total: int, pad_len: int,
     n_utt = n_utt or (b // 2 if cfg_on else b)
     counts0 = torch.zeros((n_utt, cfg.speech_tokens_dict_size), dtype=torch.int32,
                           device=dev)
-    counts0[:, cfg.start_speech_token] = 1
+    counts0[:, cfg.start_speech_token].fill_(1)
     return DecodeState(cache, logits0, counts0, 0,
                        torch.zeros((n_utt,), dtype=torch.bool, device=dev),
                        align=init_align(n_utt, dev))
@@ -682,6 +694,27 @@ def start_generation(params, cond: T3Cond, text_tokens: np.ndarray, *,
     return state, info
 
 
+def _guided_logits(logits, counts, sp: sampling.SamplingParams, cfg_on: bool,
+                   use_top_p: bool, cfg: T3Config):
+    """A step's logits before the draw: the CFG mix of the [cond; uncond]
+    rows, then the sampling filters (ops/sampling.process_logits)."""
+    n_utt = counts.shape[0]
+    if cfg_on:
+        lc, lu = logits[:n_utt], logits[n_utt:]
+        logits = lc + sp.cfg_weight * (lc - lu)
+    return sampling.process_logits(
+        logits, counts, valid_size=cfg.start_speech_token, eos_id=cfg.stop_speech_token,
+        temperature=sp.temperature, repetition_penalty_val=sp.repetition_penalty,
+        min_p=sp.min_p, top_p=sp.top_p, use_top_p=use_top_p)
+
+
+def _token_embedding(params, tok, i: int, cfg_on: bool):
+    """The next step's input: token `tok` (U,) at speech position i + 1,
+    for both CFG halves when CFG is on."""
+    emb = L.embedding(params["speech_emb"], tok) + params["speech_pos_emb"]["w"][i + 1][None]
+    return torch.cat([emb, emb], dim=0) if cfg_on else emb
+
+
 @torch.no_grad()
 def decode_block(params, state: DecodeState, ginfo: dict, sp: sampling.SamplingParams,
                  draws, *, block: int, limit: int, use_top_p: bool, stop_on_eos: bool,
@@ -720,7 +753,6 @@ def decode_block(params, state: DecodeState, ginfo: dict, sp: sampling.SamplingP
     eos = cfg.stop_speech_token
     dev = logits.device
     rows = torch.arange(n_utt, device=dev)
-    pos_emb = params["speech_pos_emb"]["w"]
     done = done0
     toks = []
     for j in range(block):
@@ -729,15 +761,7 @@ def decode_block(params, state: DecodeState, ginfo: dict, sp: sampling.SamplingP
             break
         if stop_on_eos and (j == 0 or i % EOS_CHECK_EVERY == 0) and bool(done.all()):
             break
-        if cfg_on:
-            lc, lu = logits[:n_utt], logits[n_utt:]
-            lg = lc + sp.cfg_weight * (lc - lu)
-        else:
-            lg = logits
-        lg = sampling.process_logits(
-            lg, counts, valid_size=cfg.start_speech_token, eos_id=eos,
-            temperature=sp.temperature, repetition_penalty_val=sp.repetition_penalty,
-            min_p=sp.min_p, top_p=sp.top_p, use_top_p=use_top_p)
+        lg = _guided_logits(logits, counts, sp, cfg_on, use_top_p, cfg)
         if align_layer is not None:
             lg = _align_logits(lg, align, i, eos)
         tok = sampling.sample_token(lg, draws.gumbel(i, tuple(lg.shape)).to(dev))
@@ -746,10 +770,7 @@ def decode_block(params, state: DecodeState, ginfo: dict, sp: sampling.SamplingP
         counts[rows, tok] += 1
         if stop_on_eos:
             done = done | (tok == eos)
-        emb = L.embedding(params["speech_emb"], tok) + pos_emb[i + 1][None]
-        if cfg_on:
-            emb = torch.cat([emb, emb], dim=0)
-        emb = emb[r0:r1]
+        emb = _token_embedding(params, tok, i, cfg_on)[r0:r1]
         if ginfo["use_fused"]:
             hh, _, _ = fused_decode.fused_decode_step(
                 ginfo["fused"], emb.to(dtype), cache.k, cache.v, p_len + i, pad_len,
@@ -781,6 +802,66 @@ def decode_block(params, state: DecodeState, ginfo: dict, sp: sampling.SamplingP
     out[:n_new] = tok_np[:n_new]
     return (DecodeState(cache, logits, counts, i0 + n_new, done, state.forwards + steps, align),
             out, n_new)
+
+
+@torch.no_grad()
+def decode_fixed_block(params, state: DecodeState, ginfo: dict, sp: sampling.SamplingParams,
+                       draws, *, block: int, limit: torch.Tensor, use_top_p: bool,
+                       cfg: T3Config, dtype):
+    """The JAX package's decode_block with EOS stopping, as `block` fixed
+    steps that never wait on the host, so that a CUDA graph can capture
+    them (the stream's first chunk, streaming.py). Step j of the block
+    (global step i = state.i + j, state.i a python int) is active while
+    some row is not done and i < limit (a device int); an inactive step
+    still runs, and its sample, counts, done flags and logits are dropped,
+    as the JAX while-loop never runs it. Finished rows emit EOS. The cache
+    position of step j is p_len + i whatever came before it, so an
+    inactive step writes only slots past the last active one.
+    ginfo["pad"] may be a one-element int32 tensor on the device: the
+    position ids, K1's start and K4's start then read it there. One
+    utterance layout as start_generation's without a mesh, a hole or the
+    guard.
+
+    Returns (state, tokens (block, U) int32, zero past n_new, n_new ()
+    int32), all on the device; state.i is then the device count
+    state.i + n_new and state.forwards has `block` more."""
+    p_len, pad, cfg_on = ginfo["p_len"], ginfo["pad"], ginfo["cfg_on"]
+    if ginfo["mesh"] is not None or ginfo["hole"] is not None or ginfo["align_layer"] is not None:
+        raise ValueError("decode_fixed_block: no mesh, hole or alignment guard")
+    cache, logits, counts, i0, done = state.cache, state.logits, state.counts, state.i, state.done
+    n_utt = counts.shape[0]
+    eos = cfg.stop_speech_token
+    dev = logits.device
+    rows = torch.arange(n_utt, device=dev)
+    n_new = torch.zeros((), dtype=torch.int32, device=dev)
+    toks = []
+    for j in range(block):
+        i = i0 + j
+        active = ~done.all() & (limit > i)
+        lg = _guided_logits(logits, counts, sp, cfg_on, use_top_p, cfg)
+        tok = sampling.sample_token(lg, draws.gumbel(i, tuple(lg.shape)).to(dev))
+        tok = torch.where(done, torch.full_like(tok, eos), tok)
+        toks.append(tok)
+        counts[rows, tok] += active.to(counts.dtype)
+        done = done | (active & (tok == eos))
+        n_new = n_new + active.to(n_new.dtype)
+        emb = _token_embedding(params, tok, i, cfg_on)
+        if ginfo["use_fused"]:
+            hh, _, _ = fused_decode.fused_decode_step(
+                ginfo["fused"], emb.to(dtype), cache.k, cache.v, p_len + i, pad, cfg.llama,
+                dtype)
+        else:
+            pos_id = (p_len + i - pad).reshape(1, 1).expand(emb.shape[0], 1).long()
+            hh, cache = llama.forward(params["llama"], emb[:, None, :].to(dtype), pos_id,
+                                      cache=cache, cache_pos=p_len + i, cfg=cfg.llama,
+                                      dtype=dtype, flash_start=pad)
+            hh = hh[:, -1]
+        logits = torch.where(active, L.linear(params["speech_head"], hh, torch.float32), logits)
+    tokens = torch.stack(toks).to(torch.int32)
+    tokens = torch.where(torch.arange(block, device=dev)[:, None] < n_new, tokens,
+                         torch.zeros_like(tokens))
+    return (DecodeState(cache, logits, counts, i0 + n_new, done, state.forwards + block,
+                        state.align), tokens, n_new)
 
 
 def _stream_rows(params, cond: T3Cond, text_tokens, text_lens, draws, temperature,

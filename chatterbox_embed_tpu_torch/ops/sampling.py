@@ -84,10 +84,21 @@ def vocab_mask_logits(logits, valid_size: int, eos_id: int):
     return logits.masked_fill(~ok, NEG_INF)
 
 
+def divide(x, value):
+    """x / value, where value is a float or an fp32 tensor, rounded alike
+    either way: a CUDA tensor divided by a python float is multiplied by the
+    float's fp32 reciprocal (PyTorch's scalar path), so on the card a tensor
+    value divides the same way, as the first chunk's CUDA graph takes its
+    sampling values as tensors (streaming.py). On the CPU both divide."""
+    if torch.is_tensor(value) and x.is_cuda:
+        return x * torch.reciprocal(value)
+    return x / value
+
+
 def repetition_penalty(logits, counts, penalty: float):
     """HF semantics: for every id already generated, divide positive logits by
     `penalty`, multiply negative ones."""
-    penalised = torch.where(logits > 0, logits / penalty, logits * penalty)
+    penalised = torch.where(logits > 0, divide(logits, penalty), logits * penalty)
     return torch.where(counts > 0, penalised, logits)
 
 
@@ -147,7 +158,7 @@ def process_logits(logits, counts, *, valid_size: int, eos_id: int,
     off (the reference's TopPLogitsWarper no-ops at 1.0)."""
     x = vocab_mask_logits(logits, valid_size, eos_id)
     if torch.is_tensor(temperature) or float(temperature) != 1.0:
-        x = x / temperature
+        x = divide(x, temperature)
     x = repetition_penalty(x, counts, repetition_penalty_val)
     x = min_p_filter(x, min_p)
     if use_top_p:

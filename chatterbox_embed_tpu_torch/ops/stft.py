@@ -15,6 +15,8 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from ..device import constant
+
 
 def hann_window(n: int) -> np.ndarray:
     """Periodic Hann window, identical to torch.hann_window."""
@@ -59,8 +61,9 @@ def _nola_denominator(win_bytes: bytes, n_fft: int, hop: int, n_frames: int) -> 
     return np.convolve(imp, win2, mode="full")[:out_len].astype(np.float32)
 
 
-def _t(a: np.ndarray, like: torch.Tensor) -> torch.Tensor:
-    return torch.from_numpy(a).to(like.device)
+def _t(key, a: np.ndarray, like: torch.Tensor) -> torch.Tensor:
+    """The constant `a` (named by `key`) on like's device, copied once."""
+    return constant(("stft",) + key, like.device, lambda: a)
 
 
 def frame(x: torch.Tensor, frame_length: int, hop: int) -> torch.Tensor:
@@ -89,10 +92,10 @@ def stft(x: torch.Tensor, n_fft: int, hop_length: int, window: np.ndarray,
         pad = n_fft // 2
         x = F.pad(x.reshape(-1, 1, x.shape[-1]), (pad, pad), mode=pad_mode)
         x = x.reshape(lead + (x.shape[-1],))
-    frames = frame(x, n_fft, hop_length) * _t(window, x)
+    frames = frame(x, n_fft, hop_length) * _t(("window", window.tobytes()), window, x)
     cos_b, msin_b = _dft_basis(n_fft)
-    real = frames @ _t(cos_b, x)
-    imag = frames @ _t(msin_b, x)
+    real = frames @ _t(("dft_cos", n_fft), cos_b, x)
+    imag = frames @ _t(("dft_msin", n_fft), msin_b, x)
     return real.transpose(-1, -2), imag.transpose(-1, -2)
 
 
@@ -106,9 +109,9 @@ def istft(real: torch.Tensor, imag: torch.Tensor, n_fft: int, hop_length: int,
     real, imag: (B, n_freq, n_frames) -> (B, T)."""
     window = np.asarray(window, np.float32)
     cos_b, msin_b = _idft_basis(n_fft)
-    frames = (real.transpose(-1, -2) @ _t(cos_b, real)
-              + imag.transpose(-1, -2) @ _t(msin_b, real))     # (B, n_frames, n_fft)
-    frames = frames * _t(window, real)
+    frames = (real.transpose(-1, -2) @ _t(("idft_cos", n_fft), cos_b, real)
+              + imag.transpose(-1, -2) @ _t(("idft_msin", n_fft), msin_b, real))
+    frames = frames * _t(("window", window.tobytes()), window, real)  # (B, n_frames, n_fft)
     n_frames = frames.shape[-2]
     out_len = n_fft + hop_length * (n_frames - 1)
     # overlap-add: out[f * hop + k] += frames[f, k], a transposed conv with
@@ -116,5 +119,6 @@ def istft(real: torch.Tensor, imag: torch.Tensor, n_fft: int, hop_length: int,
     eye = torch.eye(n_fft, dtype=frames.dtype, device=frames.device)[:, None, :]
     sig = F.conv_transpose1d(frames.transpose(1, 2), eye, stride=hop_length)[:, 0]
     wsq = _nola_denominator(window.tobytes(), n_fft, hop_length, n_frames)
-    sig = sig / _t(wsq, sig).clamp_min(1e-11)
+    sig = sig / _t(("nola", window.tobytes(), n_fft, hop_length, n_frames), wsq,
+                   sig).clamp_min(1e-11)
     return sig[..., n_fft // 2: out_len - n_fft // 2]

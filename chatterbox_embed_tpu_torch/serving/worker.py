@@ -2,9 +2,10 @@
 `chatterbox_embed_tpu/serving/worker.py` (reference: worker_redis.py:17-175 —
 consumer groups, 5 s blocking reads, per-job status hash, dead-letter stream).
 
-Where the port differs: the model comes from `tts_factory` / `vc_factory`
-(the JAX package's default, `from_pretrained`, is a download the port does
-not have: without a factory the worker raises). WORKER_MESH=dpxtp (e.g.
+The model comes from `tts_factory` / `vc_factory`, by default
+ChatterboxTTS.from_pretrained / ChatterboxVC.from_pretrained (the
+checkpoints from the Hugging Face hub, on the card), as in the JAX
+worker. Where the port differs: WORKER_MESH=dpxtp (e.g.
 "2x4") serves T3 over a dp x tp mesh (`tts.enable_mesh(n_devices=dp * tp,
 tp=tp)`, on the first dp * tp cards unless `mesh_device` names one device
 for every rank); the worker still reads its stream from this one process.
@@ -143,9 +144,8 @@ class RedisWorker:
     def _get_tts(self):
         if self._tts is None:
             if self._tts_factory is None:
-                raise RuntimeError(
-                    "RedisWorker needs tts_factory: ChatterboxTTS.from_pretrained is a "
-                    "download the port does not have (use ChatterboxTTS.from_local)")
+                from ..tts import ChatterboxTTS
+                self._tts_factory = ChatterboxTTS.from_pretrained
             self._tts = self._tts_factory()
             if os.getenv("WORKER_WARMUP", "0") == "1" and hasattr(self._tts, "warmup"):
                 # build the serving kernels and run the deployment's buckets
@@ -167,9 +167,8 @@ class RedisWorker:
     def _get_vc(self):
         if self._vc is None:
             if self._vc_factory is None:
-                raise RuntimeError(
-                    "RedisWorker needs vc_factory: ChatterboxVC.from_pretrained is a "
-                    "download the port does not have (use ChatterboxVC.from_local)")
+                from ..vc import ChatterboxVC
+                self._vc_factory = ChatterboxVC.from_pretrained
             self._vc = self._vc_factory()
         return self._vc
 

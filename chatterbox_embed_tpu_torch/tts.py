@@ -49,6 +49,7 @@ import logging
 import os
 import tempfile
 import time
+import weakref
 from pathlib import Path
 from typing import Any, Dict, List, Optional, Tuple
 
@@ -58,7 +59,7 @@ import torch
 from . import streaming
 from .chunking import ChunkInfo, SmartChunker
 from .conditionals import Conditionals
-from .config import S3_SR, S3GEN_SR, ChatterboxConfig
+from .config import S3_SR, S3GEN_SR, SPEECH_VOCAB_SIZE, ChatterboxConfig
 from .device import lap, resolve_device
 from .models import layers as L
 from .models import s3gen as s3gen_mod
@@ -81,6 +82,10 @@ from .weights import FP32_S3GEN, from_arrays, place
 logger = logging.getLogger(__name__)
 
 CHATTERBOX_RUNTIME_VERSION = "torch-0.1.0"
+# the Hugging Face repository of the reference checkpoints (from_pretrained)
+REPO_ID = "ResembleAI/chatterbox"
+CHECKPOINT_FILES = ("ve.safetensors", "t3_cfg.safetensors", "s3gen.safetensors",
+                    "tokenizer.json", "conds.pt")
 _TOKEN_BUCKETS = (128, 256, 512, 1024)
 # what a long-text job's own text or voice file may raise before generation;
 # generate_long_text_batch records it as that job's error
@@ -170,6 +175,19 @@ def _derive_cfm_cfg_steps():
     return None
 
 
+def download_checkpoints() -> Path:
+    """The folder of CHECKPOINT_FILES from the hub's REPO_ID (downloaded
+    into, or found in, huggingface_hub's cache)."""
+    try:
+        from huggingface_hub import hf_hub_download
+    except ImportError as e:
+        raise RuntimeError("huggingface_hub unavailable; use from_local()") from e
+    local_path = None
+    for f in CHECKPOINT_FILES:
+        local_path = hf_hub_download(repo_id=REPO_ID, filename=f)
+    return Path(local_path).parent
+
+
 class ChatterboxTTS:
     ENC_COND_LEN = 6 * S3_SR
     DEC_COND_LEN = 10 * S3GEN_SR
@@ -192,6 +210,9 @@ class ChatterboxTTS:
         self.s3gen_params = place(s3gen_params, self.device, dtype, fp32=FP32_S3GEN)
         self.ve_params = (None if ve_params is None
                           else place(ve_params, self.device, torch.float32))
+        # the stream's first-chunk graphs hold this model's weights: they go
+        # when the pipeline does
+        weakref.finalize(self, streaming.GRAPHS.release, self.s3gen_params["flow"])
         self.tokenizer = tokenizer
         self.conds = conds.to(self.device) if conds is not None else None
         self.watermarker = get_watermarker()
@@ -299,6 +320,14 @@ class ChatterboxTTS:
         return cls(state["t3"], state["s3gen"], tokenizer, conds, config, dtype, device,
                    ve_params=state["ve"])
 
+    @classmethod
+    def from_pretrained(cls, device=None, **kw):
+        """The reference checkpoints from the Hugging Face hub (REPO_ID; the
+        JAX package's from_pretrained): huggingface_hub.hf_hub_download of
+        CHECKPOINT_FILES, then from_local on their folder with `device` and
+        `kw`. Raises RuntimeError when huggingface_hub cannot be imported."""
+        return cls.from_local(download_checkpoints(), device=device, **kw)
+
     # ------------------------------------------------------------------
     # experiment switches (environment, read once at construction)
     # ------------------------------------------------------------------
@@ -347,7 +376,10 @@ class ChatterboxTTS:
         started together) and, under CHATTERBOX_FUSED_STEP=1 with a backbone
         that is not int8, stack K4's weight wall; then the JAX package's stages: `generate` or
         `generate_batch` per batch size, `_run_s3gen` per token bucket and
-        optionally a stream's first chunk.
+        optionally a stream's first chunk at `max_new_tokens` (on the card
+        this captures the first-chunk graph of its text bucket and cache
+        capacity, which stream_generate's requests at that cap replay; the
+        JAX package warms its program at a cap of 50).
 
         Uses the prepared conditionals when present, else prepares
         throwaway ones from a synthetic 10 s tone and restores the
@@ -398,7 +430,7 @@ class ChatterboxTTS:
                     np.zeros((int(bkt),), np.int32), gen, seed=0))
             if stream:
                 stage("stream_first_chunk_s", lambda: next(iter(
-                    self.stream_generate(text, max_new_tokens=50, seed=0))))
+                    self.stream_generate(text, max_new_tokens=max_new_tokens, seed=0))))
         finally:
             if tmp is not None:
                 self.conds, self._cached_conditionals, self._cache_key = saved
@@ -698,18 +730,28 @@ class ChatterboxTTS:
         """Yield waveform chunks (float32 numpy, 24 kHz) as tokens decode,
         with the prepared conditionals.
 
-        t3.generate_stream decodes `block_tokens` steps at a time, and
-        streaming.WindowedSynth synthesises the token groups as they fill,
-        from `block_tokens` growing to `throughput_block_tokens`. The JAX
-        package compiles the first block and its windows into one program;
-        here they are the same calls as every later block, so the stream
-        has one route.
+        The first chunk (context, prefill, `block_tokens` decode steps, the
+        first flow and vocoder windows) is one program, streaming.
+        first_chunk: on the card one CUDA graph replay per text bucket (the
+        first request of a bucket captures it), then one copy to the host;
+        the decode resumes from its state (streaming.continue_tokens) and
+        streaming.WindowedSynth synthesises the later token groups as they
+        fill, from `block_tokens` growing to `throughput_block_tokens`.
+        CHATTERBOX_FUSED_FIRST_CHUNK=0, or a cfg_weight of 0 (which the
+        program does not take), streams every block through the per-block
+        route instead (t3.generate_stream feeding WindowedSynth), the JAX
+        package's two routes. When the decode ends within the first
+        pre-lookahead tokens the program emits no audio, and its tokens go
+        through the windowed loop, whose final window is the per-block
+        route's.
 
         draws: one source for the T3 Gumbel noise and the vocoder windows'
         draws (`Draws(seed, device)` by default). After the last chunk,
         self.perf holds first_chunk_s (host clock from the first request for
         a chunk to the first chunk in host memory), total_s, speech_tokens,
-        decode_steps, chunks, audio_s and use_fused."""
+        decode_steps, chunks, audio_s, use_fused (the fused decode step),
+        fused_first_chunk (the route) and first_chunk_graph ("captured",
+        "replayed", "eager" off the card, None on the per-block route)."""
         if self.conds is None:
             raise RuntimeError("Conditionals are not prepared: pass conds= (or a "
                                "conds.pt through from_local)")
@@ -736,21 +778,53 @@ class ChatterboxTTS:
 
         info: dict = {}
         tokens = []
-        for block in t3_mod.generate_stream(
+        cw = np.asarray(cfg_weight, np.float32)
+        fused_first = (cw.size == 1 and float(cw) > 0.0
+                       and os.getenv("CHATTERBOX_FUSED_FIRST_CHUNK", "1") != "0")
+        if fused_first:
+            fc, resume = streaming.first_chunk(
+                self._t3_single, self.s3gen_params, self.conds.t3, text_tokens,
+                prompt_tokens=prompt_token, prompt_feat=prompt_feat, embedding=embedding,
+                block_tokens=block_tokens, max_new_tokens=max_new_tokens,
+                temperature=temperature, cfg_weight=cfg_weight,
+                repetition_penalty=repetition_penalty, min_p=min_p, top_p=top_p, seed=seed,
+                voc_ctx=synth.M, cfg=self.cfg, dtype=self.dtype, draws=draws, device=dev)
+            toks, n_new, n_valid_mel, wav, _ = streaming.host_fields(fc)
+            toks = toks[:n_new]
+            tokens.append(toks)
+            valid = toks[toks < SPEECH_VOCAB_SIZE]
+            if n_valid_mel > 0:
+                # the windowed loop goes on where the program left off
+                synth.seed_from_fused(valid, fc.mu_tail, fc.mel_tail[:, :min(synth.M, n_valid_mel)],
+                                      fc.phase_carry)
+                yield from emit([wav[: n_valid_mel * synth.up].copy()])
+            else:
+                # the decode ended within the pre-lookahead: no audio yet, and
+                # the tokens go through the windowed loop, whose final window
+                # is the per-block route's first
+                yield from emit(synth.feed(valid))
+            token_stream = streaming.continue_tokens(self._t3_single, fc, resume, cfg=self.cfg,
+                                                     dtype=self.dtype)
+            info.update(use_fused=resume["ginfo"]["use_fused"])
+        else:
+            token_stream = t3_mod.generate_stream(
                 self._t3_single, self.conds.t3, text_tokens, max_new_tokens=max_new_tokens,
                 temperature=temperature, cfg_weight=cfg_weight,
                 repetition_penalty=repetition_penalty, min_p=min_p, top_p=top_p, seed=seed,
                 block=block_tokens, draws=draws, cfg=self.cfg.t3, dtype=self.dtype, device=dev,
-                info=info):
+                info=info)
+        for block in token_stream:
             tokens.append(block)
             yield from emit(synth.feed(block))
         yield from emit(synth.finish())
         speech = s3gen_mod.drop_invalid_tokens(s3tok_mod.drop_invalid_tokens(
             np.concatenate(tokens) if tokens else np.zeros((0,), np.int32)))
+        steps = resume["decode_steps"] if fused_first else info["decode_steps"]
         self.perf = {"first_chunk_s": stats["first_chunk_s"], "total_s": time.time() - t0,
-                     "speech_tokens": int(speech.size), "decode_steps": int(info["decode_steps"]),
+                     "speech_tokens": int(speech.size), "decode_steps": int(steps),
                      "chunks": stats["chunks"], "audio_s": stats["samples"] / float(self.sr),
-                     "use_fused": bool(info["use_fused"])}
+                     "use_fused": bool(info["use_fused"]), "fused_first_chunk": fused_first,
+                     "first_chunk_graph": resume["route"] if fused_first else None}
 
     def _gen_tensors(self, gen: Dict):
         """A voice's S3Gen prompt on the device: (prompt_token int64,

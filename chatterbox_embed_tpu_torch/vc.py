@@ -97,6 +97,15 @@ class ChatterboxVC:
                    device=init.device)
 
     @classmethod
+    def from_pretrained(cls, device=None, **kw):
+        """The reference checkpoints from the Hugging Face hub (tts.REPO_ID;
+        the JAX package's from_pretrained), then from_local on their folder
+        with `device` and `kw`. Raises RuntimeError when huggingface_hub
+        cannot be imported."""
+        from .tts import download_checkpoints
+        return cls.from_local(download_checkpoints(), device=device, **kw)
+
+    @classmethod
     def from_local(cls, ckpt_dir, config: ChatterboxConfig = ChatterboxConfig(),
                    dtype=torch.float32, device=None):
         """Load reference checkpoints from `ckpt_dir`: s3gen.safetensors, and

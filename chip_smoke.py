@@ -5,9 +5,9 @@
 With no argument every phase runs (the device and build phases always
 run); `--phases` names the ones to run (PHASES below: kernel_check,
 attention_check, probe_check, probes, fused_check, consistency, generate,
-generate_batch, stream_generate, conditioning, long_text, engine, worker,
-mesh, int8, train, train_mesh), and the kernel line then lists the kernels whose
-check and main path ran. Phases, one or more lines each, then the result line:
+generate_batch, stream_generate, first_chunk, conditioning, long_text, engine,
+worker, mesh, int8, train, train_mesh), and the kernel line then lists the
+kernels whose check and main path ran. Phases, one or more lines each, then the result line:
   1. device: the card's name and power limit (nvidia-smi), torch and CUDA
      versions; TF32 switched off for matmuls and convolutions.
   2. build: compiles every kernel of the port from the sources in the
@@ -24,7 +24,10 @@ check and main path ran. Phases, one or more lines each, then the result line:
                            fewer live slots than splits and a live range
                            that starts inside a row's hole (splits empty at
                            both ends); timed beside the library's call at
-                           both capacities
+                           both capacities; a start read from the device
+                           (the first chunk's graphs) equal to the int
+                           start's launch bit for bit, -1 read as 0 (so
+                           also K1s and K4)
        K1 with per-row spans (the continuous engine's step): 16 slots (32
                            rows, Lc 1292) and 4 slots (Lc 420); rows
                            unwrapped, wrapped, with an empty hole, a full
@@ -94,17 +97,34 @@ check and main path ran. Phases, one or more lines each, then the result line:
      (warm-up, then timed), then two voices once; checks every wav and that
      the launch counts of K1, K2 and K3 are those of the path.
   7. stream_generate: one utterance streamed in 25-token blocks, with the
-     fused step (twice) and without it (once); checks the chunks (finite,
-     joining to the whole wav), the launch counts, and records the time to
-     the first chunk.
-  8. conditioning: a 10 s reference voice (24 kHz) and a 6 s source (16 kHz)
+     fused step (twice) and without it (once), through the first-chunk
+     graph (the first pass of each step captures it); checks the chunks
+     (finite, joining to the whole wav), the launch counts (the graph's
+     replays counted), and records the time to the first chunk.
+  8. first_chunk: the stream's first chunk as one CUDA graph per text
+     bucket (streaming.first_chunk), on the default step, with K4 and
+     under CHATTERBOX_DEFER_KV=1: the phase-7 stream at 50 tokens on the
+     per-block route (CHATTERBOX_FUSED_FIRST_CHUNK=0; K1 30 x decode
+     steps, K4 once a step, K1s 30 x steps), then through a new graph
+     (captured by the first request; on the default step and with K4
+     replayed by the second), each with the per-block route's tokens and
+     its chunks within rtol 1e-4 / atol 1e-5 and the same launch counts,
+     the graph's 25 steps counted at each replay (750 K1 / K1s or 25 K4
+     launches a replay); the replay's time, the kernels the profiler sees
+     in it and the bytes its capture reserved; two first chunks of each
+     route timed in turns. With K4: a 62-token text of the same 96-token
+     bucket asked with other sampling values replays the graph (no
+     capture) and equals its per-block route; two streams advanced in
+     turns equal each run alone; a host read planted in a capture fails
+     the request.
+  9. conditioning: a 10 s reference voice (24 kHz) and a 6 s source (16 kHz)
      are synthesised from numpy seeds and written as wav files; the voice is
      prepared from the audio (cold, then warm, timed by part), checked for
      shapes and finiteness, and used by generate; a saved voice profile
      gives the same conditionals and hits the conditional cache;
      ChatterboxVC converts the source; and the card's conditionals are held
      against the port's own CPU run on the same wavs and weights.
-  9. long_text: two synthetic voices saved as `.npy` profiles; warmup()
+ 10. long_text: two synthetic voices saved as `.npy` profiles; warmup()
      with no voice prepared (kernels built, K4's wall, a throwaway voice,
      generate, generate_batch of 4, S3Gen at 256 tokens, a stream's first
      chunk), its stage seconds, the conditional state restored; (a) one
@@ -120,7 +140,7 @@ check and main path ran. Phases, one or more lines each, then the result line:
      plain attention), K4 0, each wav 2 * tokens * 480 samples, and the
      rows the guard stopped before the cap printed. rtf and audio_ratio
      of each job.
- 10. engine: a ContinuousServer of 4 slots (block 32, bucket 128, 256
+ 11. engine: a ContinuousServer of 4 slots (block 32, bucket 128, 256
      tokens a slot) serves 10 requests with limits of 24-200 tokens, two
      voices, one streamed; checks K1 30 x engine steps, K4 0, every wav
      finite and 2 * tokens * 480 samples, the streamed chunks joining to
@@ -128,14 +148,14 @@ check and main path ran. Phases, one or more lines each, then the result line:
      geometry giving equal tokens; prints steps a second, occupancy and the
      refill, decode and vocode seconds, then the lock-step generate_batch's
      seconds on the same requests.
- 11. worker: three story jobs with two voices (base64 .npy profiles)
+ 12. worker: three story jobs with two voices (base64 .npy profiles)
      through RedisWorker.run_continuous on the in-memory streams and the
      local storage emulation (a temporary CHATTERBOX_LOCAL_STORAGE,
      WORKER_MAX_NEW_TOKENS 150); checks every job done, the DLQ empty, the
      audio stored, the metadata `continuous`, K1 30 x engine steps; then
      clone_voice through a ChatterboxVC on the same weights into the same
      storage (its sample through the fused step).
- 12. mesh: serving on a mesh (parallel/) at full width. (a) A world of 1
+ 13. mesh: serving on a mesh (parallel/) at full width. (a) A world of 1
      over NCCL: tts.enable_mesh(), T3's tokens for 4 texts equal the plain
      path's, and tts.generate_batch of the 4 runs over the mesh (K1 30 x
      steps; K2 and K3 in the leader's S3Gen). (b) Two ranks sharing the
@@ -146,7 +166,7 @@ check and main path ran. Phases, one or more lines each, then the result line:
      ranks at dp = 2: generate_batch of the 4 texts equals one process
      token for token. (d) The engine at dp = 2 (4 slots, 6 requests): equal
      tokens and steps, K1 30 x steps on each rank.
- 13. int8 (ROADMAP item 22), at full width, bf16 compute: (a) K1's and K1s's
+ 14. int8 (ROADMAP item 22), at full width, bf16 compute: (a) K1's and K1s's
      int8 entry against their plain version on the same int8 cache
      (fp32 1e-5, bf16 2e-2): B 2 and 16 (and a tp = 2 rank's 8 heads), Lc
      512 and 1280, with holes; K1s on a 4-layer stacked cache; the engine's
@@ -167,14 +187,14 @@ check and main path ran. Phases, one or more lines each, then the result line:
      one-utterance generate under CHATTERBOX_DEFER_KV=1 too (K1s's int8
      entry 30 x steps); (e) the engine at kv_int8=True: 4 slots, 6 requests,
      K1's int8 entry 30 x steps, one request alone giving equal tokens.
- 14. train: at full width in fp32 with random weights, T3 (30 layers) takes
+ 15. train: at full width in fp32 with random weights, T3 (30 layers) takes
      3 AdamW steps with remat on a batch of 2 (150 prompt tokens, text 64
      and 48, speech 256 and 200): losses finite and falling, ms a step and
      peak memory; the flow estimator takes 3 steps on 4 rows of 812, 812,
      700 and 560 frames, each with 56 launches of K3, K3b-dq and K3b-dkv;
      then one step's loss and gradients at 256 frames on the card against
      the CPU (written-out attention) on the same params, batch and draws.
- 15. train_mesh: the last two parallel axes and training on a mesh, at full
+ 16. train_mesh: the last two parallel axes and training on a mesh, at full
      width in fp32, two ranks sharing the card over gloo, each part held to
      one process on the card: (a) sp = 2: sp_generate_mel of one
      utterance of 812 frames (CFG, 10 Euler steps) within 1e-4; (b) dp = 2:
@@ -189,7 +209,7 @@ check and main path ran. Phases, one or more lines each, then the result line:
      step's |g| >= 1e-6 (below, AdamW's eps makes the first step's update
      follow rounding); ms a step of each, ms a hop, and the backend line's
      hop collective.
- 16. a JSON line describing each kernel, then the last line
+ 17. a JSON line describing each kernel, then the last line
      {"ok": true, "device": {...}}.
 
 Any failure raises and the script exits non-zero with no result line. It
@@ -199,6 +219,7 @@ from __future__ import annotations
 
 import base64
 import contextlib
+import gc
 import json
 import os
 import shutil
@@ -321,6 +342,21 @@ FUSED_TIMED_ROWS = (4, 8, 16)     # also timed, at the top position
 GEN_PATHS = {"default": {}, "fused": {"CHATTERBOX_FUSED_STEP": "1"},
              "defer": {"CHATTERBOX_DEFER_KV": "1"}}
 STREAM_KW = dict(block_tokens=25, max_new_tokens=250, cfg_weight=0.5, temperature=0.7, seed=0)
+# first_chunk: a token cap that keeps STREAM_KW's cache of 512 slots (any
+# cap up to 256 does), so that a request at it replays STREAM_KW's graph
+# (the routes are held to each other at that cap, two blocks; the first
+# chunks are timed at STREAM_KW's); a second text of TEXT's 96-token bucket
+# (62 tokens against 92), asked with other sampling values
+# (FIRST_CHUNK_SAMPLING2), which the graph takes as inputs; the graph route
+# held to the per-block route at the JAX package's
+# test_stream_fused_equals_unfused tolerance
+FIRST_CHUNK_TEXT2 = TEXTS[3]
+FIRST_CHUNK_TOKENS = 50
+FIRST_CHUNK_SAMPLING2 = dict(temperature=0.8, cfg_weight=0.4, repetition_penalty=1.3, min_p=0.1)
+FIRST_CHUNK_RUNS = 2
+ROUTE_TOL = dict(rtol=1e-4, atol=1e-5)
+# (a start the kernel reads from the device, the int start it equals)
+DEVICE_STARTS = ((-1, 0), (0, 0), (3, 3), (130, 130))
 # bounds: the card's published rates (H100 SXM data sheet): device memory
 # 3.35 TB/s; dense tensor-core peaks 989 TFLOP/s in bf16 and 1,979 TOP/s in
 # int8; 67 TFLOP/s in fp32 outside the tensor cores. The serving kernels'
@@ -680,6 +716,21 @@ def _batch_holes(b: int) -> torch.Tensor:
     return torch.tensor(holes, dtype=torch.int32, device="cuda")
 
 
+def _check_device_starts(card: str, name: str, call) -> None:
+    """call(start) -> the kernel's output. A start read from the device
+    (the first chunk's CUDA graphs pass it so) gives the same launch's
+    output as the int start, bit for bit, and -1 reads as 0 (the kernels
+    clamp it, as a span's start)."""
+    for dev_start, start in DEVICE_STARTS:
+        got = call(torch.tensor([dev_start], dtype=torch.int32, device="cuda"))
+        want = call(start)
+        if not torch.equal(got, want):
+            raise AssertionError(f"{name}: device start {dev_start} differs from the int start "
+                                 f"{start} by {float((got.float() - want.float()).abs().max())}")
+    log("device_start", kernel=name, starts=",".join(str(c[0]) for c in DEVICE_STARTS),
+        equal=True, card=repr(card))
+
+
 def phase_kernel_check(card: str, deferred: bool = False) -> dict:
     """K1 against decode_attention_reference on the card, or with
     `deferred` its deferred-insert entry K1s: a DEFER_LAYERS-layer stacked
@@ -753,6 +804,13 @@ def phase_kernel_check(card: str, deferred: bool = False) -> dict:
                     timing[(b, lc)] = t
                     _log_time(name, t, card, b=b, lc=lc, start=start, pos=pos,
                               hole=hole is not None)
+    q, kc, vc = (torch.randn((KERNEL_B, KERNEL_H, d), generator=g, device="cuda")
+                 for _ in range(3))
+    k, v = (torch.randn(((DEFER_LAYERS,) if deferred else ()) + (KERNEL_LC[0], KERNEL_B,
+                                                                   KERNEL_H, d),
+                        generator=g, device="cuda") for _ in range(2))
+    extra = dict(layer=DEFER_LAYERS - 1, k_cur=kc, v_cur=vc) if deferred else {}
+    _check_device_starts(card, name, lambda st: fd.decode_attention(q, k, v, 381, st, **extra))
     # the JSON line reports each path's shape at Lc 512: K1 on the batched
     # path (8 utterances), K1s on the deferred one-utterance path; K1 also
     # its per-row span cases, timed at the worker's engine
@@ -1064,6 +1122,8 @@ def phase_fused_check(card: str, tts) -> dict:
             del ctl
         if lc == KERNEL_LC[0]:
             x, ck, cv, rk, rv, pos, start = last
+            _check_device_starts(card, "fused_decode", lambda st: fu.fused_decode_step(
+                fused16, x, ck.clone(), cv.clone(), pos, st, cfg, torch.bfloat16)[0])
             timing = _timing(
                 lambda: fu.fused_decode_step(fused16, x, ck, cv, pos, start, cfg, torch.bfloat16),
                 lambda: fu.fused_decode_step_reference(fused16, x, rk, rv, pos, start, cfg,
@@ -1882,6 +1942,249 @@ def phase_stream(card: str, tts, fused_step: bool, runs=("warmup", "timed")):
                 audio_s=f"{perf['audio_s']:.3f}", rtf=f"{perf['total_s'] / perf['audio_s']:.4f}",
                 card=repr(card))
     return counts, perf
+
+
+@contextlib.contextmanager
+def _patched(obj, name: str, value):
+    """obj.name = value for the block, then the old value again."""
+    old = getattr(obj, name)
+    setattr(obj, name, value)
+    try:
+        yield
+    finally:
+        setattr(obj, name, old)
+
+
+def _stream_run(tts, text: str, **kw):
+    """One stream_generate with the counts set to 0 just before it: (chunks,
+    the speech tokens in the order the windowed loop took them (those the
+    first chunk seeded it with first), perf, launches)."""
+    from chatterbox_embed_tpu_torch import streaming
+    got = []
+    feed, seed = streaming.WindowedSynth.feed, streaming.WindowedSynth.seed_from_fused
+
+    def feed_spy(self, block):
+        b = np.asarray(block).reshape(-1)
+        got.append(b[b < 6561])
+        return feed(self, block)
+
+    def seed_spy(self, valid, *a):
+        got.append(np.asarray(valid))
+        return seed(self, valid, *a)
+
+    with _patched(streaming.WindowedSynth, "feed", feed_spy), \
+            _patched(streaming.WindowedSynth, "seed_from_fused", seed_spy):
+        _reset_counts()
+        chunks = list(tts.stream_generate(text, **kw))
+        counts = _counts()
+    return chunks, np.concatenate(got), dict(tts.perf), counts
+
+
+def _same_stream(label: str, want, got) -> float:
+    """Two streams' (chunks, tokens): the tokens equal (unless both are
+    None), the chunks of equal lengths within ROUTE_TOL. Returns the
+    largest chunk difference."""
+    (wc, wt), (gc, gt) = want, got
+    if wt is not None and not np.array_equal(wt, gt):
+        raise AssertionError(f"{label}: tokens differ ({wt.size} against {gt.size})")
+    if [c.shape for c in wc] != [c.shape for c in gc]:
+        raise AssertionError(f"{label}: chunks {[c.shape for c in gc]}, want "
+                             f"{[c.shape for c in wc]}")
+    for a, b in zip(gc, wc):
+        np.testing.assert_allclose(a, b, err_msg=label, **ROUTE_TOL)
+    return max(float(np.abs(a - b).max()) for a, b in zip(gc, wc))
+
+
+def _first_chunk_s(tts, text: str, **kw) -> float:
+    """Seconds from asking a stream for its first chunk to that chunk in host
+    memory (the generator is then closed)."""
+    t0 = time.time()
+    it = tts.stream_generate(text, **kw)
+    first = next(it)
+    seconds = time.time() - t0
+    it.close()
+    if first.size == 0 or not np.isfinite(first).all():
+        raise AssertionError("first chunk empty or not finite")
+    return seconds
+
+
+def _graph_facts(entry, card: str, label: str) -> dict:
+    """A captured first-chunk graph: the launches a replay counts, the
+    bytes its capture reserved, one replay's time (CUDA events, its inputs
+    in place) and the device records of one replay under torch.profiler
+    (kernels, and memsets / copies), which the profiler may not see inside
+    a graph: then "not measured"."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from chatterbox_embed_tpu_torch.probes import timing
+    replay_ms = timing.time_ms(entry.graph.replay, iters=10, warmup=2)
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        entry.graph.replay()
+        torch.cuda.synchronize()
+    names = [e.name for e in prof.events() if e.device_type == DeviceType.CUDA]
+    kernels = [n for n in names if not n.startswith(("Memset", "Memcpy", "Memory"))]
+    facts = {"launches_a_replay": {f"{fn.__name__}.{attr}": n
+                                   for (fn, attr), n in entry.launches.items()},
+             "pool_bytes": entry.pool_bytes, "replay_ms": replay_ms,
+             "kernels": len(kernels) if names else "not measured",
+             "memsets_copies": len(names) - len(kernels) if names else "not measured"}
+    log("first_chunk_graph", step=label, replay_ms=f"{replay_ms:.3f}",
+        kernels=facts["kernels"], memsets_copies=facts["memsets_copies"],
+        pool_bytes=entry.pool_bytes,
+        launches=json.dumps(facts["launches_a_replay"]).replace(" ", ""), card=repr(card))
+    return facts
+
+
+def phase_first_chunk(card: str, tts) -> dict:
+    """The stream's first chunk as one CUDA graph per text bucket
+    (streaming.first_chunk), on the default step, with K4 and under
+    CHATTERBOX_DEFER_KV=1 (K1s): the smoke's stream (TEXT, STREAM_KW at
+    FIRST_CHUNK_TOKENS tokens) on the per-block route
+    (CHATTERBOX_FUSED_FIRST_CHUNK=0), then on the graph route from a new
+    graph cache (the first request captures; on the default step and with
+    K4 a second replays), each route counting 30 K1 (K1s) launches a
+    decode step (K4: one), the graph's 25 steps included, and the graph
+    route holding the per-block route's tokens and chunks (ROUTE_TOL). On
+    the default step and with K4: the graph's replay time, kernels and
+    pool bytes, and FIRST_CHUNK_RUNS first chunks of each route at
+    STREAM_KW timed in turns. With K4: a request of another length in the
+    bucket and other sampling values (FIRST_CHUNK_TEXT2,
+    FIRST_CHUNK_SAMPLING2) replays the graph, captures nothing and equals
+    its per-block route; two streams advanced in turns equal each run
+    alone. Last, a host read planted in a capture must fail the request.
+    Returns {path: launches}."""
+    from chatterbox_embed_tpu_torch import streaming
+    n_layers = tts.cfg.t3.llama.num_layers
+    streaming.GRAPHS.clear()
+    torch.cuda.empty_cache()
+    launches, alone, graphs = {}, {}, {}
+    kw = dict(STREAM_KW, max_new_tokens=FIRST_CHUNK_TOKENS)
+    kw2 = dict(kw, seed=1, **FIRST_CHUNK_SAMPLING2)
+    block = STREAM_KW["block_tokens"]
+    # (label, settings, the kernel and its launches a decode step, runs)
+    steps_of = (("default_step", {"CHATTERBOX_FUSED_STEP": "0"}, "flash_decode", n_layers,
+                 ("capture", "replay")),
+                ("fused_step", {"CHATTERBOX_FUSED_STEP": "1"}, "fused_decode", 1,
+                 ("capture", "replay")),
+                ("deferred", {"CHATTERBOX_FUSED_STEP": "0", "CHATTERBOX_DEFER_KV": "1"},
+                 "flash_decode_deferred", n_layers, ("capture",)))
+    for label, env, kernel, per_step, graph_runs in steps_of:
+        with _env(env):
+            with _env({"CHATTERBOX_FUSED_FIRST_CHUNK": "0"}):
+                plain = _stream_run(tts, TEXT, **kw)
+            want = _want(**{kernel: per_step * plain[2]["decode_steps"]})
+            if (plain[3] != want or plain[2]["first_chunk_graph"] is not None
+                    or plain[2]["decode_steps"] == 0):
+                raise AssertionError(f"first_chunk ({label}, per-block route): launches "
+                                     f"{plain[3]}, want {want}, route "
+                                     f"{plain[2]['first_chunk_graph']}")
+            runs = []
+            for run in graph_runs:
+                n_graphs = len(streaming.GRAPHS)
+                chunks, tokens, perf, counts = _stream_run(tts, TEXT, **kw)
+                steps = perf["decode_steps"]
+                want = _want(**{kernel: per_step * steps})
+                route = {"capture": "captured", "replay": "replayed"}[run]
+                if (perf["first_chunk_graph"] != route or counts != want
+                        or len(streaming.GRAPHS) != n_graphs + (run == "capture")):
+                    raise AssertionError(f"first_chunk ({label}, {run}): route "
+                                         f"{perf['first_chunk_graph']}, launches {counts}, "
+                                         f"want {want}, graphs {len(streaming.GRAPHS)}")
+                diff = _same_stream(f"first_chunk ({label}, {run})", plain[:2],
+                                    (chunks, tokens))
+                runs.append(perf)
+                log("first_chunk", step=label, run=run, tokens=perf["speech_tokens"],
+                    decode_steps=steps, chunks=len(chunks), max_chunk_diff=f"{diff:.3e}",
+                    launches=json.dumps({k: v for k, v in counts.items() if v}).replace(" ", ""),
+                    first_chunk_s=f"{perf['first_chunk_s']:.4f}", total_s=f"{perf['total_s']:.4f}",
+                    per_block_first_chunk_s=f"{plain[2]['first_chunk_s']:.4f}",
+                    per_block_launches=json.dumps(
+                        {k: v for k, v in plain[3].items() if v}).replace(" ", ""),
+                    card=repr(card))
+            alone[label] = (chunks, tokens)
+            launches[f"first_chunk_{label}"] = counts
+            entry = graphs[label] = list(streaming.GRAPHS.values())[-1]
+            _, wrapper, attr, _ = _kernels()[kernel]
+            if entry.launches != {(wrapper, attr): per_step * block}:
+                raise AssertionError(f"first_chunk ({label}): the graph holds {entry.launches}")
+            if label == "deferred":
+                continue
+            _graph_facts(entry, card, label)
+            # first chunks in turns: per-block, graph, graph, per-block, ...
+            times = {"per_block": [], "graph": []}
+            for r in range(FIRST_CHUNK_RUNS):
+                for route in (("per_block", "graph") if r % 2 == 0 else ("graph", "per_block")):
+                    with _env({"CHATTERBOX_FUSED_FIRST_CHUNK": "0" if route == "per_block"
+                               else "1"}):
+                        times[route].append(_first_chunk_s(tts, TEXT, **STREAM_KW))
+            log("first_chunk_time", step=label,
+                graph_s=",".join(f"{t:.4f}" for t in times["graph"]),
+                per_block_s=",".join(f"{t:.4f}" for t in times["per_block"]),
+                capture_request_s=f"{runs[0]['first_chunk_s']:.4f}", card=repr(card))
+
+    with _env({"CHATTERBOX_FUSED_STEP": "1"}):
+        # another text length of the bucket and other sampling values: no
+        # capture, one replay
+        with _env({"CHATTERBOX_FUSED_FIRST_CHUNK": "0"}):
+            plain2 = _stream_run(tts, FIRST_CHUNK_TEXT2, **kw2)
+        entry = graphs["fused_step"]
+        n_graphs, replays = len(streaming.GRAPHS), entry.replays
+        chunks2, tokens2, perf2, _ = _stream_run(tts, FIRST_CHUNK_TEXT2, **kw2)
+        if (perf2["first_chunk_graph"] != "replayed" or len(streaming.GRAPHS) != n_graphs
+                or entry.replays != replays + 1):
+            raise AssertionError(f"first_chunk (second length): route "
+                                 f"{perf2['first_chunk_graph']}, graphs "
+                                 f"{len(streaming.GRAPHS)} (was {n_graphs}), replays "
+                                 f"{entry.replays} (was {replays})")
+        diff2 = _same_stream("first_chunk (second length)", plain2[:2], (chunks2, tokens2))
+        # two streams of the bucket advanced in turns, each against itself alone
+        live = {"a": tts.stream_generate(TEXT, **kw),
+                "b": tts.stream_generate(FIRST_CHUNK_TEXT2, **kw2)}
+        got = {"a": [], "b": []}
+        while live:
+            for name in list(live):
+                c = next(live[name], None)
+                if c is None:
+                    del live[name]
+                else:
+                    got[name].append(c)
+        diffs = [_same_stream(f"first_chunk (interleaved {name})", (want, None), (got[name], None))
+                 for name, want in (("a", alone["fused_step"][0]), ("b", chunks2))]
+        log("first_chunk_bucket", text_tokens=len(tts.tokenizer.text_to_tokens(
+            FIRST_CHUNK_TEXT2)[0]) + 2, sampling=json.dumps(FIRST_CHUNK_SAMPLING2).replace(" ", ""),
+            tokens=perf2["speech_tokens"], graphs=len(streaming.GRAPHS),
+            replays=entry.replays, max_chunk_diff=f"{diff2:.3e}",
+            interleaved_max_diff=f"{max(diffs):.3e}", card=repr(card))
+        _planted_capture_fault(tts)
+    return launches
+
+
+def _planted_capture_fault(tts) -> None:
+    """A host read planted in the first-chunk body while it is being
+    captured (the capture refuses it) must fail the request: no route
+    carries on eagerly. The request asks for a new key (block 20), so the
+    graphs above stay."""
+    from chatterbox_embed_tpu_torch import streaming
+    body = streaming._first_chunk_body
+
+    def faulty(*a, **k):
+        out = body(*a, **k)
+        if torch.cuda.is_current_stream_capturing():
+            int(out.n_new)
+        return out
+
+    n_graphs = len(streaming.GRAPHS)
+    with _patched(streaming, "_first_chunk_body", faulty):
+        try:
+            next(iter(tts.stream_generate(TEXT, **dict(STREAM_KW, block_tokens=20))))
+        except RuntimeError as e:
+            caught = f"{type(e).__name__}: {str(e).splitlines()[0][:120]}"
+        else:
+            raise AssertionError("the planted capture fault did not fail the first chunk")
+    torch.cuda.synchronize()
+    if len(streaming.GRAPHS) != n_graphs:
+        raise AssertionError("a failed capture left a graph behind")
+    log("first_chunk_fault", planted="host read inside the capture", raised=repr(caught))
 
 
 def phase_generate_batch(card: str, tts, conds, label: str, runs=("warmup", "timed")) -> dict:
@@ -3729,11 +4032,12 @@ REPLACES = {"flash_decode": "chatterbox_embed_tpu/kernels/flash_decode.py:85",
 # the phases `--phases` selects among, in the order they run (the device
 # and build phases always run; every phase runs when none is named)
 PHASES = ("kernel_check", "attention_check", "probe_check", "probes", "fused_check",
-          "consistency", "generate", "generate_batch", "stream_generate", "conditioning",
-          "long_text", "engine", "worker", "mesh", "int8", "train", "train_mesh")
+          "consistency", "generate", "generate_batch", "stream_generate", "first_chunk",
+          "conditioning", "long_text", "engine", "worker", "mesh", "int8", "train",
+          "train_mesh")
 MODEL_PHASES = ("fused_check", "consistency", "generate", "generate_batch",
-                "stream_generate", "conditioning", "long_text", "engine", "worker", "mesh",
-                "int8")
+                "stream_generate", "first_chunk", "conditioning", "long_text", "engine",
+                "worker", "mesh", "int8")
 
 
 def _selected(argv) -> set:
@@ -3825,6 +4129,9 @@ def main(argv=None) -> None:
         # the flow windows and the vocoder, and generate warmed the K1 step
         launches["stream_generate"], _ = phase_stream(card, tts, False, ("timed",))
         phase_done("stream_generate")
+    if "first_chunk" in selected:
+        launches.update(phase_first_chunk(card, tts))
+        phase_done("first_chunk")
     if "conditioning" in selected:
         launches["generate_audio_prompt"] = phase_conditioning(card, tts)
         phase_done("conditioning")
@@ -3847,7 +4154,14 @@ def main(argv=None) -> None:
         launches.update(phase_int8(card, tts))
         phase_done("int8")
     if selected & set(MODEL_PHASES):
+        from chatterbox_embed_tpu_torch import streaming
+        # each first-chunk graph holds its model and its pool: they go with
+        # the pipeline
         del tts
+        gc.collect()
+        if len(streaming.GRAPHS):
+            raise AssertionError(f"{len(streaming.GRAPHS)} first-chunk graphs outlived their "
+                                 "pipeline")
         torch.cuda.empty_cache()
     if "train" in selected:
         launches.update(phase_train(card))

@@ -248,12 +248,12 @@ def test_engine_refusals(models, rng, monkeypatch):
         eng.submit(_text(rng, 3), _cond(rng)[1], top_p=0.9)
     assert eng.idle
     # kv_int8=True builds the int8 cache (ROADMAP item 22); the int8
-    # x int8 mode the JAX package rejected is still refused
+    # x int8 mode (not ported yet) is still refused
     geo = dict(slots=1, text_bucket=8, max_new_tokens=8, device="cpu")
     assert teng.ContinuousDecoder(models[1], TINY, kv_int8=True, **geo).state.cache.k.dtype \
         == torch.int8
     monkeypatch.setenv("CHATTERBOX_INT8_KV", "2")
-    with pytest.raises(NotImplementedError, match="not-to-port"):
+    with pytest.raises(NotImplementedError, match="not ported yet"):
         teng.ContinuousDecoder(models[1], TINY, **geo)
 
 

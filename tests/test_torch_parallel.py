@@ -550,15 +550,15 @@ def test_int8_kv_setting_raises(value, world, models, inputs, monkeypatch):
     """CHATTERBOX_INT8_KV=1 (item 22) decodes with the int8 cache: alone,
     on a dp = 2 mesh (each rank's cache int8, the followers taking the
     leader's setting; tokens equal to one process bit for bit) and in the
-    engine; 2, the JAX package's int8 x int8 dots, still raises, naming
-    ROADMAP's not-to-port list."""
+    engine; 2, the JAX package's int8 x int8 dots, still raises: it is not
+    ported yet (ROADMAP queue 1)."""
     _, tp = models
     _, cond, texts = inputs
     monkeypatch.setenv("CHATTERBOX_INT8_KV", value)
     if value == "2":
-        with pytest.raises(NotImplementedError, match="CHATTERBOX_INT8_KV=2.*not-to-port"):
+        with pytest.raises(NotImplementedError, match="CHATTERBOX_INT8_KV=2.*not ported yet"):
             tt3.generate(tp, cond, texts[:1], **KW)
-        with pytest.raises(NotImplementedError, match="not-to-port"):
+        with pytest.raises(NotImplementedError, match="not ported yet"):
             teng.ContinuousDecoder(tp, TINY, slots=2, text_bucket=16, max_new_tokens=24,
                                    device="cpu")
         return

@@ -1,11 +1,11 @@
 """ChatterboxTTS.stream_generate of the port against the JAX package at a
 tiny config, fp32, with JAX's own draws fed to the port (tests/torch_parity.py:
-JaxDraws). The port streams by one route (t3.generate_stream feeding
-streaming.WindowedSynth); the JAX package has two, its one-program first
-chunk (CHATTERBOX_FUSED_FIRST_CHUNK=1) and the stage-by-stage loop (=0), and
-the port matches both: the same tokens, the same chunk lengths, chunks within
-1e-3 (the one-shot wav's bound, test_torch_tts.py: the HiFT head's exp()
-amplifies fp32 drift). Within the port the fused decode step (K4's plain
+JaxDraws). Both packages stream by two routes, the one-program first chunk
+(CHATTERBOX_FUSED_FIRST_CHUNK=1, streaming.first_chunk; on the CPU the
+port runs its body eagerly) and the per-block loop (=0), and the port
+matches the JAX package on each: the same tokens, the same chunk lengths,
+chunks within 1e-3 (the one-shot wav's bound, test_torch_tts.py: the HiFT
+head's exp() amplifies fp32 drift). Within the port the fused decode step (K4's plain
 version here) gives the same chunks as the default step, and the chunks join
 to the whole utterance."""
 import numpy as np
@@ -57,11 +57,11 @@ def _spy_tokens(monkeypatch, cls, seeded: bool):
 @pytest.mark.parametrize("fused", ["1", "0"])
 def test_stream_generate_matches_jax(pair, monkeypatch, fused):
     jax_tts, port = pair
-    """`fused` selects the JAX package's route; the port has one."""
+    """`fused` selects the route of both packages."""
     monkeypatch.setenv("CHATTERBOX_FUSED_FIRST_CHUNK", fused)
     jtok = _spy_tokens(monkeypatch, jstreaming.WindowedSynth, seeded=True)
     ref = list(jax_tts.stream_generate(TEXT, **STREAM))
-    ttok = _spy_tokens(monkeypatch, tstreaming.WindowedSynth, seeded=False)
+    ttok = _spy_tokens(monkeypatch, tstreaming.WindowedSynth, seeded=fused == "1")
     out = list(port.stream_generate(TEXT, draws=JaxDraws(STREAM["seed"]), **STREAM))
     np.testing.assert_array_equal(np.concatenate(ttok), np.concatenate(jtok))
     assert [c.shape for c in out] == [c.shape for c in ref] and len(out) >= 3

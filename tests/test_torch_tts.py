@@ -3,6 +3,9 @@ a tiny config: the JAX pipeline's random weights go through
 weights.from_jax_params into the port, both get the same Conditionals, and
 the port draws JAX's own random numbers. Speech tokens must be equal; the
 wav agrees to 1e-3 absolute (the HiFT bound of test_torch_s3gen.py)."""
+import sys
+import types
+
 import numpy as np
 import pytest
 import torch
@@ -150,19 +153,17 @@ def test_from_random_full_width_tree_shapes():
     assert tuple(tree["llama"]["layers"][0]["gate"]["w"].shape) == (1024, 4096)
 
 
-def test_from_local_wires_converters_tokenizer_and_conds(pair, tmp_path, monkeypatch):
-    """from_local reads ve / t3_cfg / s3gen safetensors through the port's
-    own numpy converters (utils/weights.py), then weights.from_arrays;
-    tokenizer.json through EnTokenizer; conds.pt when present. The
-    converters are stubbed to hand back the pipeline's trees as arrays in
-    the port's layout (no reference checkpoint exists here;
+def stub_checkpoint(port, folder, monkeypatch):
+    """A tiny checkpoint folder for from_local: tokenizer.json and conds.pt
+    written, the safetensors reads and the port's numpy converters stubbed
+    to hand back `port`'s trees (and a voice encoder's) as arrays in the
+    port's layout (no reference checkpoint exists here;
     test_torch_weights.py holds the real converters against the JAX
-    package's)."""
+    package's). Returns (the paths read, the voice encoder's tree)."""
     from tokenizers import Tokenizer, models, pre_tokenizers
     from chatterbox_embed_tpu_torch.models import layers as L
     from chatterbox_embed_tpu_torch.models import voice_encoder as tve
     from chatterbox_embed_tpu_torch.utils import weights as tw
-    jax_tts, port = pair
 
     def arrays(tree):
         if isinstance(tree, dict):
@@ -180,8 +181,37 @@ def test_from_local_wires_converters_tokenizer_and_conds(pair, tmp_path, monkeyp
     vocab = {"[UNK]": 0, "[START]": 1, "[STOP]": 2, "[SPACE]": 3, "hello": 4, "port": 5}
     tok = Tokenizer(models.WordLevel(vocab, unk_token="[UNK]"))
     tok.pre_tokenizer = pre_tokenizers.Split("[SPACE]", "isolated")
-    tok.save(str(tmp_path / "tokenizer.json"))
-    port.conds.save(str(tmp_path / "conds.pt"))
+    tok.save(str(folder / "tokenizer.json"))
+    port.conds.save(str(folder / "conds.pt"))
+    return read, ve
+
+
+class StandInHub:
+    """A stand-in `huggingface_hub` module (monkeypatched into sys.modules,
+    so no test reaches the network): hf_hub_download(repo_id, filename)
+    records the request and returns the file's path in `folder`."""
+
+    def __init__(self, folder):
+        self.folder, self.asked = folder, []
+        self.module = types.ModuleType("huggingface_hub")
+        self.module.hf_hub_download = self.download
+
+    def download(self, repo_id, filename, **kw):
+        self.asked.append((repo_id, filename))
+        return str(self.folder / filename)
+
+
+CHECKPOINT_FILES = ["ve.safetensors", "t3_cfg.safetensors", "s3gen.safetensors",
+                    "tokenizer.json", "conds.pt"]
+
+
+def test_from_local_wires_converters_tokenizer_and_conds(pair, tmp_path, monkeypatch):
+    """from_local reads ve / t3_cfg / s3gen safetensors through the port's
+    own numpy converters (utils/weights.py), then weights.from_arrays;
+    tokenizer.json through EnTokenizer; conds.pt when present (the
+    converters stubbed: stub_checkpoint)."""
+    jax_tts, port = pair
+    read, ve = stub_checkpoint(port, tmp_path, monkeypatch)
     loaded = ChatterboxTTS.from_local(tmp_path, config=TINY, device="cpu")
     assert [p.rsplit("/", 1)[-1] for p in read] == ["ve.safetensors", "t3_cfg.safetensors",
                                                     "s3gen.safetensors"]
@@ -192,3 +222,30 @@ def test_from_local_wires_converters_tokenizer_and_conds(pair, tmp_path, monkeyp
                                   port.t3_params["speech_head"]["w"].numpy())
     np.testing.assert_array_equal(loaded.ve_params["lstm"][2]["wh"].numpy(),
                                   ve["lstm"][2]["wh"].numpy())
+
+
+def test_from_pretrained_downloads_the_checkpoint_then_loads_it(pair, tmp_path, monkeypatch):
+    """from_pretrained asks the hub for the five files of
+    ResembleAI/chatterbox (the JAX package's list and order), then loads
+    their folder through from_local with its device and arguments."""
+    _, port = pair
+    read, _ = stub_checkpoint(port, tmp_path, monkeypatch)
+    hub = StandInHub(tmp_path)
+    monkeypatch.setitem(sys.modules, "huggingface_hub", hub.module)
+    loaded = ChatterboxTTS.from_pretrained(device="cpu", config=TINY, int8=False)
+    assert hub.asked == [("ResembleAI/chatterbox", f) for f in CHECKPOINT_FILES]
+    assert [p.rsplit("/", 1)[-1] for p in read] == CHECKPOINT_FILES[:3]
+    assert loaded.device == torch.device("cpu") and loaded.cfg == TINY
+    assert loaded.tokenizer.encode("hello port") == [4, 3, 5]
+    np.testing.assert_array_equal(loaded.t3_params["speech_head"]["w"].numpy(),
+                                  port.t3_params["speech_head"]["w"].numpy())
+    np.testing.assert_array_equal(loaded.conds.t3.speaker_emb.numpy(),
+                                  port.conds.t3.speaker_emb.numpy())
+
+
+def test_from_pretrained_without_huggingface_hub(monkeypatch):
+    """Without huggingface_hub it raises, naming from_local (the JAX
+    package's message); nothing is loaded."""
+    monkeypatch.setitem(sys.modules, "huggingface_hub", None)
+    with pytest.raises(RuntimeError, match=r"huggingface_hub unavailable; use from_local\(\)"):
+        ChatterboxTTS.from_pretrained(device="cpu", config=TINY)

@@ -164,3 +164,48 @@ def test_clean_audio_matches_jax(pair, tmp_path, monkeypatch, stationary):
     assert asr == bsr == 16_000 and a.shape == b.shape and 0 < len(a) <= len(noisy)
     np.testing.assert_allclose(a, b, atol=1e-6)
     assert port.clean_audio(str(tmp_path / "t.wav"), str(tmp_path / "o.wav")).endswith("o.wav")
+
+
+def test_from_pretrained_downloads_the_checkpoint_then_loads_it(pair, tmp_path, monkeypatch):
+    """ChatterboxVC.from_pretrained asks the hub (a stand-in module: no
+    network) for the five files of ResembleAI/chatterbox, then loads their
+    folder through from_local: here s3gen (its converter stubbed to hand
+    back the pipeline's tree, as test_torch_tts.py:stub_checkpoint does) and
+    conds.pt, whose S3Gen half becomes the target voice; without
+    huggingface_hub it raises."""
+    import sys
+    from chatterbox_embed_tpu_torch.conditionals import Conditionals
+    from chatterbox_embed_tpu_torch.models.t3 import T3Cond
+    from chatterbox_embed_tpu_torch.utils import weights as tw
+    from test_torch_tts import CHECKPOINT_FILES, StandInHub
+    _, port, _, _ = pair
+
+    def arrays(tree):
+        if isinstance(tree, dict):
+            return {k: arrays(v) for k, v in tree.items()}
+        if isinstance(tree, list):
+            return [arrays(v) for v in tree]
+        return tree.numpy()
+
+    read = []
+    monkeypatch.setattr(tw, "load_safetensors", lambda p: read.append(p) or {"path": p})
+    monkeypatch.setattr(tw, "convert_s3gen", lambda sd, cfg: arrays(port.s3gen_params))
+    rng = np.random.default_rng(3)
+    gen = dict(prompt_token=rng.integers(0, 6561, (1, 8)).astype(np.int64),
+               prompt_token_len=np.array([8]),
+               prompt_feat=rng.standard_normal((1, 16, CFG.s3gen.mel_num)).astype(np.float32),
+               prompt_feat_len=None, embedding=rng.standard_normal((1, 192)).astype(np.float32))
+    Conditionals(T3Cond(torch.zeros((1, 256)), None, 0.5), gen).save(str(tmp_path / "conds.pt"))
+    hub = StandInHub(tmp_path)
+    monkeypatch.setitem(sys.modules, "huggingface_hub", hub.module)
+    loaded = ChatterboxVC.from_pretrained(device="cpu", config=CFG)
+    assert hub.asked == [("ResembleAI/chatterbox", f) for f in CHECKPOINT_FILES]
+    assert [p.rsplit("/", 1)[-1] for p in read] == ["s3gen.safetensors"]
+    assert loaded.device == torch.device("cpu") and loaded.t3_params is None
+    np.testing.assert_array_equal(loaded.ref_dict["prompt_feat"], gen["prompt_feat"])
+    np.testing.assert_array_equal(
+        loaded.s3gen_params["flow"]["input_embedding"]["w"].numpy(),
+        port.s3gen_params["flow"]["input_embedding"]["w"].numpy())
+    monkeypatch.setitem(sys.modules, "huggingface_hub", None)
+    with pytest.raises(RuntimeError, match=r"huggingface_hub unavailable; use from_local\(\)"):
+        ChatterboxVC.from_pretrained(device="cpu", config=CFG)

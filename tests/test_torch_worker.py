@@ -11,9 +11,11 @@ Firestore, a fake and a tiny real ChatterboxTTS. No server, no network.
   a drained stream (every status `done`, audio stored, metadata
   `continuous`), the VC mode, the DLQ, the intake fallback, a failing pump
   failing its jobs, the profile cache keyed on the bucket, continuous
-  serving the default; where the port differs on purpose, a malformed
-  WORKER_MESH and a missing model factory raise (a valid WORKER_MESH serves
-  on a mesh: tests/test_torch_parallel.py).
+  serving the default; without a factory the worker loads
+  ChatterboxTTS.from_pretrained / ChatterboxVC.from_pretrained (the hub a
+  stand-in module here); where the port differs on purpose, a malformed
+  WORKER_MESH raises (a valid WORKER_MESH serves on a mesh:
+  tests/test_torch_parallel.py).
 - The clone pipeline against the JAX package's on the same audio: the same
   result keys, storage keys, stored profile fields and Firestore fields."""
 import base64
@@ -215,20 +217,41 @@ def test_continuous_serving_is_the_default(monkeypatch):
     assert RedisWorker.continuous_enabled() is False
 
 
-def test_worker_mesh_and_missing_factories_raise(store, monkeypatch):
-    """A malformed WORKER_MESH raises when the worker is built, and the
-    port has no download: it says so instead of fetching a model."""
+def test_worker_mesh_and_missing_factories_raise(store, monkeypatch, tmp_path):
+    """A malformed WORKER_MESH raises when the worker is built. Without a
+    factory the worker loads the model as the JAX worker does:
+    ChatterboxTTS.from_pretrained / ChatterboxVC.from_pretrained, which
+    download the checkpoint's five files (a stand-in hub module here) and
+    load their folder on the card (from_local stubbed here to record its
+    call and hand back a fake); without huggingface_hub that raises."""
+    import sys
+    from chatterbox_embed_tpu_torch.tts import ChatterboxTTS
+    from chatterbox_embed_tpu_torch.vc import ChatterboxVC
+    from test_torch_tts import CHECKPOINT_FILES, StandInHub
     monkeypatch.setenv("WORKER_MESH", "2by2")
     with pytest.raises(ValueError, match="WORKER_MESH"):
         RedisWorker(mode="tts", client=InMemoryStreams(), tts_factory=FakeTTS)
     monkeypatch.delenv("WORKER_MESH")
-    worker = RedisWorker(mode="tts", client=InMemoryStreams())
-    with pytest.raises(RuntimeError, match="tts_factory"):
-        worker._get_tts()
-    with pytest.raises(RuntimeError, match="vc_factory"):
-        RedisWorker(mode="vc", client=InMemoryStreams())._get_vc()
-    with pytest.raises(RuntimeError, match="tts_factory"):
-        worker.run_continuous(stop_when_drained=True)
+    hub = StandInHub(tmp_path)
+    monkeypatch.setitem(sys.modules, "huggingface_hub", hub.module)
+    loads = []
+    for cls in (ChatterboxTTS, ChatterboxVC):
+        monkeypatch.setattr(cls, "from_local", classmethod(
+            lambda c, folder, **kw: loads.append((c.__name__, folder, kw)) or FakeTTS()))
+    client = InMemoryStreams()
+    worker = RedisWorker(mode="tts", client=client)
+    tts = worker._get_tts()
+    assert isinstance(tts, FakeTTS) and worker._get_tts() is tts
+    vc = RedisWorker(mode="vc", client=InMemoryStreams())._get_vc()
+    assert isinstance(vc, FakeTTS)
+    assert hub.asked == [("ResembleAI/chatterbox", f) for f in CHECKPOINT_FILES] * 2
+    assert loads == [(name, tmp_path, {"device": None})
+                     for name in ("ChatterboxTTS", "ChatterboxVC")]
+    _job(client, "j1", story_id="s1", user_id="u1", text="hi", voice_profile_b64="AAA=")
+    assert worker.run_once() == 1 and tts.calls[0]["story_id"] == "s1"
+    monkeypatch.setitem(sys.modules, "huggingface_hub", None)
+    with pytest.raises(RuntimeError, match="huggingface_hub unavailable"):
+        RedisWorker(mode="tts", client=InMemoryStreams())._get_tts()
 
 
 def test_conds_profile_cache_keys_on_bucket(monkeypatch, tmp_path):
