@@ -17,6 +17,7 @@ from ..config import S3_SR, S3GEN_SR, SPEECH_VOCAB_SIZE, S3GenConfig
 from ..device import constant, lap
 from ..ops import mel as mel_ops
 from ..ops import resample as resample_ops
+from ..utils import profiling
 from . import layers as L
 from . import cfm, conformer, flow_decoder, hifigan, s3tokenizer, xvector
 
@@ -79,9 +80,10 @@ def flow_to_mel(params, tokens: torch.Tensor, token_len: torch.Tensor,
     x = L.embedding(fl["input_embedding"], full.clamp_min(0))
     x = x * mask[..., None].to(x.dtype)
 
-    h = conformer.forward(fl["encoder"], x, token_len, cfg.flow.encoder, dtype)
+    with profiling.span("s3gen.encoder"):
+        h = conformer.forward(fl["encoder"], x, token_len, cfg.flow.encoder, dtype)
+        h = L.linear(fl["encoder_proj"], h.float())
     mel_len1 = prompt_feat.shape[1]
-    h = L.linear(fl["encoder_proj"], h.float())
 
     conds = torch.zeros((h.shape[0], h.shape[1], cfg.flow.output_size),
                         dtype=h.dtype, device=h.device)
@@ -98,9 +100,10 @@ def flow_to_mel(params, tokens: torch.Tensor, token_len: torch.Tensor,
     mel_mask = (torch.arange(h.shape[1], device=h.device)[None, :]
                 < mel_valid[:, None])[..., None].to(h.dtype)
 
-    mel = cfm.generate_mel(fl["decoder"], h, spks, conds, mask=mel_mask,
-                           cfm=cfg.flow.cfm, dec_cfg=cfg.flow.decoder, dtype=dtype,
-                           cache_every=cache_every, cfg_steps=cfg_steps)
+    with profiling.span("s3gen.cfm"):
+        mel = cfm.generate_mel(fl["decoder"], h, spks, conds, mask=mel_mask,
+                               cfm=cfg.flow.cfm, dec_cfg=cfg.flow.decoder, dtype=dtype,
+                               cache_every=cache_every, cfg_steps=cfg_steps)
     if prompt_len is None:
         return mel[:, mel_len1:]
     # realign: row b's generated frames start at frame 2 * p_b
@@ -191,7 +194,8 @@ def token_to_wav(params, tokens, token_len, prompt_tokens, prompt_feat,
     flow_to_mel's."""
     mel = flow_to_mel(params, tokens, token_len, prompt_tokens, prompt_feat,
                       embedding, cfg, dtype, prompt_len, cache_every, cfg_steps)
-    wav, _src = hifigan.inference(params["hift"], mel, draws, cfg.hift, dtype)
+    with profiling.span("s3gen.hift"):
+        wav, _src = hifigan.inference(params["hift"], mel, draws, cfg.hift, dtype)
     fade = trim_fade_on(wav.device)
     wav[:, : fade.shape[0]] *= fade
     return wav

@@ -58,6 +58,7 @@ from ..config import T3Config
 from ..device import resolve_device
 from ..ops import sampling
 from ..parallel.mesh import on_mesh_method
+from ..utils import profiling
 from . import layers as L
 from . import llama
 from . import t3
@@ -273,43 +274,49 @@ def engine_decode_block(params, state: EngineState, cfg: T3Config, block: int, p
     zeros = torch.zeros((v,), dtype=torch.float32, device=dev)
     toks = []
     for _ in range(block):
-        if bool(state.done.all()):
+        with profiling.span("engine.done_read"):
+            all_done = bool(state.done.all())
+        if all_done:
             break
-        logits = state.logits
-        if mesh is not None and mesh.dp > 1:
-            # (dp x [cond; uncond] of each rank's slots) -> [cond; uncond] of all
-            logits = mesh.gather_dp(logits).view(mesh.dp, 2, s1 - s0, v).transpose(0, 1)
-            logits = logits.reshape(2 * s_slots, v)
-        lc, lu = logits[:s_slots], logits[s_slots:]
-        lg = sampling.process_logits(
-            lc + state.cfg_weight * (lc - lu), state.counts,
-            valid_size=cfg.start_speech_token, eos_id=eos, temperature=state.temperature,
-            repetition_penalty_val=state.rep_penalty, min_p=state.min_p, top_p=state.top_p,
-            use_top_p=use_top_p)
-        noise = torch.stack([
-            zeros if d is None else d.gumbel(state.g - gs, (v,)).to(dev)
-            for d, gs in zip(state.draws, state.g_start_host)])
-        tok = sampling.sample_token(lg, noise)
-        tok = torch.where(state.done, torch.full_like(tok, eos), tok)
-        toks.append(tok)
-        state.counts[rows, tok] += 1
-        done = state.done | (tok == eos) | (state.i + 1 >= state.limit)
-        emb = L.embedding(params["speech_emb"], tok) + pos_emb[state.i + 1]
-        emb = ours(torch.cat([emb, emb]))[:, None]
-        pos_id = (p_len - state.pad + state.i)[:, None]
-        span, hole = engine_spans(state.pad, state.g_start, done, state.g, p_len, ring)
-        hh, _ = llama.forward(params["llama"], emb.to(dtype), ours(torch.cat([pos_id, pos_id])),
-                              cache=state.cache, cache_pos=p_len + state.g % ring,
-                              cfg=cfg.llama, dtype=dtype, flash_hole=ours(hole),
-                              flash_span=ours(span), mesh=mesh)
-        state.logits = L.linear(params["speech_head"], hh[:, -1], torch.float32)
+        with profiling.span("engine.sample"):
+            logits = state.logits
+            if mesh is not None and mesh.dp > 1:
+                # (dp x [cond; uncond] of each rank's slots) -> [cond; uncond] of all
+                logits = mesh.gather_dp(logits).view(mesh.dp, 2, s1 - s0, v).transpose(0, 1)
+                logits = logits.reshape(2 * s_slots, v)
+            lc, lu = logits[:s_slots], logits[s_slots:]
+            lg = sampling.process_logits(
+                lc + state.cfg_weight * (lc - lu), state.counts,
+                valid_size=cfg.start_speech_token, eos_id=eos, temperature=state.temperature,
+                repetition_penalty_val=state.rep_penalty, min_p=state.min_p, top_p=state.top_p,
+                use_top_p=use_top_p)
+            with profiling.span("engine.noise"):
+                noise = torch.stack([
+                    zeros if d is None else d.gumbel(state.g - gs, (v,)).to(dev)
+                    for d, gs in zip(state.draws, state.g_start_host)])
+            tok = sampling.sample_token(lg, noise)
+            tok = torch.where(state.done, torch.full_like(tok, eos), tok)
+            toks.append(tok)
+            state.counts[rows, tok] += 1
+            done = state.done | (tok == eos) | (state.i + 1 >= state.limit)
+        with profiling.span("engine.forward"):
+            emb = L.embedding(params["speech_emb"], tok) + pos_emb[state.i + 1]
+            emb = ours(torch.cat([emb, emb]))[:, None]
+            pos_id = (p_len - state.pad + state.i)[:, None]
+            span, hole = engine_spans(state.pad, state.g_start, done, state.g, p_len, ring)
+            hh, _ = llama.forward(params["llama"], emb.to(dtype),
+                                  ours(torch.cat([pos_id, pos_id])), cache=state.cache,
+                                  cache_pos=p_len + state.g % ring, cfg=cfg.llama, dtype=dtype,
+                                  flash_hole=ours(hole), flash_span=ours(span), mesh=mesh)
+            state.logits = L.linear(params["speech_head"], hh[:, -1], torch.float32)
         state.i = torch.where(state.done, state.i, state.i + 1)
         state.done = done
         state.g += 1
     n = len(toks)
     out = np.full((block, s_slots), eos, np.int32)
     if n:
-        out[:n] = torch.stack(toks).cpu().numpy()
+        with profiling.span("engine.fetch"):
+            out[:n] = torch.stack(toks).cpu().numpy()
     return out, n
 
 
@@ -377,8 +384,7 @@ class ContinuousDecoder:
         self.last_block_tokens: Dict[int, np.ndarray] = {}
         self.blocks_run = 0
         self.steps_run = 0
-        # host clock: refill = prefill + insert, decode = the block and its fetch
-        self.t_refill = 0.0
+        # host seconds of the decode blocks and their fetches
         self.t_decode = 0.0
         if mesh is not None and mesh.leads():
             mesh.adopt(self, ContinuousDecoder, params, cfg, slots=slots,
@@ -421,24 +427,24 @@ class ContinuousDecoder:
     # -- engine loop --------------------------------------------------------
 
     def _refill(self):
-        t0 = time.time()
-        for s_idx, sl in enumerate(self._slots):
-            if sl.rid is not None or not self._queue:
-                continue
-            req = self._queue.pop(0)
-            pad = self.text_bucket - req["text"].shape[1]
-            sub = None
-            if self.state.own[0] <= s_idx < self.state.own[1]:
-                sub, pad = prefill_request(self.params, req["cond"], req["text"],
-                                           text_bucket=self.text_bucket, p_len=self.p_len,
-                                           cfg=self.cfg, dtype=self.dtype, device=self.device,
-                                           mesh=self.mesh, kv_int8=self.kv_int8)
-            meta = dict(limit=req["max_new"], pad=pad, **{
-                k: req[k] for k in ("temperature", "cfg_weight", "rep_penalty", "min_p",
-                                    "top_p")})
-            engine_insert(self.state, sub, s_idx, self.make_draws(req["seed"]), meta)
-            self._slots[s_idx] = _Slot(rid=req["rid"], limit=req["max_new"])
-        self.t_refill += time.time() - t0
+        with profiling.span("engine.refill"):
+            for s_idx, sl in enumerate(self._slots):
+                if sl.rid is not None or not self._queue:
+                    continue
+                req = self._queue.pop(0)
+                with profiling.span("engine.prefill", rid=req["rid"]):
+                    pad = self.text_bucket - req["text"].shape[1]
+                    sub = None
+                    if self.state.own[0] <= s_idx < self.state.own[1]:
+                        sub, pad = prefill_request(
+                            self.params, req["cond"], req["text"], text_bucket=self.text_bucket,
+                            p_len=self.p_len, cfg=self.cfg, dtype=self.dtype,
+                            device=self.device, mesh=self.mesh, kv_int8=self.kv_int8)
+                    meta = dict(limit=req["max_new"], pad=pad, **{
+                        k: req[k] for k in ("temperature", "cfg_weight", "rep_penalty", "min_p",
+                                            "top_p")})
+                    engine_insert(self.state, sub, s_idx, self.make_draws(req["seed"]), meta)
+                    self._slots[s_idx] = _Slot(rid=req["rid"], limit=req["max_new"])
 
     @property
     def idle(self) -> bool:
@@ -450,42 +456,46 @@ class ContinuousDecoder:
         this block. An idle engine returns {} and clears last_block_tokens
         (the JAX package's step keeps the previous block's there, ROADMAP
         §3)."""
-        self._refill()
-        if all(s.rid is None for s in self._slots):
+        with profiling.span("engine.step"):
+            self._refill()
+            if all(s.rid is None for s in self._slots):
+                self.last_block_tokens = {}
+                return {}
+            t0 = time.perf_counter()
+            with profiling.span("engine.block"):
+                tokens_h, nj = engine_decode_block(self.params, self.state, self.cfg,
+                                                   self.block, self.p_len, self.use_top_p,
+                                                   self.dtype, self.mesh)
+                with profiling.span("engine.fetch"):
+                    done_h = self.state.done.cpu().numpy()
+            self.t_decode += time.perf_counter() - t0
+            self.blocks_run += 1
+            self.steps_run += nj
+            eos = self.cfg.stop_speech_token
+            out: Dict[int, np.ndarray] = {}
             self.last_block_tokens = {}
-            return {}
-        t0 = time.time()
-        tokens_h, nj = engine_decode_block(self.params, self.state, self.cfg, self.block,
-                                           self.p_len, self.use_top_p, self.dtype, self.mesh)
-        done_h = self.state.done.cpu().numpy()
-        self.t_decode += time.time() - t0
-        self.blocks_run += 1
-        self.steps_run += nj
-        eos = self.cfg.stop_speech_token
-        out: Dict[int, np.ndarray] = {}
-        self.last_block_tokens = {}
-        for s_idx, sl in enumerate(self._slots):
-            if sl.rid is None:
-                continue
-            prev = sl.count
-            sl.buf.append(tokens_h[:nj, s_idx])
-            sl.count += nj
-            if bool(done_h[s_idx]):
-                seq = np.concatenate(sl.buf)
-                eos_pos = np.nonzero(seq == eos)[0]
-                end = int(eos_pos[0]) + 1 if eos_pos.size else seq.shape[0]
-                # a limit-terminated row emits fill-EOS once done: clamp at the
-                # limit (a genuine EOS always lies within it)
-                end = min(end, sl.limit)
-                out[sl.rid] = seq[:end]
-                self.last_block_tokens[sl.rid] = seq[prev:end]
-                if self.retain_results:
-                    self._results[sl.rid] = out[sl.rid]
-                self._slots[s_idx] = _Slot()
-                self.state.draws[s_idx] = None
-            else:
-                self.last_block_tokens[sl.rid] = tokens_h[:nj, s_idx]
-        return out
+            for s_idx, sl in enumerate(self._slots):
+                if sl.rid is None:
+                    continue
+                prev = sl.count
+                sl.buf.append(tokens_h[:nj, s_idx])
+                sl.count += nj
+                if bool(done_h[s_idx]):
+                    seq = np.concatenate(sl.buf)
+                    eos_pos = np.nonzero(seq == eos)[0]
+                    end = int(eos_pos[0]) + 1 if eos_pos.size else seq.shape[0]
+                    # a limit-terminated row emits fill-EOS once done: clamp at the
+                    # limit (a genuine EOS always lies within it)
+                    end = min(end, sl.limit)
+                    out[sl.rid] = seq[:end]
+                    self.last_block_tokens[sl.rid] = seq[prev:end]
+                    if self.retain_results:
+                        self._results[sl.rid] = out[sl.rid]
+                    self._slots[s_idx] = _Slot()
+                    self.state.draws[s_idx] = None
+                else:
+                    self.last_block_tokens[sl.rid] = tokens_h[:nj, s_idx]
+            return out
 
     @on_mesh_method
     def drain(self) -> Dict[int, np.ndarray]:

@@ -38,6 +38,7 @@ from ..models import t3 as t3_mod
 from ..models import t3_engine
 from ..models.t3_engine import ContinuousDecoder
 from ..ops.sampling import Draws
+from ..utils import profiling
 
 logger = logging.getLogger(__name__)
 
@@ -203,62 +204,68 @@ class ContinuousServer:
     def pump(self) -> Dict[int, np.ndarray]:
         """One engine block and any vocode flush. Returns {external rid:
         wav} for requests whose audio finished in this call."""
-        done = self.decoder.step()
-        out: Dict[int, np.ndarray] = {}
-        for rid, synth in list(self._streams.items()):
-            toks = self.decoder.last_block_tokens.get(rid)
-            ext = self._ext_of.get(rid, rid)
-            if toks is not None and toks.size:
-                self._schunks[ext].extend(synth.feed(toks))
-            if rid in done:
-                self._schunks[ext].extend(synth.finish())
-                del self._streams[rid]
-                self._meta.pop(rid, None)
-                self._ext_of.pop(rid, None)
-                chunks = self._schunks[ext]
-                wav = np.concatenate(chunks) if chunks else np.zeros((0,), np.float32)
-                if ext in self._stouched:
-                    # an active take_stream consumer: keep the untaken tail
-                    self._sdone.add(ext)
-                else:
-                    self._schunks.pop(ext, None)
-                    self._staken.pop(ext, None)
-                if wav.size == 0:
-                    self._failed[ext] = "empty streamed decode"
-                else:
-                    if self.retain_wavs:
-                        self._wavs[ext] = wav
-                    out[ext] = wav
-                del done[rid]
-        for rid, toks in done.items():
-            req = self._meta.pop(rid)
-            ext = self._ext_of.pop(rid)
-            clean = toks[toks < SPEECH_VOCAB_SIZE]
-            if clean.size < MIN_TOKENS and req["tries"] < self.retries:
-                req["tries"] += 1
-                logger.warning("request %s produced %d tokens; retrying (%d/%d)", ext,
-                               clean.size, req["tries"], self.retries)
-                self._ext_of[self._submit_engine(req)] = ext
-                continue
-            if clean.size == 0:
-                self._failed[ext] = "empty decode after retries"
-                continue
-            self._ready.append((ext, toks, req["conds"], req["seed"]))
-        if self._ready and (len(self._ready) >= self.vocode_batch or self.decoder.idle):
-            batch, self._ready = self._ready, []
-            try:
-                wavs, _, _ = self.tts._vocode_batch(
-                    [t for _, t, _, _ in batch], conds_list=[c for _, _, c, _ in batch],
-                    seed=int(batch[0][3]), make_draws=self.make_draws)
-            except Exception:
-                # keep the completed decodes for the next pump's flush
-                self._ready = batch + self._ready
-                raise
-            for (ext, _t, _c, _s), wav in zip(batch, wavs):
-                if self.retain_wavs:
-                    self._wavs[ext] = wav
-                out[ext] = wav
-        return out
+        with profiling.span("server.pump"):
+            done = self.decoder.step()
+            out: Dict[int, np.ndarray] = {}
+            for rid, synth in list(self._streams.items()):
+                toks = self.decoder.last_block_tokens.get(rid)
+                ext = self._ext_of.get(rid, rid)
+                if toks is not None and toks.size:
+                    self._schunks[ext].extend(synth.feed(toks))
+                if rid in done:
+                    self._schunks[ext].extend(synth.finish())
+                    del self._streams[rid]
+                    self._meta.pop(rid, None)
+                    self._ext_of.pop(rid, None)
+                    chunks = self._schunks[ext]
+                    wav = np.concatenate(chunks) if chunks else np.zeros((0,), np.float32)
+                    if ext in self._stouched:
+                        # an active take_stream consumer: keep the untaken tail
+                        self._sdone.add(ext)
+                    else:
+                        self._schunks.pop(ext, None)
+                        self._staken.pop(ext, None)
+                    if wav.size == 0:
+                        self._failed[ext] = "empty streamed decode"
+                    else:
+                        if self.retain_wavs:
+                            self._wavs[ext] = wav
+                        out[ext] = wav
+                    del done[rid]
+            for rid, toks in done.items():
+                req = self._meta.pop(rid)
+                ext = self._ext_of.pop(rid)
+                clean = toks[toks < SPEECH_VOCAB_SIZE]
+                if clean.size < MIN_TOKENS and req["tries"] < self.retries:
+                    req["tries"] += 1
+                    logger.warning("request %s produced %d tokens; retrying (%d/%d)", ext,
+                                   clean.size, req["tries"], self.retries)
+                    self._ext_of[self._submit_engine(req)] = ext
+                    continue
+                if clean.size == 0:
+                    self._failed[ext] = "empty decode after retries"
+                    continue
+                self._ready.append((ext, toks, req["conds"], req["seed"]))
+            if self._ready and (len(self._ready) >= self.vocode_batch or self.decoder.idle):
+                batch, self._ready = self._ready, []
+                samples = 0
+                with profiling.span("server.vocode", rids=[ext for ext, *_ in batch]):
+                    try:
+                        wavs, _, _ = self.tts._vocode_batch(
+                            [t for _, t, _, _ in batch], conds_list=[c for _, _, c, _ in batch],
+                            seed=int(batch[0][3]), make_draws=self.make_draws)
+                    except Exception:
+                        # keep the completed decodes for the next pump's flush
+                        self._ready = batch + self._ready
+                        raise
+                    for (ext, _t, _c, _s), wav in zip(batch, wavs):
+                        if self.retain_wavs:
+                            self._wavs[ext] = wav
+                        out[ext] = wav
+                        samples += wav.size
+                profiling.count("vocode.rows", len(batch))
+                profiling.count("vocode.audio_samples", samples)
+            return out
 
     def drain(self) -> Dict[int, np.ndarray]:
         """Run until every submitted request has audio or failed; returns

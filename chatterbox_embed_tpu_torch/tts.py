@@ -74,7 +74,7 @@ from .parameters import AdaptiveParameterManager
 from .quality import ChunkQualityAnalyzer
 from .stitching import AdvancedStitcher
 from .text import STORY_BREAK_TOKEN, AdvancedTextSanitizer
-from .utils import audio_io
+from .utils import audio_io, profiling
 from .utils import weights as weights_mod
 from .utils.watermark import get_watermarker
 from .weights import FP32_S3GEN, from_arrays, place
@@ -921,53 +921,57 @@ class ChatterboxTTS:
         dispatch is enqueued before the first wav is fetched. Returns (list
         of (T_i,) float32 wavs, cleaned token counts, dispatch info)."""
         dev = self.device
-        u = len(token_lists)
-        token_lists = [s3gen_mod.drop_invalid_tokens(s3tok_mod.drop_invalid_tokens(t))
-                       for t in token_lists]
-        lens = [len(t) for t in token_lists]
-        bkt = _bucket_tokens(max([1] + lens))
-        toks = np.zeros((u, bkt), np.int64)
-        for i, t in enumerate(token_lists):
-            toks[i, :len(t)] = t
-        if conds_list is not None:
-            bundle = self._gen_device_multi(conds_list)
-            prompt_token, prompt_feat = bundle["prompt_token"], bundle["prompt_feat"]
-            embedding, p_lens = bundle["embedding"], bundle["prompt_len"]
-            prompt_len = torch.from_numpy(p_lens).to(dev)
-            n_prompt_w = bundle["p_bkt"]
-        else:
-            gen = conds.gen
-            n_prompt = int(np.asarray(gen["prompt_token_len"]).reshape(-1)[0])
-            prompt_token = torch.as_tensor(np.asarray(gen["prompt_token"]), dtype=torch.int64,
-                                           device=dev).expand(u, -1)
-            prompt_feat = torch.as_tensor(np.asarray(gen["prompt_feat"]), dtype=torch.float32,
-                                          device=dev).expand(u, -1, -1)
-            embedding = torch.as_tensor(np.asarray(gen["embedding"]), dtype=torch.float32,
-                                        device=dev).expand(u, -1)
-            p_lens = np.full((u,), n_prompt, np.int64)
-            prompt_len = None
-            n_prompt_w = n_prompt
-        token_len = torch.from_numpy(p_lens + np.asarray(lens, np.int64)).to(dev)
-        toks = torch.from_numpy(toks).to(dev)
-        sub = _derive_s3gen_sub_batch(u, n_prompt_w + bkt,
-                                      free_bytes=t3_mod.free_device_bytes(dev))
-        # one solver setting for every dispatch of the request: the last,
-        # partial sub-batch must not change the numerics
-        cache_every = _derive_cfm_cache(min(sub, u))
-        cfg_steps = _derive_cfm_cfg_steps()
-        make_draws = make_draws or (lambda s: Draws(s, dev))
+        with profiling.span("s3gen.prepare"):
+            u = len(token_lists)
+            token_lists = [s3gen_mod.drop_invalid_tokens(s3tok_mod.drop_invalid_tokens(t))
+                           for t in token_lists]
+            lens = [len(t) for t in token_lists]
+            bkt = _bucket_tokens(max([1] + lens))
+            toks = np.zeros((u, bkt), np.int64)
+            for i, t in enumerate(token_lists):
+                toks[i, :len(t)] = t
+            if conds_list is not None:
+                bundle = self._gen_device_multi(conds_list)
+                prompt_token, prompt_feat = bundle["prompt_token"], bundle["prompt_feat"]
+                embedding, p_lens = bundle["embedding"], bundle["prompt_len"]
+                prompt_len = torch.from_numpy(p_lens).to(dev)
+                n_prompt_w = bundle["p_bkt"]
+            else:
+                gen = conds.gen
+                n_prompt = int(np.asarray(gen["prompt_token_len"]).reshape(-1)[0])
+                prompt_token = torch.as_tensor(np.asarray(gen["prompt_token"]), dtype=torch.int64,
+                                               device=dev).expand(u, -1)
+                prompt_feat = torch.as_tensor(np.asarray(gen["prompt_feat"]), dtype=torch.float32,
+                                              device=dev).expand(u, -1, -1)
+                embedding = torch.as_tensor(np.asarray(gen["embedding"]), dtype=torch.float32,
+                                            device=dev).expand(u, -1)
+                p_lens = np.full((u,), n_prompt, np.int64)
+                prompt_len = None
+                n_prompt_w = n_prompt
+            token_len = torch.from_numpy(p_lens + np.asarray(lens, np.int64)).to(dev)
+            toks = torch.from_numpy(toks).to(dev)
+            sub = _derive_s3gen_sub_batch(u, n_prompt_w + bkt,
+                                          free_bytes=t3_mod.free_device_bytes(dev))
+            # one solver setting for every dispatch of the request: the last,
+            # partial sub-batch must not change the numerics
+            cache_every = _derive_cfm_cache(min(sub, u))
+            cfg_steps = _derive_cfm_cfg_steps()
+            make_draws = make_draws or (lambda s: Draws(s, dev))
         wavs = []
-        for s0 in range(0, u, sub):
+        for k, s0 in enumerate(range(0, u, sub)):
             s1 = min(u, s0 + sub)
-            wavs.append((s0, s1, s3gen_mod.token_to_wav(
-                self.s3gen_params, toks[s0:s1], token_len[s0:s1], prompt_token[s0:s1],
-                prompt_feat[s0:s1], embedding[s0:s1], make_draws(seed),
-                cfg=self.cfg.s3gen, dtype=self.dtype,
-                prompt_len=None if prompt_len is None else prompt_len[s0:s1],
-                cache_every=cache_every, cfg_steps=cfg_steps)))
+            with profiling.span("s3gen.dispatch", dispatch=k, rows=s1 - s0,
+                                cache_every=cache_every):
+                wavs.append((s0, s1, s3gen_mod.token_to_wav(
+                    self.s3gen_params, toks[s0:s1], token_len[s0:s1], prompt_token[s0:s1],
+                    prompt_feat[s0:s1], embedding[s0:s1], make_draws(seed),
+                    cfg=self.cfg.s3gen, dtype=self.dtype,
+                    prompt_len=None if prompt_len is None else prompt_len[s0:s1],
+                    cache_every=cache_every, cfg_steps=cfg_steps)))
         outs = []
-        for s0, s1, wav in wavs:
-            wav = wav.float().cpu().numpy()
+        for k, (s0, s1, wav) in enumerate(wavs):
+            with profiling.span("s3gen.fetch", dispatch=k):
+                wav = wav.float().cpu().numpy()
             outs.extend(wav[i, : 2 * lens[s0 + i] * 480] for i in range(s1 - s0))
         vinfo = dict(s3gen_sub_batch=sub, s3gen_dispatches=len(wavs),
                      cfm_cache_every=cache_every, cfm_cfg_steps=cfg_steps)

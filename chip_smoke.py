@@ -2596,12 +2596,13 @@ def _serve_engine(tts, requests, geo: dict, start_step: int = 0) -> dict:
     engine's completions (rid: tokens), each request's join step and slot,
     the wavs,
     the streamed chunks by rid, the decoder and the seconds: the wall, the
-    vocode dispatches'."""
+    vocode flushes' and the refills' (the program's spans)."""
     from chatterbox_embed_tpu_torch.serving.continuous import ContinuousServer
+    from chatterbox_embed_tpu_torch.utils import profiling
     srv = ContinuousServer(tts, **geo)
     srv.decoder.state.g = start_step
-    completions, joined, vocode_s = {}, {}, [0.0]
-    step, vocode = srv.decoder.step, tts._vocode_batch
+    completions, joined = {}, {}
+    step = srv.decoder.step
 
     def recording_step():
         out = step()
@@ -2616,15 +2617,10 @@ def _serve_engine(tts, requests, geo: dict, start_step: int = 0) -> dict:
             if sl.rid is not None:
                 joined.setdefault(sl.rid, (srv.decoder.state.g_start_host[i], i))
 
-    def timed_vocode(*a, **kw):
-        t0 = time.time()
-        out = vocode(*a, **kw)                   # ends in a copy to the host
-        vocode_s[0] += time.time() - t0
-        return out
-
     srv.decoder.step = recording_step
     srv.decoder._refill = recording_refill
-    tts._vocode_batch = timed_vocode
+    profiling.reset()
+    profiling.enable()
     try:
         t0 = time.time()
         rids = [srv.submit(**r) for r in requests]
@@ -2640,11 +2636,13 @@ def _serve_engine(tts, requests, geo: dict, start_step: int = 0) -> dict:
         torch.cuda.synchronize()
         wall = time.time() - t0
     finally:
-        del tts._vocode_batch
+        profiling.disable()
     if srv.failed:
         raise AssertionError(f"engine: failed requests {srv.failed}")
+    seconds = {k: v["ns"] / 1e9 for k, v in profiling.totals()["spans"].items()}
     return dict(rids=rids, completions=completions, joined=joined, wavs=wavs, chunks=chunks,
-                decoder=srv.decoder, wall_s=wall, vocode_s=vocode_s[0])
+                decoder=srv.decoder, wall_s=wall, vocode_s=seconds.get("server.vocode", 0.0),
+                refill_s=seconds.get("engine.refill", 0.0))
 
 
 def phase_engine(card: str, tts) -> dict:
@@ -2691,7 +2689,7 @@ def phase_engine(card: str, tts) -> dict:
     log("engine", requests=len(requests), slots=dec.slots, block=dec.block, steps=steps,
         blocks=dec.blocks_run, live_slot_steps=live, occupancy=f"{occupancy:.4f}",
         steps_per_s=f"{steps / dec.t_decode:.2f}", ms_per_step=f"{1e3 * dec.t_decode / steps:.3f}",
-        refill_s=f"{dec.t_refill:.4f}", decode_s=f"{dec.t_decode:.4f}",
+        refill_s=f"{run['refill_s']:.4f}", decode_s=f"{dec.t_decode:.4f}",
         vocode_s=f"{run['vocode_s']:.4f}", wall_s=f"{run['wall_s']:.4f}",
         tokens=",".join(str(len(tokens[r])) for r in run["rids"]),
         stream_chunks=len(run["chunks"][srid]),

@@ -39,7 +39,6 @@ from chatterbox_embed_tpu.models import layers as jlayers
 from chatterbox_embed_tpu.models import t3 as jt3
 from chatterbox_embed_tpu.parallel import make_mesh
 from chatterbox_embed_tpu.training import train_step as jts
-from chatterbox_embed_tpu.utils import profiling as jprof
 from chatterbox_embed_tpu_torch.kernels import flash_attention as tflash
 from chatterbox_embed_tpu_torch.kernels import flash_attention_bwd as tbwd
 from chatterbox_embed_tpu_torch.models import cfm as tcfm
@@ -520,23 +519,6 @@ def test_convert_reference_checkpoints(tmp_path):
 # profiling
 # ---------------------------------------------------------------------------
 
-def test_stage_timers_summary_equals_the_jax_copy(monkeypatch):
-    clock = iter(np.arange(0.0, 100.0, 0.37))
-    seq = ["t3", "s3gen", "t3", "watermark", "t3"]
-    summaries = []
-    for mod in (jprof, tprof):
-        monkeypatch.setattr(mod.time, "perf_counter", lambda: float(next(clock)))
-        timers = mod.StageTimers()
-        for name in seq:
-            with timers.stage(name):
-                pass
-        summaries.append(timers.summary())
-        monkeypatch.undo()
-        clock = iter(np.arange(0.0, 100.0, 0.37))
-    assert summaries[0] == summaries[1]
-    assert summaries[1]["t3"]["count"] == 3
-
-
 def test_trace_is_a_no_op_without_a_directory(tmp_path, monkeypatch):
     monkeypatch.delenv("CHATTERBOX_PROFILE_DIR", raising=False)
     monkeypatch.chdir(tmp_path)
@@ -548,10 +530,10 @@ def test_trace_is_a_no_op_without_a_directory(tmp_path, monkeypatch):
 def test_trace_writes_a_trace_on_the_cpu(tmp_path, monkeypatch):
     monkeypatch.setenv("CHATTERBOX_PROFILE_DIR", str(tmp_path / "prof"))
     with tprof.trace("step"):
-        with tprof.annotate("inner"):
+        with tprof.span("inner"):
             torch.ones(64, 64) @ torch.ones(64, 64)
     files = os.listdir(tmp_path / "prof")
     assert len(files) == 1 and files[0].startswith("step-") and files[0].endswith(".json")
     text = (tmp_path / "prof" / files[0]).read_text()
-    assert '"inner"' in text and '"step"' in text
+    assert '"chatterbox.inner"' in text and '"chatterbox.step"' in text
 
