@@ -65,6 +65,12 @@ from ..device import constant, resolve_device
 from ..kernels.flash_decode import decode_attention
 from . import layers as L
 
+# T3's face of a backbone (models/backbone.py)
+NAME = "Llama"
+UNSUPPORTED = frozenset()
+WHOLE_STEP = False
+SERVING_KERNELS = ("flash_decode", "fused_decode")
+
 
 class KVCache(NamedTuple):
     """(layers, L, B, H, D) k and v, updated in place by `forward`; for an
@@ -168,11 +174,14 @@ def kv_heads(params, cfg: LlamaConfig) -> int:
 
 
 def init_cache(cfg: LlamaConfig, batch: int, max_len: int, dtype=torch.float32,
-               device=None, heads: Optional[int] = None) -> KVCache:
+               device=None, heads: Optional[int] = None, route: bool = False) -> KVCache:
     """Zero (layers, max_len, batch, heads, D) k and v; heads defaults to
     cfg.num_kv_heads (a tp rank passes its share, `kv_heads`). dtype
     torch.int8 makes the int8 cache, with zero (layers, max_len, batch,
-    heads) fp32 scale planes."""
+    heads) fp32 scale planes. `route` (a routing record) raises: this
+    backbone routes to no experts."""
+    if route:
+        raise ValueError("route_record: only a latent backbone routes to experts")
     device = resolve_device(device)
     shape = (cfg.num_layers, max_len, batch, heads or cfg.num_kv_heads, cfg.head_dim)
     scales = ()
@@ -181,6 +190,16 @@ def init_cache(cfg: LlamaConfig, batch: int, max_len: int, dtype=torch.float32,
                        for _ in range(2))
     return KVCache(torch.zeros(shape, dtype=dtype, device=device),
                    torch.zeros(shape, dtype=dtype, device=device), *scales)
+
+
+def cache_bytes_per_token(cfg: LlamaConfig, dtype=torch.bfloat16, int8: bool = False) -> int:
+    """Bytes of cache one row holds for one token: k and v of every layer
+    and head, L * 2 * H * D in `dtype`; an int8 cache holds L * 2 * H *
+    (D + 4), its fp32 scale planes counted."""
+    if int8:
+        return cfg.num_layers * 2 * cfg.num_kv_heads * (cfg.head_dim + 4)
+    itemsize = torch.empty((), dtype=dtype).element_size()
+    return cfg.num_layers * 2 * cfg.num_kv_heads * cfg.head_dim * itemsize
 
 
 def quantize_kv(x: torch.Tensor):

@@ -56,6 +56,12 @@ counterpart of `chatterbox_embed_tpu/models/t3.py`: one utterance
   decodes its batch in one piece. `generate`, `generate_batch` and
   `start_generation` called on the leader run on every rank
   (`parallel.mesh.on_mesh`); `decode_block` runs inside such a call.
+- The backbone is chosen by its config (models/backbone.py): `cfg.llama` a
+  LlamaConfig (Llama_520M, models/llama.py) or a DeepseekV2Config
+  (models/deepseek_v2.py: latent attention, routed experts), whose params
+  sit under the same key and whose module gives the same face. The latter
+  runs init, prefill, the lock-step decode and the teacher-forced forward;
+  what it does not run raises where it is asked for (`backbone.check`).
 - Training: `forward` runs [cond; text; speech] teacher-forced through
   plain attention under a causal, key-valid mask, and `loss` is the masked
   cross-entropy with the JAX package's next-token shift; neither runs under
@@ -80,6 +86,7 @@ from ..kernels import fused_decode
 from ..ops import sampling
 from ..parallel.mesh import on_mesh
 from ..parallel.serve import shard_generation_inputs
+from . import backbone
 from . import layers as L
 from . import llama
 from .alignment import ALIGNMENT_LAYER
@@ -110,7 +117,7 @@ def init(init: L.Init, cfg: T3Config = T3Config()):
         "o": L.linear_init(init, d, d),
     }
     return {
-        "llama": llama.init(init, cfg.llama),
+        "llama": backbone.of(cfg.llama).init(init, cfg.llama),
         "text_emb": L.embedding_init(init, cfg.text_tokens_dict_size, d, 0.02),
         "speech_emb": L.embedding_init(init, cfg.speech_tokens_dict_size, d, 0.02),
         "text_pos_emb": L.embedding_init(init, cfg.max_text_seq_len, d, 0.02),
@@ -287,8 +294,9 @@ def forward(params, cond: T3Cond, text_tokens, text_lens, speech_tokens, speech_
     token t from the position before it."""
     x, pos, mask, widths = _train_context(params, cond, text_tokens, text_lens, speech_tokens,
                                           speech_lens, cfg)
-    h, _ = llama.forward(params["llama"], x, pos, mask, cfg=cfg.llama, dtype=dtype,
-                         remat=remat, mesh=mesh)
+    backbone.check(cfg.llama, training=remat, mesh=mesh is not None)
+    h, _ = backbone.of(cfg.llama).forward(params["llama"], x, pos, mask, cfg=cfg.llama,
+                                          dtype=dtype, remat=remat, mesh=mesh)
     return _train_heads(params, h, widths, dtype)
 
 
@@ -395,26 +403,29 @@ class DecodeState(NamedTuple):
 def prefill(params, context, cfg: T3Config, total: int, pad_len: int,
             cfg_on: bool = True, dtype=torch.float32,
             key_valid: Optional[torch.Tensor] = None, mesh=None,
-            n_utt: Optional[int] = None, kv_int8: bool = False) -> DecodeState:
+            n_utt: Optional[int] = None, kv_int8: bool = False,
+            route_record: bool = False) -> DecodeState:
     """Full-context forward filling a static cache of capacity `total`;
     context (B, P, D) has `pad_len` masked junk slots on the LEFT.
     key_valid: optional (B, total) bool that also masks each row's
     right-padded text keys. mesh: the tp mesh of the params' shards (the
     rows are the caller's: this rank's, under dp). n_utt: utterances of
     the counts and done flags (default B / 2 under CFG, else B). kv_int8:
-    the cache is int8 with its scale planes (models/llama.py)."""
+    the cache is int8 with its scale planes (models/llama.py).
+    route_record: a latent backbone's cache keeps its routing record."""
     b, p_len, _ = context.shape
     dev = context.device
-    cache = llama.init_cache(cfg.llama, b, total, torch.int8 if kv_int8 else dtype, dev,
-                             heads=llama.kv_heads(params["llama"], cfg.llama))
+    bb = backbone.of(cfg.llama)
+    cache = bb.init_cache(cfg.llama, b, total, torch.int8 if kv_int8 else dtype, dev,
+                          heads=bb.kv_heads(params["llama"], cfg.llama), route=route_record)
     idx = torch.arange(p_len, device=dev)
     kidx = torch.arange(total, device=dev)
     causal = ((kidx[None, :] <= idx[:, None]) & (kidx[None, :] >= pad_len))[None]
     if key_valid is not None:
         causal = causal & key_valid[:, None, :]
     pos = (idx - pad_len).clamp_min(0)[None].expand(b, p_len)
-    h, cache = llama.forward(params["llama"], context, pos, causal, cache=cache,
-                             cache_pos=0, cfg=cfg.llama, dtype=dtype, mesh=mesh)
+    h, cache = bb.forward(params["llama"], context, pos, causal, cache=cache, cache_pos=0,
+                          cfg=cfg.llama, dtype=dtype, mesh=mesh)
     logits0 = L.linear(params["speech_head"], h[:, -1], torch.float32)
     n_utt = n_utt or (b // 2 if cfg_on else b)
     counts0 = torch.zeros((n_utt, cfg.speech_tokens_dict_size), dtype=torch.int32,
@@ -459,10 +470,8 @@ def kv_bytes_per_token_row(cfg: Optional[T3Config] = None, dtype=torch.bfloat16,
     (D + 4), its fp32 scale planes counted (the JAX package's fence leaves
     them out, ROADMAP's reference fault 3)."""
     lcfg = (cfg or T3Config()).llama
-    if kv_int8:
-        return lcfg.num_layers * 2 * lcfg.num_kv_heads * (lcfg.head_dim + 4)
-    itemsize = torch.empty((), dtype=dtype).element_size()
-    return lcfg.num_layers * 2 * lcfg.num_kv_heads * lcfg.head_dim * itemsize
+    backbone.check(lcfg, int8_cache=kv_int8)
+    return backbone.of(lcfg).cache_bytes_per_token(lcfg, dtype, kv_int8)
 
 
 def max_decode_utterances(cache_capacity: Optional[int] = None, *,
@@ -553,7 +562,9 @@ def _fused_gate(params, cfg: T3Config, n_utt: int, cfg_on: bool, alignment: bool
                 mesh) -> bool:
     """K4's gates that hold before any row is seen: the setting, no mesh,
     no guard, at most FUSED_STEP_MAX_UTTERANCES, a bf16-able backbone and
-    a row count `fused_decode.plan` takes. Ragged rows turn it off later."""
+    a row count `fused_decode.plan` takes. Ragged rows turn it off later.
+    A backbone without K4 raises when it is asked for."""
+    backbone.check(cfg.llama, fused_step=_use_fused_step())
     return (mesh is None and _use_fused_step() and not alignment
             and n_utt <= FUSED_STEP_MAX_UTTERANCES and fused_weights(params)
             and fused_decode.plan(cfg.llama, (2 if cfg_on else 1) * n_utt) is not None)
@@ -637,6 +648,8 @@ def start_generation(params, cond: T3Cond, text_tokens: np.ndarray, *,
     cfg_on = _cfg_on(cfg_weight)
     pad, p_len, cap = _capacity(lt, cond, cfg, cfg_on, max_new_tokens)
     kv_mode = llama._kv_int8_mode()
+    backbone.check(cfg.llama, alignment=alignment, int8_cache=kv_mode > 0,
+                   mesh=mesh is not None)
     use_fused = _fused_gate(params, cfg, u, cfg_on, alignment, mesh)
     align_layer = text_start = text_len = None
     if alignment:
@@ -778,10 +791,10 @@ def decode_block(params, state: DecodeState, ginfo: dict, sp: sampling.SamplingP
         else:
             pos_id = torch.full((r1 - r0, 1), p_len - pad_len + i, dtype=torch.int64,
                                 device=dev)
-            out = llama.forward(params["llama"], emb[:, None, :].to(dtype), pos_id,
-                                cache=cache, cache_pos=p_len + i, cfg=cfg.llama,
-                                dtype=dtype, flash_start=pad_len, flash_hole=ginfo["hole"],
-                                collect_attn_layer=align_layer, mesh=mesh)
+            out = backbone.of(cfg.llama).forward(
+                params["llama"], emb[:, None, :].to(dtype), pos_id, cache=cache,
+                cache_pos=p_len + i, cfg=cfg.llama, dtype=dtype, flash_start=pad_len,
+                flash_hole=ginfo["hole"], collect_attn_layer=align_layer, mesh=mesh)
             hh, cache = out[0][:, -1], out[1]
             if align_layer is not None:
                 arow = out[2] if mesh is None else mesh.gather_dp(out[2])

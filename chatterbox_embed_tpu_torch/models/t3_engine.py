@@ -38,6 +38,17 @@ layout [cond rows 0..S-1; uncond rows S..2S-1], as t3.decode_block.
   ~200 launches instead of ~1,600; elsewhere the pieces are called as
   they are. A mesh takes the step whole (`engine_decode_block`): a graph
   cannot hold its collectives.
+- A latent backbone (models/deepseek_v2.py, DeepSeek-V2) keeps a latent
+  cache (layers, total, 2S', 576) in the same ring-column layout, and its
+  step has no eager kernel between its parts: off a mesh it is one piece
+  (`WholeStep`), captured whole as one CUDA graph on the card, the step's
+  keys the same spans and holes as a mask and its routed experts through K7;
+  elsewhere the piece is called as it is. With `route_record` the cache
+  also keeps every row's expert ids at each column (`LatentCache.route`),
+  and the decoder copies a finished request's ids to the host at the end
+  of the block (`ContinuousDecoder.routes`). Its int8 cache and the mesh
+  raise (`backbone.check`). Which step a backbone takes is its module's
+  `WHOLE_STEP` (models/backbone.py).
 - On a mesh (`mesh=`, parallel/): `engine_slots` is the JAX package's
   engine_sharding rule. Under dp each rank owns S/dp slots, both CFG rows
   of each, and holds their cache rows and logits; it prefills only the
@@ -63,9 +74,11 @@ import torch
 
 from ..config import T3Config
 from ..device import resolve_device
+from ..kernels import moe_experts
 from ..ops import sampling
 from ..parallel.mesh import on_mesh_method
 from ..utils import profiling
+from . import backbone
 from . import layers as L
 from . import llama
 from . import t3
@@ -80,7 +93,8 @@ class EngineState:
     and draw source (None for a free slot), and the slots [s0, s1) whose
     rows this rank holds (all of them off a dp mesh): the cache and the
     logits hold rows [cond of s0..s1-1; uncond of s0..s1-1]."""
-    cache: llama.KVCache          # (L, total, 2S', H, D) sequence-major, S' = s1 - s0
+    cache: llama.KVCache          # (L, total, 2S', H, D) sequence-major, S' = s1 - s0,
+                                  # or a latent backbone's LatentCache
     logits: torch.Tensor          # (2S', V) fp32
     counts: torch.Tensor          # (S, V) int32
     fresh_counts: torch.Tensor    # (V,) int32: a new request's counts (BOS once)
@@ -127,12 +141,13 @@ def engine_geometry(cfg: T3Config, text_bucket: int, cond_w: int, max_new_tokens
 def engine_init(cfg: T3Config, *, slots: int, text_bucket: int, cond_w: int,
                 max_new_tokens: int, dtype=torch.float32, device=None,
                 own: Optional[tuple] = None, heads: Optional[int] = None,
-                kv_int8: bool = False) -> EngineState:
+                kv_int8: bool = False, route_record: bool = False) -> EngineState:
     """All-free engine state on `device` (None: the card): every slot done,
     with pad = p_len. The cache has the compute dtype, or is int8 with its
     scale planes (`kv_int8`). own: the slots [s0, s1) whose rows this rank
     holds (default all); heads: its K/V heads (default all,
-    llama.init_cache)."""
+    llama.init_cache). A latent backbone's cache is a LatentCache, with its
+    routing record under `route_record`."""
     device = resolve_device(device)
     p_len, total = engine_geometry(cfg, text_bucket, cond_w, max_new_tokens)
     if max_new_tokens + 2 > cfg.max_speech_seq_len:
@@ -148,8 +163,9 @@ def engine_init(cfg: T3Config, *, slots: int, text_bucket: int, cond_w: int,
         return torch.full(shape, value, dtype=dt, device=device)
 
     return EngineState(
-        cache=llama.init_cache(cfg.llama, 2 * mine, total, torch.int8 if kv_int8 else dtype,
-                               device, heads=heads),
+        cache=backbone.of(cfg.llama).init_cache(cfg.llama, 2 * mine, total,
+                                                torch.int8 if kv_int8 else dtype, device,
+                                                heads=heads, route=route_record),
         logits=full((2 * mine, v), 0.0, torch.float32),
         counts=full((s, v), 0, torch.int32),
         fresh_counts=torch.nn.functional.one_hot(
@@ -193,11 +209,12 @@ def engine_spans(pad: torch.Tensor, g_start: torch.Tensor, dead: torch.Tensor, g
 @torch.no_grad()
 def prefill_request(params, cond: t3.T3Cond, text_tokens: np.ndarray, *, text_bucket: int,
                     p_len: int, cfg: T3Config, dtype=torch.float32, device=None, mesh=None,
-                    kv_int8: bool = False):
+                    kv_int8: bool = False, route_record: bool = False):
     """Prefill ONE request's 2 CFG rows into a p_len-capacity DecodeState
     (t3._build_context and t3.prefill, left-padded to the engine's text
     bucket; `mesh`: the tp ranks of the params' shards; `kv_int8`: an int8
-    cache). Returns (state, pad)."""
+    cache; `route_record`: a latent cache's routing record). Returns
+    (state, pad)."""
     device = resolve_device(device)
     tt = np.atleast_2d(np.asarray(text_tokens, np.int32))
     if tt.shape[0] != 1:
@@ -209,7 +226,7 @@ def prefill_request(params, cond: t3.T3Cond, text_tokens: np.ndarray, *, text_bu
     tb = torch.from_numpy(np.pad(tt, ((0, 0), (pad, 0)))).to(device)
     context = t3._build_context(params, cond, tb, cfg, True, pad)
     return t3.prefill(params, context, cfg, p_len, pad, True, dtype, mesh=mesh,
-                      kv_int8=kv_int8), pad
+                      kv_int8=kv_int8, route_record=route_record), pad
 
 
 @torch.no_grad()
@@ -217,15 +234,15 @@ def engine_insert(state: EngineState, sub: t3.DecodeState, slot: int, draws,
                   meta: Dict[str, float]) -> None:
     """Put a prefilled request (prefill_request's state, capacity p_len)
     into slot `slot`, in place: its cache columns [0, p_len) of the slot's
-    cond and uncond rows (and of an int8 cache's scale planes), their
-    logits, its counts and sampling parameters,
-    and its join step g. meta: limit, pad, temperature, cfg_weight,
+    cond and uncond rows (and of an int8 cache's scale planes, or a latent
+    cache's routing record), their logits, its counts and sampling
+    parameters, and its join step g. meta: limit, pad, temperature, cfg_weight,
     repetition_penalty, min_p, top_p. Every write takes a host scalar or a
     device tensor; no copy waits for the device. A rank that does not hold
     the slot's rows passes sub None and keeps only the bookkeeping."""
     s0, s1 = state.own
     if sub is not None:
-        p_len = sub.cache.k.shape[1]
+        p_len = sub.cache[0].shape[1]
         pairs = list(zip(state.cache, sub.cache))      # k, v (, k_scale, v_scale)
         for half, row in enumerate((slot - s0, s1 - s0 + slot - s0)):
             for dst, src in pairs:
@@ -288,7 +305,9 @@ def engine_decode_block(params, state: EngineState, cfg: T3Config, block: int, p
 
     mesh: each rank forwards the rows of its slots (state.own) and the
     logits are gathered over dp before each step's sampling. Off a mesh
-    the engine takes the same step in pieces (`pieced_decode_block`)."""
+    the engine takes the same step in pieces (`pieced_decode_block`); a
+    latent backbone's step here is the eager one its `WholeStep` is held
+    to (it runs on no mesh)."""
     s_slots = state.done.shape[0]
     s0, s1 = state.own
     local = None                                      # this rank's rows of the 2S
@@ -301,7 +320,7 @@ def engine_decode_block(params, state: EngineState, cfg: T3Config, block: int, p
 
     dev = state.logits.device
     v = cfg.speech_tokens_dict_size
-    total = state.cache.k.shape[1]
+    total = state.cache[0].shape[1]
     ring = total - p_len
     pos_emb = params["speech_pos_emb"]["w"]
     zeros = torch.zeros((v,), dtype=torch.float32, device=dev)
@@ -326,10 +345,10 @@ def engine_decode_block(params, state: EngineState, cfg: T3Config, block: int, p
             emb = ours(torch.cat([emb, emb]))[:, None]
             pos_id = (p_len - state.pad + state.i)[:, None]
             span, hole = engine_spans(state.pad, state.g_start, done, state.g, p_len, ring)
-            hh, _ = llama.forward(params["llama"], emb.to(dtype),
-                                  ours(torch.cat([pos_id, pos_id])), cache=state.cache,
-                                  cache_pos=p_len + state.g % ring, cfg=cfg.llama, dtype=dtype,
-                                  flash_hole=ours(hole), flash_span=ours(span), mesh=mesh)
+            hh, _ = backbone.of(cfg.llama).forward(
+                params["llama"], emb.to(dtype), ours(torch.cat([pos_id, pos_id])),
+                cache=state.cache, cache_pos=p_len + state.g % ring, cfg=cfg.llama,
+                dtype=dtype, flash_hole=ours(hole), flash_span=ours(span), mesh=mesh)
             state.logits.copy_(L.linear(params["speech_head"], hh[:, -1], torch.float32))
         state.i.copy_(torch.where(state.done, state.i, state.i + 1))
         state.done.copy_(done)
@@ -511,6 +530,120 @@ class StepPieces:
             self.pool_bytes = torch.cuda.memory_reserved(dev) - reserved
 
 
+def latent_keys(pad: torch.Tensor, g_start: torch.Tensor, dead: torch.Tensor, c: torch.Tensor,
+                p_len: int, ring: int, total: int) -> torch.Tensor:
+    """(2S, total) bool: the keys of `engine_spans`' spans minus their
+    holes, as a mask, with the ring column c = g mod R a device value (a
+    graph replays it at every step): a live slot's context [pad, p_len)
+    and the ring columns from a = gs mod R to c, wrapping; a dead slot keeps
+    key 0 alone (deepseek_v2.decode_valid's rule for an empty span)."""
+    k = torch.arange(total, device=pad.device)[None]
+    a = torch.remainder(g_start, ring)[:, None]
+    r = k - p_len
+    after, upto = r >= a, r <= c
+    ring_on = (r >= 0) & torch.where(a > c, after | upto, after & upto)
+    live = ((k >= pad[:, None]) & (k < p_len)) | ring_on
+    keys = torch.where(dead[:, None], k == 0, live)
+    return torch.cat([keys, keys])
+
+
+class WholeStep:
+    """A latent backbone's decode step (engine_decode_block's body, off a
+    mesh) as one piece over static buffers of one engine: `_sample` on the
+    static Gumbel rows `noise`, the next embedding and positions, the
+    backbone through its latent cache (the keys of `latent_keys`, the ring
+    column written at the device index from `g`, the routed experts
+    through K7), the speech head into state.logits, and the i / done
+    updates, in place. Nothing in it reads the host, so on the card the
+    first step runs it eagerly on a side stream (the warm-up) and `capture`
+    records it as one CUDA graph, which later steps replay; elsewhere it is
+    called. Either way the work, its precision and its tokens are the eager
+    step's. The same face as StepPieces to `pieced_decode_block`. K7's
+    launch counter (`grouped_swiglu.launches`) counts what each replay
+    runs, as an eager step would: the capture's count is taken back and
+    added again at every replay."""
+
+    def __init__(self, params, state: EngineState, cfg: T3Config, p_len: int,
+                 use_top_p: bool, dtype):
+        s_slots = state.done.shape[0]
+        if state.own != (0, s_slots):
+            raise ValueError("the step holds every slot: a latent backbone runs on no dp mesh")
+        dev = state.logits.device
+        self.params, self.state, self.cfg = params, state, cfg
+        self.p_len, self.total = p_len, state.cache[0].shape[1]
+        self.ring = self.total - p_len
+        self.use_top_p, self.dtype = use_top_p, dtype
+        self.noise = torch.zeros((s_slots, cfg.speech_tokens_dict_size), dtype=torch.float32,
+                                 device=dev)
+        self.g = torch.zeros((), dtype=torch.int64, device=dev)
+        self.out: dict = {}
+        self.on_card = dev.type == "cuda"
+        self.graph = None
+        self.pool_bytes = 0
+        self.launches = 0            # K7 launches a replay
+
+    def _body(self) -> dict:
+        st, cfg, p = self.state, self.cfg, self.params
+        tok, done = _sample(st, st.logits, self.noise, cfg, self.use_top_p)
+        emb = L.embedding(p["speech_emb"], tok) + p["speech_pos_emb"]["w"][st.i + 1]
+        pos_id = (self.p_len - st.pad + st.i)[:, None]
+        c = torch.remainder(self.g, self.ring)
+        keys = latent_keys(st.pad, st.g_start, done, c, self.p_len, self.ring, self.total)
+        hh, _ = backbone.of(cfg.llama).forward(
+            p["llama"], torch.cat([emb, emb])[:, None].to(self.dtype),
+            torch.cat([pos_id, pos_id]), cache=st.cache, cache_pos=(self.p_len + c).reshape(1),
+            cfg=cfg.llama, dtype=self.dtype, key_valid=keys)
+        st.logits.copy_(L.linear(p["speech_head"], hh[:, -1], torch.float32))
+        st.i.copy_(torch.where(st.done, st.i, st.i + 1))
+        st.done.copy_(done)
+        return dict(tok=tok)
+
+    def step(self, g: int) -> torch.Tensor:
+        """Run step g (its Gumbel rows already in `noise`) and return its
+        tokens (S,). The first step on the card is the warm-up, eager on a
+        side stream, followed by the capture."""
+        with profiling.span("engine.forward"):
+            self.g.fill_(g)
+            if self.graph is not None:
+                self.graph.replay()
+                moe_experts.grouped_swiglu.launches += self.launches
+                profiling.count("engine.graphed_steps")
+            elif not self.on_card:
+                self.out = self._body()
+            else:
+                dev = self.noise.device
+                main, side = torch.cuda.current_stream(dev), torch.cuda.Stream(dev)
+                side.wait_stream(main)
+                with torch.cuda.stream(side):
+                    tok = self._body()["tok"].clone()
+                main.wait_stream(side)
+                self.capture(side)
+                return tok
+            return self.out["tok"].clone()
+
+    def capture(self, side) -> None:
+        """Record the step as one CUDA graph on `side`. A capture runs
+        nothing: the graph's outputs hold values from the first replay on."""
+        dev = self.noise.device
+        with profiling.span("engine.capture"):
+            torch.cuda.synchronize(dev)
+            reserved = torch.cuda.memory_reserved(dev)
+            graph = torch.cuda.CUDAGraph()
+            n0 = moe_experts.grouped_swiglu.launches
+            with torch.cuda.stream(side):
+                graph.capture_begin()
+                try:
+                    self.out = self._body()
+                finally:
+                    graph.capture_end()
+                    # a capture records launches without running them
+                    self.launches = moe_experts.grouped_swiglu.launches - n0
+                    moe_experts.grouped_swiglu.launches = n0
+            torch.cuda.current_stream(dev).wait_stream(side)
+            self.graph = graph
+            self.pool_bytes = torch.cuda.memory_reserved(dev) - reserved
+
+
 @torch.no_grad()
 def pieced_decode_block(pieces: StepPieces, state: EngineState, block: int):
     """engine_decode_block through the step's pieces (StepPieces): the same
@@ -556,6 +689,8 @@ class _Slot:
     buf: List[np.ndarray] = field(default_factory=list)
     count: int = 0
     limit: int = 0
+    pad: int = 0
+    g_start: int = 0
 
 
 class ContinuousDecoder:
@@ -573,7 +708,13 @@ class ContinuousDecoder:
     the decoder is built on every rank (module docstring).
     pieces: the step's pieces (`StepPieces`) off a mesh, captured as CUDA
     graphs in the first block on the card; None on a mesh, where the step
-    runs whole.
+    runs whole. A latent backbone's step is one piece (`WholeStep`), one
+    graph on the card.
+    route_record: a latent backbone's engine keeps every row's expert ids
+    (`LatentCache.route`), and each finished request's are copied to the
+    host into `routes` {rid: (moe layers, positions, 2, k) int16}, over its
+    context columns [pad, p_len) and its first n - 1 steps (the tokens fed
+    back): the caller takes them from there.
     """
 
     def __init__(self, params, cfg: T3Config = T3Config(), *, slots: int = 8,
@@ -581,8 +722,12 @@ class ContinuousDecoder:
                  dtype=torch.float32, kv_int8: Optional[bool] = None,
                  use_top_p: bool = False, retain_results: bool = True,
                  make_draws: Optional[Callable[[int], object]] = None, device=None,
-                 mesh=None):
+                 mesh=None, route_record: bool = False):
         self.kv_int8 = llama._kv_int8_mode() > 0 if kv_int8 is None else bool(kv_int8)
+        bb = backbone.of(cfg.llama)
+        backbone.check(cfg.llama, int8_cache=self.kv_int8, mesh=mesh is not None)
+        self.route_record = route_record
+        self.routes: Dict[int, np.ndarray] = {}
         own = engine_slots(mesh, slots)
         self.mesh = mesh
         self.device = resolve_device(device)
@@ -599,12 +744,13 @@ class ContinuousDecoder:
         self.p_len, self.total = engine_geometry(cfg, text_bucket, self.cond_w, max_new_tokens)
         self.state = engine_init(cfg, slots=slots, text_bucket=text_bucket, cond_w=self.cond_w,
                                  max_new_tokens=max_new_tokens, dtype=dtype, device=self.device,
-                                 own=own, heads=llama.kv_heads(params["llama"], cfg.llama),
-                                 kv_int8=self.kv_int8)
+                                 own=own, heads=bb.kv_heads(params["llama"], cfg.llama),
+                                 kv_int8=self.kv_int8, route_record=route_record)
         # the step's pieces off a mesh (graphed on the card); None: the step
         # whole, on a mesh, whose collectives a graph cannot hold
-        self.pieces = (StepPieces(params, self.state, cfg, self.p_len, use_top_p, dtype)
-                       if mesh is None else None)
+        self.pieces = (None if mesh is not None else
+                       (WholeStep if bb.WHOLE_STEP else StepPieces)(params, self.state, cfg,
+                                                                    self.p_len, use_top_p, dtype))
         self._queue: List[dict] = []
         self._slots = [_Slot() for _ in range(slots)]
         # retain_results=False for run-forever callers that consume step()'s
@@ -672,12 +818,14 @@ class ContinuousDecoder:
                         sub, pad = prefill_request(
                             self.params, req["cond"], req["text"], text_bucket=self.text_bucket,
                             p_len=self.p_len, cfg=self.cfg, dtype=self.dtype,
-                            device=self.device, mesh=self.mesh, kv_int8=self.kv_int8)
+                            device=self.device, mesh=self.mesh, kv_int8=self.kv_int8,
+                            route_record=self.route_record)
                     meta = dict(limit=req["max_new"], pad=pad, **{
                         k: req[k] for k in ("temperature", "cfg_weight", "rep_penalty", "min_p",
                                             "top_p")})
                     engine_insert(self.state, sub, s_idx, self.make_draws(req["seed"]), meta)
-                    self._slots[s_idx] = _Slot(rid=req["rid"], limit=req["max_new"])
+                    self._slots[s_idx] = _Slot(rid=req["rid"], limit=req["max_new"], pad=pad,
+                                               g_start=self.state.g)
 
     @property
     def idle(self) -> bool:
@@ -725,6 +873,8 @@ class ContinuousDecoder:
                     end = min(end, sl.limit)
                     out[sl.rid] = seq[:end]
                     self.last_block_tokens[sl.rid] = seq[prev:end]
+                    if self.route_record:
+                        self.routes[sl.rid] = self._routes_of(s_idx, sl, end)
                     if self.retain_results:
                         self._results[sl.rid] = out[sl.rid]
                     self._slots[s_idx] = _Slot()
@@ -732,6 +882,18 @@ class ContinuousDecoder:
                 else:
                     self.last_block_tokens[sl.rid] = tokens_h[:nj, s_idx]
             return out
+
+    def _routes_of(self, s_idx: int, sl: _Slot, n: int) -> np.ndarray:
+        """A finished request's expert ids, (moe layers, positions, 2, k):
+        its context columns, then the ring columns of its first n - 1
+        steps, of its cond and uncond rows (read before the slot refills)."""
+        rec = self.state.cache.route
+        ring = self.total - self.p_len
+        cols = (list(range(sl.pad, self.p_len))
+                + [self.p_len + (sl.g_start + t) % ring for t in range(n - 1)])
+        idx = torch.tensor(cols, dtype=torch.int64, device=rec.device)
+        rows = torch.tensor([s_idx, self.slots + s_idx], dtype=torch.int64, device=rec.device)
+        return rec.index_select(1, idx).index_select(2, rows).cpu().numpy()
 
     @on_mesh_method
     def drain(self) -> Dict[int, np.ndarray]:

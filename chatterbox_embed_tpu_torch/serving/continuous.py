@@ -65,6 +65,10 @@ class ContinuousServer:
         allocate (an explicit value overrides the setting).
       make_draws: draw-source factory (module docstring); on a mesh it must
         pickle.
+      route_record: a latent backbone's engine keeps each finished
+        request's expert ids (`ContinuousDecoder.routes`), moved to
+        `routes` {external rid: ids} as the request completes; the caller
+        pops them.
 
     On a mesh-enabled pipeline (`tts.enable_mesh`) the engine runs over
     `tts.mesh`: the default slot count is dp times the one-card default
@@ -77,7 +81,8 @@ class ContinuousServer:
                  max_new_tokens: int = 600, block: int = 64, vocode_batch: int = 8,
                  use_top_p: bool = False, kv_int8: Optional[bool] = None, retries: int = 1,
                  retain_wavs: bool = True,
-                 make_draws: Optional[Callable[[int], object]] = None):
+                 make_draws: Optional[Callable[[int], object]] = None,
+                 route_record: bool = False):
         self.tts = tts
         self.make_draws = make_draws or functools.partial(Draws, device=tts.device)
         mesh = getattr(tts, "mesh", None)
@@ -96,7 +101,7 @@ class ContinuousServer:
             tts.t3_params, tts.cfg.t3, slots=slots, text_bucket=text_bucket,
             max_new_tokens=max_new_tokens, block=block, dtype=tts.dtype, kv_int8=kv_int8,
             use_top_p=use_top_p, retain_results=False, make_draws=self.make_draws,
-            device=tts.device, mesh=mesh)
+            device=tts.device, mesh=mesh, route_record=route_record)
         self.vocode_batch = vocode_batch
         self.retries = retries
         # a run-forever caller consumes results from pump()'s return value;
@@ -108,6 +113,7 @@ class ContinuousServer:
         self._ready: List[Tuple[int, np.ndarray, object, int]] = []
         self._wavs: Dict[int, np.ndarray] = {}
         self._failed: Dict[int, str] = {}
+        self.routes: Dict[int, np.ndarray] = {}
         # streamed requests: engine rid -> WindowedSynth; ext rid -> chunks
         self._streams: Dict[int, object] = {}
         self._schunks: Dict[int, List[np.ndarray]] = {}
@@ -235,6 +241,8 @@ class ContinuousServer:
             for rid, toks in done.items():
                 req = self._meta.pop(rid)
                 ext = self._ext_of.pop(rid)
+                if rid in self.decoder.routes:
+                    self.routes[ext] = self.decoder.routes.pop(rid)
                 clean = toks[toks < SPEECH_VOCAB_SIZE]
                 if clean.size < MIN_TOKENS and req["tries"] < self.retries:
                     req["tries"] += 1

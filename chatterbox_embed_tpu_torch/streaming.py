@@ -42,6 +42,7 @@ import torch.nn.functional as F
 from .config import SPEECH_VOCAB_SIZE, ChatterboxConfig
 from .device import resolve_device
 from .kernels import flash_attention, flash_decode, fused_decode, rel_attention
+from .models import backbone
 from .models import hifigan as hift_mod
 from .models import llama as llama_mod
 from .models import s3gen as s3gen_mod
@@ -353,6 +354,7 @@ def first_chunk(t3_params, s3_params, cond: t3_mod.T3Cond, text_tokens: np.ndarr
     only (cfg_weight > 0, the deployed configuration)."""
     if not float(np.asarray(cfg_weight, np.float32)) > 0.0:
         raise ValueError("first_chunk: the first-chunk program takes cfg_weight > 0")
+    backbone.check(cfg.t3.llama, first_chunk=True)
     device = resolve_device(device)
     t3c = cfg.t3
     tt_np = np.atleast_2d(np.asarray(text_tokens, np.int32))

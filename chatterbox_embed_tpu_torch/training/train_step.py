@@ -44,6 +44,7 @@ import torch
 from ..config import CFMConfig, FlowDecoderConfig, T3Config
 from ..device import resolve_device
 from ..models import cfm as cfm_mod
+from ..models import backbone
 from ..models import t3 as t3_mod
 from ..parallel.mesh import Mesh, flow_param_spec, kept, on_mesh, shard_params, t3_param_spec
 
@@ -184,7 +185,9 @@ def make_t3_train_step(mesh=None, cfg: T3Config = T3Config(), lr: float = 1e-4,
     batch of T3_BATCH_KEYS arrays (moved to the parameters' device).
     metrics: loss, loss_text, loss_speech and the step it was, as device
     tensors. mesh: a dp x tp mesh the state was placed on (shard_t3_state);
-    the step then runs on every rank (module docstring)."""
+    the step then runs on every rank (module docstring). A backbone that
+    does not train here raises (models/backbone.py)."""
+    backbone.check(cfg.llama, training=True)
     _train_mesh(mesh)
     return functools.partial(_t3_step, cfg=cfg, lr=lr, dtype=dtype, remat=remat, mesh=mesh)
 

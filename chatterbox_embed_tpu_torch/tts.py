@@ -61,6 +61,7 @@ from .chunking import ChunkInfo, SmartChunker
 from .conditionals import Conditionals
 from .config import S3_SR, S3GEN_SR, SPEECH_VOCAB_SIZE, ChatterboxConfig
 from .device import lap, resolve_device
+from .models import backbone
 from .models import layers as L
 from .models import s3gen as s3gen_mod
 from .models import s3tokenizer as s3tok_mod
@@ -253,7 +254,9 @@ class ChatterboxTTS:
         n_devices: ranks, one a card (None: every visible card); tp as
         parallel.make_mesh. device: None for the cards; a device name puts
         every rank on that one device (the CPU; two ranks sharing a card).
-        Rank 0 must run on this pipeline's device. Returns the mesh."""
+        Rank 0 must run on this pipeline's device. Returns the mesh. A
+        backbone that runs on no mesh raises (models/backbone.py)."""
+        backbone.check(self.cfg.t3.llama, mesh=True)
         from .parallel import make_dp_tp_mesh, shard_t3_for_serving
         mesh = make_dp_tp_mesh(n_devices, tp=tp, device=device)
         if mesh.device != self.device:
@@ -310,7 +313,7 @@ class ChatterboxTTS:
         s3_tree = weights_mod.convert_s3gen(s3_sd, cfg=config.s3gen)
         state = from_arrays(t3_tree, s3_tree, config, ve_params=ve_tree)
         if int8:
-            state["t3"] = quantize_t3(state["t3"])
+            state["t3"] = quantize_t3(state["t3"], config.t3)
         if _env_bool("CHATTERBOX_INT8_S3GEN", False):
             state["s3gen"] = quantize_s3gen(state["s3gen"])
         tokenizer = EnTokenizer(str(ckpt_dir / "tokenizer.json"))
@@ -401,8 +404,10 @@ class ChatterboxTTS:
                 torch.cuda.synchronize(self.device)
             timings[name] = time.time() - t0
 
+        bb = backbone.of(self.cfg.t3.llama)
+        backbone.check(self.cfg.t3.llama, fused_step=t3_mod._use_fused_step())
         if self.device.type == "cuda":
-            stage("kernels_s", _build_serving_kernels)
+            stage("kernels_s", lambda: _build_serving_kernels(bb.SERVING_KERNELS))
             if (t3_mod._use_fused_step() and t3_mod.fused_weights(self._t3_single)
                     and t3_mod.fused_decode.plan(self.cfg.t3.llama, 2) is not None):
                 stage("fused_wall_s", lambda: t3_mod._fused_params(
@@ -1533,12 +1538,17 @@ class ChatterboxTTS:
         return generate_tts_story(self, *args, **kwargs)
 
 
-def _build_serving_kernels() -> None:
+def _build_serving_kernels(backbone_kernels=("flash_decode", "fused_decode")) -> None:
     """Build (one nvcc each, all started together) and load every kernel a
-    request can launch: K1/K1s, K2, K3 and K4. The probes build when run."""
-    from .kernels import _build, flash_attention, flash_decode, fused_decode, rel_attention
-    entries = {flash_decode: "cbx_flash_decode", rel_attention: "cbx_rel_attention",
-               flash_attention: "cbx_flash_attention", fused_decode: "cbx_fused_decode"}
+    request can launch: the backbone's (`SERVING_KERNELS`: K1/K1s and K4 for
+    Llama, K7 for DeepSeek-V2) and S3Gen's K2 and K3. The probes build when
+    run."""
+    import importlib
+
+    from .kernels import _build, flash_attention, rel_attention
+    entries = {importlib.import_module(f".kernels.{name}", __package__): f"cbx_{name}"
+               for name in backbone_kernels}
+    entries.update({rel_attention: "cbx_rel_attention", flash_attention: "cbx_flash_attention"})
     _build.build_all([m.SOURCE for m in entries])
     for m, entry in entries.items():
         _build.load(m.SOURCE, entry, m._ARGTYPES)

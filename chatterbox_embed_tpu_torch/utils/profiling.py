@@ -10,6 +10,14 @@ work, and the torch.profiler trace behind CHATTERBOX_PROFILE_DIR.
   span is also the range "chatterbox.<name>" on the profiler's timeline.
   Spans nest per thread; `ids` name what a span worked on (a request id).
 - `count(name, n=1)` adds to a running total while on.
+- Device counters (`device_add(name, value)`): int64 tensors on the
+  device, added to on the device while on (with the spans, or alone after
+  `enable_device_counters()`, which leaves the spans off), so that code
+  captured into a CUDA graph counts at every replay: the adds are captured
+  only when they are on at capture, and cost nothing otherwise. A counter is made
+  at its first add, which must not be inside a capture. `totals()` folds
+  them into its counters with one copy to the host; `reset()` zeroes them
+  in place, since a graph holds their addresses.
 - `enable()`, `disable()`, `reset()`, `totals()`, `spans()`.
 - One clock with the device trace: torch.profiler (Kineto) stamps host
   events in Unix ns. `enable()` takes `offset_ns = time.time_ns() -
@@ -20,7 +28,7 @@ work, and the torch.profiler trace behind CHATTERBOX_PROFILE_DIR.
   program's spans among its ranges.
 
 No span goes inside code captured into a CUDA graph: it would record at
-capture only. Device times of kernels are measured with
+capture only; device counters do. Device times of kernels are measured with
 `probes/timing.py`, not here.
 """
 from __future__ import annotations
@@ -39,6 +47,7 @@ MAX_SPANS = 1 << 20
 RANGE_PREFIX = "chatterbox."
 
 _on = False
+_device_on = False
 _offset_ns = 0
 _OFF = contextlib.nullcontext()
 _lock = threading.Lock()
@@ -46,6 +55,7 @@ _local = threading.local()
 _spans: deque = deque(maxlen=MAX_SPANS)
 _totals: Dict[str, List[int]] = {}           # name -> [calls, ns, self ns]
 _counters: Dict[str, int] = defaultdict(int)
+_device: Dict[str, torch.Tensor] = {}        # name -> int64 counter on the device
 
 
 class _Span:
@@ -102,6 +112,32 @@ def count(name: str, n: int = 1) -> None:
             _counters[name] += n
 
 
+def device_counting() -> bool:
+    """Whether device counters are added to now."""
+    return _on or _device_on
+
+
+def enable_device_counters(on: bool = True) -> None:
+    """Turn the device counters on (or off) without the spans."""
+    global _device_on
+    _device_on = on
+
+
+def device_add(name: str, value: torch.Tensor) -> None:
+    """Add `value` (a 0-dim integer tensor) to the device counter `name` on
+    the device, while on. The counter is made on value's device at its
+    first add, which raises inside a CUDA graph capture."""
+    if not device_counting():
+        return
+    t = _device.get(name)
+    if t is None:
+        if value.is_cuda and torch.cuda.is_current_stream_capturing():
+            raise RuntimeError(f"device counter {name!r} first added inside a CUDA graph "
+                               "capture: add to it once eagerly first")
+        t = _device[name] = torch.zeros((), dtype=torch.int64, device=value.device)
+    t.add_(value.to(torch.int64))
+
+
 def enable() -> None:
     """Turn spans and counters on, and take the offset that puts
     perf_counter_ns on the profiler's Unix clock."""
@@ -121,15 +157,26 @@ def reset() -> None:
         _spans.clear()
         _totals.clear()
         _counters.clear()
+        for t in _device.values():
+            t.zero_()
 
 
 def totals() -> dict:
     """{"spans": {name: {"calls", "ns", "self_ns"}}, "counters": {name: n}}
-    since the last reset."""
+    since the last reset; the device counters read with one copy to the
+    host."""
+    names = list(_device)
+    values = []
+    if names:
+        dev = _device[names[0]].device
+        values = torch.stack([_device[k].to(dev) for k in names]).tolist()
     with _lock:
+        counters = dict(_counters)
+        # a device counter at zero is left out, as a host counter never added to
+        counters.update((k, v) for k, v in zip(names, values) if v)
         return {"spans": {k: {"calls": c, "ns": ns, "self_ns": s}
                           for k, (c, ns, s) in _totals.items()},
-                "counters": dict(_counters)}
+                "counters": counters}
 
 
 def spans() -> list:

@@ -12,6 +12,8 @@ so an int8 tree reads fewer bytes where it is stored, not in the product.
 """
 from __future__ import annotations
 
+from ..config import T3Config
+from ..models import backbone
 from ..models import layers as L
 
 
@@ -31,7 +33,11 @@ def quantize_llama(llama_params: dict) -> dict:
     return out
 
 
-def quantize_t3(t3_params: dict) -> dict:
+def quantize_t3(t3_params: dict, cfg: T3Config = T3Config()) -> dict:
+    """T3 with its backbone's linears in int8 (`quantize_llama`); a backbone
+    whose int8 weights are not ported (cfg.llama, models/backbone.py)
+    raises."""
+    backbone.check(cfg.llama, int8_weights=True)
     out = dict(t3_params)
     out["llama"] = quantize_llama(t3_params["llama"])
     return out

@@ -6,7 +6,7 @@ With no argument every phase runs (the device and build phases always
 run); `--phases` names the ones to run (PHASES below: kernel_check,
 attention_check, probe_check, probes, fused_check, consistency, generate,
 generate_batch, stream_generate, first_chunk, conditioning, long_text, engine,
-worker, mesh, int8, train, train_mesh), and the kernel line then lists the
+worker, mesh, int8, train, train_mesh, dsv2), and the kernel line then lists the
 kernels whose check and main path ran. Phases, one or more lines each, then the result line:
   1. device: the card's name and power limit (nvidia-smi), torch and CUDA
      versions; TF32 switched off for matmuls and convolutions.
@@ -209,7 +209,21 @@ kernels whose check and main path ran. Phases, one or more lines each, then the 
      step's |g| >= 1e-6 (below, AdamW's eps makes the first step's update
      follow rounding); ms a step of each, ms a hop, and the backend line's
      hop collective.
- 17. a JSON line describing each kernel, then the last line
+ 17. dsv2: DeepSeek-V2-Lite as T3's backbone at every published width (27
+     layers, d 2048, 64 routed experts, top 6; bf16 weights drawn on the
+     card leaf by leaf). (a) K7 moe_experts, the routed experts' grouped
+     SwiGLU, at a decode step's 32 x 6 assignments and a prefill's 584 x 6
+     (D 2048, F 1408): against the fp32 arithmetic on its bf16 inputs and
+     against the plain loop in bf16 (each element's error over max(|ref|,
+     rms(ref))), two planted faults that the limit must catch (a row given
+     its neighbour expert's weights, a row left unwritten), timed beside
+     the loop (the library yardstick: the port never calls it) and its
+     bound. (b) One prefill alone: K7 26 times (one a MoE layer). (c) The
+     engine (ContinuousDecoder at tts-backlog's geometry and sampling, its
+     step one CUDA graph) drains 24 requests: K7 26 x (steps + prefills)
+     and no other kernel, and its tokens equal the eager step's, request by
+     request.
+ 18. a JSON line describing each kernel, then the last line
      {"ok": true, "device": {...}}.
 
 Any failure raises and the script exits non-zero with no result line. It
@@ -565,6 +579,7 @@ def _kernels() -> dict:
     from chatterbox_embed_tpu_torch.kernels import flash_attention_bwd as fb
     from chatterbox_embed_tpu_torch.kernels import flash_decode as fd
     from chatterbox_embed_tpu_torch.kernels import fused_decode as fu
+    from chatterbox_embed_tpu_torch.kernels import moe_experts as me
     from chatterbox_embed_tpu_torch.kernels import rel_attention as ra
     from chatterbox_embed_tpu_torch.kernels import weight_stream as ws
     return {"flash_decode": (fd, fd.decode_attention, "launches", "cbx_flash_decode"),
@@ -580,6 +595,7 @@ def _kernels() -> dict:
             "flash_decode_int8_deferred": (fd, fd.decode_attention, "launches_int8_deferred",
                                            "cbx_flash_decode"),
             "fused_decode": (fu, fu.fused_decode_step, "launches", "cbx_fused_decode"),
+            "moe_experts": (me, me.grouped_swiglu, "launches", "cbx_moe_experts"),
             "weight_stream": (ws, ws.stream_once, "launches", "cbx_weight_stream"),
             "decode_anatomy": (da, da.attn, "launches", "cbx_decode_anatomy")}
 
@@ -4002,6 +4018,224 @@ def phase_int8(card: str, tts) -> dict:
     return launches
 
 
+# ---------------------------------------------------------------------------
+# DeepSeek-V2 as T3's backbone: K7 and the latent engine step
+# ---------------------------------------------------------------------------
+
+class _Bf16Init:
+    """models/layers.Init whose random leaves are rounded to bf16 as they are
+    drawn, so that the 15.3 B-parameter backbone never stands in fp32 whole
+    (61 GB) on the card: one leaf at a time does (the largest 0.74 GB)."""
+
+    def __init__(self, seed: int):
+        from chatterbox_embed_tpu_torch.models import layers as L
+        self.init = L.Init(seed, "cuda")
+        self.device = self.init.device
+
+    def uniform(self, shape, bound):
+        return self.init.uniform(shape, bound).to(torch.bfloat16)
+
+    def normal(self, shape, std=1.0):
+        return self.init.normal(shape, std).to(torch.bfloat16)
+
+    def ones(self, shape):
+        return self.init.ones(shape)
+
+    def zeros(self, shape):
+        return self.init.zeros(shape)
+
+
+def _k7_routed(tokens: int, cfg, g):
+    """A random router's top-k of `tokens` rows, sorted by expert on the
+    card as the MoE layer sorts them: (rows (N*k, D) bf16, offsets, counts)."""
+    from chatterbox_embed_tpu_torch.models import deepseek_v2 as dsv2
+    d, e, k = cfg.hidden_size, cfg.n_routed_experts, cfg.num_experts_per_tok
+    x = torch.randn((tokens, d), generator=g, device="cuda")
+    router = torch.randn((d, e), generator=g, device="cuda") / d ** 0.5
+    ids = torch.topk(x @ router, k, dim=-1).indices
+    order, _, offsets, counts = dsv2.sort_by_expert(ids, e)
+    return x[order // k].to(torch.bfloat16).contiguous(), offsets, counts
+
+
+def _k7_exact(xs, offsets, wg, wu, wd):
+    """K7's arithmetic in fp32 from its bf16 inputs, h rounded to bf16 as the
+    kernel stores it between its two launches."""
+    off = offsets.tolist()
+    y = torch.zeros((xs.shape[0], wd.shape[2]), dtype=torch.float32, device=xs.device)
+    for e in range(wg.shape[0]):
+        a, b = off[e], off[e + 1]
+        if a < b:
+            x = xs[a:b].float()
+            h = (torch.nn.functional.silu(x @ wg[e].float()) * (x @ wu[e].float())).bfloat16()
+            y[a:b] = h.float() @ wd[e].float()
+    return y
+
+
+def _k7_check(card: str, cfg) -> dict:
+    """K7 against its plain versions at DSV2_K7_TOKENS rows: the fp32
+    arithmetic on its bf16 inputs (DSV2_K7_TOL, each element's error over
+    max(|ref|, rms(ref))) and the port's plain loop in bf16
+    (grouped_swiglu_reference, DSV2_K7_PLAIN_TOL); two planted faults that
+    the limit must catch (a row given its neighbour expert's weights, by
+    moving one offset; a row never written, read as zeros); times of K7,
+    the loop and its bound at the decode step's rows and a prefill's."""
+    from chatterbox_embed_tpu_torch.kernels import moe_experts as me
+    d, f, e = cfg.hidden_size, cfg.moe_intermediate_size, cfg.n_routed_experts
+    g = torch.Generator(device="cuda").manual_seed(2024)
+
+    def weight(shape, fan):
+        return ((torch.rand(shape, generator=g, device="cuda") * 2 - 1)
+                * (3.0 / fan) ** 0.5).to(torch.bfloat16)
+    wg, wu, wd = weight((e, d, f), d), weight((e, d, f), d), weight((e, f, d), f)
+    result = {"max_abs_err": 0.0, "timing": {}}
+    for label, tokens in DSV2_K7_TOKENS:
+        xs, offsets, counts = _k7_routed(tokens, cfg, g)
+        n, touched = xs.shape[0], int((counts > 0).sum())
+        case = dict(case=label, assignments=n, experts_touched=touched,
+                    max_rows=int(counts.max()), d=d, f=f, experts=e)
+        y = me.grouped_swiglu(xs, offsets, wg, wu, wd)
+        exact = _k7_exact(xs, offsets, wg, wu, wd)
+        err = _check_err("moe_experts", y, exact, DSV2_K7_TOL, rms_floor=True, **case)
+        plain = me.grouped_swiglu_reference(xs, offsets, wg, wu, wd)
+        _check_err("moe_experts_vs_plain_bf16", y, plain, DSV2_K7_PLAIN_TOL, rms_floor=True,
+                   **case)
+        result["max_abs_err"] = max(result["max_abs_err"], err)
+        # planted faults: each must read above the limit
+        moved = offsets.clone()
+        inner = int(torch.nonzero((counts[:-1] > 0) & (counts[1:] > 0))[0]) + 1
+        moved[inner] += 1            # the first row of expert `inner` goes to inner - 1
+        dropped = y.clone()
+        dropped[n // 2] = 0
+        for fault, out in (("neighbour_expert", me.grouped_swiglu(xs, moved, wg, wu, wd)),
+                           ("unwritten_row", dropped)):
+            try:
+                _check_err("moe_experts_fault", out, exact, DSV2_K7_TOL, rms_floor=True,
+                           fault=fault, **case)
+            except AssertionError as exc:
+                log("kernel_fault", name="moe_experts", fault=fault, caught=True,
+                    why=repr(str(exc)[:120]), **case)
+            else:
+                raise AssertionError(f"moe_experts: the planted fault {fault} passed the "
+                                     f"check at {label}")
+        t = _timing(lambda: me.grouped_swiglu(xs, offsets, wg, wu, wd),
+                    lambda: me.grouped_swiglu_reference(xs, offsets, wg, wu, wd),
+                    iters=50, plain_iters=5)
+        nbytes = touched * 3 * d * f * 2 + n * d * (2 + 4)
+        t.update(_bound(nbytes, 6 * d * f * n))
+        t["library_ms"] = _library("moe_experts", lambda: me.grouped_swiglu_reference(
+            xs, offsets, wg, wu, wd), card, iters=5, **case)
+        _log_time("moe_experts", t, card, **case)
+        log("kernel_bound", name="moe_experts", **case, bound_ms=f"{t['bound_ms']:.5f}",
+            bound_by=t["bound_by"], share=f"{100 * t['bound_ms'] / t['ms']:.1f}%")
+        if label == "decode":
+            result["timing"] = t
+        else:
+            result["timing"].update({f"{k}_prefill": v for k, v in t.items()
+                                     if k in ("ms", "plain_ms", "library_ms", "bound_ms")})
+    return result
+
+
+def _dsv2_requests(cfg, n: int):
+    rng = np.random.default_rng(20)
+    conds = [_dsv2_cond(cfg, rng) for _ in range(2)]
+    reqs = []
+    for r in range(n):
+        body = rng.integers(1, cfg.text_tokens_dict_size, int(rng.integers(20, 200)))
+        text = np.concatenate([[cfg.start_text_token], body, [cfg.stop_text_token]])
+        reqs.append((text[None].astype(np.int32), conds[r % 2], 500 + r,
+                     int(rng.integers(*DSV2_ENGINE_CAPS))))
+    return reqs
+
+
+def _dsv2_cond(cfg, rng):
+    from chatterbox_embed_tpu_torch.models import t3
+    return t3.T3Cond(
+        torch.tensor(rng.standard_normal((1, cfg.speaker_embed_size)), dtype=torch.float32,
+                     device="cuda"),
+        torch.tensor(rng.integers(0, cfg.start_speech_token, (1, cfg.speech_cond_prompt_len)),
+                     dtype=torch.int32, device="cuda"), 0.5)
+
+
+def phase_dsv2(card: str) -> tuple:
+    """DeepSeek-V2-Lite as T3's backbone at every published width (27 layers,
+    64 experts, bf16 weights from a seed): K7 (kernels/moe_experts.py)
+    against its plain versions (_k7_check); then one prefill alone (K7 once
+    a MoE layer: 26), and the engine (models/t3_engine.py: ContinuousDecoder
+    at tts-backlog's geometry, its step one CUDA graph) draining
+    DSV2_ENGINE_REQUESTS requests: K7 26 a step and 26 a prefill, no other
+    kernel of the port, and the graphed step's tokens equal the eager
+    step's request by request. Returns ({"moe_experts": the check},
+    {"engine_dsv2": the engine run's launches})."""
+    from chatterbox_embed_tpu_torch.config import T3Config
+    from chatterbox_embed_tpu_torch.models import deepseek_v2 as dsv2
+    from chatterbox_embed_tpu_torch.models import t3, t3_engine
+    from chatterbox_embed_tpu_torch.weights import place
+    lite = dsv2.DeepseekV2Config()
+    check = _k7_check(card, lite)
+    t0 = time.time()
+    cfg = T3Config(llama=lite)
+    params = place(t3.init(_Bf16Init(0), cfg), "cuda", torch.bfloat16)
+    torch.cuda.synchronize()
+    log("dsv2_model", layers=lite.num_layers, d=lite.hidden_size,
+        experts=lite.n_routed_experts, top_k=lite.num_experts_per_tok,
+        gb=f"{torch.cuda.memory_allocated() / 1e9:.2f}", init_s=f"{time.time() - t0:.2f}")
+    reqs = _dsv2_requests(cfg, DSV2_ENGINE_REQUESTS)
+    per_call = lite.moe_layers      # K7 once a MoE layer of a forward
+
+    def drain(graphed: bool):
+        dec = t3_engine.ContinuousDecoder(params, cfg, dtype=torch.bfloat16, device="cuda",
+                                          **DSV2_ENGINE_GEO)
+        if not isinstance(dec.pieces, t3_engine.WholeStep):
+            raise AssertionError(f"dsv2 engine: step {type(dec.pieces).__name__}, want WholeStep")
+        if not graphed:
+            dec.pieces = None
+        rids = [dec.submit(text, cond, seed=seed, max_new_tokens=cap, **DSV2_SAMPLING)
+                for text, cond, seed, cap in reqs]
+        torch.cuda.synchronize()
+        start = time.time()
+        out = dec.drain()
+        torch.cuda.synchronize()
+        return dec, [out[r] for r in rids], time.time() - start
+
+    eager, want, t_eager = drain(graphed=False)
+    # one prefill alone, into the engine's context capacity
+    _reset_counts()
+    text, cond, _, _ = reqs[0]
+    t3_engine.prefill_request(params, cond, text, text_bucket=DSV2_ENGINE_GEO["text_bucket"],
+                              p_len=eager.p_len, cfg=cfg, dtype=torch.bfloat16, device="cuda")
+    torch.cuda.synchronize()
+    prefill = _counts()
+    if prefill != _want(moe_experts=per_call):
+        raise AssertionError(f"dsv2 prefill: launches {prefill}, want K7 {per_call}")
+    _reset_counts()
+    dec, got, t_graphed = drain(graphed=True)
+    counts = _counts()
+    steps = dec.steps_run
+    expect = _want(moe_experts=per_call * (steps + len(reqs)))
+    if counts != expect or steps == 0:
+        raise AssertionError(f"dsv2 engine: launches {counts}, want K7 {per_call} x ({steps} "
+                             f"steps + {len(reqs)} prefills)")
+    if dec.pieces.graph is None or (eager.steps_run, eager.blocks_run) != (steps, dec.blocks_run):
+        raise AssertionError("dsv2 engine: the step was not graphed, or ran other steps")
+    for r, (a, b) in enumerate(zip(want, got, strict=True)):
+        if not np.array_equal(a, b):
+            n = min(len(a), len(b))
+            first = int(np.nonzero(a[:n] != b[:n])[0][0]) if (a[:n] != b[:n]).any() else n
+            raise AssertionError(f"dsv2 engine: request {r}, the graphed step's tokens differ "
+                                 f"from the eager step's from token {first}")
+    log("dsv2_engine", requests=len(reqs), steps=steps, blocks=dec.blocks_run,
+        k7_per_step=per_call, k7_per_prefill=prefill["moe_experts"],
+        k7_launches=counts["moe_experts"], graphed_equal_eager=True,
+        eager_ms_per_step=f"{1e3 * t_eager / steps:.3f}",
+        graphed_ms_per_step=f"{1e3 * t_graphed / steps:.3f}",
+        graph_pool_mib=f"{dec.pieces.pool_bytes / 2**20:.1f}",
+        tokens=",".join(str(len(t)) for t in got), card=repr(card))
+    del params, dec, eager
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"moe_experts": check}, {"engine_dsv2": counts}
+
+
 # the path whose launch count each kernel's JSON entry reports: the
 # streamed request for K1 and K4, the paths that run the others, and for the
 # two probe kernels their probe's entry point
@@ -4010,7 +4244,8 @@ MAIN_PATH = {"flash_decode": "stream_generate", "flash_decode_deferred": "genera
              "flash_attention_bwd_dq": "train_flow", "flash_attention_bwd_dkv": "train_flow",
              "fused_decode": "stream_generate_fused_step",
              "flash_decode_int8": "int8_cache", "flash_decode_int8_deferred": "int8_defer",
-             "weight_stream": "probe_weight_stream", "decode_anatomy": "probe_decode_anatomy"}
+             "weight_stream": "probe_weight_stream", "decode_anatomy": "probe_decode_anatomy",
+             "moe_experts": "engine_dsv2"}
 REPLACES = {"flash_decode": "chatterbox_embed_tpu/kernels/flash_decode.py:85",
             "flash_decode_deferred": "chatterbox_embed_tpu/kernels/flash_decode.py:169",
             "rel_attention": "chatterbox_embed_tpu/kernels/rel_attention.py:45",
@@ -4024,7 +4259,25 @@ REPLACES = {"flash_decode": "chatterbox_embed_tpu/kernels/flash_decode.py:85",
             "flash_decode_int8": "chatterbox_embed_tpu/models/llama.py:416",
             "flash_decode_int8_deferred": "chatterbox_embed_tpu/models/llama.py:416",
             "weight_stream": "scripts/microbench_weight_stream.py:39",
-            "decode_anatomy": "scripts/microbench_decode_anatomy.py:40"}
+            "decode_anatomy": "scripts/microbench_decode_anatomy.py:40",
+            # no TPU kernel: the JAX package runs no mixture of experts
+            "moe_experts": "none"}
+
+
+# DeepSeek-V2-Lite (phase dsv2): K7 at a decode step's rows (16 slots x the
+# CFG pair) and a prefill's (text bucket 256 + conditioning), each x top-6;
+# its limit, each element's error over max(|ref|, rms(ref)), against the
+# fp32 arithmetic (h rounded to bf16 in both: sums in another order, an h
+# that rounds the other way) and against the plain loop in bf16 (whose h
+# rounds at every product); a row given a neighbour expert's weights or
+# left unwritten reads ~1. The engine at tts-backlog's geometry and sampling.
+DSV2_K7_TOKENS = (("decode", 32), ("prefill", 584))
+DSV2_K7_TOL = 2e-2
+DSV2_K7_PLAIN_TOL = 1e-1
+DSV2_ENGINE_GEO = dict(slots=16, text_bucket=256, max_new_tokens=1000, block=64)
+DSV2_ENGINE_REQUESTS = 24
+DSV2_ENGINE_CAPS = (30, 160)
+DSV2_SAMPLING = dict(temperature=0.6, cfg_weight=0.3, repetition_penalty=1.2, min_p=0.05)
 
 
 # the phases `--phases` selects among, in the order they run (the device
@@ -4032,7 +4285,7 @@ REPLACES = {"flash_decode": "chatterbox_embed_tpu/kernels/flash_decode.py:85",
 PHASES = ("kernel_check", "attention_check", "probe_check", "probes", "fused_check",
           "consistency", "generate", "generate_batch", "stream_generate", "first_chunk",
           "conditioning", "long_text", "engine", "worker", "mesh", "int8", "train",
-          "train_mesh")
+          "train_mesh", "dsv2")
 MODEL_PHASES = ("fused_check", "consistency", "generate", "generate_batch",
                 "stream_generate", "first_chunk", "conditioning", "long_text", "engine",
                 "worker", "mesh", "int8")
@@ -4167,6 +4420,11 @@ def main(argv=None) -> None:
     if "train_mesh" in selected:
         launches.update(phase_train_mesh(card))
         phase_done("train_mesh")
+    if "dsv2" in selected:
+        dsv2_check, dsv2_launches = phase_dsv2(card)
+        check.update(dsv2_check)
+        launches.update(dsv2_launches)
+        phase_done("dsv2")
     for name, path in MAIN_PATH.items():
         if path in launches and launches[path][name] == 0:
             raise AssertionError(f"{name} was not launched on its path {path}")
