@@ -9,6 +9,7 @@ angle-addition identity (`_rel_factors`). Below 4 rows (a single utterance)
 both score terms are plain matmuls; from 4 rows the whole masked attention
 runs in the rel-attention kernel over the augmented features, as the JAX
 package gates it (`kernels/rel_attention.py`; on the CPU its plain version).
+Its LayerNorms are one launch each (`kernels/layer_norm.py`, K8).
 """
 from __future__ import annotations
 
@@ -20,6 +21,7 @@ import torch.nn.functional as F
 
 from ..config import ConformerConfig
 from ..device import constant
+from ..kernels.layer_norm import layer_norm
 from ..kernels.rel_attention import rel_attention
 from . import layers as L
 
@@ -125,9 +127,9 @@ def _rel_attention(p, x, trig, pad_mask, n_heads, dtype):
 
 
 def _conformer_block(p, x, trig, pad_mask, n_heads, eps, dtype):
-    h = L.layer_norm(p["norm_mha"], x, eps)
+    h = layer_norm(p["norm_mha"], x, eps)
     x = x + _rel_attention(p, h, trig, pad_mask, n_heads, dtype)
-    h = L.layer_norm(p["norm_ff"], x, eps)
+    h = layer_norm(p["norm_ff"], x, eps)
     h = L.linear(p["ff2"], F.silu(L.linear(p["ff1"], h, dtype)), dtype)
     return x + h
 
@@ -154,9 +156,9 @@ def forward(params, x: torch.Tensor, lens: torch.Tensor | None = None,
     pad_mask = None if lens is None else (torch.arange(t, device=dev)[None] < lens[:, None])
 
     xscale = math.sqrt(cfg.output_size)
-    h = L.layer_norm(params["embed"]["ln"],
-                     L.linear(params["embed"]["lin"], x.to(dtype), dtype),
-                     cfg.embed_ln_eps) * xscale
+    h = layer_norm(params["embed"]["ln"],
+                   L.linear(params["embed"]["lin"], x.to(dtype), dtype),
+                   cfg.embed_ln_eps) * xscale
     if pad_mask is not None:
         # zero pad positions so bucketed inference equals exact-length
         # inference: the lookahead conv's right context sees zeros either way
@@ -175,13 +177,13 @@ def forward(params, x: torch.Tensor, lens: torch.Tensor | None = None,
 
     t2 = h.shape[1]
     pad_mask2 = None if lens is None else (torch.arange(t2, device=dev)[None] < (lens * s)[:, None])
-    h = L.layer_norm(params["up_embed"]["ln"],
-                     L.linear(params["up_embed"]["lin"], h, dtype),
-                     cfg.embed_ln_eps) * xscale
+    h = layer_norm(params["up_embed"]["ln"],
+                   L.linear(params["up_embed"]["lin"], h, dtype),
+                   cfg.embed_ln_eps) * xscale
     if pad_mask2 is not None:
         h = h * pad_mask2[..., None].to(h.dtype)
     trig2 = _trig(t2, cfg.output_size, dev)
     for blk in params["up_blocks"]:
         h = _conformer_block(blk, h, trig2, pad_mask2, cfg.attention_heads, cfg.ln_eps, dtype)
 
-    return L.layer_norm(params["after_norm"], h, cfg.embed_ln_eps)
+    return layer_norm(params["after_norm"], h, cfg.embed_ln_eps)

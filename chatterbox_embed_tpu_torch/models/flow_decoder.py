@@ -5,7 +5,9 @@ PyTorch counterpart of `chatterbox_embed_tpu/models/flow_decoder.py`.
 transformer blocks, all at full mel rate, channel-last. Attention in the
 transformer blocks has a key mask; it is written out (layers.mha) below 4
 rows and runs in the flash-attention kernel (layers.mha_flash) from 4 rows,
-as the JAX package gates it.
+as the JAX package gates it. Its LayerNorms are one launch each
+(kernels/layer_norm.py, K8; on the CPU the plain arithmetic); a
+transformer block's two store in the compute dtype that its linears take.
 
 Under `comm` (parallel/sp.py:SeqComm) the call runs on one shard of the T
 axis, on every rank of an sp mesh: each causal k=3 conv prepends a 2-frame
@@ -23,6 +25,7 @@ import torch
 import torch.nn.functional as F
 
 from ..config import FlowDecoderConfig
+from ..kernels.layer_norm import layer_norm
 from . import layers as L
 
 
@@ -90,7 +93,7 @@ def _causal_conv3(p, xm, dtype, comm=None):
 def _causal_block(p, x, mask, dtype, comm=None):
     """causal conv(k3) -> LayerNorm -> Mish, masked."""
     h = _causal_conv3(p["conv"], x * mask, dtype, comm)
-    h = L.layer_norm(p["ln"], h)
+    h = layer_norm(p["ln"], h)
     return L.mish(h) * mask
 
 
@@ -102,7 +105,7 @@ def _resnet(p, x, mask, t_emb, dtype, comm=None):
 
 
 def _tblock(p, x, n_heads, dtype, key_mask=None, comm=None):
-    h = L.layer_norm(p["ln1"], x)
+    h = layer_norm(p["ln1"], x, out_dtype=dtype)
     q = L.split_heads(L.linear(p["q"], h, dtype), n_heads)
     k = L.split_heads(L.linear(p["k"], h, dtype), n_heads)
     v = L.split_heads(L.linear(p["v"], h, dtype), n_heads)
@@ -115,7 +118,7 @@ def _tblock(p, x, n_heads, dtype, key_mask=None, comm=None):
     else:
         attn = L.mha(q, k, v, mask=key_mask)
     x = x + L.linear(p["o"], L.merge_heads(attn), dtype)
-    h = L.layer_norm(p["ln3"], x)
+    h = layer_norm(p["ln3"], x, out_dtype=dtype)
     h = L.linear(p["ff2"], F.gelu(L.linear(p["ff1"], h, dtype)), dtype)
     return x + h
 

@@ -41,7 +41,7 @@ import torch.nn.functional as F
 
 from .config import SPEECH_VOCAB_SIZE, ChatterboxConfig
 from .device import resolve_device
-from .kernels import flash_attention, flash_decode, fused_decode, rel_attention
+from .kernels import flash_attention, flash_decode, fused_decode, layer_norm, rel_attention
 from .models import backbone
 from .models import hifigan as hift_mod
 from .models import llama as llama_mod
@@ -160,13 +160,14 @@ def _first_chunk_body(t3_params, s3_params, inp: _Inputs, draws, st: _Static, fu
 
 def _counters():
     """(wrapper, attribute) of every kernel launch counter the body can
-    move (K1 / K1s and their int8 entries, K4, K2, K3)."""
+    move (K1 / K1s and their int8 entries, K4, K2, K3, K8)."""
     fd = flash_decode.decode_attention
     return ([(fd, a) for a in ("launches", "launches_deferred", "launches_int8",
                                "launches_int8_deferred")]
             + [(fused_decode.fused_decode_step, "launches"),
                (rel_attention.rel_attention, "launches"),
-               (flash_attention.flash_attention, "launches")])
+               (flash_attention.flash_attention, "launches"),
+               (layer_norm.layer_norm, "launches")])
 
 
 class _BufferedDraws:

@@ -1541,14 +1541,15 @@ class ChatterboxTTS:
 def _build_serving_kernels(backbone_kernels=("flash_decode", "fused_decode")) -> None:
     """Build (one nvcc each, all started together) and load every kernel a
     request can launch: the backbone's (`SERVING_KERNELS`: K1/K1s and K4 for
-    Llama, K7 for DeepSeek-V2) and S3Gen's K2 and K3. The probes build when
-    run."""
+    Llama, K7 for DeepSeek-V2) and S3Gen's K2, K3 and K8. The probes build
+    when run."""
     import importlib
 
-    from .kernels import _build, flash_attention, rel_attention
+    from .kernels import _build, flash_attention, layer_norm, rel_attention
     entries = {importlib.import_module(f".kernels.{name}", __package__): f"cbx_{name}"
                for name in backbone_kernels}
-    entries.update({rel_attention: "cbx_rel_attention", flash_attention: "cbx_flash_attention"})
+    entries.update({rel_attention: "cbx_rel_attention", flash_attention: "cbx_flash_attention",
+                    layer_norm: "cbx_layer_norm"})
     _build.build_all([m.SOURCE for m in entries])
     for m, entry in entries.items():
         _build.load(m.SOURCE, entry, m._ARGTYPES)

@@ -4,7 +4,7 @@
 
 With no argument every phase runs (the device and build phases always
 run); `--phases` names the ones to run (PHASES below: kernel_check,
-attention_check, probe_check, probes, fused_check, consistency, generate,
+attention_check, probe_check, norm_check, probes, fused_check, consistency, generate,
 generate_batch, stream_generate, first_chunk, conditioning, long_text, engine,
 worker, mesh, int8, train, train_mesh, dsv2), and the kernel line then lists the
 kernels whose check and main path ran. Phases, one or more lines each, then the result line:
@@ -74,12 +74,24 @@ kernels whose check and main path ran. Phases, one or more lines each, then the 
                            probe's own 1 GB wall
        K6 decode_anatomy   the decode-walk probe: full / load_only /
                            compute_only at pos 44 and 379, fp32 and bf16
+       K8 layer_norm       S3Gen's LayerNorm (phase norm_check): the CFM
+                           estimator's 8 rows x 1,536 frames x 256,
+                           channel-first, fp32 -> bf16 (its transformer
+                           blocks), bf16 -> bf16 (its causal blocks) and
+                           fp32 -> fp32; the conformer's 4 x 1,536 x 512,
+                           bf16, contiguous; rows spread from 1e-3 to 10
+                           (eps sets the narrowest); two planted faults
+                           (another row's statistics, eps left out) that
+                           the limits must catch; timed, with the inputs
+                           in L2 and after a flush, beside its bound and
+                           torch.nn.functional.layer_norm
      Each kernel's entry of the JSON line also carries the least time the
      card could take for the timed call (bytes over 3.35 TB/s, or operations
      over the peak of their type, whichever is larger) and, where one
      PyTorch call computes the same function, that call's device time
      (scaled_dot_product_attention for K1, K2, K3 and K6, an einsum for
-     K5); the port calls it nowhere else.
+     K5, torch.nn.functional.layer_norm for K8); the port calls it nowhere
+     else.
      Then the two probes' entry points run in-process at full size (a 1 GB
      wall; the 16 x 16 x 64, 1024-slot cache) and print one `probe` line per
      configuration.
@@ -579,6 +591,7 @@ def _kernels() -> dict:
     from chatterbox_embed_tpu_torch.kernels import flash_attention_bwd as fb
     from chatterbox_embed_tpu_torch.kernels import flash_decode as fd
     from chatterbox_embed_tpu_torch.kernels import fused_decode as fu
+    from chatterbox_embed_tpu_torch.kernels import layer_norm as ln
     from chatterbox_embed_tpu_torch.kernels import moe_experts as me
     from chatterbox_embed_tpu_torch.kernels import rel_attention as ra
     from chatterbox_embed_tpu_torch.kernels import weight_stream as ws
@@ -596,6 +609,7 @@ def _kernels() -> dict:
                                            "cbx_flash_decode"),
             "fused_decode": (fu, fu.fused_decode_step, "launches", "cbx_fused_decode"),
             "moe_experts": (me, me.grouped_swiglu, "launches", "cbx_moe_experts"),
+            "layer_norm": (ln, ln.layer_norm, "launches", "cbx_layer_norm"),
             "weight_stream": (ws, ws.stream_once, "launches", "cbx_weight_stream"),
             "decode_anatomy": (da, da.attn, "launches", "cbx_decode_anatomy")}
 
@@ -1672,6 +1686,141 @@ def phase_probe_check(card: str) -> dict:
     return result
 
 
+# K8 (phase norm_check). Cases (name, shape (B, T, W), input and output
+# dtypes, layout): the CFM estimator at a 4-request flush (8 CFG rows of
+# 1,536 frames, the channel-first activations its convs leave): its
+# transformer blocks' norms (fp32 in, bf16 out) and its causal blocks'
+# (bf16); fp32 throughout, as the fp32 estimator runs; the same rows
+# contiguous; the conformer after its upsampling (4 rows of 1,536, 512
+# wide, bf16, contiguous). A row is spread * (noise + offset), the spread
+# log-uniform from 1e-3 to 10, so eps (1e-5 of a variance down to 1e-6)
+# sets some rows' scale. Limits: an fp32 output within NORM_FP32_TOL of
+# max(|ref|, rms(ref)) of the plain version's; a bf16 output within one
+# bf16 step of max(|out|, |ref|, rms(ref)) (both round the same fp32 norm,
+# whose last bits the order of the row sums moves; near zero, where
+# y * scale + bias cancels, those bits are many of a small value's steps).
+# The planted faults (another row's mean and variance; eps left out) move
+# outputs by whole units.
+NORM_CASES = (("estimator_tblock", (8, 1536, 256), "float32", "bfloat16", "channel_first"),
+              ("estimator_causal", (8, 1536, 256), "bfloat16", "bfloat16", "channel_first"),
+              ("estimator_fp32", (8, 1536, 256), "float32", "float32", "channel_first"),
+              ("rows_12288", (8, 1536, 256), "float32", "bfloat16", "contiguous"),
+              ("conformer", (4, 1536, 512), "bfloat16", "bfloat16", "contiguous"))
+NORM_FP32_TOL = 1e-5
+NORM_EPS = 1e-5
+
+
+def _norm_rows(shape, dtype, layout, g):
+    """x (B, T, W), a row spread * (noise + offset); channel-first when
+    `layout` says so (stored (B, W, T))."""
+    b, t, w = shape
+    spread = torch.exp(torch.empty((b, t, 1), device="cuda").uniform_(
+        np.log(1e-3), np.log(10.0), generator=g))
+    x = spread * (torch.randn(shape, generator=g, device="cuda")
+                  + torch.randn((b, t, 1), generator=g, device="cuda"))
+    if layout == "channel_first":
+        return x.transpose(1, 2).contiguous().to(dtype).transpose(1, 2)
+    return x.to(dtype).contiguous()
+
+
+def _norm_err(name: str, out, ref, **case) -> float:
+    """K8's limit: an fp32 output within NORM_FP32_TOL of max(|ref|,
+    rms(ref)), a bf16 one within one bf16 step of max(|out|, |ref|,
+    rms(ref)); logs and returns the checked number (raises above it)."""
+    torch.cuda.synchronize()
+    o, r = out.float(), ref.float()
+    diff = (o - r).abs()
+    rms = r.pow(2).mean().sqrt()
+    if out.dtype == torch.float32:
+        worst = (diff / r.abs().clamp_min(rms)).max().item()
+        limit, unit = NORM_FP32_TOL, "of_max_rms_ref"
+    else:
+        big = torch.maximum(o.abs(), r.abs()).clamp_min(rms)
+        worst = (diff / torch.exp2(torch.floor(torch.log2(big)) - 7)).max().item()
+        limit, unit = 1.0, "bf16_steps"
+    if not np.isfinite(worst) or worst > limit:
+        raise AssertionError(f"{name} {case}: {worst} {unit} > {limit}")
+    log("kernel", name=name, **case, max_abs_err=f"{diff.max().item():.3e}",
+        **{f"max_err_{unit}": f"{worst:.3e}"}, limit=limit)
+    return worst
+
+
+def _norm_fault(kind: str, x, p, out_dtype):
+    """The plain arithmetic with a planted fault: each row normalised by its
+    neighbour's mean and variance, or without eps."""
+    xf = x.float()
+    mu = xf.mean(dim=-1, keepdim=True)
+    var = (xf - mu).square().mean(dim=-1, keepdim=True)
+    eps = NORM_EPS
+    if kind == "other_row_stats":
+        mu, var = mu.roll(1, dims=-2), var.roll(1, dims=-2)
+    else:
+        eps = 0.0
+    return (((xf - mu) * torch.rsqrt(var + eps)) * p["scale"] + p["bias"]).to(out_dtype)
+
+
+def phase_norm_check(card: str) -> dict:
+    """K8 against its plain version at NORM_CASES, two planted faults the
+    limits must catch, and its time beside its bound, the plain version's
+    and torch.nn.functional.layer_norm's (on the same input, computing in
+    the input's dtype; the port never calls it). The times are with the
+    inputs in L2 between calls, as the table's others are; `ms_cold` after
+    an L2 flush, the bound's own case."""
+    from chatterbox_embed_tpu_torch.kernels import layer_norm as ln
+    from chatterbox_embed_tpu_torch.probes import timing
+    flush = timing.L2Flush("cuda")
+    g = torch.Generator(device="cuda").manual_seed(88)
+    result = {"max_abs_err": 0.0, "timing": {}}
+    for name, shape, in_name, out_name, layout in NORM_CASES:
+        in_dtype, out_dtype = getattr(torch, in_name), getattr(torch, out_name)
+        x = _norm_rows(shape, in_dtype, layout, g)
+        w = shape[-1]
+        p = {"scale": 1 + 0.3 * torch.randn(w, generator=g, device="cuda"),
+             "bias": 0.2 * torch.randn(w, generator=g, device="cuda")}
+        case = dict(case=name, rows=shape[0] * shape[1], width=w, layout=layout,
+                    dtypes=f"{in_name}->{out_name}")
+        out = ln.layer_norm(p, x, NORM_EPS, out_dtype)
+        if out.stride() != x.stride():
+            raise AssertionError(f"layer_norm {case}: output strides {out.stride()}, input "
+                                 f"{x.stride()}")
+        ref = ln.layer_norm_reference(p, x, NORM_EPS, out_dtype)
+        err = _norm_err("layer_norm", out, ref, **case)
+        if out_dtype == torch.bfloat16:
+            result["max_abs_err"] = max(result["max_abs_err"], err)
+        else:
+            result["max_abs_err_fp32"] = max(result.get("max_abs_err_fp32", 0.0), err)
+        for fault in ("other_row_stats", "no_eps"):
+            try:
+                _norm_err("layer_norm_fault", _norm_fault(fault, x, p, out_dtype), ref,
+                          fault=fault, **case)
+            except AssertionError as exc:
+                log("kernel_fault", name="layer_norm", fault=fault, caught=True,
+                    why=repr(str(exc)[:120]), **case)
+            else:
+                raise AssertionError(f"layer_norm: the planted fault {fault} passed at {name}")
+        t = _timing(lambda: ln.layer_norm(p, x, NORM_EPS, out_dtype),
+                    lambda: ln.layer_norm_reference(p, x, NORM_EPS, out_dtype), iters=100)
+        t["ms_cold"] = timing.device_ms(lambda: ln.layer_norm(p, x, NORM_EPS, out_dtype), 50,
+                                        before=flush, only=("ln_rows", "ln_cols"))
+        n = x.numel()
+        t.update(_bound(n * (x.element_size() + out.element_size()) + 2 * w * 4, 8 * n, "fp32"))
+        t["library_ms"] = _library("layer_norm", lambda: torch.nn.functional.layer_norm(
+            x, (w,), p["scale"].to(in_dtype), p["bias"].to(in_dtype), NORM_EPS), card,
+            iters=50, dtype=in_name, **case)
+        _log_time("layer_norm", t, card, **case)
+        log("kernel_bound", name="layer_norm", **case, bound_ms=f"{t['bound_ms']:.5f}",
+            bound_by=t["bound_by"], share=f"{100 * t['bound_ms'] / t['ms']:.1f}%",
+            cold_device_ms=f"{t['ms_cold']:.5f}",
+            share_cold=f"{100 * t['bound_ms'] / t['ms_cold']:.1f}%")
+        if name == "estimator_tblock":
+            result["timing"] = t
+        else:
+            result["timing"].update({f"{k}_{name}": v for k, v in t.items()
+                                     if k in ("ms", "ms_cold", "plain_ms", "library_ms",
+                                              "bound_ms")})
+    return result
+
+
 def phase_probes(card: str) -> dict:
     """The probes' own entry points, in-process at full size: the launch
     counts are set to 0 just before and read just after. One `probe` line
@@ -1909,9 +2058,11 @@ def phase_generate(card: str, tts, path: str = "default", runs=("warmup", "timed
                 raise AssertionError(f"wav shape {wav.shape}, want (1, {2 * n_tok * 480})")
             if not np.isfinite(wav).all():
                 raise AssertionError("wav has non-finite samples")
-            want = {"default": _want(flash_decode=n_layers * steps),
-                    "fused": _want(fused_decode=steps),
-                    "defer": _want(flash_decode_deferred=n_layers * steps)}[path]
+            norms = _norm_launches(cfg)
+            want = {"default": _want(flash_decode=n_layers * steps, layer_norm=norms),
+                    "fused": _want(fused_decode=steps, layer_norm=norms),
+                    "defer": _want(flash_decode_deferred=n_layers * steps,
+                                   layer_norm=norms)}[path]
             if counts != want or steps == 0:
                 raise AssertionError(f"generate ({path}): launches {counts}, want {want}")
             if perf["use_fused"] != (path == "fused"):
@@ -1946,8 +2097,9 @@ def phase_stream(card: str, tts, fused_step: bool, runs=("warmup", "timed")):
                                      f"samples for {n_tok} tokens")
             if not all(np.isfinite(c).all() for c in chunks):
                 raise AssertionError(f"stream ({label}): non-finite samples")
-            want = (_want(fused_decode=steps) if fused_step
-                    else _want(flash_decode=n_layers * steps))
+            norms = _k8_ran(f"stream ({label})", counts)
+            want = (_want(fused_decode=steps, layer_norm=norms) if fused_step
+                    else _want(flash_decode=n_layers * steps, layer_norm=norms))
             if counts != want or steps == 0 or perf["use_fused"] != fused_step:
                 raise AssertionError(f"stream ({label}): launches {counts}, want {want}, "
                                      f"use_fused {perf['use_fused']}")
@@ -2088,7 +2240,8 @@ def phase_first_chunk(card: str, tts) -> dict:
         with _env(env):
             with _env({"CHATTERBOX_FUSED_FIRST_CHUNK": "0"}):
                 plain = _stream_run(tts, TEXT, **kw)
-            want = _want(**{kernel: per_step * plain[2]["decode_steps"]})
+            want = _want(**{kernel: per_step * plain[2]["decode_steps"]},
+                         layer_norm=_k8_ran(f"first_chunk ({label})", plain[3]))
             if (plain[3] != want or plain[2]["first_chunk_graph"] is not None
                     or plain[2]["decode_steps"] == 0):
                 raise AssertionError(f"first_chunk ({label}, per-block route): launches "
@@ -2099,7 +2252,8 @@ def phase_first_chunk(card: str, tts) -> dict:
                 n_graphs = len(streaming.GRAPHS)
                 chunks, tokens, perf, counts = _stream_run(tts, TEXT, **kw)
                 steps = perf["decode_steps"]
-                want = _want(**{kernel: per_step * steps})
+                # the graph's replays count K8 as the per-block route launches it
+                want = _want(**{kernel: per_step * steps}, layer_norm=plain[3]["layer_norm"])
                 route = {"capture": "captured", "replay": "replayed"}[run]
                 if (perf["first_chunk_graph"] != route or counts != want
                         or len(streaming.GRAPHS) != n_graphs + (run == "capture")):
@@ -2121,7 +2275,9 @@ def phase_first_chunk(card: str, tts) -> dict:
             launches[f"first_chunk_{label}"] = counts
             entry = graphs[label] = list(streaming.GRAPHS.values())[-1]
             _, wrapper, attr, _ = _kernels()[kernel]
-            if entry.launches != {(wrapper, attr): per_step * block}:
+            held = dict(entry.launches)
+            ln = _kernels()["layer_norm"]
+            if held.pop((ln[1], ln[2]), 0) == 0 or held != {(wrapper, attr): per_step * block}:
                 raise AssertionError(f"first_chunk ({label}): the graph holds {entry.launches}")
             if label == "deferred":
                 continue
@@ -2345,7 +2501,8 @@ def phase_conditioning(card: str, tts) -> dict:
             if wav.shape != (1, 2 * n * 480) or n == 0 or not np.isfinite(wav).all():
                 raise AssertionError(f"conditioning generate {list(voice)}: wav {wav.shape}, "
                                      f"{n} tokens")
-            if counts != _want(flash_decode=n_layers * steps) or steps == 0:
+            if (counts != _want(flash_decode=n_layers * steps, layer_norm=_norm_launches(cfg))
+                    or steps == 0):
                 raise AssertionError(f"conditioning generate {list(voice)}: launches {counts}")
             log("conditioning_generate", voice=",".join(voice), tokens=n, decode_steps=steps,
                 launches=json.dumps({k: v for k, v in counts.items() if v}).replace(" ", ""),
@@ -2401,9 +2558,9 @@ def phase_conditioning(card: str, tts) -> dict:
             n_src = COND_SRC_S * 25
             if wav.shape != (1, 2 * n_src * 480) or not np.isfinite(wav).all():
                 raise AssertionError(f"vc: wav {wav.shape}, want (1, {2 * n_src * 480})")
-            if _counts() != _want():
+            if _counts() != _want(layer_norm=_norm_launches(cfg)):
                 raise AssertionError(f"vc: launches {_counts()} (one row stays below the "
-                                     f"K2 / K3 gates)")
+                                     f"K2 / K3 gates; K8 on every norm)")
             log("vc", run=run, source_s=COND_SRC_S, tokens=n_src, wav_samples=wav.shape[1],
                 seconds=f"{vc_s:.4f}", seconds_per_source_second=f"{vc_s / COND_SRC_S:.4f}",
                 peak_abs=f"{float(np.abs(wav).max()):.4f}", card=repr(card))
@@ -2451,17 +2608,46 @@ def _cfm_steps(cfg, stride: int):
 
 
 def _s3gen_launches(cfg, perf: dict) -> dict:
-    """K2's and K3's launches of the S3Gen dispatches that `perf` (a
+    """K2's, K3's and K8's launches of the S3Gen dispatches that `perf` (a
     generate_batch's) records: every conformer block once a dispatch, and
     every CFM transformer block once a fresh Euler step and the two outer
-    ones once a reused step."""
+    ones once a reused step; K8 as `_norm_launches`."""
     n_blocks = cfg.s3gen.flow.encoder.num_blocks + cfg.s3gen.flow.encoder.num_up_blocks
     dec = cfg.s3gen.flow.decoder
     fresh, reused = _cfm_steps(cfg, perf["cfm_cache_every"])
     dispatches = perf["s3gen_dispatches"]
     return dict(rel_attention=n_blocks * dispatches,
                 flash_attention=dispatches * ((2 + dec.num_mid_blocks) * dec.n_blocks * fresh
-                                              + 2 * dec.n_blocks * reused))
+                                              + 2 * dec.n_blocks * reused),
+                layer_norm=_norm_launches(cfg, dispatches, perf["cfm_cache_every"]))
+
+
+def _estimator_norms(dec, fresh: int = 1, reused: int = 0) -> int:
+    """K8's launches in `fresh` whole estimator calls and `reused` DeepCache
+    calls (down and up stages and the final block): two a resnet, two a
+    transformer block, one the final block."""
+    stage = 2 + 2 * dec.n_blocks
+    return fresh * ((2 + dec.num_mid_blocks) * stage + 1) + reused * (2 * stage + 1)
+
+
+def _norm_launches(cfg, dispatches: int = 1, stride=None) -> int:
+    """K8's launches in `dispatches` S3Gen dispatches at DeepCache stride
+    `stride` (None: none): the conformer's norms (its embedding's, two a
+    block, its up-embedding's and the last: 23) and the estimator's (141 a
+    fresh call, 21 a reused one)."""
+    enc = cfg.s3gen.flow.encoder
+    fresh, reused = _cfm_steps(cfg, stride or 0)
+    return dispatches * (3 + 2 * (enc.num_blocks + enc.num_up_blocks)
+                         + _estimator_norms(cfg.s3gen.flow.decoder, fresh, reused))
+
+
+def _k8_ran(label: str, counts: dict) -> int:
+    """K8's launches where S3Gen ran in windows that the caller does not
+    count (streams, first chunks): at least one dispatch's."""
+    n = counts["layer_norm"]
+    if n == 0:
+        raise AssertionError(f"{label}: S3Gen ran without K8")
+    return n
 
 
 def _long_perf(meta: dict) -> dict:
@@ -3249,7 +3435,7 @@ def phase_train(card: str) -> dict:
         now = _counts()
         delta = {k: now[k] - before[k] for k in now}
         want = _want(flash_attention=n_tblocks, flash_attention_bwd_dq=n_tblocks,
-                     flash_attention_bwd_dkv=n_tblocks)
+                     flash_attention_bwd_dkv=n_tblocks, layer_norm=_estimator_norms(dec))
         if delta != want:
             raise AssertionError(f"flow step {i}: launches {delta}, want {want}")
         before = now
@@ -3313,7 +3499,8 @@ def phase_train(card: str) -> dict:
         result[device] = (loss.item(), {path: x.grad.cpu() for path, x in _leaves(params)})
         counts = _counts()
         want = _want(flash_attention=n_tblocks, flash_attention_bwd_dq=n_tblocks,
-                     flash_attention_bwd_dkv=n_tblocks) if device == "cuda" else _want()
+                     flash_attention_bwd_dkv=n_tblocks,
+                     layer_norm=_estimator_norms(dec)) if device == "cuda" else _want()
         if counts != want:
             raise AssertionError(f"flow step on {device}: launches {counts}, want {want}")
         log("train_flow_step", device=device, frames=TRAIN_CHECK_FRAMES, loss=f"{loss.item():.8f}",
@@ -3462,7 +3649,9 @@ def phase_train_mesh(card: str) -> dict:
             torch.cuda.synchronize()
             sp_s.append(time.time() - t0)
         for r, c in enumerate(mesh_sp.call_all(_counts)):
-            if c != _want():
+            # K8 on every norm of every Euler step, both calls (no DeepCache
+            # under sp)
+            if c != _want(layer_norm=_estimator_norms(dec, 2 * cfm_cfg.n_timesteps)):
                 raise AssertionError(f"sp = 2 rank {r} launched kernels: {c}")
         err = (out - one).abs().max().item()
         if out.shape != one.shape or not torch.isfinite(out).all() or not err <= TRAIN_MESH_SP_TOL:
@@ -3503,7 +3692,7 @@ def phase_train_mesh(card: str) -> dict:
         place_s = time.time() - t0
         step = training.make_flow_train_step(mesh_dp, cfm_cfg, dec)
         want = _want(flash_attention=n_tblocks, flash_attention_bwd_dq=n_tblocks,
-                     flash_attention_bwd_dkv=n_tblocks)
+                     flash_attention_bwd_dkv=n_tblocks, layer_norm=_estimator_norms(dec))
         dp_s = []
         for i in range(2):
             mesh_dp.call_all(_reset_counts)
@@ -3823,8 +4012,8 @@ def _close(label: str, got, want, min_cos: float, max_rel: float, **case) -> tup
 def _int8_generate(tts, n_layers: int, label: str, env: dict, counter: str,
                    max_new_tokens: int = INT8_NEW_TOKENS) -> tuple:
     """tts.generate of TEXT under `env`, its wav checked and its launches
-    held to `counter` = 30 x steps and nothing else of T3's. Returns
-    (launches, perf)."""
+    held to `counter` = 30 x steps and nothing else of T3's (and K8 on
+    S3Gen's norms). Returns (launches, perf)."""
     with _env(env):
         _reset_counts()
         wav = tts.generate(TEXT, max_new_tokens=max_new_tokens, cfg_weight=0.5,
@@ -3833,7 +4022,8 @@ def _int8_generate(tts, n_layers: int, label: str, env: dict, counter: str,
     n_tok, steps = perf["speech_tokens"], perf["decode_steps"]
     if wav.shape != (1, 2 * n_tok * 480) or not np.isfinite(wav).all() or steps == 0:
         raise AssertionError(f"{label}: wav {wav.shape} for {n_tok} tokens")
-    if counts != _want(**{counter: n_layers * steps}) or perf["use_fused"]:
+    if (counts != _want(**{counter: n_layers * steps}, layer_norm=_norm_launches(tts.cfg))
+            or perf["use_fused"]):
         raise AssertionError(f"{label}: launches {counts}, want {counter} = {n_layers} x "
                              f"{steps}, no K4")
     return counts, perf
@@ -3990,7 +4180,7 @@ def phase_int8(card: str, tts) -> dict:
     counts, dec = _counts(), run["decoder"]
     steps = dec.steps_run
     if (counts != _want(flash_decode_int8=n_layers * steps, **{
-            k: counts[k] for k in ("rel_attention", "flash_attention")})
+            k: counts[k] for k in ("rel_attention", "flash_attention", "layer_norm")})
             or steps == 0 or dec.state.cache.k.dtype != torch.int8):
         raise AssertionError(f"int8 engine: launches {counts}, {steps} steps")
     for rid, req in zip(run["rids"], requests):
@@ -4245,7 +4435,7 @@ MAIN_PATH = {"flash_decode": "stream_generate", "flash_decode_deferred": "genera
              "fused_decode": "stream_generate_fused_step",
              "flash_decode_int8": "int8_cache", "flash_decode_int8_deferred": "int8_defer",
              "weight_stream": "probe_weight_stream", "decode_anatomy": "probe_decode_anatomy",
-             "moe_experts": "engine_dsv2"}
+             "moe_experts": "engine_dsv2", "layer_norm": "generate_batch"}
 REPLACES = {"flash_decode": "chatterbox_embed_tpu/kernels/flash_decode.py:85",
             "flash_decode_deferred": "chatterbox_embed_tpu/kernels/flash_decode.py:169",
             "rel_attention": "chatterbox_embed_tpu/kernels/rel_attention.py:45",
@@ -4261,7 +4451,9 @@ REPLACES = {"flash_decode": "chatterbox_embed_tpu/kernels/flash_decode.py:85",
             "weight_stream": "scripts/microbench_weight_stream.py:39",
             "decode_anatomy": "scripts/microbench_decode_anatomy.py:40",
             # no TPU kernel: the JAX package runs no mixture of experts
-            "moe_experts": "none"}
+            "moe_experts": "none",
+            # no TPU kernel: XLA fuses the norm's chain on the TPU
+            "layer_norm": "none"}
 
 
 # DeepSeek-V2-Lite (phase dsv2): K7 at a decode step's rows (16 slots x the
@@ -4282,7 +4474,8 @@ DSV2_SAMPLING = dict(temperature=0.6, cfg_weight=0.3, repetition_penalty=1.2, mi
 
 # the phases `--phases` selects among, in the order they run (the device
 # and build phases always run; every phase runs when none is named)
-PHASES = ("kernel_check", "attention_check", "probe_check", "probes", "fused_check",
+PHASES = ("kernel_check", "attention_check", "probe_check", "norm_check", "probes",
+          "fused_check",
           "consistency", "generate", "generate_batch", "stream_generate", "first_chunk",
           "conditioning", "long_text", "engine", "worker", "mesh", "int8", "train",
           "train_mesh", "dsv2")
@@ -4333,6 +4526,9 @@ def main(argv=None) -> None:
     if "probe_check" in selected:
         check.update(phase_probe_check(card))
         phase_done("kernel_check_k5_k6")
+    if "norm_check" in selected:
+        check["layer_norm"] = phase_norm_check(card)
+        phase_done("kernel_check_k8")
     if "probes" in selected:
         launches.update(phase_probes(card))
         phase_done("probes")
