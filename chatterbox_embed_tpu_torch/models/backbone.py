@@ -5,9 +5,10 @@ the same face, so T3 and its engine call it without asking which it is:
 
 - `NAME`, and `UNSUPPORTED`: the features of `FEATURES` it does not run;
 - `WHOLE_STEP`: whether the engine's decode step has no eager kernel
-  between its parts, and is captured whole (t3_engine.WholeStep) rather
-  than in pieces cut at K1 (t3_engine.StepPieces);
-- `SERVING_KERNELS`: the kernel modules (kernels/) its serving launches;
+  between its parts, and is one piece (t3_engine.EngineStep) rather than
+  pieces cut at K1;
+- `SERVING_KERNELS`: the kernels its serving launches, by their names in
+  the kernel table (kernels.table);
 - `init(init, cfg)`: the params, held under T3's "llama" key;
 - `kv_heads(params, cfg)` and `init_cache(cfg, batch, max_len, dtype,
   device, heads=None, route=False)`: the decode cache (dtype torch.int8

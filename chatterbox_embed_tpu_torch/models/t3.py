@@ -27,8 +27,8 @@ counterpart of `chatterbox_embed_tpu/models/t3.py`: one utterance
   or the fused step), so the cache capacity is rounded up to a multiple of
   256 as the JAX package does when its kernels are on (t3.py:756). For the
   same reason the JAX package's phased reads (early decode phases reading
-  a shorter prefix of the cache) buy nothing here: `_phased_cache_k` is
-  kept for its derivation, and `phase_totals` is always [cache_total].
+  a shorter prefix of the cache) buy nothing here: the port decodes in one
+  phase.
 - CHATTERBOX_INT8_KV=1 (read at call time) keeps the cache in int8 with
   per-(slot, row, head) scales (models/llama.py) at every row count, except
   under the fused step, which walks its own cache in the compute dtype
@@ -496,41 +496,6 @@ def max_decode_utterances(cache_capacity: Optional[int] = None, *,
     return min(base, 1 << (utts.bit_length() - 1))
 
 
-# The JAX package's phased-cache derivation (t3.py:519-567): its batched XLA
-# decode reads the WHOLE static cache capacity every step, so it decodes in
-# K phases whose attention reads successively longer prefixes. The port's
-# decode attention (K1, K1s, K4) walks only the live slots [start, pos] at
-# every row count, so phases would save nothing it does not skip already
-# (ROADMAP item 22: at Lc 1280, pos 961, B = 16, K1 reads 62.0 MB where the
-# whole capacity is ~83.9 MB). The derivation is kept, and start_generation
-# records the one phase it decodes in (`phase_totals`).
-_PHASED_MIN_CAP = 600
-_PHASED_PHASE_LEN = 256
-_phased_env_warned = False
-
-
-def _phased_cache_k(gen_cap: int = 0) -> int:
-    """The JAX package's phase count for a generation cap:
-    CHATTERBOX_PHASED_CACHE when it parses as an integer (0 or 1: one
-    phase); unset or empty, ceil(gen_cap / 256) from a cap of 600 up and 0
-    below. An unparseable value warns once and falls back to the
-    derivation."""
-    raw = os.getenv("CHATTERBOX_PHASED_CACHE", "").strip()
-    if raw:
-        try:
-            return int(raw)
-        except ValueError:
-            global _phased_env_warned
-            if not _phased_env_warned:
-                _phased_env_warned = True
-                import warnings
-                warnings.warn(f"CHATTERBOX_PHASED_CACHE={raw!r} is not an integer; "
-                              "falling back to the derived phase count")
-    if gen_cap < _PHASED_MIN_CAP:
-        return 0
-    return -(-gen_cap // _PHASED_PHASE_LEN)
-
-
 def _cfg_on(cfg_weight) -> bool:
     """CFG layout for every row if any row's weight is positive."""
     return bool(np.any(np.asarray(cfg_weight, np.float32) > 0.0))
@@ -600,8 +565,7 @@ def _mesh_rows(params, cond, text_tokens, *, mesh, cfg_weight=0.0, **_):
 
 # start_generation's decisions for the last decode (the JAX package's
 # LAST_GENERATION_INFO): p_len, cache_total, n_utt, alignment, use_fused,
-# kv_int8, phase_totals ([cache_total]: one phase, module docstring) and the
-# mesh's shape (None without one)
+# kv_int8 and the mesh's shape (None without one)
 LAST_GENERATION_INFO: dict = {}
 
 
@@ -616,7 +580,7 @@ def start_generation(params, cond: T3Cond, text_tokens: np.ndarray, *,
     above max_decode_utterances, whose fence reads `free_bytes` (default:
     the device's free memory now); generate_batch sub-batches below it.
     Returns (state, info) with the decode's p_len, pad, cfg_on,
-    cache_total, the K1 hole (or None), use_fused, kv_int8, phase_totals,
+    cache_total, the K1 hole (or None), use_fused, kv_int8,
     the fused step's weights (or None), the guard's align_layer, text_start
     and per-row text_len (None without `alignment`), the mesh and this
     rank's rows [r0, r1) of the context.
@@ -695,14 +659,14 @@ def start_generation(params, cond: T3Cond, text_tokens: np.ndarray, *,
     if mesh is not None:
         state = state._replace(logits=mesh.gather_dp(state.logits))
     info = dict(p_len=p_len, pad=pad, cfg_on=cfg_on, cache_total=total, hole=hole,
-                use_fused=use_fused, kv_int8=kv_int8, phase_totals=[total],
+                use_fused=use_fused, kv_int8=kv_int8,
                 fused=_fused_params(params, cfg, dtype) if use_fused else None,
                 align_layer=align_layer, text_start=text_start, text_len=text_len,
                 mesh=mesh, rows=rows)
     LAST_GENERATION_INFO.clear()
     LAST_GENERATION_INFO.update(p_len=p_len, cache_total=total, n_utt=u,
                                 alignment=align_layer is not None, use_fused=use_fused,
-                                kv_int8=kv_int8, phase_totals=[total],
+                                kv_int8=kv_int8,
                                 mesh=None if mesh is None else dict(mesh.shape))
     return state, info
 

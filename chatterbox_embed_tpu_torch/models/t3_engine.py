@@ -31,19 +31,19 @@ layout [cond rows 0..S-1; uncond rows S..2S-1], as t3.decode_block.
   a request's prefill quantises its context, the insert copies its slabs
   and scales, each step's ring column is quantised as it is written, and
   K1's int8 entry walks the spans.
-- Off a mesh the step runs in pieces cut at K1 (`StepPieces`,
-  `pieced_decode_block`). On the card the first block's first step warms
-  the pieces up and captures them as CUDA graphs, and every later step
-  replays them, with K1 called eagerly between, so a step costs the host
-  ~200 launches instead of ~1,600; elsewhere the pieces are called as
-  they are. A mesh takes the step whole (`engine_decode_block`): a graph
-  cannot hold its collectives.
+- Off a mesh the step runs in pieces (`EngineStep`, `pieced_decode_block`)
+  on the capture driver (utils/graphs.py). On the card the first block's
+  first step warms the pieces up and captures them as CUDA graphs, and
+  every later step replays them; elsewhere the pieces are called as they
+  are. Llama's step is cut at K1, which runs eagerly between the pieces,
+  so a step costs the host ~200 launches instead of ~1,600. A mesh takes
+  the step whole (`engine_decode_block`): a graph cannot hold its
+  collectives.
 - A latent backbone (models/deepseek_v2.py, DeepSeek-V2) keeps a latent
   cache (layers, total, 2S', 576) in the same ring-column layout, and its
-  step has no eager kernel between its parts: off a mesh it is one piece
-  (`WholeStep`), captured whole as one CUDA graph on the card, the step's
-  keys the same spans and holes as a mask and its routed experts through K7;
-  elsewhere the piece is called as it is. With `route_record` the cache
+  step has no eager kernel between its parts: off a mesh it is one piece,
+  one CUDA graph on the card, the step's keys the same spans and holes as
+  a mask and its routed experts through K7. With `route_record` the cache
   also keeps every row's expert ids at each column (`LatentCache.route`),
   and the decoder copies a finished request's ids to the host at the end
   of the block (`ContinuousDecoder.routes`). Its int8 cache and the mesh
@@ -74,10 +74,9 @@ import torch
 
 from ..config import T3Config
 from ..device import resolve_device
-from ..kernels import moe_experts
 from ..ops import sampling
 from ..parallel.mesh import on_mesh_method
-from ..utils import profiling
+from ..utils import graphs, profiling
 from . import backbone
 from . import layers as L
 from . import llama
@@ -288,6 +287,24 @@ def _sample(state: EngineState, logits, noise, cfg: T3Config, use_top_p: bool):
     return tok, state.done | (tok == eos) | (state.i + 1 >= state.limit)
 
 
+def _next_input(params, state: EngineState, tok, p_len: int, dtype):
+    """A step's input rows, [cond; uncond] of every slot: each slot's token
+    embedding plus its next speech position (2S, 1, D) in `dtype`, and its
+    RoPE position p_len - pad + i (2S, 1)."""
+    emb = L.embedding(params["speech_emb"], tok) + params["speech_pos_emb"]["w"][state.i + 1]
+    pos_id = (p_len - state.pad + state.i)[:, None]
+    return torch.cat([emb, emb])[:, None].to(dtype), torch.cat([pos_id, pos_id])
+
+
+def _close_step(params, state: EngineState, h, done) -> None:
+    """The speech head on the backbone's last rows `h` into state.logits,
+    then each live slot's count of tokens and the new done flags, in
+    place."""
+    state.logits.copy_(L.linear(params["speech_head"], h[:, -1], torch.float32))
+    state.i.copy_(torch.where(state.done, state.i, state.i + 1))
+    state.done.copy_(done)
+
+
 @torch.no_grad()
 def engine_decode_block(params, state: EngineState, cfg: T3Config, block: int, p_len: int,
                         use_top_p: bool, dtype=torch.float32, mesh=None):
@@ -305,9 +322,9 @@ def engine_decode_block(params, state: EngineState, cfg: T3Config, block: int, p
 
     mesh: each rank forwards the rows of its slots (state.own) and the
     logits are gathered over dp before each step's sampling. Off a mesh
-    the engine takes the same step in pieces (`pieced_decode_block`); a
-    latent backbone's step here is the eager one its `WholeStep` is held
-    to (it runs on no mesh)."""
+    the engine takes the same step in pieces (`EngineStep`,
+    `pieced_decode_block`); a latent backbone's step here is the eager one
+    its piece is held to (it runs on no mesh)."""
     s_slots = state.done.shape[0]
     s0, s1 = state.own
     local = None                                      # this rank's rows of the 2S
@@ -322,7 +339,6 @@ def engine_decode_block(params, state: EngineState, cfg: T3Config, block: int, p
     v = cfg.speech_tokens_dict_size
     total = state.cache[0].shape[1]
     ring = total - p_len
-    pos_emb = params["speech_pos_emb"]["w"]
     zeros = torch.zeros((v,), dtype=torch.float32, device=dev)
     noise = torch.empty((s_slots, v), dtype=torch.float32, device=dev)
     toks = []
@@ -341,17 +357,13 @@ def engine_decode_block(params, state: EngineState, cfg: T3Config, block: int, p
             tok, done = _sample(state, logits, noise, cfg, use_top_p)
             toks.append(tok)
         with profiling.span("engine.forward"):
-            emb = L.embedding(params["speech_emb"], tok) + pos_emb[state.i + 1]
-            emb = ours(torch.cat([emb, emb]))[:, None]
-            pos_id = (p_len - state.pad + state.i)[:, None]
+            emb, pos_id = _next_input(params, state, tok, p_len, dtype)
             span, hole = engine_spans(state.pad, state.g_start, done, state.g, p_len, ring)
             hh, _ = backbone.of(cfg.llama).forward(
-                params["llama"], emb.to(dtype), ours(torch.cat([pos_id, pos_id])),
-                cache=state.cache, cache_pos=p_len + state.g % ring, cfg=cfg.llama,
-                dtype=dtype, flash_hole=ours(hole), flash_span=ours(span), mesh=mesh)
-            state.logits.copy_(L.linear(params["speech_head"], hh[:, -1], torch.float32))
-        state.i.copy_(torch.where(state.done, state.i, state.i + 1))
-        state.done.copy_(done)
+                params["llama"], ours(emb), ours(pos_id), cache=state.cache,
+                cache_pos=p_len + state.g % ring, cfg=cfg.llama, dtype=dtype,
+                flash_hole=ours(hole), flash_span=ours(span), mesh=mesh)
+            _close_step(params, state, hh, done)
         state.g += 1
     return _fetch(toks, block, s_slots, cfg.stop_speech_token)
 
@@ -367,168 +379,8 @@ def _fetch(toks, block: int, s_slots: int, eos: int):
 
 
 # ---------------------------------------------------------------------------
-# the step in pieces: CUDA graphs between K1 calls
+# the step in pieces: CUDA graphs on the card
 # ---------------------------------------------------------------------------
-
-class StepPieces:
-    """The engine's decode step (engine_decode_block's body, off a mesh)
-    cut at K1 into n_layers + 2 pieces over static buffers of one engine:
-
-    - the sampling piece: `_sample` on the static Gumbel rows `noise`;
-    - the opening piece: the next embedding and RoPE positions, then layer
-      0's norm, q/k/v, RoPE and ring-column write at the device index `col`;
-    - the piece of layer i (0 < i < L): layer i-1's o-projection and MLP on
-      K1's output (copied into `att[i-1]`), then layer i's q/k/v and write;
-    - the last piece: layer L-1's o-projection and MLP, the final norm, the
-      speech head into state.logits, and the i / done updates, in place.
-
-    K1 runs between the pieces, eagerly and as llama.forward calls it:
-    through `llama.decode_attention`, looked up at each call, at the host's
-    cache_pos, with a span and hole made each step by `engine_spans`. On
-    the card the first step runs the pieces eagerly on a side stream (the
-    warm-up), then `capture` records each piece as a CUDA graph in one
-    memory pool, and later steps replay them in capture order; elsewhere
-    the pieces are called. Either way the work, its precision and its
-    tokens are the eager step's."""
-
-    def __init__(self, params, state: EngineState, cfg: T3Config, p_len: int,
-                 use_top_p: bool, dtype):
-        s_slots = state.done.shape[0]
-        if state.own != (0, s_slots):
-            raise ValueError("the step's pieces hold every slot: a dp mesh takes the step whole")
-        dev = state.logits.device
-        lc = cfg.llama
-        self.params, self.state, self.cfg = params, state, cfg
-        self.p_len, self.ring = p_len, state.cache.k.shape[1] - p_len
-        self.use_top_p, self.dtype = use_top_p, dtype
-        self.layers = params["llama"]["layers"]
-        self.noise = torch.zeros((s_slots, cfg.speech_tokens_dict_size), dtype=torch.float32,
-                                 device=dev)
-        self.col = torch.full((1,), p_len, dtype=torch.int64, device=dev)
-        self.att = [torch.zeros((2 * s_slots, lc.num_heads, lc.head_dim), dtype=dtype,
-                                device=dev) for _ in self.layers]
-        cache = state.cache
-        self.kv = [dict(k=cache.k[i], v=cache.v[i],
-                        scales={} if cache.k_scale is None else
-                        dict(k_scale=cache.k_scale[i], v_scale=cache.v_scale[i]))
-                   for i in range(len(self.layers))]
-        # out[0]: the sampling piece's; out[1 + i]: layer i's q and residual
-        self.pieces = ([self._sampled, self._open]
-                       + [functools.partial(self._middle, i) for i in range(1, len(self.layers))]
-                       + [self._last])
-        self.out: List[dict] = [{} for _ in self.pieces]
-        self.on_card = dev.type == "cuda"
-        self.graphs: Optional[list] = None
-        self.pool_bytes = 0
-
-    # -- the pieces ---------------------------------------------------------
-
-    def _qkv_write(self, i: int, h, cos, sin):
-        q, k, v = llama._qkv(self.layers[i], h, cos, sin, self.cfg.llama, self.dtype)
-        llama._write_column(self.state.cache, i, self.col, k[:, 0], v[:, 0])
-        return q[:, 0]
-
-    def _close(self, i: int, h):
-        """Layer i's o-projection on K1's output and its MLP."""
-        lp = self.layers[i]
-        h = h + L.linear(lp["o"], L.merge_heads(self.att[i][:, None]), self.dtype)
-        return llama._mlp(lp, h, self.cfg.llama, self.dtype)
-
-    def _sampled(self) -> dict:
-        tok, done = _sample(self.state, self.state.logits, self.noise, self.cfg, self.use_top_p)
-        return dict(tok=tok, done=done)
-
-    def _open(self) -> dict:
-        st, cfg, p = self.state, self.cfg, self.params
-        tok = self.out[0]["tok"]
-        emb = L.embedding(p["speech_emb"], tok) + p["speech_pos_emb"]["w"][st.i + 1]
-        h = torch.cat([emb, emb])[:, None].to(self.dtype)
-        pos_id = (self.p_len - st.pad + st.i)[:, None]
-        cos, sin = llama.rope_cos_sin(torch.cat([pos_id, pos_id]), cfg.llama)
-        return dict(h=h, cos=cos, sin=sin, q=self._qkv_write(0, h, cos, sin))
-
-    def _middle(self, i: int) -> dict:
-        rope = self.out[1]
-        h = self._close(i - 1, self.out[i]["h"])
-        return dict(h=h, q=self._qkv_write(i, h, rope["cos"], rope["sin"]))
-
-    def _last(self) -> dict:
-        st, n = self.state, len(self.layers)
-        h = L.rms_norm(self.params["llama"]["norm"], self._close(n - 1, self.out[n]["h"]),
-                       self.cfg.llama.rms_norm_eps)
-        st.logits.copy_(L.linear(self.params["speech_head"], h[:, -1], torch.float32))
-        st.i.copy_(torch.where(st.done, st.i, st.i + 1))
-        st.done.copy_(self.out[0]["done"])
-        return {}
-
-    # -- a step -------------------------------------------------------------
-
-    def _run(self, k: int) -> None:
-        if self.graphs is None:
-            self.out[k] = self.pieces[k]()
-        else:
-            self.graphs[k].replay()
-
-    def _step(self, g: int) -> torch.Tensor:
-        """Step g of the pieces (noise loaded): returns its tokens (S,)."""
-        st, p_len, ring = self.state, self.p_len, self.ring
-        with profiling.span("engine.sample"):
-            self._run(0)
-            tok = self.out[0]["tok"].clone()
-        with profiling.span("engine.forward"):
-            self.col.fill_(p_len + g % ring)
-            self._run(1)
-            span, hole = engine_spans(st.pad, st.g_start, self.out[0]["done"], g, p_len, ring)
-            for i, kv in enumerate(self.kv):
-                att = llama.decode_attention(self.out[1 + i]["q"], kv["k"], kv["v"],
-                                             p_len + g % ring, start=0, hole=hole, span=span,
-                                             **kv["scales"])
-                self.att[i].copy_(att)
-                self._run(2 + i)
-        return tok
-
-    def step(self, g: int) -> torch.Tensor:
-        """Run step g (its Gumbel rows already in `noise`) and return its
-        tokens (S,). The first step on the card is the warm-up, eager on a
-        side stream, followed by the capture."""
-        if not self.on_card or self.graphs is not None:
-            tok = self._step(g)
-            if self.graphs is not None:
-                profiling.count("engine.graphed_steps")
-            return tok
-        dev = self.noise.device
-        main, side = torch.cuda.current_stream(dev), torch.cuda.Stream(dev)
-        side.wait_stream(main)
-        with torch.cuda.stream(side):
-            tok = self._step(g)
-        main.wait_stream(side)
-        self.capture(side)
-        return tok
-
-    def capture(self, side) -> None:
-        """Record every piece as a CUDA graph on `side`, in one memory pool
-        (replayed in the order captured, never two at once). A capture
-        runs nothing: the graphs' outputs hold values from the first
-        replay on."""
-        dev = self.noise.device
-        with profiling.span("engine.capture"):
-            torch.cuda.synchronize(dev)
-            reserved = torch.cuda.memory_reserved(dev)
-            pool = torch.cuda.graph_pool_handle()
-            graphs = []
-            with torch.cuda.stream(side):
-                for k, piece in enumerate(self.pieces):
-                    graph = torch.cuda.CUDAGraph()
-                    graph.capture_begin(pool=pool)
-                    try:
-                        self.out[k] = piece()
-                    finally:
-                        graph.capture_end()
-                    graphs.append(graph)
-            torch.cuda.current_stream(dev).wait_stream(side)
-            self.graphs = graphs
-            self.pool_bytes = torch.cuda.memory_reserved(dev) - reserved
-
 
 def latent_keys(pad: torch.Tensor, g_start: torch.Tensor, dead: torch.Tensor, c: torch.Tensor,
                 p_len: int, ring: int, total: int) -> torch.Tensor:
@@ -547,27 +399,35 @@ def latent_keys(pad: torch.Tensor, g_start: torch.Tensor, dead: torch.Tensor, c:
     return torch.cat([keys, keys])
 
 
-class WholeStep:
-    """A latent backbone's decode step (engine_decode_block's body, off a
-    mesh) as one piece over static buffers of one engine: `_sample` on the
-    static Gumbel rows `noise`, the next embedding and positions, the
-    backbone through its latent cache (the keys of `latent_keys`, the ring
-    column written at the device index from `g`, the routed experts
-    through K7), the speech head into state.logits, and the i / done
-    updates, in place. Nothing in it reads the host, so on the card the
-    first step runs it eagerly on a side stream (the warm-up) and `capture`
-    records it as one CUDA graph, which later steps replay; elsewhere it is
-    called. Either way the work, its precision and its tokens are the eager
-    step's. The same face as StepPieces to `pieced_decode_block`. K7's
-    launch counter (`grouped_swiglu.launches`) counts what each replay
-    runs, as an eager step would: the capture's count is taken back and
-    added again at every replay."""
+class EngineStep:
+    """The engine's decode step off a mesh (engine_decode_block's body) as
+    pieces over static buffers of one engine, run by the capture driver
+    (utils/graphs.py): called as they are off the card; on the card the
+    first step is the warm-up and the capture, and later steps replay the
+    graphs. Either way the work, its precision and its tokens are the
+    eager step's. Where the step is cut is the backbone's `WHOLE_STEP`:
+
+    - Llama, at K1, into n_layers + 2 pieces: the sampling (`_sample` on
+      the static Gumbel rows `noise`); the opening (`_next_input`, then
+      layer 0's norm, q/k/v, RoPE and ring-column write at the device index
+      `col`); the piece of layer i (0 < i < L): layer i-1's o-projection
+      and MLP on K1's output (copied into `att[i-1]`), then layer i's q/k/v
+      and write; the last: layer L-1's o-projection and MLP, the final norm
+      and `_close_step`. K1 runs between the pieces, eagerly and as
+      llama.forward calls it: through `llama.decode_attention`, looked up
+      at each call, at the host's cache_pos, with a span and hole made each
+      step by `engine_spans`.
+    - a latent backbone (`whole`), one piece: the sampling, `_next_input`,
+      the backbone through its latent cache (the keys of `latent_keys`,
+      the ring column written at the device index from `g`, the routed
+      experts through K7) and `_close_step`. Nothing in it reads the host.
+    """
 
     def __init__(self, params, state: EngineState, cfg: T3Config, p_len: int,
                  use_top_p: bool, dtype):
         s_slots = state.done.shape[0]
         if state.own != (0, s_slots):
-            raise ValueError("the step holds every slot: a latent backbone runs on no dp mesh")
+            raise ValueError("the step's pieces hold every slot: a dp mesh takes the step whole")
         dev = state.logits.device
         self.params, self.state, self.cfg = params, state, cfg
         self.p_len, self.total = p_len, state.cache[0].shape[1]
@@ -575,78 +435,112 @@ class WholeStep:
         self.use_top_p, self.dtype = use_top_p, dtype
         self.noise = torch.zeros((s_slots, cfg.speech_tokens_dict_size), dtype=torch.float32,
                                  device=dev)
-        self.g = torch.zeros((), dtype=torch.int64, device=dev)
-        self.out: dict = {}
-        self.on_card = dev.type == "cuda"
-        self.graph = None
-        self.pool_bytes = 0
-        self.launches = 0            # K7 launches a replay
+        self.whole = backbone.of(cfg.llama).WHOLE_STEP
+        if self.whole:
+            self.g = torch.zeros((), dtype=torch.int64, device=dev)
+            pieces = [self._body]
+        else:
+            lc, cache = cfg.llama, state.cache
+            self.layers = params["llama"]["layers"]
+            self.col = torch.full((1,), p_len, dtype=torch.int64, device=dev)
+            self.att = [torch.zeros((2 * s_slots, lc.num_heads, lc.head_dim), dtype=dtype,
+                                    device=dev) for _ in self.layers]
+            self.kv = [dict(k=cache.k[i], v=cache.v[i],
+                            scales={} if cache.k_scale is None else
+                            dict(k_scale=cache.k_scale[i], v_scale=cache.v_scale[i]))
+                       for i in range(len(self.layers))]
+            # out[0]: the sampling piece's; out[1 + i]: layer i's q and residual
+            pieces = ([self._sampled, self._open]
+                      + [functools.partial(self._middle, i) for i in range(1, len(self.layers))]
+                      + [self._last])
+        self.graphs = graphs.Graphed(pieces, dev, span="engine.capture")
+
+    # -- a latent backbone's one piece ---------------------------------------
 
     def _body(self) -> dict:
         st, cfg, p = self.state, self.cfg, self.params
         tok, done = _sample(st, st.logits, self.noise, cfg, self.use_top_p)
-        emb = L.embedding(p["speech_emb"], tok) + p["speech_pos_emb"]["w"][st.i + 1]
-        pos_id = (self.p_len - st.pad + st.i)[:, None]
+        h, pos_id = _next_input(p, st, tok, self.p_len, self.dtype)
         c = torch.remainder(self.g, self.ring)
         keys = latent_keys(st.pad, st.g_start, done, c, self.p_len, self.ring, self.total)
         hh, _ = backbone.of(cfg.llama).forward(
-            p["llama"], torch.cat([emb, emb])[:, None].to(self.dtype),
-            torch.cat([pos_id, pos_id]), cache=st.cache, cache_pos=(self.p_len + c).reshape(1),
+            p["llama"], h, pos_id, cache=st.cache, cache_pos=(self.p_len + c).reshape(1),
             cfg=cfg.llama, dtype=self.dtype, key_valid=keys)
-        st.logits.copy_(L.linear(p["speech_head"], hh[:, -1], torch.float32))
-        st.i.copy_(torch.where(st.done, st.i, st.i + 1))
-        st.done.copy_(done)
+        _close_step(p, st, hh, done)
         return dict(tok=tok)
+
+    # -- Llama's pieces, cut at K1 ------------------------------------------
+
+    def _qkv_write(self, i: int, h, cos, sin):
+        q, k, v = llama._qkv(self.layers[i], h, cos, sin, self.cfg.llama, self.dtype)
+        llama._write_column(self.state.cache, i, self.col, k[:, 0], v[:, 0])
+        return q[:, 0]
+
+    def _close(self, i: int, h):
+        """Layer i's o-projection on K1's output and its MLP."""
+        lp = self.layers[i]
+        h = h + L.linear(lp["o"], L.merge_heads(self.att[i][:, None]), self.dtype)
+        return llama._mlp(lp, h, self.cfg.llama, self.dtype)
+
+    def _sampled(self) -> dict:
+        tok, done = _sample(self.state, self.state.logits, self.noise, self.cfg, self.use_top_p)
+        return dict(tok=tok, done=done)
+
+    def _open(self) -> dict:
+        h, pos_id = _next_input(self.params, self.state, self.graphs.out[0]["tok"], self.p_len,
+                                self.dtype)
+        cos, sin = llama.rope_cos_sin(pos_id, self.cfg.llama)
+        return dict(h=h, cos=cos, sin=sin, q=self._qkv_write(0, h, cos, sin))
+
+    def _middle(self, i: int) -> dict:
+        out = self.graphs.out
+        h = self._close(i - 1, out[i]["h"])
+        return dict(h=h, q=self._qkv_write(i, h, out[1]["cos"], out[1]["sin"]))
+
+    def _last(self) -> dict:
+        out, n = self.graphs.out, len(self.layers)
+        h = L.rms_norm(self.params["llama"]["norm"], self._close(n - 1, out[n]["h"]),
+                       self.cfg.llama.rms_norm_eps)
+        _close_step(self.params, self.state, h, out[0]["done"])
+        return {}
+
+    # -- a step -------------------------------------------------------------
+
+    def _step(self, g: int) -> torch.Tensor:
+        """Step g of the pieces (noise loaded): returns its tokens (S,)."""
+        run, p_len, ring = self.graphs.run, self.p_len, self.ring
+        if self.whole:
+            with profiling.span("engine.forward"):
+                self.g.fill_(g)
+                return run(0)["tok"].clone()
+        with profiling.span("engine.sample"):
+            sampled = run(0)
+            tok = sampled["tok"].clone()
+        with profiling.span("engine.forward"):
+            self.col.fill_(p_len + g % ring)
+            run(1)
+            span, hole = engine_spans(self.state.pad, self.state.g_start, sampled["done"], g,
+                                      p_len, ring)
+            for i, kv in enumerate(self.kv):
+                att = llama.decode_attention(self.graphs.out[1 + i]["q"], kv["k"], kv["v"],
+                                             p_len + g % ring, start=0, hole=hole, span=span,
+                                             **kv["scales"])
+                self.att[i].copy_(att)
+                run(2 + i)
+        return tok
 
     def step(self, g: int) -> torch.Tensor:
         """Run step g (its Gumbel rows already in `noise`) and return its
-        tokens (S,). The first step on the card is the warm-up, eager on a
-        side stream, followed by the capture."""
-        with profiling.span("engine.forward"):
-            self.g.fill_(g)
-            if self.graph is not None:
-                self.graph.replay()
-                moe_experts.grouped_swiglu.launches += self.launches
-                profiling.count("engine.graphed_steps")
-            elif not self.on_card:
-                self.out = self._body()
-            else:
-                dev = self.noise.device
-                main, side = torch.cuda.current_stream(dev), torch.cuda.Stream(dev)
-                side.wait_stream(main)
-                with torch.cuda.stream(side):
-                    tok = self._body()["tok"].clone()
-                main.wait_stream(side)
-                self.capture(side)
-                return tok
-            return self.out["tok"].clone()
-
-    def capture(self, side) -> None:
-        """Record the step as one CUDA graph on `side`. A capture runs
-        nothing: the graph's outputs hold values from the first replay on."""
-        dev = self.noise.device
-        with profiling.span("engine.capture"):
-            torch.cuda.synchronize(dev)
-            reserved = torch.cuda.memory_reserved(dev)
-            graph = torch.cuda.CUDAGraph()
-            n0 = moe_experts.grouped_swiglu.launches
-            with torch.cuda.stream(side):
-                graph.capture_begin()
-                try:
-                    self.out = self._body()
-                finally:
-                    graph.capture_end()
-                    # a capture records launches without running them
-                    self.launches = moe_experts.grouped_swiglu.launches - n0
-                    moe_experts.grouped_swiglu.launches = n0
-            torch.cuda.current_stream(dev).wait_stream(side)
-            self.graph = graph
-            self.pool_bytes = torch.cuda.memory_reserved(dev) - reserved
+        tokens (S,): on the card the first step is the warm-up, followed
+        by the capture."""
+        if self.graphs.captured:
+            profiling.count("engine.graphed_steps")
+        return self.graphs.step(functools.partial(self._step, g))
 
 
 @torch.no_grad()
-def pieced_decode_block(pieces: StepPieces, state: EngineState, block: int):
-    """engine_decode_block through the step's pieces (StepPieces): the same
+def pieced_decode_block(pieces: EngineStep, state: EngineState, block: int):
+    """engine_decode_block through the step's pieces (EngineStep): the same
     tokens, (tokens (block, S) int32 numpy, n_steps).
 
     Inside a block the host draws step n+1's Gumbel rows while the card
@@ -706,10 +600,9 @@ class ContinuousDecoder:
     mesh: the params are each rank's shard (parallel.serve.
     shard_t3_for_serving); the slots split over dp (`engine_slots`), and
     the decoder is built on every rank (module docstring).
-    pieces: the step's pieces (`StepPieces`) off a mesh, captured as CUDA
+    pieces: the step's pieces (`EngineStep`) off a mesh, captured as CUDA
     graphs in the first block on the card; None on a mesh, where the step
-    runs whole. A latent backbone's step is one piece (`WholeStep`), one
-    graph on the card.
+    runs whole.
     route_record: a latent backbone's engine keeps every row's expert ids
     (`LatentCache.route`), and each finished request's are copied to the
     host into `routes` {rid: (moe layers, positions, 2, k) int16}, over its
@@ -749,8 +642,7 @@ class ContinuousDecoder:
         # the step's pieces off a mesh (graphed on the card); None: the step
         # whole, on a mesh, whose collectives a graph cannot hold
         self.pieces = (None if mesh is not None else
-                       (WholeStep if bb.WHOLE_STEP else StepPieces)(params, self.state, cfg,
-                                                                    self.p_len, use_top_p, dtype))
+                       EngineStep(params, self.state, cfg, self.p_len, use_top_p, dtype))
         self._queue: List[dict] = []
         self._slots = [_Slot() for _ in range(slots)]
         # retain_results=False for run-forever callers that consume step()'s

@@ -10,17 +10,17 @@ of `block_tokens` steps, the first flow window and the first vocoder window
 Here it is one static-shape body (`_first_chunk_body`): every step runs
 whatever the tokens turn out to be, and the text's left pad, the token
 limit, the sampling values, the decode's done flags and counts stay on the
-device. On the card the body is captured once as a CUDA graph per (model,
-text bucket, block, cache capacity, dtype, decode step, top-p; the voice's
-prompt shapes and CHATTERBOX_DEFER_KV, which the captured kernels bake in)
-and replayed for every later request of that key: one launch from the host
-where the eager body makes several thousand. The graphs are kept in
-`GRAPHS`, the least recently used dropped past GRAPHS_KEPT, and a model's
-go with it (`GRAPHS.release`). A caller that asks for the CPU runs the same
-body eagerly. The replay's outputs are copied out of the graph's memory
-before they are returned, so streams of one key may interleave. A capture
-or a replay that fails raises; nothing falls back to the eager body on the
-card.
+device. On the card the body is captured once as a CUDA graph
+(utils/graphs.py) per (model, text bucket, block, cache capacity, dtype,
+decode step, top-p; the voice's prompt shapes and CHATTERBOX_DEFER_KV,
+which the captured kernels bake in) and replayed for every later request
+of that key: one launch from the host where the eager body makes several
+thousand. The graphs are kept in `GRAPHS`, the least recently used dropped
+past GRAPHS_KEPT, and a model's go with it (`GRAPHS.release`). A caller
+that asks for the CPU runs the same body eagerly. The replay's outputs are
+copied out of the graph's memory before they are returned, so streams of
+one key may interleave. A capture or a replay that fails raises; nothing
+falls back to the eager body on the card.
 
 Draws: one draw source serves a stream. T3 step i takes draws.gumbel(i);
 the vocoder windows take draws.stream_phase (one per utterance) and
@@ -31,6 +31,7 @@ into its input buffers.
 """
 from __future__ import annotations
 
+import functools
 import os
 from collections import OrderedDict
 from typing import NamedTuple, Optional
@@ -41,13 +42,13 @@ import torch.nn.functional as F
 
 from .config import SPEECH_VOCAB_SIZE, ChatterboxConfig
 from .device import resolve_device
-from .kernels import flash_attention, flash_decode, fused_decode, layer_norm, rel_attention
 from .models import backbone
 from .models import hifigan as hift_mod
 from .models import llama as llama_mod
 from .models import s3gen as s3gen_mod
 from .models import t3 as t3_mod
 from .ops import sampling
+from .utils import graphs
 
 # Windowed-streaming geometry (the flow's context tokens and the vocoder's
 # context mel frames); read once at import, as in the JAX package.
@@ -158,18 +159,6 @@ def _first_chunk_body(t3_params, s3_params, inp: _Inputs, draws, st: _Static, fu
 # the first chunk as a CUDA graph
 # ---------------------------------------------------------------------------
 
-def _counters():
-    """(wrapper, attribute) of every kernel launch counter the body can
-    move (K1 / K1s and their int8 entries, K4, K2, K3, K8)."""
-    fd = flash_decode.decode_attention
-    return ([(fd, a) for a in ("launches", "launches_deferred", "launches_int8",
-                               "launches_int8_deferred")]
-            + [(fused_decode.fused_decode_step, "launches"),
-               (rel_attention.rel_attention, "launches"),
-               (flash_attention.flash_attention, "launches"),
-               (layer_norm.layer_norm, "launches")])
-
-
 class _BufferedDraws:
     """A graph's draws: input buffers that `fill` loads from a draw source
     before each replay, in the order the eager body draws."""
@@ -197,26 +186,14 @@ class _BufferedDraws:
         return self.noise
 
 
-class FirstChunkGraph:
-    """One captured first-chunk program: its input buffers and draws, the
-    graph, its outputs (in the graph's memory), the kernel launches it holds
-    ({counter: launches a replay}), the bytes its capture reserved and its
-    replays so far."""
-
-    def __init__(self, inputs: _Inputs, draws: _BufferedDraws, keep):
-        self.inputs, self.draws, self.keep = inputs, draws, keep
-        self.graph = torch.cuda.CUDAGraph()
-        self.out: Optional[FirstChunk] = None
-        self.launches: dict = {}
-        self.pool_bytes = 0
-        self.replays = 0
-        self.workspaces: dict = {}
-
-    def replay(self) -> None:
-        self.graph.replay()
-        for (fn, attr), n in self.launches.items():
-            setattr(fn, attr, getattr(fn, attr) + n)
-        self.replays += 1
+class _Entry(NamedTuple):
+    """One captured first-chunk program: the body, on its models, as the
+    one piece of its graph (utils/graphs.py: its outputs, the launches a
+    replay holds, the bytes its capture reserved, its replays), and its
+    input buffers and draws."""
+    graph: graphs.Graphed
+    inputs: _Inputs
+    draws: _BufferedDraws
 
 
 class _GraphCache(OrderedDict):
@@ -250,19 +227,9 @@ class _GraphCache(OrderedDict):
 
 
 # (device, (T3's and the flow's params by identity), bucket, _Static,
-# CHATTERBOX_DEFER_KV, config, input shapes) -> FirstChunkGraph
+# CHATTERBOX_DEFER_KV, config, input shapes) -> _Entry
 GRAPHS_KEPT = 4
 GRAPHS = _GraphCache(GRAPHS_KEPT)
-
-
-_CAPTURE_STREAMS: dict = {}
-
-
-def _capture_stream(device) -> torch.cuda.Stream:
-    s = _CAPTURE_STREAMS.get(str(device))
-    if s is None:
-        s = _CAPTURE_STREAMS[str(device)] = torch.cuda.Stream(device)
-    return s
 
 
 def _copy_out(fc: FirstChunk) -> FirstChunk:
@@ -289,8 +256,7 @@ def _graph_first_chunk(key, t3_params, s3_params, inp: _Inputs, draws, st: _Stat
             if buf is not None:
                 buf.copy_(x)
         entry.draws.fill(draws)
-        entry.replay()
-        return _copy_out(entry.out), "replayed"
+        return _copy_out(entry.graph.step()), "replayed"
 
     dev = inp.text_tokens.device
     s3c = cfg.s3gen
@@ -299,30 +265,10 @@ def _graph_first_chunk(key, t3_params, s3_params, inp: _Inputs, draws, st: _Stat
                           r * (st.block + look) * s3c.hift.total_upsample, dev)
     bufs.fill(draws)
     static = _Inputs(*(None if x is None else x.clone() for x in inp))
-    entry = FirstChunkGraph(static, bufs, (t3_params, s3_params, fused))
-    side = _capture_stream(dev)
-    side.wait_stream(torch.cuda.current_stream(dev))
-    with torch.cuda.stream(side):
-        # the warm-up, eager on the capture stream: builds the kernels, the
-        # library plans and the device constants before the capture, and
-        # gives this request's first chunk
-        first = _first_chunk_body(t3_params, s3_params, static, bufs, st, fused, cfg)
-    torch.cuda.current_stream(dev).wait_stream(side)
-    counters = _counters()
-    before = [getattr(fn, attr) for fn, attr in counters]
-    torch.cuda.empty_cache()
-    reserved = torch.cuda.memory_reserved(dev)
-    with flash_decode.graph_workspaces() as own, torch.cuda.graph(entry.graph, stream=side):
-        entry.out = _first_chunk_body(t3_params, s3_params, static, bufs, st, fused, cfg)
-    entry.workspaces = own
-    entry.pool_bytes = torch.cuda.memory_reserved(dev) - reserved
-    # a capture records launches without running them: what it counted is
-    # what every replay runs
-    for (fn, attr), n0 in zip(counters, before):
-        if getattr(fn, attr) != n0:
-            entry.launches[(fn, attr)] = getattr(fn, attr) - n0
-            setattr(fn, attr, n0)
-    GRAPHS.keep(key, entry)
+    graph = graphs.Graphed([functools.partial(_first_chunk_body, t3_params, s3_params, static,
+                                              bufs, st, fused, cfg)], dev)
+    first = graph.step()
+    GRAPHS.keep(key, _Entry(graph, static, bufs))
     return first, "captured"
 
 
@@ -403,14 +349,14 @@ def first_chunk(t3_params, s3_params, cond: t3_mod.T3Cond, text_tokens: np.ndarr
     else:
         fc = _first_chunk_body(t3_params, s3_params, inp, draws, st, fused, cfg)
     ginfo = dict(p_len=p_len, pad=pad, cfg_on=True, cache_total=total, hole=None,
-                 use_fused=use_fused, kv_int8=False, phase_totals=[total], fused=fused,
+                 use_fused=use_fused, kv_int8=False, fused=fused,
                  align_layer=None, text_start=None, text_len=None, mesh=None, rows=(0, 2))
     resume = dict(draws=draws, sp=sp, use_top_p=use_top_p, ginfo=ginfo, block=block_tokens,
                   max_new_tokens=max_new_tokens, decode_steps=block_tokens, route=route)
     t3_mod.LAST_GENERATION_INFO.clear()
     t3_mod.LAST_GENERATION_INFO.update(
         p_len=p_len, cache_total=total, n_utt=1, alignment=False, use_fused=use_fused,
-        kv_int8=False, phase_totals=[total], mesh=None, fused_first_chunk=True,
+        kv_int8=False, mesh=None, fused_first_chunk=True,
         first_chunk_graph=route)
     return fc, resume
 

@@ -88,6 +88,8 @@ REPO_ID = "ResembleAI/chatterbox"
 CHECKPOINT_FILES = ("ve.safetensors", "t3_cfg.safetensors", "s3gen.safetensors",
                     "tokenizer.json", "conds.pt")
 _TOKEN_BUCKETS = (128, 256, 512, 1024)
+# S3Gen's kernels by their names in the kernel table: K2, K3, K8
+S3GEN_KERNELS = ("rel_attention", "flash_attention", "layer_norm")
 # what a long-text job's own text or voice file may raise before generation;
 # generate_long_text_batch records it as that job's error
 _JOB_ERRORS = (ValueError, OSError, KeyError)
@@ -1540,16 +1542,11 @@ class ChatterboxTTS:
 
 def _build_serving_kernels(backbone_kernels=("flash_decode", "fused_decode")) -> None:
     """Build (one nvcc each, all started together) and load every kernel a
-    request can launch: the backbone's (`SERVING_KERNELS`: K1/K1s and K4 for
-    Llama, K7 for DeepSeek-V2) and S3Gen's K2, K3 and K8. The probes build
-    when run."""
-    import importlib
-
-    from .kernels import _build, flash_attention, layer_norm, rel_attention
-    entries = {importlib.import_module(f".kernels.{name}", __package__): f"cbx_{name}"
-               for name in backbone_kernels}
-    entries.update({rel_attention: "cbx_rel_attention", flash_attention: "cbx_flash_attention",
-                    layer_norm: "cbx_layer_norm"})
-    _build.build_all([m.SOURCE for m in entries])
-    for m, entry in entries.items():
-        _build.load(m.SOURCE, entry, m._ARGTYPES)
+    request can launch, by name in the kernel table (kernels.table): the
+    backbone's (`SERVING_KERNELS`: K1/K1s and K4 for Llama, K7 for
+    DeepSeek-V2) and S3Gen's K2, K3 and K8. The probes build when run."""
+    from .kernels import _build, table
+    kernels = [table()[name] for name in (*backbone_kernels, *S3GEN_KERNELS)]
+    _build.build_all(list(dict.fromkeys(k.module.SOURCE for k in kernels)))
+    for k in kernels:
+        _build.load(k.module.SOURCE, k.entry, k.module._ARGTYPES)

@@ -255,6 +255,8 @@ import time
 import numpy as np
 import torch
 
+from chatterbox_embed_tpu_torch import kernels as kernel_table
+
 # main-path shapes of the flash-decode kernel: the CFG rows of the 16x64-head
 # T3 Llama, B=2 for one utterance and B=16 for a batch of 8; cache capacity
 # 512 at the smoke's 96-token text bucket and 250 new tokens, 1280 at the
@@ -581,42 +583,9 @@ def phase_device() -> str:
     return card
 
 
-def _kernels() -> dict:
-    """name -> (kernel module, the wrapper that counts its launches, the
-    counter's attribute, its C entry). K1 and K1s, and their int8 entries,
-    are four entries of one kernel source with a counter each, and K3b-dq
-    and K3b-dkv two of another."""
-    from chatterbox_embed_tpu_torch.kernels import decode_anatomy as da
-    from chatterbox_embed_tpu_torch.kernels import flash_attention as fa
-    from chatterbox_embed_tpu_torch.kernels import flash_attention_bwd as fb
-    from chatterbox_embed_tpu_torch.kernels import flash_decode as fd
-    from chatterbox_embed_tpu_torch.kernels import fused_decode as fu
-    from chatterbox_embed_tpu_torch.kernels import layer_norm as ln
-    from chatterbox_embed_tpu_torch.kernels import moe_experts as me
-    from chatterbox_embed_tpu_torch.kernels import rel_attention as ra
-    from chatterbox_embed_tpu_torch.kernels import weight_stream as ws
-    return {"flash_decode": (fd, fd.decode_attention, "launches", "cbx_flash_decode"),
-            "flash_decode_deferred": (fd, fd.decode_attention, "launches_deferred",
-                                      "cbx_flash_decode"),
-            "rel_attention": (ra, ra.rel_attention, "launches", "cbx_rel_attention"),
-            "flash_attention": (fa, fa.flash_attention, "launches", "cbx_flash_attention"),
-            "flash_attention_bwd_dq": (fb, fb.flash_attention_backward, "launches_dq",
-                                       "cbx_flash_attention_bwd_dq"),
-            "flash_attention_bwd_dkv": (fb, fb.flash_attention_backward, "launches_dkv",
-                                        "cbx_flash_attention_bwd_dkv"),
-            "flash_decode_int8": (fd, fd.decode_attention, "launches_int8", "cbx_flash_decode"),
-            "flash_decode_int8_deferred": (fd, fd.decode_attention, "launches_int8_deferred",
-                                           "cbx_flash_decode"),
-            "fused_decode": (fu, fu.fused_decode_step, "launches", "cbx_fused_decode"),
-            "moe_experts": (me, me.grouped_swiglu, "launches", "cbx_moe_experts"),
-            "layer_norm": (ln, ln.layer_norm, "launches", "cbx_layer_norm"),
-            "weight_stream": (ws, ws.stream_once, "launches", "cbx_weight_stream"),
-            "decode_anatomy": (da, da.attn, "launches", "cbx_decode_anatomy")}
-
-
 def phase_build() -> None:
     from chatterbox_embed_tpu_torch.kernels import _build
-    kernels = _kernels()
+    kernels = kernel_table.table()
     built = _build.build_all(sorted({m.SOURCE for m, _, _, _ in kernels.values()}))
     for name, (m, _, _, entry) in kernels.items():
         path, seconds = built[m.SOURCE]
@@ -2010,17 +1979,16 @@ def phase_batch_consistency(tts) -> None:
 
 
 def _reset_counts() -> None:
-    for _, wrapper, attr, _ in _kernels().values():
-        setattr(wrapper, attr, 0)
+    kernel_table.add_launches({name: -n for name, n in kernel_table.launches().items()})
 
 
 def _counts() -> dict:
-    return {name: getattr(wrapper, attr) for name, (_, wrapper, attr, _) in _kernels().items()}
+    return kernel_table.launches()
 
 
 def _want(**nonzero) -> dict:
     """Every kernel's expected launches: 0 except those named."""
-    return {name: nonzero.get(name, 0) for name in _kernels()}
+    return {name: nonzero.get(name, 0) for name in kernel_table.table()}
 
 
 @contextlib.contextmanager
@@ -2185,20 +2153,20 @@ def _graph_facts(entry, card: str, label: str) -> dict:
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     from chatterbox_embed_tpu_torch.probes import timing
-    replay_ms = timing.time_ms(entry.graph.replay, iters=10, warmup=2)
+    replay = entry.graph.graphs[0].replay
+    replay_ms = timing.time_ms(replay, iters=10, warmup=2)
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        entry.graph.replay()
+        replay()
         torch.cuda.synchronize()
     names = [e.name for e in prof.events() if e.device_type == DeviceType.CUDA]
     kernels = [n for n in names if not n.startswith(("Memset", "Memcpy", "Memory"))]
-    facts = {"launches_a_replay": {f"{fn.__name__}.{attr}": n
-                                   for (fn, attr), n in entry.launches.items()},
-             "pool_bytes": entry.pool_bytes, "replay_ms": replay_ms,
+    facts = {"launches_a_replay": entry.graph.launches[0],
+             "pool_bytes": entry.graph.pool_bytes, "replay_ms": replay_ms,
              "kernels": len(kernels) if names else "not measured",
              "memsets_copies": len(names) - len(kernels) if names else "not measured"}
     log("first_chunk_graph", step=label, replay_ms=f"{replay_ms:.3f}",
         kernels=facts["kernels"], memsets_copies=facts["memsets_copies"],
-        pool_bytes=entry.pool_bytes,
+        pool_bytes=entry.graph.pool_bytes,
         launches=json.dumps(facts["launches_a_replay"]).replace(" ", ""), card=repr(card))
     return facts
 
@@ -2274,11 +2242,10 @@ def phase_first_chunk(card: str, tts) -> dict:
             alone[label] = (chunks, tokens)
             launches[f"first_chunk_{label}"] = counts
             entry = graphs[label] = list(streaming.GRAPHS.values())[-1]
-            _, wrapper, attr, _ = _kernels()[kernel]
-            held = dict(entry.launches)
-            ln = _kernels()["layer_norm"]
-            if held.pop((ln[1], ln[2]), 0) == 0 or held != {(wrapper, attr): per_step * block}:
-                raise AssertionError(f"first_chunk ({label}): the graph holds {entry.launches}")
+            held = dict(entry.graph.launches[0])
+            if held.pop("layer_norm", 0) == 0 or held != {kernel: per_step * block}:
+                raise AssertionError(f"first_chunk ({label}): the graph holds "
+                                     f"{entry.graph.launches[0]}")
             if label == "deferred":
                 continue
             _graph_facts(entry, card, label)
@@ -2300,14 +2267,14 @@ def phase_first_chunk(card: str, tts) -> dict:
         with _env({"CHATTERBOX_FUSED_FIRST_CHUNK": "0"}):
             plain2 = _stream_run(tts, FIRST_CHUNK_TEXT2, **kw2)
         entry = graphs["fused_step"]
-        n_graphs, replays = len(streaming.GRAPHS), entry.replays
+        n_graphs, replays = len(streaming.GRAPHS), entry.graph.replays
         chunks2, tokens2, perf2, _ = _stream_run(tts, FIRST_CHUNK_TEXT2, **kw2)
         if (perf2["first_chunk_graph"] != "replayed" or len(streaming.GRAPHS) != n_graphs
-                or entry.replays != replays + 1):
+                or entry.graph.replays != replays + 1):
             raise AssertionError(f"first_chunk (second length): route "
                                  f"{perf2['first_chunk_graph']}, graphs "
                                  f"{len(streaming.GRAPHS)} (was {n_graphs}), replays "
-                                 f"{entry.replays} (was {replays})")
+                                 f"{entry.graph.replays} (was {replays})")
         diff2 = _same_stream("first_chunk (second length)", plain2[:2], (chunks2, tokens2))
         # two streams of the bucket advanced in turns, each against itself alone
         live = {"a": tts.stream_generate(TEXT, **kw),
@@ -2325,7 +2292,7 @@ def phase_first_chunk(card: str, tts) -> dict:
         log("first_chunk_bucket", text_tokens=len(tts.tokenizer.text_to_tokens(
             FIRST_CHUNK_TEXT2)[0]) + 2, sampling=json.dumps(FIRST_CHUNK_SAMPLING2).replace(" ", ""),
             tokens=perf2["speech_tokens"], graphs=len(streaming.GRAPHS),
-            replays=entry.replays, max_chunk_diff=f"{diff2:.3e}",
+            replays=entry.graph.replays, max_chunk_diff=f"{diff2:.3e}",
             interleaved_max_diff=f"{max(diffs):.3e}", card=repr(card))
         _planted_capture_fault(tts)
     return launches
@@ -4150,7 +4117,6 @@ def phase_int8(card: str, tts) -> dict:
         raise AssertionError(f"int8 cache: launches {counts}, want {want}, info {info}")
     launches["int8_cache"] = counts
     log("int8_cache", utterances=len(wavs), decode_steps=steps, kv_int8=info["kv_int8"],
-        phase_totals=info["phase_totals"],
         launches=json.dumps({k: v for k, v in counts.items() if v}).replace(" ", ""),
         t3_s=f"{perf['t3_s']:.4f}", ms_per_step=f"{1e3 * perf['t3_s'] / steps:.3f}",
         s3gen_s=f"{perf['s3gen_s']:.4f}", cache_bytes_int8=cache_bytes["1"],
@@ -4375,8 +4341,8 @@ def phase_dsv2(card: str) -> tuple:
     def drain(graphed: bool):
         dec = t3_engine.ContinuousDecoder(params, cfg, dtype=torch.bfloat16, device="cuda",
                                           **DSV2_ENGINE_GEO)
-        if not isinstance(dec.pieces, t3_engine.WholeStep):
-            raise AssertionError(f"dsv2 engine: step {type(dec.pieces).__name__}, want WholeStep")
+        if not dec.pieces.whole:
+            raise AssertionError("dsv2 engine: the step is cut in pieces, want it whole")
         if not graphed:
             dec.pieces = None
         rids = [dec.submit(text, cond, seed=seed, max_new_tokens=cap, **DSV2_SAMPLING)
@@ -4405,7 +4371,7 @@ def phase_dsv2(card: str) -> tuple:
     if counts != expect or steps == 0:
         raise AssertionError(f"dsv2 engine: launches {counts}, want K7 {per_call} x ({steps} "
                              f"steps + {len(reqs)} prefills)")
-    if dec.pieces.graph is None or (eager.steps_run, eager.blocks_run) != (steps, dec.blocks_run):
+    if not dec.pieces.graphs.captured or (eager.steps_run, eager.blocks_run) != (steps, dec.blocks_run):
         raise AssertionError("dsv2 engine: the step was not graphed, or ran other steps")
     for r, (a, b) in enumerate(zip(want, got, strict=True)):
         if not np.array_equal(a, b):
@@ -4415,10 +4381,12 @@ def phase_dsv2(card: str) -> tuple:
                                  f"from the eager step's from token {first}")
     log("dsv2_engine", requests=len(reqs), steps=steps, blocks=dec.blocks_run,
         k7_per_step=per_call, k7_per_prefill=prefill["moe_experts"],
+        k7_per_replay=dec.pieces.graphs.launches[0].get("moe_experts", 0),
+        replays=dec.pieces.graphs.replays,
         k7_launches=counts["moe_experts"], graphed_equal_eager=True,
         eager_ms_per_step=f"{1e3 * t_eager / steps:.3f}",
         graphed_ms_per_step=f"{1e3 * t_graphed / steps:.3f}",
-        graph_pool_mib=f"{dec.pieces.pool_bytes / 2**20:.1f}",
+        graph_pool_mib=f"{dec.pieces.graphs.pool_bytes / 2**20:.1f}",
         tokens=",".join(str(len(t)) for t in got), card=repr(card))
     del params, dec, eager
     gc.collect()
@@ -4627,13 +4595,14 @@ def main(argv=None) -> None:
 
     # every kernel whose check and main path ran (all of them without --phases)
     from chatterbox_embed_tpu_torch.kernels import _build
-    reported = [name for name in _kernels() if name in check and MAIN_PATH[name] in launches]
-    if selected == set(PHASES) and len(reported) != len(_kernels()):
+    kernels = kernel_table.table()
+    reported = [name for name in kernels if name in check and MAIN_PATH[name] in launches]
+    if selected == set(PHASES) and len(reported) != len(kernels):
         raise AssertionError(f"kernels without a check or a main-path run: "
-                             f"{sorted(set(_kernels()) - set(reported))}")
+                             f"{sorted(set(kernels) - set(reported))}")
     print(json.dumps({"kernels": [{
         "name": name, "route": "cuda",
-        "source": str(_kernels()[name][0].SOURCE.relative_to(_build.PKG.parent)),
+        "source": str(kernels[name].module.SOURCE.relative_to(_build.PKG.parent)),
         "replaces": REPLACES[name],
         "launches": launches[MAIN_PATH[name]][name],
         "launches_by_path": {p: c[name] for p, c in launches.items()},

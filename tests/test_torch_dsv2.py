@@ -10,7 +10,7 @@ positions used.
   position, 1e-4 relative: fp32 against fp32, sums in another order);
 - the MoE layer matches with the routing forced, near-ties planted;
 - YaRN's frequencies, mscale and softmax scale match numbers by hand;
-- the engine's step (WholeStep, called as it is on the CPU) gives the
+- the engine's step (EngineStep, one piece called as it is on the CPU) gives the
   eager step's tokens through ContinuousServer, and its routing record
   equals the reference's routing away from ties;
 - the device counters equal a bincount of the record, and stay silent when
@@ -203,7 +203,7 @@ def _voice(seed):
 def _serve(tts, eager: bool, route_record=False):
     srv = ContinuousServer(tts, slots=2, text_bucket=32, max_new_tokens=30, block=8,
                            vocode_batch=2, route_record=route_record)
-    assert isinstance(srv.decoder.pieces, t3_engine.WholeStep)
+    assert srv.decoder.pieces.whole
     if eager:
         srv.decoder.pieces = None         # the eager step, engine_decode_block
     voices = [_voice(5), _voice(6)]

@@ -1,5 +1,5 @@
 """K7 (kernels/moe_experts.py) and the latent backbone's graphed engine step
-(models/t3_engine.py: WholeStep) on the card.
+(models/t3_engine.py: EngineStep, one piece) on the card.
 
 - K7 against the plain loop over the experts at DeepSeek-V2-Lite's widths
   (D 2048, F 1408, 64 experts), bf16, at a decode step's rows (32 x 6
@@ -7,8 +7,9 @@
   reference is the same arithmetic in fp32 from the same bf16 values with h
   rounded to bf16 as the kernel stores it (2e-3 of the norm: sums in
   another order, and an h that rounds the other way). The kernel captured
-  in a CUDA graph and replayed on new rows and offsets gives the eager
-  launch's bits. Times by CUDA events: K7, the plain loop and K7's bound.
+  in a CUDA graph (utils/graphs.py) and replayed on new rows and offsets
+  gives the eager launch's bits, and its counter counts one launch a
+  replay. Times by CUDA events: K7, the plain loop and K7's bound.
 - The engine at tts-backlog's geometry (16 slots, text bucket 256, 1000 new
   tokens, blocks of 64) on T3 with the published backbone's widths at 4
   layers (1 dense, 3 MoE): the graphed step gives the eager step's tokens,
@@ -30,7 +31,7 @@ from chatterbox_embed_tpu_torch.kernels import moe_experts
 from chatterbox_embed_tpu_torch.models import deepseek_v2 as dsv2
 from chatterbox_embed_tpu_torch.models import layers as L
 from chatterbox_embed_tpu_torch.models import t3, t3_engine
-from chatterbox_embed_tpu_torch.utils import profiling
+from chatterbox_embed_tpu_torch.utils import graphs, profiling
 from chatterbox_embed_tpu_torch.weights import place
 
 LITE = dsv2.DeepseekV2Config()
@@ -104,21 +105,18 @@ def test_k7_equals_the_plain_loop_and_replays_in_a_graph(card, tokens):
     rel_plain = float(torch.linalg.norm(plain - want) / torch.linalg.norm(want))
     assert rel < 2e-3, rel
 
-    # a graph captured on one routing, replayed on another
+    # a graph captured on one routing (after its warm-up), replayed on another
     xs2, offsets2, _ = _routed(tokens, card, gen)
     sx, so = xs.clone(), offsets.clone()
-    side = torch.cuda.Stream(card)
-    side.wait_stream(torch.cuda.current_stream(card))
-    with torch.cuda.stream(side):
-        moe_experts.grouped_swiglu(sx, so, wg, wu, wd)
-    torch.cuda.current_stream(card).wait_stream(side)
-    graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
-        gy = moe_experts.grouped_swiglu(sx, so, wg, wu, wd)
+    graph = graphs.Graphed([lambda: moe_experts.grouped_swiglu(sx, so, wg, wu, wd)], card)
+    graph.step()
+    assert graph.launches == [{"moe_experts": 1}]
     sx.copy_(xs2)
     so.copy_(offsets2)
-    graph.replay()
+    n = moe_experts.grouped_swiglu.launches
+    gy = graph.step()
     torch.cuda.synchronize()
+    assert moe_experts.grouped_swiglu.launches == n + 1
     assert torch.equal(gy, moe_experts.grouped_swiglu(xs2, offsets2, wg, wu, wd))
 
     touched = int((counts > 0).sum())
@@ -157,7 +155,7 @@ def _inputs(dev, layers):
 def _drain(cfg, params, reqs, graphed: bool):
     dec = t3_engine.ContinuousDecoder(params, cfg, dtype=torch.bfloat16, device="cuda",
                                       route_record=True, **GEO)
-    assert isinstance(dec.pieces, t3_engine.WholeStep)
+    assert dec.pieces.whole
     if not graphed:
         dec.pieces = None
     rids = [dec.submit(text, cond, seed=seed, max_new_tokens=cap, **SAMPLING)
@@ -194,5 +192,5 @@ def test_graphed_latent_step_equals_the_eager_step(card):
     print(f"\n{torch.cuda.get_device_name(card)}: {dec.steps_run} steps, eager "
           f"{1e3 * t_eager / eager.steps_run:.2f} ms a step, graphed "
           f"{1e3 * t_graphed / dec.steps_run:.2f} (capture included), pool "
-          f"{dec.pieces.pool_bytes / 2**20:.1f} MiB; experts touched a call "
+          f"{dec.pieces.graphs.pool_bytes / 2**20:.1f} MiB; experts touched a call "
           f"{totals['counters']['moe.experts_touched'] / moe_calls:.1f}")

@@ -401,7 +401,7 @@ def test_the_cpu_engine_takes_the_eager_step(models, rng, monkeypatch):
     monkeypatch.setattr(teng, "engine_decode_block", _refuse)
     eng = teng.ContinuousDecoder(models[1], TINY, slots=2, text_bucket=16, max_new_tokens=8,
                                  block=4, device="cpu")
-    assert eng.pieces is not None and not eng.pieces.on_card
+    assert eng.pieces is not None and not eng.pieces.graphs.on_card
     profiling.reset()
     profiling.enable()
     try:
@@ -413,5 +413,5 @@ def test_the_cpu_engine_takes_the_eager_step(models, rng, monkeypatch):
         profiling.disable()
         profiling.reset()
     assert got["counters"].get("engine.graphed_steps", 0) == 0
-    assert eng.pieces.graphs is None and "engine.capture" not in got["spans"]
+    assert not eng.pieces.graphs.captured and "engine.capture" not in got["spans"]
     assert got["spans"]["engine.forward"]["calls"] == eng.steps_run > 0

@@ -1,4 +1,4 @@
-"""The engine's graphed step on the card (models/t3_engine.py: StepPieces,
+"""The engine's graphed step on the card (models/t3_engine.py: EngineStep,
 pieced_decode_block) against its eager step (engine_decode_block) on the
 same card: 24 requests through the worker's engine geometry (16 slots,
 text bucket 256, 1000 new tokens, blocks of 64) with a T3 of 30 layers of
@@ -101,9 +101,9 @@ def test_graphed_engine_equals_the_eager_step_on_the_card(card, kv_int8, monkeyp
     # the first step is the eager warm-up before the capture; the rest replay
     assert totals["spans"]["engine.capture"]["calls"] == 1
     assert totals["counters"]["engine.graphed_steps"] == dec.steps_run - 1
-    assert len(dec.pieces.graphs) == SMALL.llama.num_layers + 2
-    assert 0 < dec.pieces.pool_bytes < 1 << 30
+    assert len(dec.pieces.graphs.graphs) == SMALL.llama.num_layers + 2
+    assert 0 < dec.pieces.graphs.pool_bytes < 1 << 30
     print(f"\n{torch.cuda.get_device_name(card)}, kv_int8={kv_int8}: {dec.steps_run} steps, "
           f"eager {1e3 * t_eager / eager.steps_run:.2f} ms a step, graphed "
           f"{1e3 * t_graphed / dec.steps_run:.2f} (capture included), graphs' pool "
-          f"{dec.pieces.pool_bytes / 2**20:.1f} MiB")
+          f"{dec.pieces.graphs.pool_bytes / 2**20:.1f} MiB")

@@ -14,8 +14,8 @@
   layouts, and a single row.
 - A last axis that is not contiguous is refused.
 - Through autograd the Function's gradients equal the plain version's.
-- K8 captured in a CUDA graph and replayed on new values gives the eager
-  launch's bits.
+- K8 captured in a CUDA graph (utils/graphs.py) and replayed on new values
+  gives the eager launch's bits, one launch counted a replay.
 - The estimator and the conformer at their served widths launch K8 on every
   norm (141 a fresh estimator call, 21 a reused one, 23 a conformer call)
   and stay near the plain norms' output.
@@ -31,6 +31,7 @@ from chatterbox_embed_tpu_torch.config import ConformerConfig, FlowDecoderConfig
 from chatterbox_embed_tpu_torch.kernels import layer_norm as K
 from chatterbox_embed_tpu_torch.models import conformer, flow_decoder
 from chatterbox_embed_tpu_torch.models import layers as L
+from chatterbox_embed_tpu_torch.utils import graphs
 
 F32, BF16 = torch.float32, torch.bfloat16
 FP32_TOL = 1e-5
@@ -167,17 +168,13 @@ def test_gradients_through_the_function_equal_the_plain_versions(card, out_dtype
 def test_k8_captured_in_a_graph_replays_the_eager_bits(card, layout):
     x = _input((8, 1536, 256), F32, layout, card, 11)
     p = _params(256, card, 12)
-    K.layer_norm(p, x, 1e-5, BF16)                  # builds and loads before the capture
-    torch.cuda.synchronize()
-    graph = torch.cuda.CUDAGraph()
-    side = torch.cuda.Stream()
-    side.wait_stream(torch.cuda.current_stream())
-    with torch.cuda.stream(side), torch.cuda.graph(graph, stream=side):
-        out = K.layer_norm(p, x, 1e-5, BF16)
-    torch.cuda.current_stream().wait_stream(side)
+    # the warm-up builds and loads the kernel before the capture
+    graph = graphs.Graphed([lambda: K.layer_norm(p, x, 1e-5, BF16)], card)
+    graph.step()
+    assert graph.launches == [{"layer_norm": 1}]
     for seed in (13, 14):
         x.copy_(_input((8, 1536, 256), F32, layout, card, seed))
-        graph.replay()
+        out = graph.step()
         torch.cuda.synchronize()
         assert torch.equal(out, K.layer_norm(p, x, 1e-5, BF16)), f"seed {seed}"
 
