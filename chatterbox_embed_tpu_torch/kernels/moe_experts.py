@@ -7,8 +7,10 @@ sorted by expert, expert e owning rows [offsets[e], offsets[e + 1]), and
 returns y (N, D) fp32 with y = (silu(x Wg[e]) * (x Wu[e])) Wd[e] row by
 row, the inner product h rounded to bf16 as the kernel stores it. On a
 CUDA tensor it launches the hand-written kernel in `csrc/moe_experts.cu`
-(design notes there): two launches on a fixed grid that read the offsets
-on the device, so a CUDA graph holds it whatever the routing. On a CPU
+(design notes there): two launches, each a persistent grid of one block an
+SM that streams the touched experts' weight tiles by TMA into `wgmma`
+against the experts' rows; the work items come from the offsets on the
+device, so a CUDA graph holds it whatever the routing. On a CPU
 tensor it runs `grouped_swiglu_reference`, the plain PyTorch loop over the
 experts, which reads the offsets on the host. There is no other path: a
 CUDA call that the kernel cannot take raises.
@@ -26,8 +28,8 @@ import torch.nn.functional as F
 from . import _build
 
 SOURCE = _build.CSRC / "moe_experts.cu"
-COLS = 128             # output columns of a block
-DEPTH_STEP = 64        # the reduction depth is split over 8 warps, 8 rows unrolled
+COLS = 128             # the output widths' multiple (the kernel's tiles are 64 wide)
+DEPTH_STEP = 64        # the depth of a TMA stage
 _ARGTYPES = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
 
 

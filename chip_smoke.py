@@ -225,12 +225,13 @@ kernels whose check and main path ran. Phases, one or more lines each, then the 
      layers, d 2048, 64 routed experts, top 6; bf16 weights drawn on the
      card leaf by leaf). (a) K7 moe_experts, the routed experts' grouped
      SwiGLU, at a decode step's 32 x 6 assignments and a prefill's 584 x 6
-     (D 2048, F 1408): against the fp32 arithmetic on its bf16 inputs and
-     against the plain loop in bf16 (each element's error over max(|ref|,
-     rms(ref))), two planted faults that the limit must catch (a row given
-     its neighbour expert's weights, a row left unwritten), timed beside
-     the loop (the library yardstick: the port never calls it) and its
-     bound. (b) One prefill alone: K7 26 times (one a MoE layer). (c) The
+     (D 2048, F 1408), each routed from independent rows and as
+     concentrated as the served routing: against the fp32 arithmetic on
+     its bf16 inputs and against the plain loop in bf16 (each element's
+     error over max(|ref|, rms(ref))), two planted faults that the limit
+     must catch (a row given its neighbour expert's weights, a row left
+     unwritten), timed beside the loop (the library yardstick: the port
+     never calls it) and its bound. (b) One prefill alone: K7 26 times (one a MoE layer). (c) The
      engine (ContinuousDecoder at tts-backlog's geometry and sampling, its
      step one CUDA graph) drains 24 requests: K7 26 x (steps + prefills)
      and no other kernel, and its tokens equal the eager step's, request by
@@ -4201,12 +4202,16 @@ class _Bf16Init:
         return self.init.zeros(shape)
 
 
-def _k7_routed(tokens: int, cfg, g):
+def _k7_routed(tokens: int, shared: float, cfg, g):
     """A random router's top-k of `tokens` rows, sorted by expert on the
-    card as the MoE layer sorts them: (rows (N*k, D) bf16, offsets, counts)."""
+    card as the MoE layer sorts them: (rows (N*k, D) bf16, offsets, counts).
+    The rows share a random direction at weight `shared` (0: independent
+    rows), which concentrates them on fewer experts, as served rows are."""
     from chatterbox_embed_tpu_torch.models import deepseek_v2 as dsv2
     d, e, k = cfg.hidden_size, cfg.n_routed_experts, cfg.num_experts_per_tok
     x = torch.randn((tokens, d), generator=g, device="cuda")
+    common = torch.randn((1, d), generator=g, device="cuda")
+    x = (shared * common + x) / (1 + shared ** 2) ** 0.5
     router = torch.randn((d, e), generator=g, device="cuda") / d ** 0.5
     ids = torch.topk(x @ router, k, dim=-1).indices
     order, _, offsets, counts = dsv2.sort_by_expert(ids, e)
@@ -4244,8 +4249,8 @@ def _k7_check(card: str, cfg) -> dict:
                 * (3.0 / fan) ** 0.5).to(torch.bfloat16)
     wg, wu, wd = weight((e, d, f), d), weight((e, d, f), d), weight((e, f, d), f)
     result = {"max_abs_err": 0.0, "timing": {}}
-    for label, tokens in DSV2_K7_TOKENS:
-        xs, offsets, counts = _k7_routed(tokens, cfg, g)
+    for label, tokens, shared in DSV2_K7_TOKENS:
+        xs, offsets, counts = _k7_routed(tokens, shared, cfg, g)
         n, touched = xs.shape[0], int((counts > 0).sum())
         case = dict(case=label, assignments=n, experts_touched=touched,
                     max_rows=int(counts.max()), d=d, f=f, experts=e)
@@ -4286,7 +4291,7 @@ def _k7_check(card: str, cfg) -> dict:
         if label == "decode":
             result["timing"] = t
         else:
-            result["timing"].update({f"{k}_prefill": v for k, v in t.items()
+            result["timing"].update({f"{k}_{label}": v for k, v in t.items()
                                      if k in ("ms", "plain_ms", "library_ms", "bound_ms")})
     return result
 
@@ -4425,13 +4430,18 @@ REPLACES = {"flash_decode": "chatterbox_embed_tpu/kernels/flash_decode.py:85",
 
 
 # DeepSeek-V2-Lite (phase dsv2): K7 at a decode step's rows (16 slots x the
-# CFG pair) and a prefill's (text bucket 256 + conditioning), each x top-6;
+# CFG pair) and a prefill's (text bucket 256 + conditioning), each x top-6,
+# routed from independent rows and from rows sharing a direction (weight
+# 0.75 and 1.5), as concentrated as tts-dsv2-backlog's served routing: ~43
+# experts touched and the largest ~18 rows at a decode step, ~41 and ~470 at
+# a prefill (the engine's own offsets, 1,040 decode and 416 prefill calls);
 # its limit, each element's error over max(|ref|, rms(ref)), against the
 # fp32 arithmetic (h rounded to bf16 in both: sums in another order, an h
 # that rounds the other way) and against the plain loop in bf16 (whose h
 # rounds at every product); a row given a neighbour expert's weights or
 # left unwritten reads ~1. The engine at tts-backlog's geometry and sampling.
-DSV2_K7_TOKENS = (("decode", 32), ("prefill", 584))
+DSV2_K7_TOKENS = (("decode", 32, 0.0), ("served_decode", 32, 0.75), ("prefill", 584, 0.0),
+                  ("served_prefill", 584, 1.5))
 DSV2_K7_TOL = 2e-2
 DSV2_K7_PLAIN_TOL = 1e-1
 DSV2_ENGINE_GEO = dict(slots=16, text_bucket=256, max_new_tokens=1000, block=64)

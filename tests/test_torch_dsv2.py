@@ -27,6 +27,7 @@ import pytest
 import torch
 
 import dsv2_reference as ref
+import k7_routings
 from chatterbox_embed_tpu_torch.conditionals import Conditionals
 from chatterbox_embed_tpu_torch.config import (ChatterboxConfig, ConformerConfig,
                                                FlowDecoderConfig, HiFTConfig, LlamaConfig,
@@ -184,6 +185,29 @@ def test_sort_by_expert_and_the_plain_grouped_swiglu():
         e = int(flat[a])
         h = torch.nn.functional.silu(x[a] @ wg[e]) * (x[a] @ wu[e])
         torch.testing.assert_close(y[n], h @ wd[e], rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("case", k7_routings.CASES)
+def test_the_plain_grouped_swiglu_row_by_row_at_the_kernels_routings(case):
+    # the routings that reach each width and edge of K7 (k7_routings.py) at
+    # 64 experts, D 32, F 48, fp32: the plain loop against y written out
+    # row by row, each row by the expert whose offsets hold it (1e-4: fp32
+    # sums in another order)
+    g = torch.Generator().manual_seed(5)
+    c = k7_routings.counts(case)
+    offsets = k7_routings.offsets(c)
+    e, d, f = k7_routings.EXPERTS, 32, 48
+    x = torch.randn(sum(c), d, generator=g)
+    wg = torch.randn(e, d, f, generator=g) / math.sqrt(d)
+    wu = torch.randn(e, d, f, generator=g) / math.sqrt(d)
+    wd = torch.randn(e, f, d, generator=g) / math.sqrt(f)
+    y = moe_experts.grouped_swiglu_reference(x, offsets, wg, wu, wd)
+    owner = [k for k, n in enumerate(c) for _ in range(n)]
+    assert y.shape == (len(owner), d)
+    for r, k in enumerate(owner):
+        a = x[r] @ wg[k]
+        h = a / (1 + torch.exp(-a)) * (x[r] @ wu[k])
+        torch.testing.assert_close(y[r], h @ wd[k], rtol=1e-4, atol=1e-6)
 
 
 @pytest.fixture(scope="module")

@@ -3,13 +3,19 @@
 
 - K7 against the plain loop over the experts at DeepSeek-V2-Lite's widths
   (D 2048, F 1408, 64 experts), bf16, at a decode step's rows (32 x 6
-  assignments) and a prefill's (584 x 6), routed by a random router; the
-  reference is the same arithmetic in fp32 from the same bf16 values with h
-  rounded to bf16 as the kernel stores it (2e-3 of the norm: sums in
-  another order, and an h that rounds the other way). The kernel captured
-  in a CUDA graph (utils/graphs.py) and replayed on new rows and offsets
-  gives the eager launch's bits, and its counter counts one launch a
-  replay. Times by CUDA events: K7, the plain loop and K7's bound.
+  assignments) and a prefill's (584 x 6) routed by a random router, and at
+  the routings of k7_routings.py that reach each width and edge of the
+  kernel (the served decode and prefill, one expert, counts at the widths'
+  boundaries, an empty expert between two, all 64 touched); the reference
+  is the same arithmetic in fp32 from the same bf16 values with h rounded
+  to bf16 as the kernel stores it (2e-3 of the norm: sums in another order,
+  and an h that rounds the other way; 1e-2 of each row's norm, so that a
+  padding row stored over a neighbour's, or a row left unwritten, ~1,
+  shows). Two calls give
+  the same bits. The kernel captured in a CUDA graph (utils/graphs.py) and
+  replayed on new rows and another routing gives the eager launch's bits,
+  and its counter counts one launch a replay. Times by CUDA events: K7,
+  the plain loop and K7's bound.
 - The engine at tts-backlog's geometry (16 slots, text bucket 256, 1000 new
   tokens, blocks of 64) on T3 with the published backbone's widths at 4
   layers (1 dense, 3 MoE): the graphed step gives the eager step's tokens,
@@ -26,6 +32,7 @@ import numpy as np
 import pytest
 import torch
 
+import k7_routings
 from chatterbox_embed_tpu_torch.config import T3Config
 from chatterbox_embed_tpu_torch.kernels import moe_experts
 from chatterbox_embed_tpu_torch.models import deepseek_v2 as dsv2
@@ -91,22 +98,42 @@ def _ms(fn, reps=20):
     return start.elapsed_time(end) / reps
 
 
+def _case(case, dev, gen, other=False):
+    """Rows sorted by expert and their offsets: a random router's top-6 of
+    32 (decode) or 584 (prefill) rows, or the counts of k7_routings.CASES
+    over random rows. `other` gives another routing of as many rows."""
+    if case in ("decode", "prefill"):
+        xs, offsets, _ = _routed(32 if case == "decode" else 584, dev, gen)
+        return xs, offsets
+    c = k7_routings.counts(case)
+    if other:                                  # the same counts, other experts
+        c = c[7:] + c[:7]
+    xs = torch.randn((sum(c), LITE.hidden_size), generator=gen, device=dev).to(torch.bfloat16)
+    return xs, k7_routings.offsets(c, dev)
+
+
 @pytest.mark.card
-@pytest.mark.parametrize("tokens", [32, 584], ids=["decode", "prefill"])
-def test_k7_equals_the_plain_loop_and_replays_in_a_graph(card, tokens):
+@pytest.mark.parametrize("case", ["decode", "prefill", *k7_routings.CASES])
+def test_k7_equals_the_plain_loop_and_replays_in_a_graph(card, case):
     torch.backends.cuda.matmul.allow_tf32 = False
-    gen = torch.Generator(device=card).manual_seed(tokens)
+    gen = torch.Generator(device=card).manual_seed(len(case))
     wg, wu, wd = _experts(card, gen)
-    xs, offsets, counts = _routed(tokens, card, gen)
+    xs, offsets = _case(case, card, gen)
     y = moe_experts.grouped_swiglu(xs, offsets, wg, wu, wd)
+    assert torch.equal(y, moe_experts.grouped_swiglu(xs, offsets, wg, wu, wd))   # same bits
     want = _exact(xs, offsets, wg, wu, wd)
     rel = float(torch.linalg.norm(y - want) / torch.linalg.norm(want))
     plain = moe_experts.grouped_swiglu_reference(xs, offsets, wg, wu, wd)
     rel_plain = float(torch.linalg.norm(plain - want) / torch.linalg.norm(want))
     assert rel < 2e-3, rel
+    # every row, each expert's first and last included: a padding row
+    # stored over a neighbour's, or a row left unwritten, would read ~1
+    rows = torch.linalg.norm(y - want, dim=1) / torch.linalg.norm(want, dim=1)
+    assert float(rows.max()) < 1e-2, (int(rows.argmax()), float(rows.max()))
 
     # a graph captured on one routing (after its warm-up), replayed on another
-    xs2, offsets2, _ = _routed(tokens, card, gen)
+    xs2, offsets2 = _case(case, card, gen, other=True)
+    assert xs2.shape == xs.shape and not torch.equal(offsets2, offsets)
     sx, so = xs.clone(), offsets.clone()
     graph = graphs.Graphed([lambda: moe_experts.grouped_swiglu(sx, so, wg, wu, wd)], card)
     graph.step()
@@ -119,6 +146,7 @@ def test_k7_equals_the_plain_loop_and_replays_in_a_graph(card, tokens):
     assert moe_experts.grouped_swiglu.launches == n + 1
     assert torch.equal(gy, moe_experts.grouped_swiglu(xs2, offsets2, wg, wu, wd))
 
+    counts = offsets[1:] - offsets[:-1]
     touched = int((counts > 0).sum())
     n = xs.shape[0]
     d, f = LITE.hidden_size, LITE.moe_intermediate_size
@@ -127,10 +155,11 @@ def test_k7_equals_the_plain_loop_and_replays_in_a_graph(card, tokens):
     bound = 1e3 * max(nbytes / HBM, ops / 989e12)
     k7 = _ms(lambda: moe_experts.grouped_swiglu(xs, offsets, wg, wu, wd))
     loop = _ms(lambda: moe_experts.grouped_swiglu_reference(xs, offsets, wg, wu, wd), reps=3)
-    print(f"\n{torch.cuda.get_device_name(card)}: K7 at {n} assignments, {touched} experts "
-          f"touched, max {int(counts.max())} rows: {k7:.5f} ms; plain loop {loop:.5f} ms; bound "
-          f"{bound:.5f} ms ({nbytes / 1e6:.1f} MB, {ops / 1e9:.2f} GFLOP); {100 * bound / k7:.1f} "
-          f"% of it; rel err {rel:.2e} (plain loop in bf16 {rel_plain:.2e})")
+    print(f"\n{torch.cuda.get_device_name(card)}: K7 {case} at {n} assignments, {touched} "
+          f"experts touched, max {int(counts.max())} rows: {k7:.5f} ms; plain loop {loop:.5f} "
+          f"ms; bound {bound:.5f} ms ({nbytes / 1e6:.1f} MB, {ops / 1e9:.2f} GFLOP); "
+          f"{100 * bound / k7:.1f} % of it; rel err {rel:.2e}, worst row {float(rows.max()):.2e} "
+          f"(plain loop in bf16 {rel_plain:.2e})")
 
 
 def _inputs(dev, layers):
