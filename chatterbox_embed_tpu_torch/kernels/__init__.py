@@ -35,6 +35,7 @@ _ROWS = {
     "fused_decode": ("fused_decode", "fused_decode_step", "launches", "cbx_fused_decode"),
     "moe_experts": ("moe_experts", "grouped_swiglu", "launches", "cbx_moe_experts"),
     "layer_norm": ("layer_norm", "layer_norm", "launches", "cbx_layer_norm"),
+    "kda_recurrent": ("kda", "kda_recurrent", "launches", "cbx_kda_recurrent"),
     "weight_stream": ("weight_stream", "stream_once", "launches", "cbx_weight_stream"),
     "decode_anatomy": ("decode_anatomy", "attn", "launches", "cbx_decode_anatomy"),
 }

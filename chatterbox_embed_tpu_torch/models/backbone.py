@@ -1,6 +1,7 @@
 """T3's backbone, chosen by its config (`T3Config.llama`): Llama_520M
-(models/llama.py, a LlamaConfig) or DeepSeek-V2 (models/deepseek_v2.py, a
-DeepseekV2Config). `of(cfg)` returns the backbone's module; both give T3
+(models/llama.py, a LlamaConfig), DeepSeek-V2 (models/deepseek_v2.py, a
+DeepseekV2Config) or Kimi-Linear (models/kimi_linear.py, a
+KimiLinearConfig). `of(cfg)` returns the backbone's module; all give T3
 the same face, so T3 and its engine call it without asking which it is:
 
 - `NAME`, and `UNSUPPORTED`: the features of `FEATURES` it does not run;
@@ -12,7 +13,10 @@ the same face, so T3 and its engine call it without asking which it is:
 - `init(init, cfg)`: the params, held under T3's "llama" key;
 - `kv_heads(params, cfg)` and `init_cache(cfg, batch, max_len, dtype,
   device, heads=None, route=False)`: the decode cache (dtype torch.int8
-  the int8 cache; `route` a latent cache's routing record);
+  the int8 cache; `route` a latent cache's routing record), a NamedTuple
+  whose first field is sequence-major (layers, L, B, ...) and whose
+  `ROW_STATE` fields, if any, hold a row's state whatever its length
+  (layers, B, ...);
 - `cache_bytes_per_token(cfg, dtype, int8)`: a row's cache bytes a token;
 - `forward(params, x, pos_ids, attn_mask, cache, cache_pos, cfg, dtype,
   flash_start, flash_hole, collect_attn_layer, flash_span, remat, mesh)`
@@ -25,7 +29,7 @@ the backbone does not run raises NotImplementedError there.
 """
 from __future__ import annotations
 
-from . import deepseek_v2, llama
+from . import deepseek_v2, kimi_linear, llama
 
 FEATURES = {
     "int8_cache": "the int8 cache (CHATTERBOX_INT8_KV, kv_int8)",
@@ -40,7 +44,9 @@ FEATURES = {
 
 def of(cfg):
     """The backbone module of a backbone config (T3Config.llama)."""
-    return deepseek_v2 if isinstance(cfg, deepseek_v2.DeepseekV2Config) else llama
+    if isinstance(cfg, deepseek_v2.DeepseekV2Config):
+        return deepseek_v2
+    return kimi_linear if isinstance(cfg, kimi_linear.KimiLinearConfig) else llama
 
 
 def check(cfg, **asked: bool) -> None:

@@ -22,11 +22,18 @@ token table and head are not held.
   softmax in fp32, as the published code computes them.
 - Layer 0 (first_k_dense_replace) is a dense SwiGLU; the others are MoE:
   the router's fp32 softmax over the routed experts, the greedy top-k with
-  weights not renormalised (x routed_scaling_factor), the routed experts'
-  SwiGLU through K7 (`kernels/moe_experts.py`: rows sorted by expert on the
-  device, the per-expert offsets read by the kernel, so a CUDA graph holds
-  the layer whatever the routing), and the shared experts as one SwiGLU of
-  n_shared x moe_intermediate_size.
+  weights not renormalised (x routed_scaling_factor), or with
+  `scoring_func` "sigmoid" Kimi-Linear's router (models/kimi_linear.py);
+  the routed experts' SwiGLU through K7 (`kernels/moe_experts.py`: rows
+  sorted by expert on the device, the per-expert offsets read by the
+  kernel, so a CUDA graph holds the layer whatever the routing), and the
+  shared experts as one SwiGLU of n_shared x moe_intermediate_size.
+- The held share (`experts_held`, [lo, hi)): the router scores every
+  routed expert and keeps its top k, but the layer holds only the experts
+  of its range, as one card of an expert-parallel deployment does; only
+  the assignments to them reach K7 (the others sorted past the held
+  offsets on the device, so no host read), and what the absent experts
+  would add is left out. None holds them all: today's path, unchanged.
 - The routing record: a cache may hold `route` (moe layers, L, B, top_k)
   int16, the expert ids of every row and token, written beside the latent
   row at the same columns. The device counters `moe.calls`,
@@ -47,7 +54,7 @@ from __future__ import annotations
 import contextlib
 import math
 from dataclasses import dataclass
-from typing import NamedTuple, Optional
+from typing import NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -93,6 +100,12 @@ class DeepseekV2Config:
     rope_mscale: float = 0.707
     rope_mscale_all_dim: float = 0.707
     max_position_embeddings: int = 163840
+    scoring_func: str = "softmax"
+    experts_held: Optional[Tuple[int, int]] = None      # [lo, hi); None: every expert
+
+    @property
+    def softmax_scale(self) -> float:
+        return softmax_scale(self)
 
     @property
     def q_head_dim(self) -> int:
@@ -180,7 +193,8 @@ def _swiglu_init(init: L.Init, d: int, f: int):
 
 def init(init: L.Init, cfg: DeepseekV2Config = DeepseekV2Config()):
     d, h = cfg.hidden_size, cfg.num_heads
-    e, f = cfg.n_routed_experts, cfg.moe_intermediate_size
+    lo, hi = held_range(cfg)
+    e, f = hi - lo, cfg.moe_intermediate_size
     layers = []
     for i in range(cfg.num_layers):
         lp = {
@@ -196,7 +210,7 @@ def init(init: L.Init, cfg: DeepseekV2Config = DeepseekV2Config()):
         if i < cfg.first_k_dense_replace:
             lp["mlp"] = _swiglu_init(init, d, cfg.intermediate_size)
         else:
-            lp["router"] = L.linear_init(init, d, e, bias=False)
+            lp["router"] = L.linear_init(init, d, cfg.n_routed_experts, bias=False)
             lp["experts"] = {
                 "gate": {"w": init.uniform((e, d, f), math.sqrt(3.0 / d))},
                 "up": {"w": init.uniform((e, d, f), math.sqrt(3.0 / d))},
@@ -293,19 +307,22 @@ def _write(slab: torch.Tensor, pos, rows: torch.Tensor) -> None:
         slab[pos:pos + rows.shape[1]] = rows.transpose(0, 1).to(slab.dtype)
 
 
-def _project(lp, h, cos, sin, cfg: DeepseekV2Config, dtype):
+def _project(lp, h, cos, sin, cfg, dtype):
     """The layer's normed input -> q_nope (B, T, H, nope), roped q_pe
-    (B, T, H, rope) and the new cache rows (B, T, latent_dim)."""
+    (B, T, H, rope) and the new cache rows (B, T, latent_dim). cos None:
+    no rotation (NoPE), the rope dims kept as projected."""
     hin = L.rms_norm(lp["ln1"], h, cfg.rms_norm_eps)
     q = L.linear(lp["q"], hin, dtype).unflatten(-1, (cfg.num_heads, cfg.q_head_dim))
     q_nope, q_pe = q.split([cfg.qk_nope_head_dim, cfg.qk_rope_head_dim], dim=-1)
     kva = L.linear(lp["kv_a"], hin, dtype)
     c = L.rms_norm(lp["kv_norm"], kva[..., :cfg.kv_lora_rank], cfg.rms_norm_eps)
+    if cos is None:
+        return q_nope, q_pe, torch.cat([c, kva[..., cfg.kv_lora_rank:]], dim=-1)
     k_pe = apply_rope(kva[..., None, cfg.kv_lora_rank:], cos, sin)[:, :, 0]
     return q_nope, apply_rope(q_pe, cos, sin), torch.cat([c, k_pe], dim=-1)
 
 
-def _attend_full(lp, q_nope, q_pe, rows, mask4, cfg: DeepseekV2Config, dtype):
+def _attend_full(lp, q_nope, q_pe, rows, mask4, cfg, dtype):
     """The published, non-absorbed form over cache rows (B, Lk, latent):
     k = [W_uk c; k_pe], v = W_uv c; logits and softmax in fp32."""
     h, nope = cfg.num_heads, cfg.qk_nope_head_dim
@@ -315,14 +332,14 @@ def _attend_full(lp, q_nope, q_pe, rows, mask4, cfg: DeepseekV2Config, dtype):
     k_pe = rows[..., None, cfg.kv_lora_rank:].to(dtype).expand(-1, -1, h, -1)
     q = torch.cat([q_nope, q_pe], dim=-1)
     k = torch.cat([k_nope, k_pe], dim=-1)
-    logits = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) * softmax_scale(cfg)
+    logits = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) * cfg.softmax_scale
     if mask4 is not None:
         logits = logits.masked_fill(~mask4, -1e10)
     w = torch.softmax(logits, dim=-1)
     return torch.einsum("bhqk,bkhd->bqhd", w.to(dtype), v)
 
 
-def _attend_absorbed(lp, q_nope, q_pe, slab, valid, cfg: DeepseekV2Config, dtype):
+def _attend_absorbed(lp, q_nope, q_pe, slab, valid, cfg, dtype):
     """One token a row, absorbed: q_nope (B, H, nope) through W_uk to the
     latent width, scored with q_pe against the cache slab (Lc, B, latent),
     keys where `valid` (B, Lc); the probabilities weigh the latents, and
@@ -332,20 +349,47 @@ def _attend_absorbed(lp, q_nope, q_pe, slab, valid, cfg: DeepseekV2Config, dtype
     q_abs = torch.einsum("bhn,rhn->bhr", q_nope, w_kvb[..., :nope])
     q = torch.cat([q_abs, q_pe.to(dtype)], dim=-1)                 # (B, H, latent)
     keys = slab.permute(1, 2, 0)                                    # (B, latent, Lc)
-    logits = torch.matmul(q, keys.to(dtype)).float() * softmax_scale(cfg)
+    logits = torch.matmul(q, keys.to(dtype)).float() * cfg.softmax_scale
     logits = logits.masked_fill(~valid[:, None, :], -1e10)
     w = torch.softmax(logits, dim=-1).to(dtype)
     lat = torch.matmul(w, keys[:, :r].transpose(1, 2).to(dtype))   # (B, H, r)
     return torch.einsum("bhr,rhv->bhv", lat, w_kvb[..., nope:])
 
 
-def route(lp, x: torch.Tensor, cfg: DeepseekV2Config):
-    """x (N, D) -> (expert ids (N, k) int64, weights (N, k) fp32): the fp32
-    softmax over the routed experts, its greedy top-k (sorted), weights not
-    renormalised, times routed_scaling_factor."""
+def route(lp, x: torch.Tensor, cfg):
+    """x (N, D) -> (expert ids (N, k) int64, weights (N, k) fp32) over all
+    the routed experts, held or not. Softmax scoring: the fp32 softmax, its
+    greedy top-k (sorted), weights not renormalised, times
+    routed_scaling_factor. Sigmoid scoring (Kimi-Linear's KimiMoEGate):
+    fp32 sigmoid scores s, the top-k of s + the router's
+    e_score_correction_bias (one group), the chosen s without the bias
+    renormalised to sum 1, times routed_scaling_factor."""
     logits = x.float() @ lp["router"]["w"].float()
+    if cfg.scoring_func == "sigmoid":
+        s = torch.sigmoid(logits)
+        ids = torch.topk(s + lp["router"]["e_score_correction_bias"].float(),
+                         cfg.num_experts_per_tok, dim=-1).indices
+        return ids, _renormalised(s.gather(1, ids), cfg)
     w, ids = torch.topk(torch.softmax(logits, dim=-1), cfg.num_experts_per_tok, dim=-1)
     return ids, w * cfg.routed_scaling_factor
+
+
+def _renormalised(w: torch.Tensor, cfg) -> torch.Tensor:
+    return w / (w.sum(dim=-1, keepdim=True) + 1e-20) * cfg.routed_scaling_factor
+
+
+def _forced_weights(lp, x: torch.Tensor, cfg, ids: torch.Tensor) -> torch.Tensor:
+    """The router's fp32 weights of the forced expert ids (N, k), as `route`
+    weighs its own choice."""
+    logits = x.float() @ lp["router"]["w"].float()
+    if cfg.scoring_func == "sigmoid":
+        return _renormalised(torch.sigmoid(logits).gather(1, ids), cfg)
+    return torch.softmax(logits, dim=-1).gather(1, ids) * cfg.routed_scaling_factor
+
+
+def held_range(cfg) -> Tuple[int, int]:
+    """The routed experts [lo, hi) that the layer holds."""
+    return cfg.experts_held or (0, cfg.n_routed_experts)
 
 
 def sort_by_expert(ids: torch.Tensor, n_experts: int):
@@ -363,34 +407,45 @@ def sort_by_expert(ids: torch.Tensor, n_experts: int):
     return order, dest, offsets, counts
 
 
-def _count(tally: list, assignments: int) -> None:
+def _count(tally: list) -> None:
     """The device counters of a forward's MoE calls (utils/profiling.py),
-    from their expert counts (E,) in `tally`, each call of `assignments`
-    rows: added once a forward, so that a graphed step holds a handful of
-    kernels for them, not a handful a layer."""
+    from their held experts' counts (E held,) in `tally`: added once a
+    forward, so that a graphed step holds a handful of kernels for them,
+    not a handful a layer."""
     if not tally:
         return
-    c = torch.stack(tally)                                          # (calls, E)
+    c = torch.stack(tally)                                          # (calls, E held)
     profiling.device_add("moe.calls", torch.full_like(c[0, 0], len(tally)))
-    profiling.device_add("moe.assignments", torch.full_like(c[0, 0], len(tally) * assignments))
+    profiling.device_add("moe.assignments", c.sum())
     profiling.device_add("moe.experts_touched", (c > 0).sum())
     profiling.device_add("moe.max_expert_rows", c.amax(dim=1).sum())
 
 
-def moe(lp, x: torch.Tensor, cfg: DeepseekV2Config, dtype, ids=None, tally=None):
-    """The MoE feed-forward of x (N, D): routed experts through K7, weighted
-    by the router's fp32 weights and summed in fp32, plus the shared
-    experts. Returns (y (N, D), ids (N, k)). `ids` forces the routing (the
-    weights are then the router's scores of those ids); `tally`, a list,
-    takes the call's expert counts (E,) for the device counters."""
+def moe(lp, x: torch.Tensor, cfg, dtype, ids=None, tally=None):
+    """The MoE feed-forward of x (N, D): the held routed experts through K7,
+    weighted by the router's fp32 weights and summed in fp32, plus the
+    shared experts. Returns (y (N, D), ids (N, k)). `ids` forces the routing
+    (the weights are then the router's scores of those ids); `tally`, a
+    list, takes the call's held expert counts (E held,) for the device
+    counters. An assignment to an expert the layer does not hold
+    (`experts_held`) is sorted past the held ones, K7 never reads it, and
+    its part is left out of the sum."""
     n, k = x.shape[0], cfg.num_experts_per_tok
+    lo, hi = held_range(cfg)
+    whole = (lo, hi) == (0, cfg.n_routed_experts)
     with _span("dsv2.route"):
         if ids is None:
             ids, w = route(lp, x, cfg)
         else:
-            probs = torch.softmax(x.float() @ lp["router"]["w"].float(), dim=-1)
-            w = probs.gather(1, ids) * cfg.routed_scaling_factor
-        order, dest, offsets, counts = sort_by_expert(ids, cfg.n_routed_experts)
+            w = _forced_weights(lp, x, cfg, ids)
+        if whole:
+            local = ids
+            order, dest, offsets, counts = sort_by_expert(ids, hi - lo)
+        else:
+            # an absent expert's assignments go to one more bucket, past the held
+            local = torch.where((ids >= lo) & (ids < hi), ids - lo, hi - lo)
+            order, dest, offsets, counts = sort_by_expert(local, hi - lo + 1)
+            offsets, counts = offsets[:hi - lo + 1], counts[:hi - lo]
         xs = x[torch.div(order, k, rounding_mode="floor")].to(dtype).contiguous()
         if tally is not None:
             tally.append(counts)
@@ -398,7 +453,10 @@ def moe(lp, x: torch.Tensor, cfg: DeepseekV2Config, dtype, ids=None, tally=None)
         ex = lp["experts"]
         ys = moe_experts.grouped_swiglu(xs, offsets, ex["gate"]["w"], ex["up"]["w"],
                                         ex["down"]["w"])
-        y = (ys[dest].view(n, k, -1) * w[..., None]).sum(1).to(dtype)
+        ys = ys[dest].view(n, k, -1)
+        if not whole:
+            ys = torch.where((local < hi - lo)[..., None], ys, torch.zeros_like(ys[:1, :1]))
+        y = (ys * w[..., None]).sum(1).to(dtype)
     return y + _swiglu(lp["shared"], x, dtype), ids
 
 
@@ -487,5 +545,5 @@ def forward(params, x: torch.Tensor, pos_ids: torch.Tensor,
             h = h + L.linear(lp["o"], att.flatten(-2), dtype)
         h = _ffn(lp, i, h, cfg, dtype, cache, cache_pos, tally)
     if tally is not None:
-        _count(tally, b * t * cfg.num_experts_per_tok)
+        _count(tally)
     return L.rms_norm(params["norm"], h, cfg.rms_norm_eps), cache

@@ -49,6 +49,13 @@ layout [cond rows 0..S-1; uncond rows S..2S-1], as t3.decode_block.
   of the block (`ContinuousDecoder.routes`). Its int8 cache and the mesh
   raise (`backbone.check`). Which step a backbone takes is its module's
   `WHOLE_STEP` (models/backbone.py).
+- A hybrid backbone (models/kimi_linear.py, Kimi-Linear) takes the same
+  one-piece step; its cache adds a fixed state a row to the latent rows
+  (each KDA layer's fp32 state and conv window, `HybridCache.ROW_STATE`),
+  which no mask guards: the slot insert overwrites a row's states whole,
+  so nothing of the slot's last request reaches the next, and a finished
+  row feeds no state. With `route_record` a finished request's record also
+  holds its first KDA layer's state (`KdaRoute`).
 - On a mesh (`mesh=`, parallel/): `engine_slots` is the JAX package's
   engine_sharding rule. Under dp each rank owns S/dp slots, both CFG rows
   of each, and holds their cache rows and logits; it prefills only the
@@ -67,7 +74,7 @@ from __future__ import annotations
 import functools
 import time
 from dataclasses import dataclass, field
-from typing import Callable, Dict, List, Optional
+from typing import Callable, Dict, List, NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -93,7 +100,8 @@ class EngineState:
     rows this rank holds (all of them off a dp mesh): the cache and the
     logits hold rows [cond of s0..s1-1; uncond of s0..s1-1]."""
     cache: llama.KVCache          # (L, total, 2S', H, D) sequence-major, S' = s1 - s0,
-                                  # or a latent backbone's LatentCache
+                                  # or a latent backbone's LatentCache, a hybrid one's
+                                  # HybridCache
     logits: torch.Tensor          # (2S', V) fp32
     counts: torch.Tensor          # (S, V) int32
     fresh_counts: torch.Tensor    # (V,) int32: a new request's counts (BOS once)
@@ -234,7 +242,9 @@ def engine_insert(state: EngineState, sub: t3.DecodeState, slot: int, draws,
     """Put a prefilled request (prefill_request's state, capacity p_len)
     into slot `slot`, in place: its cache columns [0, p_len) of the slot's
     cond and uncond rows (and of an int8 cache's scale planes, or a latent
-    cache's routing record), their logits, its counts and sampling
+    cache's routing record), a hybrid cache's row states whole (each KDA
+    layer's state and conv window, overwritten: nothing of the slot's last
+    request stays), their logits, its counts and sampling
     parameters, and its join step g. meta: limit, pad, temperature, cfg_weight,
     repetition_penalty, min_p, top_p. Every write takes a host scalar or a
     device tensor; no copy waits for the device. A rank that does not hold
@@ -242,10 +252,15 @@ def engine_insert(state: EngineState, sub: t3.DecodeState, slot: int, draws,
     s0, s1 = state.own
     if sub is not None:
         p_len = sub.cache[0].shape[1]
-        pairs = list(zip(state.cache, sub.cache))      # k, v (, k_scale, v_scale)
+        whole = getattr(state.cache, "ROW_STATE", ())
+        pairs = list(zip(state.cache._fields, state.cache, sub.cache))  # k, v (, scales)
         for half, row in enumerate((slot - s0, s1 - s0 + slot - s0)):
-            for dst, src in pairs:
-                if dst is not None:
+            for name, dst, src in pairs:
+                if dst is None:
+                    continue
+                if name in whole:
+                    dst[:, row] = src[:, half]
+                else:
                     dst[:, :p_len, row] = src[:, :, half]
             state.logits[row] = sub.logits[half]
     state.counts[slot] = state.fresh_counts           # prefill's counts: BOS once
@@ -587,6 +602,15 @@ class _Slot:
     g_start: int = 0
 
 
+class KdaRoute(NamedTuple):
+    """A finished request's record on a backbone with KDA layers: its expert
+    ids as `ContinuousDecoder._routes_of` reads them, and its first KDA
+    layer's fp32 state (2, H, dk, dv) on the host, of its cond and uncond
+    rows after its context and the n - 1 tokens it fed back."""
+    ids: np.ndarray
+    kda_state: torch.Tensor
+
+
 class ContinuousDecoder:
     """Host orchestration: a request queue, S slots, block-wise decode with
     refill between blocks. Token-level API; serving/continuous.py wires it
@@ -607,7 +631,8 @@ class ContinuousDecoder:
     (`LatentCache.route`), and each finished request's are copied to the
     host into `routes` {rid: (moe layers, positions, 2, k) int16}, over its
     context columns [pad, p_len) and its first n - 1 steps (the tokens fed
-    back): the caller takes them from there.
+    back): the caller takes them from there. On a hybrid backbone the
+    entry is a `KdaRoute`: those ids and the first KDA layer's state.
     """
 
     def __init__(self, params, cfg: T3Config = T3Config(), *, slots: int = 8,
@@ -620,7 +645,7 @@ class ContinuousDecoder:
         bb = backbone.of(cfg.llama)
         backbone.check(cfg.llama, int8_cache=self.kv_int8, mesh=mesh is not None)
         self.route_record = route_record
-        self.routes: Dict[int, np.ndarray] = {}
+        self.routes: Dict[int, np.ndarray | KdaRoute] = {}
         own = engine_slots(mesh, slots)
         self.mesh = mesh
         self.device = resolve_device(device)
@@ -775,17 +800,20 @@ class ContinuousDecoder:
                     self.last_block_tokens[sl.rid] = tokens_h[:nj, s_idx]
             return out
 
-    def _routes_of(self, s_idx: int, sl: _Slot, n: int) -> np.ndarray:
+    def _routes_of(self, s_idx: int, sl: _Slot, n: int):
         """A finished request's expert ids, (moe layers, positions, 2, k):
         its context columns, then the ring columns of its first n - 1
-        steps, of its cond and uncond rows (read before the slot refills)."""
+        steps, of its cond and uncond rows (read before the slot refills);
+        with KDA layers a `KdaRoute`."""
         rec = self.state.cache.route
         ring = self.total - self.p_len
         cols = (list(range(sl.pad, self.p_len))
                 + [self.p_len + (sl.g_start + t) % ring for t in range(n - 1)])
         idx = torch.tensor(cols, dtype=torch.int64, device=rec.device)
         rows = torch.tensor([s_idx, self.slots + s_idx], dtype=torch.int64, device=rec.device)
-        return rec.index_select(1, idx).index_select(2, rows).cpu().numpy()
+        ids = rec.index_select(1, idx).index_select(2, rows).cpu().numpy()
+        kda = getattr(self.state.cache, "kda", None)
+        return ids if kda is None else KdaRoute(ids, kda[0].index_select(0, rows).cpu())
 
     @on_mesh_method
     def drain(self) -> Dict[int, np.ndarray]:

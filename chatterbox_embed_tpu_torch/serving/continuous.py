@@ -66,9 +66,10 @@ class ContinuousServer:
       make_draws: draw-source factory (module docstring); on a mesh it must
         pickle.
       route_record: a latent backbone's engine keeps each finished
-        request's expert ids (`ContinuousDecoder.routes`), moved to
-        `routes` {external rid: ids} as the request completes; the caller
-        pops them.
+        request's expert ids (`ContinuousDecoder.routes`; on a hybrid
+        backbone a `t3_engine.KdaRoute` with its first KDA layer's state),
+        moved to `routes` {external rid: ids} as the request completes; the
+        caller pops them.
 
     On a mesh-enabled pipeline (`tts.enable_mesh`) the engine runs over
     `tts.mesh`: the default slot count is dp times the one-card default

@@ -17,7 +17,14 @@ work, and the torch.profiler trace behind CHATTERBOX_PROFILE_DIR.
   only when they are on at capture, and cost nothing otherwise. A counter is made
   at its first add, which must not be inside a capture. `totals()` folds
   them into its counters with one copy to the host; `reset()` zeroes them
-  in place, since a graph holds their addresses.
+  in place, since a graph holds their addresses. The backbones' counters,
+  added once a forward: `moe.calls`, `moe.assignments`,
+  `moe.experts_touched`, `moe.max_expert_rows` (the held routed experts,
+  models/deepseek_v2.py); `kda.calls`, `kda.tokens` (row-tokens through
+  K9), `kda.states_read`, `kda.states_written` ((row, head) states;
+  models/kimi_linear.py).
+- The backbones' spans around their eager layers: `dsv2.attention`,
+  `dsv2.route`, `dsv2.experts`, and `kimi.kda` (a KDA layer).
 - `enable()`, `disable()`, `reset()`, `totals()`, `spans()`.
 - One clock with the device trace: torch.profiler (Kineto) stamps host
   events in Unix ns. `enable()` takes `offset_ns = time.time_ns() -

@@ -6,7 +6,7 @@ With no argument every phase runs (the device and build phases always
 run); `--phases` names the ones to run (PHASES below: kernel_check,
 attention_check, probe_check, norm_check, probes, fused_check, consistency, generate,
 generate_batch, stream_generate, first_chunk, conditioning, long_text, engine,
-worker, mesh, int8, train, train_mesh, dsv2), and the kernel line then lists the
+worker, mesh, int8, train, train_mesh, dsv2, kimi), and the kernel line then lists the
 kernels whose check and main path ran. Phases, one or more lines each, then the result line:
   1. device: the card's name and power limit (nvidia-smi), torch and CUDA
      versions; TF32 switched off for matmuls and convolutions.
@@ -233,10 +233,20 @@ kernels whose check and main path ran. Phases, one or more lines each, then the 
      unwritten), timed beside the loop (the library yardstick: the port
      never calls it) and its bound. (b) One prefill alone: K7 26 times (one a MoE layer). (c) The
      engine (ContinuousDecoder at tts-backlog's geometry and sampling, its
-     step one CUDA graph) drains 24 requests: K7 26 x (steps + prefills)
+     step one CUDA graph) drains 12 requests: K7 26 x (steps + prefills)
      and no other kernel, and its tokens equal the eager step's, request by
      request.
- 18. a JSON line describing each kernel, then the last line
+ 18. kimi: Kimi-Linear-48B-A3B as T3's backbone at every published width
+     (27 layers: 20 KDA, 7 MLA; d 2304; 32 of 256 experts held, top 8).
+     (a) K9 kda_recurrent, the KDA recurrence, at a decode step (32 rows,
+     32 heads of 128 x 128, the state read) and a 300-token prefill of 2
+     rows from zero, one left pad of 37: against the plain loop in fp32,
+     two planted faults (a decay channel dropped, beta 1), timed beside the
+     loop and its bound. (b) K7 at the held share's shapes (D 2304, F 1024,
+     32 experts). (c) One prefill alone: K9 20 and K7 26 times. (d) The
+     engine drains 4 requests, graphed: K9 20 and K7 26 x (steps +
+     prefills) and no other kernel (the card tests hold graphed to eager).
+ 19. a JSON line describing each kernel, then the last line
      {"ok": true, "device": {...}}.
 
 Any failure raises and the script exits non-zero with no result line. It
@@ -4399,6 +4409,148 @@ def phase_dsv2(card: str) -> tuple:
     return {"moe_experts": check}, {"engine_dsv2": counts}
 
 
+def _k9_check(card: str, cfg) -> dict:
+    """K9 against its plain loop (kda_recurrent_reference, fp32 on the card)
+    at KIMI_K9_CASES: a decode step of the engine's 32 rows reading the
+    state, and a prefill of 2 rows from zero with left pads; the limit is
+    each element's error over max(|ref|, rms(ref)) of the output and of the
+    final state (fp32 both, sums in another order); two planted faults (a
+    decay channel dropped, beta forced to 1) that it must catch; times of
+    K9, the loop and K9's bound (the states read and written, each
+    row-token's q, k, g, v, o and beta, fp32; 7 operations a state element
+    a token)."""
+    from chatterbox_embed_tpu_torch.kernels import kda
+    h, dk = cfg.kda_heads, cfg.kda_head_dim
+    g = torch.Generator(device="cuda").manual_seed(2025)
+    result = {"max_abs_err": 0.0, "timing": {}}
+    for label, b, t, pads in KIMI_K9_CASES:
+        def r(*shape):
+            return torch.randn(shape, generator=g, device="cuda")
+        q = torch.nn.functional.normalize(r(b, t, h, dk), dim=-1) / dk ** 0.5
+        k = torch.nn.functional.normalize(r(b, t, h, dk), dim=-1)
+        v = torch.nn.functional.silu(r(b, t, h, dk))
+        a = 1 + 15 * torch.rand((h, 1), generator=g, device="cuda")
+        gl = (-a * torch.nn.functional.softplus(r(b, t, h, dk) - 4)).contiguous()
+        beta = torch.sigmoid(r(b, t, h))
+        s0 = r(b, h, dk, dk)
+        read = pads is None
+        skip = None if read else torch.tensor(pads, dtype=torch.int32, device="cuda")
+        case = dict(case=label, rows=b, tokens=t, heads=h, dk=dk, pads=pads)
+        st, ref_st = s0.clone(), s0.clone()
+        o = kda.kda_recurrent(q, k, v, gl, beta, st, skip, read_state=read)
+        ref = kda.kda_recurrent_reference(q, k, v, gl, beta, ref_st, skip, read_state=read)
+        err = _check_err("kda_recurrent", o, ref, KIMI_K9_TOL, rms_floor=True, **case)
+        _check_err("kda_recurrent_state", st, ref_st, KIMI_K9_TOL, rms_floor=True, **case)
+        result["max_abs_err"] = max(result["max_abs_err"], err)
+        dropped = gl.clone()
+        dropped[..., 0] = 0.0
+        for fault, args in (("decay_channel_dropped", (q, k, v, dropped, beta)),
+                            ("beta_one", (q, k, v, gl, torch.ones_like(beta)))):
+            bad = s0.clone()
+            kda.kda_recurrent(*args, bad, skip, read_state=read)
+            try:
+                _check_err("kda_recurrent_fault", bad, ref_st, KIMI_K9_TOL, rms_floor=True,
+                           fault=fault, **case)
+            except AssertionError as exc:
+                log("kernel_fault", name="kda_recurrent", fault=fault, caught=True,
+                    why=repr(str(exc)[:120]), **case)
+            else:
+                raise AssertionError(f"kda_recurrent: the planted fault {fault} passed at {label}")
+        st = s0.clone()
+        t_ = _timing(lambda: kda.kda_recurrent(q, k, v, gl, beta, st, skip, read_state=read),
+                     lambda: kda.kda_recurrent_reference(q, k, v, gl, beta, s0.clone(), skip,
+                                                         read_state=read),
+                     iters=50, plain_iters=2)
+        tokens = b * t - (0 if skip is None else int(skip.sum()))
+        nbytes = b * h * (1 + read) * dk * dk * 4 + tokens * h * (5 * dk + 1) * 4
+        t_.update(_bound(nbytes, 7 * tokens * h * dk * dk, "fp32"))
+        t_["library_ms"] = t_["plain_ms"]
+        _log_time("kda_recurrent", t_, card, **case)
+        log("kernel_bound", name="kda_recurrent", **case, bound_ms=f"{t_['bound_ms']:.5f}",
+            bound_by=t_["bound_by"], share=f"{100 * t_['bound_ms'] / t_['ms']:.1f}%")
+        if label == "decode":
+            result["timing"] = t_
+        else:
+            result["timing"].update({f"{k_}_{label}": v_ for k_, v_ in t_.items()
+                                     if k_ in ("ms", "plain_ms", "library_ms", "bound_ms")})
+    return result
+
+
+class _HeldShare:
+    """K7's shapes at Kimi-Linear's held share for _k7_check: the 32 held
+    experts of D 2304, F 1024, each token routed to one of them (top 8 of
+    256 x 32 held / 256, on average)."""
+    hidden_size, moe_intermediate_size, n_routed_experts, num_experts_per_tok = 2304, 1024, 32, 1
+
+
+def phase_kimi(card: str) -> tuple:
+    """Kimi-Linear-48B-A3B as T3's backbone at every published width (27
+    layers: 20 KDA, 7 MLA; 32 of 256 experts held; bf16 weights from a
+    seed): K9 (kernels/kda.py) against its plain loop (_k9_check) and K7 at
+    the held share's shapes (_k7_check); then one prefill alone (K9 once a
+    KDA layer: 20, K7 once a MoE layer: 26), and the engine at tts-backlog's
+    geometry, its step one CUDA graph, draining KIMI_ENGINE_REQUESTS
+    requests: K9 20 and K7 26 a step and a prefill, no other kernel of the
+    port. Returns ({"kda_recurrent": the check}, {"engine_kimi": the
+    engine run's launches})."""
+    from chatterbox_embed_tpu_torch.config import T3Config
+    from chatterbox_embed_tpu_torch.models import kimi_linear as kimi
+    from chatterbox_embed_tpu_torch.models import t3, t3_engine
+    from chatterbox_embed_tpu_torch.weights import place
+    lin = kimi.KimiLinearConfig(experts_held=(0, 32))
+    check = _k9_check(card, lin)
+    _k7_check(card, _HeldShare())
+    t0 = time.time()
+    cfg = T3Config(llama=lin)
+    params = place(t3.init(_Bf16Init(0), cfg), "cuda", torch.bfloat16)
+    torch.cuda.synchronize()
+    log("kimi_model", layers=lin.num_layers, kda_layers=lin.kinds.count("kda"),
+        d=lin.hidden_size, experts_held=32, experts=lin.n_routed_experts,
+        top_k=lin.num_experts_per_tok, gb=f"{torch.cuda.memory_allocated() / 1e9:.2f}",
+        init_s=f"{time.time() - t0:.2f}")
+    reqs = _dsv2_requests(cfg, KIMI_ENGINE_REQUESTS)
+    n_kda = lin.kinds.count("kda")
+    _reset_counts()
+    text, cond, _, _ = reqs[0]
+    p_len, _ = t3_engine.engine_geometry(cfg, DSV2_ENGINE_GEO["text_bucket"],
+                                         2 + cfg.perceiver_num_queries, 0)
+    t3_engine.prefill_request(params, cond, text, text_bucket=DSV2_ENGINE_GEO["text_bucket"],
+                              p_len=p_len, cfg=cfg, dtype=torch.bfloat16, device="cuda")
+    torch.cuda.synchronize()
+    prefill = _counts()
+    if prefill != _want(moe_experts=lin.moe_layers, kda_recurrent=n_kda):
+        raise AssertionError(f"kimi prefill: launches {prefill}, want K7 {lin.moe_layers}, "
+                             f"K9 {n_kda}")
+    _reset_counts()
+    dec = t3_engine.ContinuousDecoder(params, cfg, dtype=torch.bfloat16, device="cuda",
+                                      **DSV2_ENGINE_GEO)
+    rids = [dec.submit(text, cond, seed=seed, max_new_tokens=cap, **DSV2_SAMPLING)
+            for text, cond, seed, cap in reqs]
+    torch.cuda.synchronize()
+    start = time.time()
+    out = dec.drain()
+    torch.cuda.synchronize()
+    t_graphed = time.time() - start
+    counts = _counts()
+    steps, calls = dec.steps_run, dec.steps_run + len(reqs)
+    if (counts != _want(moe_experts=lin.moe_layers * calls, kda_recurrent=n_kda * calls)
+            or steps == 0 or not dec.pieces.graphs.captured):
+        raise AssertionError(f"kimi engine: launches {counts}, want K7 {lin.moe_layers} and K9 "
+                             f"{n_kda} x ({steps} steps + {len(reqs)} prefills), graphed")
+    log("kimi_engine", requests=len(reqs), steps=steps, blocks=dec.blocks_run,
+        k9_per_replay=dec.pieces.graphs.launches[0].get("kda_recurrent", 0),
+        k7_per_replay=dec.pieces.graphs.launches[0].get("moe_experts", 0),
+        k9_launches=counts["kda_recurrent"], k7_launches=counts["moe_experts"],
+        graphed_ms_per_step=f"{1e3 * t_graphed / steps:.3f}",
+        graph_pool_mib=f"{dec.pieces.graphs.pool_bytes / 2**20:.1f}",
+        gb_peak=f"{torch.cuda.max_memory_allocated() / 1e9:.2f}",
+        tokens=",".join(str(len(out[r])) for r in rids), card=repr(card))
+    del params, dec
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"kda_recurrent": check}, {"engine_kimi": counts}
+
+
 # the path whose launch count each kernel's JSON entry reports: the
 # streamed request for K1 and K4, the paths that run the others, and for the
 # two probe kernels their probe's entry point
@@ -4408,7 +4560,8 @@ MAIN_PATH = {"flash_decode": "stream_generate", "flash_decode_deferred": "genera
              "fused_decode": "stream_generate_fused_step",
              "flash_decode_int8": "int8_cache", "flash_decode_int8_deferred": "int8_defer",
              "weight_stream": "probe_weight_stream", "decode_anatomy": "probe_decode_anatomy",
-             "moe_experts": "engine_dsv2", "layer_norm": "generate_batch"}
+             "moe_experts": "engine_dsv2", "layer_norm": "generate_batch",
+             "kda_recurrent": "engine_kimi"}
 REPLACES = {"flash_decode": "chatterbox_embed_tpu/kernels/flash_decode.py:85",
             "flash_decode_deferred": "chatterbox_embed_tpu/kernels/flash_decode.py:169",
             "rel_attention": "chatterbox_embed_tpu/kernels/rel_attention.py:45",
@@ -4426,7 +4579,9 @@ REPLACES = {"flash_decode": "chatterbox_embed_tpu/kernels/flash_decode.py:85",
             # no TPU kernel: the JAX package runs no mixture of experts
             "moe_experts": "none",
             # no TPU kernel: XLA fuses the norm's chain on the TPU
-            "layer_norm": "none"}
+            "layer_norm": "none",
+            # no TPU kernel: the JAX package has no linear attention
+            "kda_recurrent": "none"}
 
 
 # DeepSeek-V2-Lite (phase dsv2): K7 at a decode step's rows (16 slots x the
@@ -4445,10 +4600,19 @@ DSV2_K7_TOKENS = (("decode", 32, 0.0), ("served_decode", 32, 0.75), ("prefill", 
 DSV2_K7_TOL = 2e-2
 DSV2_K7_PLAIN_TOL = 1e-1
 DSV2_ENGINE_GEO = dict(slots=16, text_bucket=256, max_new_tokens=1000, block=64)
-DSV2_ENGINE_REQUESTS = 24
+DSV2_ENGINE_REQUESTS = 12       # half of what it was: the smoke is over its time (ROADMAP B9)
 DSV2_ENGINE_CAPS = (30, 160)
 DSV2_SAMPLING = dict(temperature=0.6, cfg_weight=0.3, repetition_penalty=1.2, min_p=0.05)
 
+# Kimi-Linear (phase kimi): K9 at an engine step's rows (16 slots x the CFG
+# pair, one token, reading the state) and at a prefill of 2 rows of ~300
+# positions from zero, one with a left pad; its limit, each element's error
+# over max(|ref|, rms(ref)), against the plain loop in fp32 (sums in another
+# order); a dropped decay channel or beta forced to 1 reads ~1. The engine
+# at tts-backlog's geometry, few and short requests: the launches, graphed.
+KIMI_K9_CASES = (("decode", 32, 1, None), ("prefill", 2, 300, (37, 0)))
+KIMI_K9_TOL = 1e-4
+KIMI_ENGINE_REQUESTS = 4
 
 # the phases `--phases` selects among, in the order they run (the device
 # and build phases always run; every phase runs when none is named)
@@ -4456,7 +4620,7 @@ PHASES = ("kernel_check", "attention_check", "probe_check", "norm_check", "probe
           "fused_check",
           "consistency", "generate", "generate_batch", "stream_generate", "first_chunk",
           "conditioning", "long_text", "engine", "worker", "mesh", "int8", "train",
-          "train_mesh", "dsv2")
+          "train_mesh", "dsv2", "kimi")
 MODEL_PHASES = ("fused_check", "consistency", "generate", "generate_batch",
                 "stream_generate", "first_chunk", "conditioning", "long_text", "engine",
                 "worker", "mesh", "int8")
@@ -4599,6 +4763,11 @@ def main(argv=None) -> None:
         check.update(dsv2_check)
         launches.update(dsv2_launches)
         phase_done("dsv2")
+    if "kimi" in selected:
+        kimi_check, kimi_launches = phase_kimi(card)
+        check.update(kimi_check)
+        launches.update(kimi_launches)
+        phase_done("kimi")
     for name, path in MAIN_PATH.items():
         if path in launches and launches[path][name] == 0:
             raise AssertionError(f"{name} was not launched on its path {path}")
